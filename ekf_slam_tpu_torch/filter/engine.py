@@ -1,0 +1,252 @@
+"""The per-frame SLAM step on the sim path, batched over filter instances.
+
+Port of ``ekf_slam_tpu/filter/engine.py``'s fused step: the MonoSLAM hot
+loop (mono_slam.m:50-82) with all full-covariance work in three kernels
+(ops/kernels.py):
+
+  K1 manage + predict + prior P·Hᵀ   (map_management, ekf_prediction,
+                                      search_IC_matches' S)
+  K2 LI tail + posterior P·Hᵀ        (ekf_update_li_inliers, rescue_hi)
+  K3 HI tail + feature-init growth   (ekf_update_hi_inliers,
+                                      initialize_features)
+
+Stage order per frame: manage → predict → linearize → IC gates → 1-point
+RANSAC → LI update → HI rescue → HI update → counters + feature init.
+Every stage is masked, so instances never branch apart; the only
+randomness is RANSAC's uniform draws, an input ``u`` (B, NHYP).
+
+Measurements come by ground-truth association from a ``FrameObs`` shared
+by all instances (the synthetic scene, sim/scene.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
+from ekf_slam_tpu_torch.filter import (association, ekf, mapman,
+                                       measurement, motion, ransac)
+from ekf_slam_tpu_torch.filter.state import FilterState
+from ekf_slam_tpu_torch.ops import kernels
+from ekf_slam_tpu_torch.ops import quaternion as quat
+from ekf_slam_tpu_torch.sim.scene import FrameObs
+
+
+@dataclasses.dataclass(frozen=True)
+class StepInfo:
+    """Per-step diagnostics, each (B,) — or (B, T) from run_sequence."""
+    n_visible: torch.Tensor
+    n_ic: torch.Tensor
+    n_li: torch.Tensor
+    n_hi: torch.Tensor
+    ransac_support: torch.Tensor
+
+
+def gather_measurements(state: FilterState, obs: FrameObs):
+    """Ground-truth association: slot i's measurement is the observation of
+    the landmark it was initialized from. Returns (z (B,CAP,2),
+    z_valid (B,CAP))."""
+    lm = state.landmark_id.long()
+    safe = lm.clamp(0, obs.pixels.shape[0] - 1)
+    return obs.pixels[safe], (lm >= 0) & obs.visible[safe] & state.active
+
+
+def _in_map_mask(state: FilterState, num_landmarks: int) -> torch.Tensor:
+    """(B, L) bool — landmark already owned by an active slot."""
+    lm = torch.where(state.active, state.landmark_id.long(), -1)
+    counts = torch.zeros(lm.shape[0], num_landmarks, dtype=torch.int64,
+                         device=lm.device)
+    counts.scatter_add_(1, lm.clamp(0, num_landmarks - 1), (lm >= 0).long())
+    return counts > 0
+
+
+def _init_candidates(state: FilterState, obs: FrameObs, n_measured,
+                     cfg: EngineConfig):
+    """Candidate selection of map_management.m:27-34: when fewer than
+    min_features were measured, up to max_new_per_step visible landmarks
+    not yet in the map, first come first (stable order), at most the
+    deficit. Returns (uvd (B,K,2), take (B,K), lm_ids (B,K))."""
+    m = cfg.map
+    L = obs.pixels.shape[0]
+    need = n_measured < m.min_features_in_image
+    candidate = obs.visible[None] & ~_in_map_mask(state, L)
+    order = torch.argsort((~candidate).to(torch.int8), dim=1, stable=True)
+    picks = order[:, :m.max_new_per_step]
+    k = torch.arange(m.max_new_per_step, device=picks.device)
+    deficit = torch.clamp(m.min_features_in_image - n_measured, min=0)
+    take = (torch.gather(candidate, 1, picks) & (k < deficit[:, None])
+            & need[:, None])
+    return obs.pixels[picks], take, picks
+
+
+def initialize_features(state: FilterState, obs: FrameObs, n_measured,
+                        cfg: EngineConfig) -> FilterState:
+    """Add the _init_candidates picks as new inverse-depth features."""
+    uvd, take, lm_ids = _init_candidates(state, obs, n_measured, cfg)
+    return mapman.add_features_batch(state, uvd, take, lm_ids, cfg)[0]
+
+
+def bootstrap(state: FilterState, obs: FrameObs,
+              cfg: EngineConfig) -> FilterState:
+    """Initialize the map from the first frame (mono_slam.m runs
+    map_management before the first prediction)."""
+    zero = torch.zeros(state.batch, dtype=torch.int64, device=state.x.device)
+    return initialize_features(state, obs, zero, cfg)
+
+
+def check_fused(cfg: EngineConfig) -> None:
+    """The port runs only the fused step; raise for a config that the JAX
+    engine would run another way (engine.py:351-368)."""
+    m, f = cfg.map, cfg.filter
+    if f.fused_step == "off":
+        raise ValueError("fused_step='off' selects the unfused step, which "
+                         "is not ported")
+    if not (6 * m.max_new_per_step <= 128
+            and 0 < m.max_update_obs < m.capacity
+            and not f.use_iterated_update and f.p_storage == "f32"):
+        raise ValueError("the fused step requires 6*max_new_per_step <= 128, "
+                         "0 < max_update_obs < capacity, no iterated update "
+                         "and f32 covariance storage")
+
+
+def step(state: FilterState, obs: FrameObs, u: torch.Tensor,
+         cfg: EngineConfig):
+    """One full SLAM frame on the sim path. u: (B, NHYP) uniform draws in
+    [0, 1) for RANSAC. Returns (new_state, StepInfo)."""
+    check_fused(cfg)
+    return step_fused(state, obs, u, cfg)
+
+
+def _linearize(x, state: FilterState, cfg: EngineConfig):
+    h, visible, hc = measurement.predict_measurements(
+        x, state.active, state.cartesian, cfg)
+    H_xv, H_y = measurement.jacobians(x, h, hc, state.cartesian, cfg.camera)
+    return h, visible, H_xv, H_y
+
+
+def _compact_gain(x, pht_flat, H_xv, H_y, z, h, slot_mask,
+                  cfg: EngineConfig):
+    """Gain half of the compact masked update: gather the M most relevant
+    slots (the mask's slots first, stable order), their Jacobian rows and
+    their P·Hᵀ column pairs from pht_flat (B, D, 2·CAP), and solve.
+    Returns (x_new un-renormalized, K (B,D,2M), PHt (B,D,2M))."""
+    B, cap = slot_mask.shape
+    M = cfg.map.max_update_obs
+    sel = torch.argsort((~slot_mask).to(torch.int8), dim=1,
+                        stable=True)[:, :M]                       # (B, M)
+    sel_mask = torch.gather(slot_mask, 1, sel)
+
+    def take(a):                    # (B, CAP, ...) -> (B, M, ...)
+        idx = sel.reshape(B, M, *([1] * (a.dim() - 2)))
+        return torch.gather(a, 1, idx.expand(B, M, *a.shape[2:]))
+
+    Hc = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
+                                     cap)
+    cols = (2 * sel[..., None] + torch.arange(2, device=sel.device)
+            ).reshape(B, 2 * M)
+    D = pht_flat.shape[1]
+    PHt_sel = torch.gather(pht_flat, 2, cols[:, None, :].expand(B, D, 2 * M))
+    return ekf.update_gain(
+        x, None, Hc, take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
+        sel_mask.repeat_interleave(2, dim=1),
+        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
+        cfg.filter.gain_solver, PHt_sel)
+
+
+def _renormalized(x):
+    q = x[:, 3:7]
+    return torch.cat([x[:, :3], q / torch.linalg.vector_norm(
+        q, dim=1, keepdim=True), x[:, 7:]], dim=1)
+
+
+def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
+               cfg: EngineConfig):
+    """The full SLAM frame with all covariance work in K1-K3; the same
+    math stage by stage as the JAX engine.step_fused (engine.py:371-479).
+    Returns (new_state, StepInfo)."""
+    f = cfg.filter
+    B, cap = state.active.shape
+    D = state.x.shape[1]
+    z, z_valid = gather_measurements(state, obs)
+
+    # -- 1+2. map management + EKF prediction (P transforms in K1) ----------
+    mp = mapman.manage_params(state, cfg)
+    state_m = mp.state
+    xv = state_m.x[:, :CAM_DIM]             # camera block: manage-invariant
+    F = motion.dfv_by_dxv(xv, f)
+    Q = motion.process_noise(xv, f)
+    x_prior = torch.cat([motion.fv(xv, f), state_m.x[:, CAM_DIM:]], dim=1)
+
+    # -- 3. linearization at the prior, IC gates from K1's gain columns -----
+    h, visible, H_xv, H_y = _linearize(x_prior, state_m, cfg)
+    Ht = measurement.dense_Ht(H_xv, H_y, visible)                 # (B,D,2CAP)
+    P_prior, pht_flat = kernels.fused_manage_predict_pht(
+        state.P, mp.keep_f, mp.E6, mp.U6, mp.C66, F, Q, Ht)
+    S = measurement.innovation_covariances_from_pht(
+        pht_flat.reshape(B, D, cap, 2), H_xv, H_y, f.sigma_z)
+    ic = association.individually_compatible(z, z_valid, h, visible, S, cfg)
+
+    # -- 4. 1-point RANSAC (gain columns re-used from K1) --------------------
+    li, support = ransac.run(x_prior, z, h, S, ic, state_m.cartesian, u, cfg,
+                             pht_flat)
+
+    # -- 5. LI update: gain here, covariance tail + posterior P·Hᵀ in K2 ----
+    x_li, K_li, PHt_li = _compact_gain(x_prior, pht_flat, H_xv, H_y, z, h,
+                                       li, cfg)
+    Jq1 = quat.norm_jac(x_li[:, 3:7])
+    x_li = _renormalized(x_li)
+
+    # -- 6. HI rescue from the posterior -------------------------------------
+    h2, vis2, H_xv2, H_y2 = _linearize(x_li, state_m, cfg)
+    Ht2 = measurement.dense_Ht(H_xv2, H_y2, vis2)
+    P_li, pht2_flat = kernels.fused_update_tail_pht(P_prior, K_li, PHt_li,
+                                                    Jq1, Ht2)
+    S_noR = measurement.innovation_covariances_from_pht(
+        pht2_flat.reshape(B, D, cap, 2), H_xv2, H_y2, 0.0)
+    hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
+
+    # -- 7. HI update: gain here, tail + feature-init growth in K3 ----------
+    x_hi, K_hi, PHt_hi = _compact_gain(x_li, pht2_flat, H_xv2, H_y2, z, h2,
+                                       hi, cfg)
+    Jq2 = quat.norm_jac(x_hi[:, 3:7])
+    x_fin = _renormalized(x_hi)
+
+    # -- 8. bookkeeping + feature init (P growth fused into K3) --------------
+    state2 = mapman.update_counters(state_m.replace(x=x_fin), visible, ic)
+    # The post-HI camera stripe (B, 13, D) — what K3 computes for rows
+    # 0:13 — from the stripe alone: sym-downdate, then the renorm transform.
+    stripe = P_li[:, :CAM_DIM] - 0.5 * (
+        K_hi[:, :CAM_DIM] @ PHt_hi.transpose(1, 2)
+        + PHt_hi[:, :CAM_DIM] @ K_hi.transpose(1, 2))
+    stripe = torch.cat([stripe[:, :3], Jq2 @ stripe[:, 3:7], stripe[:, 7:]],
+                       dim=1)
+    stripe = torch.cat([stripe[:, :, :3],
+                        stripe[:, :, 3:7] @ Jq2.transpose(1, 2),
+                        stripe[:, :, 7:]], dim=2)
+    n_ic = ic.sum(dim=1)
+    uvd, take, lm_ids = _init_candidates(state2, obs, n_ic, cfg)
+    ap, _ = mapman.add_params(stripe, state2, uvd, take, lm_ids, cfg)
+    P_fin = kernels.fused_update_tail_add(P_li, K_hi, PHt_hi, Jq2, ap.keep_f,
+                                          ap.E, ap.U, ap.C)
+    info = StepInfo(n_visible=visible.sum(dim=1), n_ic=n_ic,
+                    n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
+                    ransac_support=support)
+    return ap.state.replace(P=P_fin), info
+
+
+def run_sequence(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
+                 cfg: EngineConfig):
+    """`step` over a sequence: obs_seq fields carry a leading time axis T,
+    u_seq is (T, B, NHYP). Returns (final_state, camera trajectory
+    (B, T, 13), StepInfo with (B, T) fields)."""
+    traj, infos = [], []
+    for t in range(obs_seq.pixels.shape[0]):
+        state, info = step(state, obs_seq.frame(t), u_seq[t], cfg)
+        traj.append(state.x[:, :CAM_DIM])
+        infos.append(info)
+    stacked = StepInfo(*(torch.stack([getattr(i, f.name) for i in infos],
+                                     dim=1)
+                         for f in dataclasses.fields(StepInfo)))
+    return state, torch.stack(traj, dim=1), stacked
