@@ -216,7 +216,8 @@ def main() -> None:
     phase("slice", batch=BATCH, frames=FRAMES,
           seconds=",".join(f"{s:.4f}" for s in seconds),
           steps_per_s=f"{BATCH * FRAMES / min(seconds):.1f}",
-          track_err=f"{err:.4f}", max_update_obs=max_obs,
+          track_err=f"{err:.4f}", largest_update=max_obs,
+          update_cap=cfg.map.max_update_obs,
           launches=json.dumps(launches, separators=(",", ":")),
           card=repr(smi.splitlines()[0]))
 

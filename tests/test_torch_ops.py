@@ -53,7 +53,7 @@ def _omega(rng, n=6):
     return w
 
 
-# name -> (fn(Q, C, cam, *inputs), input builder)
+# name -> (fn(Q, C, cam, *inputs), inputs from a numpy Generator)
 CASES = {
     "qprod": (lambda Q, C, cam, a, b: Q.qprod(a, b),
               lambda r: (_quat(r), _quat(r))),
