@@ -7,14 +7,16 @@ Phases, one line each, any failure raises (exit code != 0):
   1. card      nvidia-smi name and power limit, torch / CUDA versions
   2. build     nvcc builds csrc/*.cu into build/kernels/ (seconds printed)
   3. kernels   K1-K3 against their plain PyTorch versions at the slice's
-               shapes, on inputs captured from one real frame of the slice
+               shapes, on inputs captured from one real frame of the slice,
+               each entry's error scaled to its own bound; then a planted
+               fault (K1 without process noise) must fail that check
   4. slice     the bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence:
                finite state, update cap never hit, tracking error < 0.2,
                each kernel launched once per frame; steps/s of the
-               best of three timed runs
+               median of three timed runs
   5. crosscheck one frame with CUDA tensors vs the same frame on the CPU
-               (plain path): equal gate counts, x within tolerance
+               (plain path): equal gate counts, x and P within tolerance
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it fails.
 """
@@ -22,52 +24,29 @@ Then one JSON line with the kernels' numbers, and as the last line
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 
 import torch
 
-from ekf_slam_tpu_torch.config import (EngineConfig, FilterConfig, MapConfig,
-                                       RansacConfig, SimConfig)
 from ekf_slam_tpu_torch.filter import engine
-from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import _build, kernels
-from ekf_slam_tpu_torch.sim import simulate
+from ekf_slam_tpu_torch.profile_slice import (BATCH, FRAMES, slice_config,
+                                              slice_inputs)
 
-BATCH = 128
-FRAMES = 16
 SOURCE = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
-# name -> (plain version, line of the TPU kernel's wrapper it replaces)
-KERNELS = {
-    "fused_manage_predict_pht": (kernels.manage_predict_pht_plain,
-                                 "ekf_slam_tpu/ops/pallas_kernels.py:374"),
-    "fused_update_tail_pht": (kernels.update_tail_pht_plain,
-                              "ekf_slam_tpu/ops/pallas_kernels.py:492"),
-    "fused_update_tail_add": (kernels.update_tail_add_plain,
-                              "ekf_slam_tpu/ops/pallas_kernels.py:544"),
+# name -> line of the TPU kernel's wrapper it replaces
+REPLACES = {
+    "fused_manage_predict_pht": "ekf_slam_tpu/ops/pallas_kernels.py:374",
+    "fused_update_tail_pht": "ekf_slam_tpu/ops/pallas_kernels.py:492",
+    "fused_update_tail_add": "ekf_slam_tpu/ops/pallas_kernels.py:544",
 }
-# f32 kernel vs the f64 plain version on the same inputs: sums of at most
-# D = 613 (downdate 128, P·Hᵀ 613) products in another order than the
-# reference, f32 epsilon 6e-8 — the error stays orders below 1e-4 of the
-# output's scale; a wrong index or a missed term is O(1) of it.
-KERNEL_RTOL = 1e-4
 # One frame, CUDA vs CPU, both f32: the same math in another summation
-# order; the gain solve and the two updates amplify rounding, so x may
-# differ by far more than f32 epsilon but far less than this.
+# order; the gain solve and the two updates amplify rounding. x within this
+# share of max|x|, P entrywise within this many Cauchy-Schwarz bounds.
 X_RTOL = 1e-3
-
-
-def slice_config() -> EngineConfig:
-    """The bench workload at full width with the f32 parity settings
-    (bench.py:289-317): CAP 100, 128 landmarks, min_features 25,
-    max_new_per_step 10, max_update_obs 64, NHYP 64, Newton gain."""
-    return EngineConfig(
-        filter=FilterConfig(gain_solver="newton", fused_step="on"),
-        map=MapConfig(capacity=100, min_features_in_image=25,
-                      max_new_per_step=10, max_update_obs=64),
-        ransac=RansacConfig(num_hypotheses=64),
-        sim=SimConfig(num_landmarks=128),
-        dtype="float32")
+P_TOL = 1e-2
 
 
 def phase(tag: str, **fields) -> None:
@@ -87,28 +66,6 @@ def cuda_ms(fn, n: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
-
-
-def capture_kernel_inputs(state, obs, u, cfg) -> dict:
-    """Run one step with each kernel wrapper replaced by one that records
-    its arguments; returns {name: args}."""
-    captured = {}
-    originals = {name: getattr(kernels, name) for name in KERNELS}
-
-    def recorder(name):
-        def wrapped(*args):
-            captured[name] = tuple(a.clone() for a in args)
-            return originals[name](*args)
-        return wrapped
-
-    for name in KERNELS:
-        setattr(kernels, name, recorder(name))
-    try:
-        engine.step(state, obs, u, cfg)
-    finally:
-        for name, fn in originals.items():
-            setattr(kernels, name, fn)
-    return captured
 
 
 def max_asym(P: torch.Tensor) -> float:
@@ -144,51 +101,53 @@ def main() -> None:
 
     # -- 3. kernels vs plain on one real frame --------------------------------
     cfg = slice_config()
-    dt = cfg.torch_dtype
-    nh = cfg.ransac.num_hypotheses
-    gen_sim = torch.Generator().manual_seed(0)
-    _, xs, obs = simulate(gen_sim, cfg, FRAMES, dev)
-    gen_ransac = torch.Generator(device=dev).manual_seed(1)
-
-    def draws():
-        return torch.rand(FRAMES, BATCH, nh, generator=gen_ransac,
-                          device=dev, dtype=dt)
-
-    st0 = engine.bootstrap(init_state(cfg, BATCH, dev), obs.frame(0), cfg)
-    u = draws()
+    st0, xs, obs, u = slice_inputs(cfg, dev)
     st2, _, _ = engine.run_sequence(st0, obs.window(0, 2), u[:2], cfg)
-    inputs = capture_kernel_inputs(st2, obs.frame(2), u[2], cfg)
+    with kernels.capture_operands() as inputs:
+        engine.step(st2, obs.frame(2), u[2], cfg)
     report = []
-    for name, (plain, replaces) in KERNELS.items():
+    for name, plain in kernels.PLAIN.items():
         args = inputs[name]
+        Ht = args[-1] if name != "fused_update_tail_add" else None
         wrapper = getattr(kernels, name)
         out = wrapper(*args)
         torch.cuda.synchronize()
         ref = plain(*(a.double() for a in args))
-        out = out if isinstance(out, tuple) else (out,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        abs_err = max(float((o.double() - r).abs().max())
-                      for o, r in zip(out, ref))
-        rel_err = max(float((o.double() - r).abs().max() / r.abs().max())
-                      for o, r in zip(out, ref))
+        # f32 kernel vs f64 plain on the same inputs, each entry in units
+        # of its own bound (the limit's reason: kernels.SCALED_TOL)
+        err = kernels.scaled_error(out, ref, Ht)
+        abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(
+            out if isinstance(out, tuple) else (out,),
+            ref if isinstance(ref, tuple) else (ref,)))
         ms = cuda_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
+        P_out = out[0] if isinstance(out, tuple) else out
         phase("kernel", name=name, shapes="x".join(
             str(s) for s in args[0].shape), max_abs_err=f"{abs_err:.3e}",
-            rel_err=f"{rel_err:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", asym=f"{max_asym(out[0]):.3e}")
-        if not rel_err <= KERNEL_RTOL:
-            raise AssertionError(f"{name}: kernel vs plain {rel_err:.3e} "
-                                 f"> {KERNEL_RTOL}")
+            scaled_err=f"{err:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", asym=f"{max_asym(P_out):.3e}")
+        if not err <= kernels.SCALED_TOL:
+            raise AssertionError(f"{name}: kernel vs plain {err:.3e} "
+                                 f"> {kernels.SCALED_TOL}")
         report.append({"name": name, "route": "cuda", "source": SOURCE,
-                       "replaces": replaces, "max_abs_err": abs_err,
-                       "ms": ms, "plain_ms": plain_ms})
+                       "replaces": REPLACES[name], "max_abs_err": abs_err,
+                       "scaled_err": err, "ms": ms, "plain_ms": plain_ms})
+    # The check sees a fault of the camera block: K1 launched without its
+    # process noise must read far above the limit.
+    args = inputs["fused_manage_predict_pht"]
+    no_q = kernels.fused_manage_predict_pht(
+        *args[:6], torch.zeros_like(args[6]), args[7])
+    fault = kernels.scaled_error(no_q, kernels.manage_predict_pht_plain(
+        *(a.double() for a in args)), args[7])
+    phase("fault", planted="K1_without_Q", scaled_err=f"{fault:.3e}",
+          limit=kernels.SCALED_TOL)
+    if not fault > 100 * kernels.SCALED_TOL:
+        raise AssertionError(f"the check misses K1 without Q: {fault:.3e}")
 
     # -- 4. the slice: 16 frames at B = 128 through the kernels ---------------
     # Three timed runs of the same sequence (host-clock spread is wide on a
     # shared host); the counts are reset before and read after each.
-    engine.run_sequence(st0, obs, draws(), cfg)          # warm-up
-    u = draws()
+    engine.run_sequence(st0, obs, u, cfg)                # warm-up
     seconds = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -213,9 +172,10 @@ def main() -> None:
         traj[..., 0:3] - xs[None, :, 0:3], dim=-1).mean())
     if not err < 0.2:
         raise AssertionError(f"tracking error {err:.4f} >= 0.2")
+    rate = BATCH * FRAMES / statistics.median(seconds)
     phase("slice", batch=BATCH, frames=FRAMES,
           seconds=",".join(f"{s:.4f}" for s in seconds),
-          steps_per_s=f"{BATCH * FRAMES / min(seconds):.1f}",
+          median_steps_per_s=f"{rate:.1f}",
           track_err=f"{err:.4f}", largest_update=max_obs,
           update_cap=cfg.map.max_update_obs,
           launches=json.dumps(launches, separators=(",", ":")),
@@ -236,8 +196,12 @@ def main() -> None:
     if not dx <= X_RTOL * scale:
         raise AssertionError(f"x differs CUDA vs CPU by {dx:.3e} "
                              f"> {X_RTOL} * {scale:.3e}")
+    dP = kernels.scaled_error(s_gpu.P.cpu().double(), s_cpu.P.double())
+    if not dP <= P_TOL:
+        raise AssertionError(f"P differs CUDA vs CPU by {dP:.3e} bounds "
+                             f"> {P_TOL}")
     phase("crosscheck", counts="equal", max_dx=f"{dx:.3e}",
-          max_abs_x=f"{scale:.3e}")
+          max_abs_x=f"{scale:.3e}", P_scaled_err=f"{dP:.3e}")
 
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

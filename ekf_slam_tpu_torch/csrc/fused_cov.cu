@@ -512,14 +512,14 @@ cudaError_t ekf_k2_update_tail_pht(const float* P, const float* K,
 }
 
 // P, Pout (B,D,D); K, PHt (B,D,M2); J8 (B,8,8); keep (B,D); E, U (B,r,D);
-// C (B,r,r).
+// C (B,r,r). Requires 1 <= r <= 128, the rank the Pallas kernel takes.
 cudaError_t ekf_k3_update_tail_add(const float* P, const float* K,
                                    const float* PHt, const float* J8,
                                    const float* keep, const float* E,
                                    const float* U, const float* C,
                                    float* Pout, int B, int D, int M2, int r,
                                    void* stream) {
-  if (r < 1) return cudaErrorInvalidValue;
+  if (r < 1 || r > 128) return cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (3 * up4(TILE * LD) + 2 * MC * LDT + 128 +
                        5 * r * TILE + r * r);

@@ -9,7 +9,9 @@ round-2 mega-kernels:
 Each wrapper takes batched tensors (leading instance axis B). A tensor on
 the CPU goes to the plain version beside the wrapper; a CUDA tensor goes
 to the hand-written kernel in ``csrc/fused_cov.cu`` (f32 only) or the
-wrapper raises. ``LAUNCHES[name]`` counts kernel launches.
+wrapper raises. ``LAUNCHES[name]`` counts kernel launches. The kernels'
+size limits (R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3)
+are checked by the launchers, which return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3 symmetric, so
 sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -17,14 +19,15 @@ sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
 
 from __future__ import annotations
 
+import contextlib
+from unittest import mock
+
 import torch
 
 from ekf_slam_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0}
-
-MAX_R = 256   # widest P·Hᵀ product (2·CAP) the K1/K2 kernels take
 
 
 def reset_launches() -> None:
@@ -79,6 +82,64 @@ def update_tail_add_plain(P, K, PHt, Jq4, keepN, EN, UN, CN):
     return _lowrank(_keep_mask(_tail(P, K, PHt, Jq4), keepN), EN, UN, CN)
 
 
+PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
+         "fused_update_tail_pht": update_tail_pht_plain,
+         "fused_update_tail_add": update_tail_add_plain}
+
+
+# --- checking a kernel against its plain version ----------------------------
+
+# Limit of scaled_error for an f32 kernel against its f64 plain version.
+# f32 rounding reads up to ~1e-5 on the slice's operands (K3, in the
+# quaternion rows, where the renorm Jacobian leaves a variance ~1e-8 beside
+# terms ~1e-4); a missing term of the camera block — K1 without Q̃, a
+# stripe transform applied to one side only — reads 0.1 or more.
+SCALED_TOL = 1e-4
+
+def _entry_error(diff, a, b):
+    """max |diff_ij| / sqrt(a_i·b_j); an entry whose bound is 0 must be 0."""
+    bound = torch.sqrt(a[:, :, None] * b[:, None, :])
+    err = torch.where(diff == 0, torch.zeros_like(diff), diff.abs() / bound)
+    return float(err.max())
+
+
+def scaled_error(out, ref, Ht=None) -> float:
+    """A kernel's error against its reference, each entry in units of its
+    Cauchy–Schwarz bound: |P_ij| ≤ sqrt(P_ii·P_jj) for the covariance and
+    |(P·Ht)_ik| ≤ sqrt(P_ii·(Htᵀ·P·Ht)_kk) for the P·Hᵀ product.
+
+    ``out`` and ``ref`` are a kernel's outputs (P, or (P, P·Ht)), ``Ht``
+    the kernel's Ht operand when it has one. A scale taken over the whole
+    matrix would hide a wrong camera block: K1's process noise is ~5e-5
+    where P's largest entry is ~5, but it is a large share of the velocity
+    variances it lands on."""
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    d = torch.diagonal(ref[0], dim1=1, dim2=2).clamp_min(0)
+    errs = [_entry_error(out[0].to(ref[0].dtype) - ref[0], d, d)]
+    if len(ref) == 2:
+        hph = (Ht.to(ref[1].dtype) * ref[1]).sum(dim=1).clamp_min(0)
+        errs.append(_entry_error(out[1].to(ref[1].dtype) - ref[1], d, hph))
+    return max(errs)
+
+
+@contextlib.contextmanager
+def capture_operands():
+    """Within the block every wrapper records a copy of its operands into
+    the yielded {name: args} (the last call wins), then runs as before."""
+    captured = {}
+
+    def recorder(name, fn):
+        def record(*args):
+            captured[name] = tuple(a.clone() for a in args)
+            return fn(*args)
+        return record
+
+    with mock.patch.multiple(__name__, **{
+            name: recorder(name, globals()[name]) for name in PLAIN}):
+        yield captured
+
+
 # --- kernel wrappers --------------------------------------------------------
 
 def _check(name, shapes: dict, tensors: dict):
@@ -107,7 +168,7 @@ def _run(name, fn, *args):
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+                           f"{err} (1: a size outside the kernel's limits)")
     LAUNCHES[name] += 1
 
 
@@ -132,8 +193,6 @@ def fused_manage_predict_pht(P, keep, E6, U6, C66, F13, Q13, Ht):
                                F13=F13, Q13=Q13, Ht=Ht))
     if not on_card:
         return manage_predict_pht_plain(P, keep, E6, U6, C66, F13, Q13, Ht)
-    if R > MAX_R:
-        raise ValueError(f"{name}: R = {R} > {MAX_R}")
     # Lp padded to a 16-stripe, identity on 13:16; Q̃ zero-padded.
     F16 = torch.eye(16, dtype=P.dtype, device=P.device).repeat(B, 1, 1)
     F16[:, :13, :13] = F13
@@ -160,8 +219,6 @@ def fused_update_tail_pht(P, K, PHt, Jq4, Ht):
         dict(P=P, K=K, PHt=PHt, Jq4=Jq4, Ht=Ht))
     if not on_card:
         return update_tail_pht_plain(P, K, PHt, Jq4, Ht)
-    if R > MAX_R:
-        raise ValueError(f"{name}: R = {R} > {MAX_R}")
     J8 = _j8(Jq4)
     out = torch.empty_like(P)
     pht2 = torch.empty(B, D, R, dtype=P.dtype, device=P.device)
@@ -184,8 +241,6 @@ def fused_update_tail_add(P, K, PHt, Jq4, keepN, EN, UN, CN):
         dict(P=P, K=K, PHt=PHt, Jq4=Jq4, keepN=keepN, EN=EN, UN=UN, CN=CN))
     if not on_card:
         return update_tail_add_plain(P, K, PHt, Jq4, keepN, EN, UN, CN)
-    if r > 128:
-        raise ValueError(f"{name}: feature-add rank {r} > 128")
     J8 = _j8(Jq4)
     out = torch.empty_like(P)
     lib = _build.load()

@@ -1,0 +1,164 @@
+"""Time and profile the port's slice on one CUDA card.
+
+    python -m ekf_slam_tpu_torch.profile_slice
+
+The slice is the bench workload at full width with the f32 parity
+settings (see ``slice_config``), B = 128 instances, 16 frames. Two
+measurements, each of the two routes of the fused covariance work:
+
+  kernels  the hand-written CUDA kernels (the wrappers in ops/kernels.py)
+  plain    the wrappers swapped for their plain torch versions
+
+A/B       ``run_sequence`` over the 16 frames, legs in the order kernels,
+          plain, plain, kernels; each leg RUNS timed runs. Prints
+          every run's seconds and the leg's median steps/s (B·16 / s).
+profile   the first PROFILE_FRAMES frames: their wall time
+          unprofiled, then under torch.profiler the device time (sum of
+          the CUDA kernel events), the busy share (device time / unprofiled
+          wall), the device ops (kernels, copies, fills), the host time in
+          cudaLaunchKernel and the ten ops with the most device time.
+
+The last line is one JSON object with every number printed.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import statistics
+import time
+from unittest import mock
+
+import torch
+from torch.autograd import DeviceType
+
+from ekf_slam_tpu_torch.config import (EngineConfig, FilterConfig, MapConfig,
+                                       RansacConfig, SimConfig)
+from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.ops import kernels
+from ekf_slam_tpu_torch.sim import simulate
+
+BATCH = 128
+FRAMES = 16
+RUNS = 3
+PROFILE_FRAMES = 4
+
+
+def slice_config() -> EngineConfig:
+    """The bench workload at full width with the f32 parity settings
+    (bench.py:289-317): CAP 100, 128 landmarks, min_features 25,
+    max_new_per_step 10, max_update_obs 64, NHYP 64, Newton gain."""
+    return EngineConfig(
+        filter=FilterConfig(gain_solver="newton", fused_step="on"),
+        map=MapConfig(capacity=100, min_features_in_image=25,
+                      max_new_per_step=10, max_update_obs=64),
+        ransac=RansacConfig(num_hypotheses=64),
+        sim=SimConfig(num_landmarks=128),
+        dtype="float32")
+
+
+def slice_inputs(cfg: EngineConfig, dev, batch: int = BATCH,
+                 frames: int = FRAMES):
+    """(bootstrapped state, true states (T,13), observations, RANSAC draws
+    (T,B,NHYP)): the scene from seed 0, the draws from seed 1."""
+    _, xs, obs = simulate(torch.Generator().manual_seed(0), cfg, frames, dev)
+    st0 = engine.bootstrap(init_state(cfg, batch, dev), obs.frame(0), cfg)
+    u = torch.rand(frames, batch, cfg.ransac.num_hypotheses, device=dev,
+                   dtype=cfg.torch_dtype,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    return st0, xs, obs, u
+
+
+def timed(fn) -> float:
+    """Seconds of fn() by the host clock, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def route(name: str):
+    """Context in which the step takes the named route."""
+    if name == "kernels":
+        return contextlib.nullcontext()
+    return mock.patch.multiple(kernels, **kernels.PLAIN)
+
+
+def device_profile(fn, frames: int) -> dict:
+    """fn() once unprofiled for its wall, once under torch.profiler."""
+    wall = timed(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    launch_host_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += e.device_time
+            by_name[e.name][1] += 1
+        elif e.name == "cudaLaunchKernel":
+            launch_host_us += e.cpu_time_total
+    device_ms = sum(t for t, _ in by_name.values()) / 1e3
+    ops = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"frames": frames, "wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy": device_ms / (wall * 1e3), "device_ops": ops,
+            "device_ops_per_frame": ops / frames,
+            "launch_host_ms": launch_host_us / 1e3,
+            "top": [{"name": n[:90], "ms": t / 1e3, "calls": c}
+                    for n, (t, c) in top]}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = slice_config()
+    st0, _, obs, u = slice_inputs(cfg, dev)
+    result = {"card": torch.cuda.get_device_name(0), "batch": BATCH,
+              "frames": FRAMES, "ab": [], "profile": {}}
+
+    def run_all():
+        engine.run_sequence(st0, obs, u, cfg)
+
+    for name in ("kernels", "plain"):
+        with route(name):
+            run_all()                                   # warm-up
+    for name in ("kernels", "plain", "plain", "kernels"):
+        with route(name):
+            secs = [timed(run_all) for _ in range(RUNS)]
+        med = BATCH * FRAMES / statistics.median(secs)
+        print(f"[ab] route={name} seconds="
+              f"{','.join(f'{s:.4f}' for s in secs)} "
+              f"median_steps_per_s={med:.1f}", flush=True)
+        result["ab"].append({"route": name, "seconds": secs,
+                             "median_steps_per_s": med})
+
+    nf = PROFILE_FRAMES
+
+    def run_window():
+        engine.run_sequence(st0, obs.window(0, nf), u[:nf], cfg)
+
+    for name in ("kernels", "plain"):
+        with route(name):
+            p = device_profile(run_window, nf)
+        result["profile"][name] = p
+        print(f"[profile] route={name} frames={nf} "
+              f"wall_ms={p['wall_ms']:.2f} device_ms={p['device_ms']:.2f} "
+              f"busy={p['busy']:.3f} device_ops={p['device_ops']} "
+              f"launch_host_ms={p['launch_host_ms']:.2f}", flush=True)
+        for k in p["top"]:
+            print(f"  {k['ms']:9.3f} ms x {k['calls']:5d}  {k['name']}",
+                  flush=True)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

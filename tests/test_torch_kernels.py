@@ -26,11 +26,8 @@ from ekf_slam_tpu_torch.ops import _build, kernels
 torch.set_num_threads(1)
 
 B = 3
-NAMES = ["fused_manage_predict_pht", "fused_update_tail_pht",
-         "fused_update_tail_add"]
-PLAIN = {"fused_manage_predict_pht": kernels.manage_predict_pht_plain,
-         "fused_update_tail_pht": kernels.update_tail_pht_plain,
-         "fused_update_tail_add": kernels.update_tail_add_plain}
+NAMES = list(kernels.PLAIN)
+PLAIN = kernels.PLAIN
 TOL = dict(rtol=1e-10, atol=1e-12)
 
 
@@ -43,19 +40,8 @@ def operands():
         _, obs, jst = sim_and_bootstrap(jc, 2, 3, B)
         jst, _ = step_fn(jc)(jst, frame(obs, 1), frame_keys(1, B))
     u = torch.tensor(ransac_u(frame_keys(2, B), jc.ransac.num_hypotheses))
-    captured = {}
-    mp = pytest.MonkeyPatch()
-    for name in NAMES:
-        orig = getattr(kernels, name)
-
-        def rec(*args, _name=name, _orig=orig):
-            captured[_name] = tuple(a.clone() for a in args)
-            return _orig(*args)
-        mp.setattr(kernels, name, rec)
-    try:
+    with kernels.capture_operands() as captured:
         engine.step(port_state(jst), port_obs(frame(obs, 2)), u, tc)
-    finally:
-        mp.undo()
     return captured
 
 
@@ -118,6 +104,52 @@ def test_wrapper_rejects_bad_operands(operands, name):
     strided.copy_(P)
     with pytest.raises(ValueError, match="contiguous"):
         fn(strided, *args[1:])
+
+
+def _no_q(P, keep, E6, U6, C66, F13, Q13, Ht):
+    return kernels.manage_predict_pht_plain(P, keep, E6, U6, C66, F13,
+                                            torch.zeros_like(Q13), Ht)
+
+
+def _k1_rows_only(P, keep, E6, U6, C66, F13, Q13, Ht):
+    """K1 with Lp applied to the rows of the camera stripe only."""
+    Pm = kernels._lowrank(kernels._keep_mask(P, keep), E6, U6, C66)
+    Pm = torch.cat([F13 @ Pm[:, :13], Pm[:, 13:]], dim=1)
+    Pm[:, :13, :13] += Q13
+    return Pm, Pm @ Ht
+
+
+def _k2_rows_only(P, K, PHt, Jq4, Ht):
+    """K2 with the quaternion renorm applied to the rows only."""
+    out = P - 0.5 * (K @ PHt.transpose(1, 2) + PHt @ K.transpose(1, 2))
+    out = torch.cat([out[:, :3], Jq4 @ out[:, 3:7], out[:, 7:]], dim=1)
+    return out, out @ Ht
+
+
+def _k3_one_sided_add(P, K, PHt, Jq4, keepN, EN, UN, CN):
+    """K3 with the feature add's UNᵀEN term left out."""
+    out = kernels._keep_mask(kernels._tail(P, K, PHt, Jq4), keepN)
+    return out + EN.transpose(1, 2) @ (UN + CN @ EN)
+
+
+@pytest.mark.parametrize("name,fault", [
+    ("fused_manage_predict_pht", _no_q),
+    ("fused_manage_predict_pht", _k1_rows_only),
+    ("fused_update_tail_pht", _k2_rows_only),
+    ("fused_update_tail_add", _k3_one_sided_add),
+], ids=["k1_no_q", "k1_rows_only", "k2_rows_only", "k3_one_sided_add"])
+def test_scaled_error_sees_planted_faults(operands, name, fault):
+    """The kernel check (kernels.scaled_error under kernels.SCALED_TOL,
+    used by chip_smoke and the card tests) reads each planted fault at
+    1e-2 or more, while the same plain version in f32 passes it. K1
+    without Q̃ is ~5e-5 of max|P| — a check scaled to the whole matrix
+    would pass it."""
+    args = operands[name]
+    Ht = args[-1] if name != "fused_update_tail_add" else None
+    ref = PLAIN[name](*args)
+    assert kernels.scaled_error(fault(*args), ref, Ht) > 1e-2
+    f32 = PLAIN[name](*(a.float() for a in args))
+    assert kernels.scaled_error(f32, ref, Ht) <= kernels.SCALED_TOL
 
 
 def test_k3_sees_the_stripe_k1_and_k2_leave_symmetric(operands):
