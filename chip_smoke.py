@@ -6,17 +6,28 @@
 Phases, one line each, any failure raises (exit code != 0):
   1. card      nvidia-smi name and power limit, torch / CUDA versions
   2. build     nvcc builds csrc/*.cu into build/kernels/ (seconds printed)
-  3. kernels   K1-K3 against their plain PyTorch versions at the slice's
-               shapes, on inputs captured from one real frame of the slice,
-               each entry's error scaled to its own bound; then a planted
-               fault (K1 without process noise) must fail that check
+  3. kernels   each kernel against its plain PyTorch version at the
+               slice's shapes, on operands captured from one real frame:
+               K1-K3 from the fused path, K4 and K6 from the unfused path
+               (i), K5 and K6 from path (ii), K6 at both of its call sites
+               (RANSAC's P·G and the update's P·Hᵀ). Each entry's error is
+               scaled to its own bound; K4's output must be bitwise
+               symmetric. Then planted faults (K1 without process noise,
+               K5 with the renorm Jacobian replaced by I) must fail that
+               check
   4. slice     the bench workload (CAP 100, 128 landmarks, f32) at
-               B = 128 instances for 16 frames through run_sequence:
-               finite state, update cap never hit, tracking error < 0.2,
-               each kernel launched once per frame; steps/s of the
-               median of three timed runs
-  5. crosscheck one frame with CUDA tensors vs the same frame on the CPU
-               (plain path): equal gate counts, x and P within tolerance
+               B = 128 instances for 16 frames through run_sequence, on
+               each engine path:
+                 fused  (step_fused)                 K1-K3 once a frame
+                 (i)    unfused, pallas_update off   K4 2x, K6 3x a frame
+                 (ii)   unfused, pallas_update on    K5 2x, K6 3x a frame
+               with every other kernel launched 0 times; finite state,
+               update cap never hit, tracking error < 0.2; steps/s of the
+               median of three timed runs (fused, (i)) or of one ((ii))
+  5. crosscheck one frame of each path with CUDA tensors vs the same frame
+               on the CPU (plain path), and the same frame through the
+               fused and the unfused step on the card: equal gate counts,
+               x and P within tolerance
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it fails.
 """
@@ -35,12 +46,24 @@ from ekf_slam_tpu_torch.ops import _build, kernels
 from ekf_slam_tpu_torch.profile_slice import (BATCH, FRAMES, slice_config,
                                               slice_inputs)
 
-SOURCE = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
-# name -> line of the TPU kernel's wrapper it replaces
-REPLACES = {
-    "fused_manage_predict_pht": "ekf_slam_tpu/ops/pallas_kernels.py:374",
-    "fused_update_tail_pht": "ekf_slam_tpu/ops/pallas_kernels.py:492",
-    "fused_update_tail_add": "ekf_slam_tpu/ops/pallas_kernels.py:544",
+FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
+UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
+PK = "ekf_slam_tpu/ops/pallas_kernels.py"
+# name -> (source, line of the TPU kernel's wrapper it replaces)
+KERNELS = {
+    "fused_manage_predict_pht": (FUSED_SRC, f"{PK}:374"),
+    "fused_update_tail_pht": (FUSED_SRC, f"{PK}:492"),
+    "fused_update_tail_add": (FUSED_SRC, f"{PK}:544"),
+    "corr_apply_cols": (UNFUSED_SRC, f"{PK}:731"),
+    "fused_update_tail": (FUSED_SRC, f"{PK}:135"),
+    "f32_matmul_big": (UNFUSED_SRC, f"{PK}:192"),
+}
+# Launches a frame of each path (the rest launch 0 times).
+PER_FRAME = {
+    "fused": {"fused_manage_predict_pht": 1, "fused_update_tail_pht": 1,
+              "fused_update_tail_add": 1},
+    "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 3},
+    "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
 }
 # One frame, CUDA vs CPU, both f32: the same math in another summation
 # order; the gain solve and the two updates amplify rounding. x within this
@@ -72,6 +95,133 @@ def max_asym(P: torch.Tensor) -> float:
     return float((P - P.transpose(1, 2)).abs().max())
 
 
+def kernel_error(name, out, ref, args) -> float:
+    """kernels.scaled_error of a kernel's output against its f64 plain
+    version; for K6 the product bound sqrt(P_ii·(Hᵀ·P·H)_kk)."""
+    if name == "f32_matmul_big":
+        A = args[0].double()
+        return kernels.product_error(out, ref, torch.diagonal(
+            A, dim1=1, dim2=2), args[1])
+    Ht = args[-1] if name in ("fused_manage_predict_pht",
+                              "fused_update_tail_pht") else None
+    return kernels.scaled_error(out, ref, Ht)
+
+
+def check_kernel(name, args, site="") -> dict:
+    """One kernel against its plain version on the card: errors (f32
+    kernel vs f64 plain on the same inputs, limit kernels.SCALED_TOL),
+    CUDA-event times of kernel and plain, max|P−Pᵀ| of the P output."""
+    wrapper, plain = getattr(kernels, name), kernels.PLAIN[name]
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    ref = plain(*(a.double() for a in args))
+    err = kernel_error(name, out, ref, args)
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    abs_err = max(float((o.double() - r).abs().max())
+                  for o, r in zip(outs, refs))
+    ms = cuda_ms(lambda: wrapper(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    fields = dict(name=name, site=site or "-", shapes=",".join(
+        "x".join(str(s) for s in a.shape) for a in args[:2]),
+        max_abs_err=f"{abs_err:.3e}", scaled_err=f"{err:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    if name != "f32_matmul_big":
+        fields["asym"] = f"{max_asym(outs[0]):.3e}"
+    phase("kernel", **fields)
+    if not err <= kernels.SCALED_TOL:
+        raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
+                             f"{kernels.SCALED_TOL}")
+    if name == "corr_apply_cols" and not torch.equal(
+            outs[0], outs[0].transpose(1, 2)):
+        raise AssertionError("corr_apply_cols: output not bitwise "
+                             f"symmetric, max|P−Pᵀ| {max_asym(outs[0])}")
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": abs_err,
+            "scaled_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def planted_fault(tag, got, ref, err_fn) -> None:
+    """A kernel launched with a planted fault must read > 100x the limit."""
+    fault = err_fn(got, ref)
+    phase("fault", planted=tag, scaled_err=f"{fault:.3e}",
+          limit=kernels.SCALED_TOL)
+    if not fault > 100 * kernels.SCALED_TOL:
+        raise AssertionError(f"the check misses {tag}: {fault:.3e}")
+
+
+def capture_frame(cfg, st0, obs, u, t=2):
+    """{name: [operands of each call]} of frame t of the sequence."""
+    st, _, _ = engine.run_sequence(st0, obs.window(0, t), u[:t], cfg)
+    with kernels.capture_operands() as inputs:
+        engine.step(st, obs.frame(t), u[t], cfg)
+    return inputs
+
+
+def run_slice(path, cfg, st0, xs, obs, u, runs, card) -> dict:
+    """Phase 4 for one path: a warm-up, then `runs` timed runs of the
+    sequence, each with the counts set to 0 just before and read just
+    after; the gates. Returns the launch counts of the last run."""
+    engine.run_sequence(st0, obs, u, cfg)                # warm-up
+    want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
+    seconds = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final, traj, infos = engine.run_sequence(st0, obs, u, cfg)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{path}: kernel launches {launches}, "
+                                 f"expected {want}")
+    if not (torch.isfinite(traj).all() and torch.isfinite(final.P).all()):
+        raise AssertionError(f"{path}: non-finite trajectory or covariance")
+    max_obs = int(torch.maximum(infos.n_li.max(), infos.n_hi.max()))
+    if max_obs > cfg.map.max_update_obs:
+        raise AssertionError(f"{path}: update cap hit: {max_obs} > "
+                             f"{cfg.map.max_update_obs}")
+    err = float(torch.linalg.vector_norm(
+        traj[..., 0:3] - xs[None, :, 0:3], dim=-1).mean())
+    if not err < 0.2:
+        raise AssertionError(f"{path}: tracking error {err:.4f} >= 0.2")
+    rate = BATCH * FRAMES / statistics.median(seconds)
+    phase("slice", path=path, batch=BATCH, frames=FRAMES,
+          seconds=",".join(f"{s:.4f}" for s in seconds),
+          median_steps_per_s=f"{rate:.1f}",
+          track_err=f"{err:.4f}", largest_update=max_obs,
+          update_cap=cfg.map.max_update_obs,
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")),
+          card=repr(card))
+    return launches
+
+
+def same_frame(tag, a, b) -> None:
+    """Two results of one frame: equal gate counts, x within X_RTOL of
+    max|x|, P entrywise within P_TOL of its bounds."""
+    (s_a, i_a), (s_b, i_b) = a, b
+    for f in ("n_ic", "n_li", "n_hi"):
+        x, y = getattr(i_a, f).cpu(), getattr(i_b, f).cpu()
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: {f} differs on "
+                                 f"{int((x != y).sum())} instances")
+    xa, xb = s_a.x.cpu(), s_b.x.cpu()
+    dx = float((xa - xb).abs().max())
+    scale = float(xb.abs().max())
+    if not dx <= X_RTOL * scale:
+        raise AssertionError(f"{tag}: x differs by {dx:.3e} > {X_RTOL} * "
+                             f"{scale:.3e}")
+    dP = kernels.scaled_error(s_a.P.cpu().double(), s_b.P.cpu().double())
+    if not dP <= P_TOL:
+        raise AssertionError(f"{tag}: P differs by {dP:.3e} bounds > "
+                             f"{P_TOL}")
+    phase("crosscheck", pair=tag, counts="equal", max_dx=f"{dx:.3e}",
+          max_abs_x=f"{scale:.3e}", P_scaled_err=f"{dP:.3e}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -84,7 +234,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    card = smi.splitlines()[0]
+    print(card, flush=True)
     phase("card", torch=torch.__version__, cuda=torch.version.cuda,
           device=repr(torch.cuda.get_device_name(0)),
           count=torch.cuda.device_count())
@@ -96,117 +247,73 @@ def main() -> None:
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.relative_to(_build.BUILD_DIR.parent.parent))
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             print("  ptxas:", line.strip(), flush=True)
 
-    # -- 3. kernels vs plain on one real frame --------------------------------
-    cfg = slice_config()
-    st0, xs, obs, u = slice_inputs(cfg, dev)
-    st2, _, _ = engine.run_sequence(st0, obs.window(0, 2), u[:2], cfg)
-    with kernels.capture_operands() as inputs:
-        engine.step(st2, obs.frame(2), u[2], cfg)
-    report = []
-    for name, plain in kernels.PLAIN.items():
-        args = inputs[name]
-        Ht = args[-1] if name != "fused_update_tail_add" else None
-        wrapper = getattr(kernels, name)
-        out = wrapper(*args)
-        torch.cuda.synchronize()
-        ref = plain(*(a.double() for a in args))
-        # f32 kernel vs f64 plain on the same inputs, each entry in units
-        # of its own bound (the limit's reason: kernels.SCALED_TOL)
-        err = kernels.scaled_error(out, ref, Ht)
-        abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(
-            out if isinstance(out, tuple) else (out,),
-            ref if isinstance(ref, tuple) else (ref,)))
-        ms = cuda_ms(lambda: wrapper(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-        P_out = out[0] if isinstance(out, tuple) else out
-        phase("kernel", name=name, shapes="x".join(
-            str(s) for s in args[0].shape), max_abs_err=f"{abs_err:.3e}",
-            scaled_err=f"{err:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", asym=f"{max_asym(P_out):.3e}")
-        if not err <= kernels.SCALED_TOL:
-            raise AssertionError(f"{name}: kernel vs plain {err:.3e} "
-                                 f"> {kernels.SCALED_TOL}")
-        report.append({"name": name, "route": "cuda", "source": SOURCE,
-                       "replaces": REPLACES[name], "max_abs_err": abs_err,
-                       "scaled_err": err, "ms": ms, "plain_ms": plain_ms})
-    # The check sees a fault of the camera block: K1 launched without its
-    # process noise must read far above the limit.
-    args = inputs["fused_manage_predict_pht"]
-    no_q = kernels.fused_manage_predict_pht(
-        *args[:6], torch.zeros_like(args[6]), args[7])
-    fault = kernels.scaled_error(no_q, kernels.manage_predict_pht_plain(
-        *(a.double() for a in args)), args[7])
-    phase("fault", planted="K1_without_Q", scaled_err=f"{fault:.3e}",
-          limit=kernels.SCALED_TOL)
-    if not fault > 100 * kernels.SCALED_TOL:
-        raise AssertionError(f"the check misses K1 without Q: {fault:.3e}")
-
-    # -- 4. the slice: 16 frames at B = 128 through the kernels ---------------
-    # Three timed runs of the same sequence (host-clock spread is wide on a
-    # shared host); the counts are reset before and read after each.
-    engine.run_sequence(st0, obs, u, cfg)                # warm-up
-    seconds = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        final, traj, infos = engine.run_sequence(st0, obs, u, cfg)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches = dict(kernels.LAUNCHES)
-        if not all(n == FRAMES for n in launches.values()):
-            raise AssertionError(f"kernel launches {launches}, expected "
-                                 f"{FRAMES} each")
-    for k in report:
-        k["launches"] = launches[k["name"]]
-    if not (torch.isfinite(traj).all() and torch.isfinite(final.P).all()):
-        raise AssertionError("non-finite trajectory or covariance")
-    max_obs = int(torch.maximum(infos.n_li.max(), infos.n_hi.max()))
-    if max_obs > cfg.map.max_update_obs:
-        raise AssertionError(f"update cap hit: {max_obs} > "
-                             f"{cfg.map.max_update_obs}")
-    err = float(torch.linalg.vector_norm(
-        traj[..., 0:3] - xs[None, :, 0:3], dim=-1).mean())
-    if not err < 0.2:
-        raise AssertionError(f"tracking error {err:.4f} >= 0.2")
-    rate = BATCH * FRAMES / statistics.median(seconds)
-    phase("slice", batch=BATCH, frames=FRAMES,
-          seconds=",".join(f"{s:.4f}" for s in seconds),
-          median_steps_per_s=f"{rate:.1f}",
-          track_err=f"{err:.4f}", largest_update=max_obs,
-          update_cap=cfg.map.max_update_obs,
-          launches=json.dumps(launches, separators=(",", ":")),
-          card=repr(smi.splitlines()[0]))
-
-    # -- 5. one frame on the card vs the same frame on the CPU ---------------
-    st8, _, _ = engine.run_sequence(st0, obs.window(0, 8), u[:8], cfg)
-    s_gpu, i_gpu = engine.step(st8, obs.frame(8), u[8], cfg)
-    s_cpu, i_cpu = engine.step(st8.to("cpu"), obs.frame(8).to("cpu"),
-                               u[8].cpu(), cfg)
-    for f in ("n_ic", "n_li", "n_hi"):
-        a, b = getattr(i_gpu, f).cpu(), getattr(i_cpu, f)
-        if not torch.equal(a, b):
-            raise AssertionError(f"{f} differs CUDA vs CPU on "
-                                 f"{int((a != b).sum())} instances")
-    dx = float((s_gpu.x.cpu() - s_cpu.x).abs().max())
-    scale = float(s_cpu.x.abs().max())
-    if not dx <= X_RTOL * scale:
-        raise AssertionError(f"x differs CUDA vs CPU by {dx:.3e} "
-                             f"> {X_RTOL} * {scale:.3e}")
-    dP = kernels.scaled_error(s_gpu.P.cpu().double(), s_cpu.P.double())
-    if not dP <= P_TOL:
-        raise AssertionError(f"P differs CUDA vs CPU by {dP:.3e} bounds "
-                             f"> {P_TOL}")
-    phase("crosscheck", counts="equal", max_dx=f"{dx:.3e}",
-          max_abs_x=f"{scale:.3e}", P_scaled_err=f"{dP:.3e}")
-
+    report = check_paths(dev, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def check_paths(dev, card: str) -> list:
+    """Phases 3-5 on device `dev`. Returns the kernels' JSON entries."""
+    # -- 3. kernels vs plain on one real frame of each path -------------------
+    cfgs = {p: slice_config(p) for p in PER_FRAME}
+    st0, xs, obs, u = slice_inputs(cfgs["fused"], dev)
+    report = {}
+    inputs = capture_frame(cfgs["fused"], st0, obs, u)
+    for name in PER_FRAME["fused"]:
+        report[name] = check_kernel(name, inputs[name][-1])
+    args = inputs["fused_manage_predict_pht"][-1]
+    planted_fault(
+        "K1_without_Q",
+        kernels.fused_manage_predict_pht(*args[:6], torch.zeros_like(args[6]),
+                                         args[7]),
+        kernels.manage_predict_pht_plain(*(a.double() for a in args)),
+        lambda g, r: kernels.scaled_error(g, r, args[7]))
+
+    # The unfused frame calls K6 for RANSAC's P·G first, then for each
+    # update's P·Hᵀ (LI, HI).
+    inputs = capture_frame(cfgs["unfused"], st0, obs, u)
+    report["corr_apply_cols"] = check_kernel("corr_apply_cols",
+                                             inputs["corr_apply_cols"][0],
+                                             "LI")
+    check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0], "ransac_PG")
+    report["f32_matmul_big"] = check_kernel(
+        "f32_matmul_big", inputs["f32_matmul_big"][1], "update_PHt")
+    inputs = capture_frame(cfgs["unfused_pallas"], st0, obs, u)
+    args = inputs["fused_update_tail"][0]
+    report["fused_update_tail"] = check_kernel("fused_update_tail", args,
+                                               "LI")
+    eye4 = torch.eye(4, device=dev).expand_as(args[3]).contiguous()
+    planted_fault(
+        "K5_with_Jq4_eq_I", kernels.fused_update_tail(*args[:3], eye4),
+        kernels.update_tail_plain(*(a.double() for a in args)),
+        kernels.scaled_error)
+
+    # -- 4. the slice: 16 frames at B = 128 through each path -----------------
+    launches = {}
+    for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1)):
+        counts = run_slice(path, cfgs[path], st0, xs, obs, u, runs, card)
+        for name in PER_FRAME[path]:
+            launches.setdefault(name, counts[name])
+    for name, k in report.items():
+        k["launches"] = launches[name]
+
+    # -- 5. one frame: CUDA vs CPU on each path, fused vs unfused on the card
+    st8, _, _ = engine.run_sequence(st0, obs.window(0, 8), u[:8],
+                                    cfgs["fused"])
+    on_card = {}
+    for path, cfg in cfgs.items():
+        on_card[path] = engine.step(st8, obs.frame(8), u[8], cfg)
+        on_cpu = engine.step(st8.to("cpu"), obs.frame(8).to("cpu"),
+                             u[8].cpu(), cfg)
+        same_frame(f"{path}:cuda_vs_cpu", on_card[path], on_cpu)
+    same_frame("fused_vs_unfused:cuda", on_card["fused"], on_card["unfused"])
+    return list(report.values())
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """ekf_slam_tpu_torch — the PyTorch / CUDA port of ekf_slam_tpu.
 
-The batched sim-path SLAM frame (bootstrap, then the fused step under
-run_sequence) over a leading axis of independent filter instances, with
-the full-covariance work in three hand-written CUDA kernels for Hopper
-(ops/kernels.py, csrc/fused_cov.cu) and their plain PyTorch versions on
-CPU tensors. Imports torch, never jax; the JAX package ekf_slam_tpu is
+The batched sim-path SLAM frame (bootstrap, then the fused or the
+unfused step under run_sequence) over a leading axis of independent
+filter instances, with the full-covariance work in hand-written CUDA
+kernels for Hopper (ops/kernels.py, csrc/) and their plain PyTorch
+versions on CPU tensors. Imports torch, never jax; the JAX package ekf_slam_tpu is
 the reference the port is tested against.
 """
 

@@ -53,9 +53,11 @@ class CameraConfig:
 class FilterConfig:
     """EKF noise / motion-model settings (mono_slam.m:29-32).
 
-    The port runs only the fused step (``fused_step`` other than "off"),
-    f32/f64 storage and the non-iterated update; the remaining fields are
-    kept so both configuration trees stay field-for-field equal."""
+    The port runs both steps (``fused_step``, ``pallas_update``) with
+    storage in the state's dtype and the non-iterated update: the unfused
+    step raises for ``use_iterated_update``, ``p_storage="bf16"`` and
+    ``share_pht``, which are kept so both configuration trees stay
+    field-for-field equal."""
 
     sigma_a: float = 0.007
     sigma_alpha: float = 0.007

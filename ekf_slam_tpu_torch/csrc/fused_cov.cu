@@ -1,4 +1,6 @@
-// Fused covariance kernels of the SLAM step (K1, K2, K3) for Hopper (sm_90a).
+// Fused covariance kernels of the SLAM step for Hopper (sm_90a): K1, K2, K3
+// of the fused step, and K5, the unfused step's update tail, as a mode of
+// K3.
 //
 // Each kernel is one streamed pass over the covariance P of every filter
 // instance: P (B, D, D) row-major f32, D = 13 + 6·CAP (613 at CAP 100).
@@ -7,92 +9,25 @@
 // Every contraction is summed in a fixed order with fmaf, so the result is
 // deterministic and the (i,j) and (j,i) tiles of the symmetric downdate
 // are float-exact mirrors. f32 on CUDA cores: no TF32, no tensor cores.
-//
-// Thread layout: 256 threads, thread (tx, ty) owns column tx and the four
-// consecutive rows 4·ty .. 4·ty+3 of a tile. Row-side operands sit in shared
-// memory transposed ([k][row]), so one 16-byte load feeds four rows; the
-// column-side operand is one scalar per k. Shared-memory bandwidth, not the
-// FMA units, bounds this simple design.
+// Shared-memory bandwidth, not the FMA units, bounds this simple design
+// (thread layout: common.cuh).
 //
 // Plain C ABI (bound with ctypes): each launcher returns the cudaError_t of
 // its launch and launches on the caller's stream.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int NT = 256;                 // threads per block
-constexpr int RPT = 4;                  // rows per thread (TILE·TILE / NT)
-constexpr int LD = TILE + 1;            // leading dim of [row][col] tiles
-constexpr int LDT = TILE + 4;           // leading dim of [k][row] buffers
-constexpr int MC = 32;                  // contraction chunk of the downdate
-constexpr int MAX_CG = 8;               // P·Hᵀ column groups: R <= 256
-
-struct Tid {
-  int tx, r0;                           // column, first of the 4 rows
-};
-
-__device__ __forceinline__ Tid tid() {
-  return {static_cast<int>(threadIdx.x) % TILE,
-          RPT * (static_cast<int>(threadIdx.x) / TILE)};
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float at(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// Copy a (rows x cols) block of a row-major matrix with leading dim `ld`,
-// starting at (r0, c0), into smem with leading dim `sld`; entries outside
-// (nrows, ncols) read as 0. transpose: store element (rr, cc) at
-// dst[cc * sld + rr].
-__device__ void stage(float* dst, int sld, const float* src, int ld, int r0,
-                      int c0, int rows, int cols, int nrows, int ncols,
-                      bool transpose = false) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
-    const int rr = idx / cols, cc = idx % cols;
-    const int gr = r0 + rr, gc = c0 + cc;
-    const float v = (gr < nrows && gc < ncols)
-                        ? src[static_cast<size_t>(gr) * ld + gc]
-                        : 0.f;
-    dst[transpose ? cc * sld + rr : rr * sld + cc] = v;
-  }
-}
-
 // Symmetric downdate of tile (i0, j0): v = P − ½(K_i·PHt_jᵀ + PHt_i·K_jᵀ)
-// over the 2M columns of K and PHt (D x M2), in MC-wide chunks. The row
-// side (K_i, PHt_i) is staged [m][row], the column side [col][m].
+// over the 2M columns of K and PHt (D x M2), any M2 (pair_sums chunks it).
 __device__ void downdate_tile(const float* P, const float* K,
                               const float* PHt, int D, int M2, int i0, int j0,
                               float* sKi, float* sPi, float* sKj, float* sPj,
                               float (&v)[RPT]) {
   const Tid t = tid();
-  float a[RPT] = {0.f, 0.f, 0.f, 0.f};
-  float b[RPT] = {0.f, 0.f, 0.f, 0.f};
-  for (int m0 = 0; m0 < M2; m0 += MC) {
-    stage(sKi, LDT, K, M2, i0, m0, TILE, MC, D, M2, true);
-    stage(sPi, LDT, PHt, M2, i0, m0, TILE, MC, D, M2, true);
-    stage(sKj, LD, K, M2, j0, m0, TILE, MC, D, M2);
-    stage(sPj, LD, PHt, M2, j0, m0, TILE, MC, D, M2);
-    __syncthreads();
-#pragma unroll 8
-    for (int mm = 0; mm < MC; ++mm) {
-      const float kj = sKj[t.tx * LD + mm];
-      const float pj = sPj[t.tx * LD + mm];
-      const float4 ki = ld4(sKi + mm * LDT + t.r0);
-      const float4 pi = ld4(sPi + mm * LDT + t.r0);
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        a[q] = fmaf(at(ki, q), pj, a[q]);
-        b[q] = fmaf(at(pi, q), kj, b[q]);
-      }
-    }
-    __syncthreads();
-  }
+  float a[RPT], b[RPT];
+  pair_sums(K, PHt, D, M2, i0, j0, sKi, sPi, sKj, sPj, a, b);
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {
     const int gi = i0 + t.r0 + q, gj = j0 + t.tx;
@@ -191,27 +126,6 @@ __device__ void keep_lowrank(float (&v)[RPT], const float* keep, int D,
   }
 }
 
-// P·Hᵀ stripe accumulation from the final tile, stored transposed in
-// sTt ([k][row]): acc[q][cg] += Σ_k tile[row q][k]·Ht[j0+k][col].
-__device__ void accumulate_pht(float (&acc)[RPT][MAX_CG], const float* sTt,
-                               const float* sHt, int R, int kmax) {
-  const Tid t = tid();
-  const int ncg = (R + TILE - 1) / TILE;
-  for (int k = 0; k < kmax; ++k) {
-    const float4 tv = ld4(sTt + k * LDT + t.r0);
-#pragma unroll
-    for (int cg = 0; cg < MAX_CG; ++cg) {
-      if (cg < ncg) {
-        const int c = t.tx + TILE * cg;
-        const float hv = c < R ? sHt[k * R + c] : 0.f;
-#pragma unroll
-        for (int q = 0; q < RPT; ++q)
-          acc[q][cg] = fmaf(at(tv, q), hv, acc[q][cg]);
-      }
-    }
-  }
-}
-
 // Store the final tile to global memory and its transpose to sTt.
 __device__ void store_tile(float* out, const float* sT, float* sTt, int D,
                            int i0, int j0) {
@@ -244,9 +158,6 @@ __device__ void put_tile(float* sT, const float (&v)[RPT]) {
 #pragma unroll
   for (int q = 0; q < RPT; ++q) sT[(t.r0 + q) * LD + t.tx] = v[q];
 }
-
-// Round a shared-memory offset (in floats) up to a 16-byte boundary.
-__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
 
 // K1 — replaces ekf_slam_tpu/ops/pallas_kernels.py fused_manage_predict_pht
 // (_k1_kernel): map management + EKF predict + prior gain columns,
@@ -404,6 +315,18 @@ __global__ void __launch_bounds__(NT)
 // Bound on the H100: one read and one write of P per instance (1.5 MB each
 // at D = 613) plus the 2M-deep downdate and the rank-6K add on CUDA cores.
 // No cross-tile reduction: one block per output tile (j, i, b).
+//
+// With r = 0 this kernel is K5 — it replaces pallas_kernels.py
+// fused_update_tail (_kernel): the update tail alone,
+//   P⁺ = T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ,  T = I ⊕ Jq4 on dims 3:7,
+// downdate, then the J8 rows in tile row 0, then the J8 columns in tile
+// column 0 (the Pallas order). K5 is K3 without the feature add, so it
+// runs as a mode of K3 rather than as a copy of its tail: one code path
+// for the tail of both steps. Bound on the H100: one read and one write
+// of P per instance (1.5 MB each at D = 613; 192 MB each way at B = 128)
+// and 4·D²·M2 flops of downdate (192 MFLOP per instance at 2M = 128) on
+// CUDA cores; the design reads each P entry once and keeps the K / PHt
+// chunks in shared memory, so the FMA loop over shared memory bounds it.
 __global__ void __launch_bounds__(NT)
     k3_kernel(const float* __restrict__ P, const float* __restrict__ K,
               const float* __restrict__ PHt, const float* __restrict__ J8,
@@ -419,10 +342,12 @@ __global__ void __launch_bounds__(NT)
   K += static_cast<size_t>(b) * D * M2;
   PHt += static_cast<size_t>(b) * D * M2;
   J8 += b * 64;
-  keep += static_cast<size_t>(b) * D;
-  E += static_cast<size_t>(b) * r * D;
-  U += static_cast<size_t>(b) * r * D;
-  C += static_cast<size_t>(b) * r * r;
+  if (r > 0) {                                // K5 passes no add operands
+    keep += static_cast<size_t>(b) * D;
+    E += static_cast<size_t>(b) * r * D;
+    U += static_cast<size_t>(b) * r * D;
+    C += static_cast<size_t>(b) * r * r;
+  }
 
   float* sT = sm;                             // TILE x LD
   float* sKi = sT + up4(TILE * LD);           // MC x LDT (transposed)
@@ -455,20 +380,11 @@ __global__ void __launch_bounds__(NT)
   const Tid t = tid();
 #pragma unroll
   for (int q = 0; q < RPT; ++q) v[q] = sT[(t.r0 + q) * LD + t.tx];
-  keep_lowrank(v, keep, D, i0, j0, sEi, sUi, sEj, sUj, sECt, r);
-  put_tile(sT, v);
+  if (r > 0) {
+    keep_lowrank(v, keep, D, i0, j0, sEi, sUi, sEj, sUj, sECt, r);
+    put_tile(sT, v);
+  }
   store_tile(Pout, sT, nullptr, D, i0, j0);
-}
-
-cudaError_t launch(const void* fn, dim3 grid, size_t smem, void** args,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -524,6 +440,23 @@ cudaError_t ekf_k3_update_tail_add(const float* P, const float* K,
       sizeof(float) * (3 * up4(TILE * LD) + 2 * MC * LDT + 128 +
                        5 * r * TILE + r * r);
   void* args[] = {&P, &K, &PHt, &J8, &keep, &E, &U, &C, &Pout, &D, &M2, &r};
+  const int nt = (D + TILE - 1) / TILE;
+  return launch(reinterpret_cast<const void*>(k3_kernel), dim3(nt, nt, B),
+                smem, args, static_cast<cudaStream_t>(stream));
+}
+
+// K5, the update tail alone: k3_kernel with r = 0. P, Pout (B,D,D);
+// K, PHt (B,D,M2), any M2 >= 1; J8 (B,8,8).
+cudaError_t ekf_k5_update_tail(const float* P, const float* K,
+                               const float* PHt, const float* J8, float* Pout,
+                               int B, int D, int M2, void* stream) {
+  if (M2 < 1) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (3 * up4(TILE * LD) + 2 * MC * LDT + 128);
+  const float* none = nullptr;
+  int r = 0;
+  void* args[] = {&P, &K, &PHt, &J8, &none, &none, &none, &none, &Pout,
+                  &D, &M2, &r};
   const int nt = (D + TILE - 1) / TILE;
   return launch(reinterpret_cast<const void*>(k3_kernel), dim3(nt, nt, B),
                 smem, args, static_cast<cudaStream_t>(stream));

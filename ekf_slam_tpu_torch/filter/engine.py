@@ -1,14 +1,23 @@
 """The per-frame SLAM step on the sim path, batched over filter instances.
 
-Port of ``ekf_slam_tpu/filter/engine.py``'s fused step: the MonoSLAM hot
-loop (mono_slam.m:50-82) with all full-covariance work in three kernels
-(ops/kernels.py):
+Port of ``ekf_slam_tpu/filter/engine.py``: the MonoSLAM hot loop
+(mono_slam.m:50-82) in its two forms, which ``step`` picks between as
+the JAX engine does (``_use_fused``):
 
-  K1 manage + predict + prior P·Hᵀ   (map_management, ekf_prediction,
-                                      search_IC_matches' S)
-  K2 LI tail + posterior P·Hᵀ        (ekf_update_li_inliers, rescue_hi)
-  K3 HI tail + feature-init growth   (ekf_update_hi_inliers,
-                                      initialize_features)
+* ``step_fused``: all full-covariance work in three kernels
+  (ops/kernels.py):
+
+    K1 manage + predict + prior P·Hᵀ   (map_management, ekf_prediction,
+                                        search_IC_matches' S)
+    K2 LI tail + posterior P·Hᵀ        (ekf_update_li_inliers, rescue_hi)
+    K3 HI tail + feature-init growth   (ekf_update_hi_inliers,
+                                        initialize_features)
+
+* ``step_core`` + ``initialize_features``: the unfused step, for every
+  config outside the fused one's conditions (the library default
+  included). Its dense products on P run in K6 (``f32_matmul_big``) and
+  its two update tails in K4 (``corr_apply_cols``) or, with
+  ``pallas_update``, K5 (``fused_update_tail``).
 
 Stage order per frame: manage → predict → linearize → IC gates → 1-point
 RANSAC → LI update → HI rescue → HI update → counters + feature init.
@@ -96,27 +105,144 @@ def bootstrap(state: FilterState, obs: FrameObs,
     return initialize_features(state, obs, zero, cfg)
 
 
-def check_fused(cfg: EngineConfig) -> None:
-    """The port runs only the fused step; raise for a config that the JAX
-    engine would run another way (engine.py:351-368)."""
+def _fused_fits(cfg: EngineConfig) -> bool:
     m, f = cfg.map, cfg.filter
-    if f.fused_step == "off":
-        raise ValueError("fused_step='off' selects the unfused step, which "
-                         "is not ported")
-    if not (6 * m.max_new_per_step <= 128
+    return (6 * m.max_new_per_step <= 128
             and 0 < m.max_update_obs < m.capacity
-            and not f.use_iterated_update and f.p_storage == "f32"):
-        raise ValueError("the fused step requires 6*max_new_per_step <= 128, "
-                         "0 < max_update_obs < capacity, no iterated update "
-                         "and f32 covariance storage")
+            and not f.use_iterated_update and f.p_storage == "f32")
+
+
+def _use_fused(cfg: EngineConfig, device: torch.device) -> bool:
+    """engine.py:351-368: "off" runs the unfused step; "on" the fused one,
+    or raises for a config it cannot run; "auto" the fused one on a CUDA
+    device at f32 when the config fits (a CUDA device is the port's
+    counterpart of pallas_supported())."""
+    mode = cfg.filter.fused_step
+    if mode == "off":
+        return False
+    if mode == "on":
+        if not _fused_fits(cfg):
+            raise ValueError("fused_step=on requires 6*max_new_per_step "
+                             "<= 128, 0 < max_update_obs < capacity, no "
+                             "iterated update and f32 covariance storage")
+        return True
+    return (device.type == "cuda" and cfg.dtype == "float32"
+            and _fused_fits(cfg))
+
+
+def _use_pallas(cfg: EngineConfig, device: torch.device) -> bool:
+    """engine.py:602-609: whether ekf.update's tail runs in K5."""
+    mode = cfg.filter.pallas_update
+    if mode in ("on", "off"):
+        return mode == "on"
+    return device.type == "cuda"
 
 
 def step(state: FilterState, obs: FrameObs, u: torch.Tensor,
          cfg: EngineConfig):
     """One full SLAM frame on the sim path. u: (B, NHYP) uniform draws in
     [0, 1) for RANSAC. Returns (new_state, StepInfo)."""
-    check_fused(cfg)
-    return step_fused(state, obs, u, cfg)
+    if _use_fused(cfg, state.x.device):
+        return step_fused(state, obs, u, cfg)
+    z, z_valid = gather_measurements(state, obs)
+    state, _, ic, info = step_core(state, z, z_valid, u, cfg)
+    return initialize_features(state, obs, ic.sum(dim=1), cfg), info
+
+
+def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
+              u: torch.Tensor, cfg: EngineConfig):
+    """Stages 1-7 of the unfused frame given per-slot measurements
+    (z (B,CAP,2), z_valid (B,CAP)): manage, predict, then
+    ``step_core_from_prior``. Returns (state, visible, ic, StepInfo)."""
+    f = cfg.filter
+    if f.use_iterated_update:
+        raise ValueError("the iterated update (IEKF) is not ported")
+    if f.p_storage != "f32":
+        raise ValueError(f"p_storage={f.p_storage!r} is not ported; the "
+                         "port stores P in the state's dtype")
+    if f.share_pht:
+        raise ValueError("share_pht is not ported")
+    state = mapman.manage(state, cfg)
+    x_prior, P_prior = ekf.predict(state.x, state.P, f)
+    return step_core_from_prior(state, x_prior, P_prior, z, z_valid, u, cfg)
+
+
+def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
+                         u: torch.Tensor, cfg: EngineConfig):
+    """Stages 3-7 given the managed state and its prediction
+    (engine.py:152-312 on its default branches): IC gates with S from P,
+    RANSAC with its moves in K6, the LI update, the HI rescue from the
+    posterior, the HI update. Returns (state, visible, ic, StepInfo)."""
+    f = cfg.filter
+    h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
+    S = measurement.innovation_covariances(P_prior, H_xv, H_y, f.sigma_z)
+    ic = association.individually_compatible(z, z_valid, h, visible, S, cfg)
+    vm = visible.to(H_xv.dtype)[..., None, None]
+    li, support = ransac.run(x_prior, z, h, S, ic, state.cartesian, u, cfg,
+                             P=P_prior, H_xv=H_xv * vm, H_y=H_y * vm)
+    x_post, P_post = _masked_update(x_prior, P_prior, H_xv, H_y, z, h, li,
+                                    cfg)
+    h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
+    S_noR = measurement.innovation_covariances(P_post, H_xv2, H_y2, 0.0)
+    hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
+    x_post, P_post = _masked_update(x_post, P_post, H_xv2, H_y2, z, h2, hi,
+                                    cfg)
+    return _step_core_epilogue(state, x_post, P_post, visible, ic, li, hi,
+                               support)
+
+
+def _step_core_epilogue(state: FilterState, x_post, P_post, visible, ic, li,
+                        hi, support):
+    """State write, counters (update_features_info.m; measured ⇔ an IC
+    match) and StepInfo. Returns (state, visible, ic, StepInfo)."""
+    state = mapman.update_counters(state.replace(x=x_post, P=P_post),
+                                   visible, ic)
+    info = StepInfo(n_visible=visible.sum(dim=1), n_ic=ic.sum(dim=1),
+                    n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
+                    ransac_support=support)
+    return state, visible, ic, info
+
+
+def _gather_slots(slot_mask: torch.Tensor, M: int):
+    """The M most relevant slots, the mask's slots first in stable order:
+    (sel (B,M), sel_mask (B,M), take) with take(a) gathering a (B,CAP,...)
+    tensor at sel."""
+    B = slot_mask.shape[0]
+    sel = torch.argsort((~slot_mask).to(torch.int8), dim=1,
+                        stable=True)[:, :M]
+    sel_mask = torch.gather(slot_mask, 1, sel)
+
+    def take(a):                    # (B, CAP, ...) -> (B, M, ...)
+        idx = sel.reshape(B, M, *([1] * (a.dim() - 2)))
+        return torch.gather(a, 1, idx.expand(B, M, *a.shape[2:]))
+
+    return sel, sel_mask, take
+
+
+def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
+    """EKF update over the masked slots (engine.py:482-517). With
+    0 < max_update_obs = M < CAP the M most relevant slots are gathered
+    into a compact (2M, D) Jacobian; otherwise every slot's rows enter the
+    dense (2·CAP, D) one. Returns (x_new, P_new)."""
+    B, cap = slot_mask.shape
+    M = cfg.map.max_update_obs
+    use_pallas = _use_pallas(cfg, x.device)
+    solver = cfg.filter.gain_solver
+    if M <= 0 or M >= cap:
+        H = measurement.dense_H(H_xv, H_y, slot_mask)
+        return ekf.update(
+            x, P, H, z.reshape(B, 2 * cap), h.reshape(B, 2 * cap),
+            slot_mask.repeat_interleave(2, dim=1),
+            torch.ones(B, 2 * cap, dtype=x.dtype, device=x.device),
+            use_pallas, solver)
+    sel, sel_mask, take = _gather_slots(slot_mask, M)
+    H = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
+                                    cap)
+    return ekf.update(
+        x, P, H, take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
+        sel_mask.repeat_interleave(2, dim=1),
+        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
+        use_pallas, solver)
 
 
 def _linearize(x, state: FilterState, cfg: EngineConfig):
@@ -128,20 +254,13 @@ def _linearize(x, state: FilterState, cfg: EngineConfig):
 
 def _compact_gain(x, pht_flat, H_xv, H_y, z, h, slot_mask,
                   cfg: EngineConfig):
-    """Gain half of the compact masked update: gather the M most relevant
-    slots (the mask's slots first, stable order), their Jacobian rows and
-    their P·Hᵀ column pairs from pht_flat (B, D, 2·CAP), and solve.
+    """Gain half of the fused step's compact masked update: gather the M
+    most relevant slots, their Jacobian rows and their P·Hᵀ column pairs
+    from pht_flat (B, D, 2·CAP), and solve.
     Returns (x_new un-renormalized, K (B,D,2M), PHt (B,D,2M))."""
     B, cap = slot_mask.shape
     M = cfg.map.max_update_obs
-    sel = torch.argsort((~slot_mask).to(torch.int8), dim=1,
-                        stable=True)[:, :M]                       # (B, M)
-    sel_mask = torch.gather(slot_mask, 1, sel)
-
-    def take(a):                    # (B, CAP, ...) -> (B, M, ...)
-        idx = sel.reshape(B, M, *([1] * (a.dim() - 2)))
-        return torch.gather(a, 1, idx.expand(B, M, *a.shape[2:]))
-
+    sel, sel_mask, take = _gather_slots(slot_mask, M)
     Hc = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
                                      cap)
     cols = (2 * sel[..., None] + torch.arange(2, device=sel.device)
@@ -153,12 +272,6 @@ def _compact_gain(x, pht_flat, H_xv, H_y, z, h, slot_mask,
         sel_mask.repeat_interleave(2, dim=1),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
         cfg.filter.gain_solver, PHt_sel)
-
-
-def _renormalized(x):
-    q = x[:, 3:7]
-    return torch.cat([x[:, :3], q / torch.linalg.vector_norm(
-        q, dim=1, keepdim=True), x[:, 7:]], dim=1)
 
 
 def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
@@ -196,7 +309,7 @@ def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
     x_li, K_li, PHt_li = _compact_gain(x_prior, pht_flat, H_xv, H_y, z, h,
                                        li, cfg)
     Jq1 = quat.norm_jac(x_li[:, 3:7])
-    x_li = _renormalized(x_li)
+    x_li = ekf._renormalized(x_li)
 
     # -- 6. HI rescue from the posterior -------------------------------------
     h2, vis2, H_xv2, H_y2 = _linearize(x_li, state_m, cfg)
@@ -211,7 +324,7 @@ def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
     x_hi, K_hi, PHt_hi = _compact_gain(x_li, pht2_flat, H_xv2, H_y2, z, h2,
                                        hi, cfg)
     Jq2 = quat.norm_jac(x_hi[:, 3:7])
-    x_fin = _renormalized(x_hi)
+    x_fin = ekf._renormalized(x_hi)
 
     # -- 8. bookkeeping + feature init (P growth fused into K3) --------------
     state2 = mapman.update_counters(state_m.replace(x=x_fin), visible, ic)

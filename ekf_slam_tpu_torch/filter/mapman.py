@@ -1,6 +1,6 @@
 """Map management in closed low-rank form (L3), batched over instances.
 
-Port of the parts of ``ekf_slam_tpu/filter/mapman.py`` the fused step and
+Port of the parts of ``ekf_slam_tpu/filter/mapman.py`` the two steps and
 ``bootstrap`` use. Both map transforms are expressed as
 P' = M∘P + EᵀU + UᵀE + EᵀCE, M∘ a keep-mask outer product:
 
@@ -8,7 +8,8 @@ P' = M∘P + EᵀU + UᵀE + EᵀCE, M∘ a keep-mask outer product:
   < ratio·times_predicted after >= min predictions — the policy of the
   reference's missing delete_features.m) plus at most one inverse-depth →
   cartesian conversion (inversedepth_2_cartesian.m), giving ManageParams;
-  K1 applies its P transform.
+  K1 applies its P transform in the fused step, ``apply_manage_P`` in
+  the unfused one (``manage``).
 * ``add_params``: the batched feature add of all K candidates
   (add_a_feature_covariance_inverse_depth.m:35-64), computable from the
   13 camera rows of P; K3 applies it, ``add_features_batch`` applies it
@@ -174,14 +175,34 @@ def add_features_batch(state: FilterState, uvd: torch.Tensor,
     Returns (state, assigned (B, K))."""
     p, assigned = add_params(state.P[:, :CAM_DIM, :], state, uvd,
                              cand_mask, lm_ids, cfg)
-    B, k, _ = p.E.shape
-    eye = torch.eye(k, dtype=p.U.dtype, device=p.U.device).expand(B, k, k)
-    mid = torch.cat([torch.cat([p.C, eye], dim=2),
-                     torch.cat([eye, torch.zeros_like(p.C)], dim=2)], dim=1)
-    G = torch.cat([p.E, p.U], dim=1)                        # (B, 2k, D)
-    Pn = (state.P * (p.keep_f[:, :, None] * p.keep_f[:, None, :])
-          + G.transpose(1, 2) @ (mid @ G))
-    return p.state.replace(P=Pn), assigned
+    return p.state.replace(P=_stacked_apply(state.P, p.keep_f, p.E, p.U,
+                                            p.C)), assigned
+
+
+def _stacked_apply(P, keep_f, E, U, C):
+    """keep∘P + EᵀU + UᵀE + EᵀCE as one stacked product Gᵀ·(Mid·G),
+    G = [E; U], Mid = [[C, I], [I, 0]]. keep_f (B,D); E, U (B,k,D);
+    C (B,k,k)."""
+    B, k, _ = E.shape
+    eye = torch.eye(k, dtype=U.dtype, device=U.device).expand(B, k, k)
+    mid = torch.cat([torch.cat([C, eye], dim=2),
+                     torch.cat([eye, torch.zeros_like(C)], dim=2)], dim=1)
+    G = torch.cat([E, U], dim=1)                            # (B, 2k, D)
+    return (P * (keep_f[:, :, None] * keep_f[:, None, :])
+            + G.transpose(1, 2) @ (mid @ G))
+
+
+def manage(state: FilterState, cfg: EngineConfig) -> FilterState:
+    """Map management with its P transform applied (the unfused step; the
+    fused step applies ManageParams in K1)."""
+    p = manage_params(state, cfg)
+    return p.state.replace(P=apply_manage_P(state.P, p))
+
+
+def apply_manage_P(P: torch.Tensor, p: ManageParams) -> torch.Tensor:
+    """P' = keep∘P + E6ᵀU6 + U6ᵀE6 + E6ᵀC66E6 in the stacked-dot form of
+    the JAX apply_manage_P (mapman.py:437-451)."""
+    return _stacked_apply(P, p.keep_f, p.E6, p.U6, p.C66)
 
 
 def manage_params(state: FilterState, cfg: EngineConfig) -> ManageParams:

@@ -1,14 +1,15 @@
 """Measurement model over all landmark slots of all instances (L3).
 
-Port of the parts of ``ekf_slam_tpu/filter/measurement.py`` the fused
-step uses: prediction with the ±60° FoV and in-image gates
+Port of the parts of ``ekf_slam_tpu/filter/measurement.py`` the two
+steps use: prediction with the ±60° FoV and in-image gates
 (hi_inverse_depth.m / hi_cartesian.m), the analytic per-slot Jacobian
 blocks H_xv (B,CAP,2,13) / H_y (B,CAP,2,6) in the default chain form
-(calculate_Hi_*.m), the dense transposed Jacobian the kernels consume,
-the compact gathered Jacobian of the M-slot updates, and the per-slot
-innovation covariances read off the kernels' P·Hᵀ columns
-(search_IC_matches.m:8). A cartesian landmark occupies the first 3 dims
-of its 6-wide slot.
+(calculate_Hi_*.m), the dense Jacobian (and its transpose, which the
+fused kernels consume), the compact gathered Jacobian of the M-slot
+updates, and the per-slot innovation covariances (search_IC_matches.m:8)
+— read off the fused kernels' P·Hᵀ columns, or in the unfused step from
+P's camera rows and slot diagonal blocks. A cartesian landmark occupies
+the first 3 dims of its 6-wide slot.
 """
 
 from __future__ import annotations
@@ -123,6 +124,20 @@ def dense_Ht(H_xv: torch.Tensor, H_y: torch.Tensor,
     return torch.cat([Hxv_t, Hy_t], dim=1)
 
 
+def dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,
+            row_mask: torch.Tensor) -> torch.Tensor:
+    """Dense Jacobian (B, 2·CAP, D) of every slot, masked slots zeroed:
+    camera columns from H_xv, block-diagonal landmark columns from H_y
+    (calculate_Hi_inverse_depth.m:20-23) — the full-width update's H."""
+    B, cap = row_mask.shape
+    m = row_mask.to(H_xv.dtype)[..., None, None]
+    Hxv = (H_xv * m).reshape(B, 2 * cap, CAM_DIM)
+    eye = torch.eye(cap, dtype=H_xv.dtype, device=H_xv.device)
+    Hy = torch.einsum("nj,bnck->bncjk", eye, H_y * m).reshape(
+        B, 2 * cap, 6 * cap)
+    return torch.cat([Hxv, Hy], dim=2)
+
+
 def compact_dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,
                     slots: torch.Tensor, row_mask: torch.Tensor,
                     cap: int) -> torch.Tensor:
@@ -135,6 +150,43 @@ def compact_dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,
     oh = one_hot(slots, cap, H_xv.dtype)                  # (B, M, CAP)
     Hy = torch.einsum("bmc,bmij->bmicj", oh, H_y * mask)
     return torch.cat([Hxv, Hy.reshape(B, 2 * M, 6 * cap)], dim=2)
+
+
+def _slot_diag_blocks(P: torch.Tensor, cap: int) -> torch.Tensor:
+    """(B, CAP, 6, 6) diagonal landmark blocks of P: the diagonal of the
+    (B, CAP, 6, CAP, 6) view of the map block (an exact selection)."""
+    B = P.shape[0]
+    Pm = P[:, CAM_DIM:CAM_DIM + 6 * cap, CAM_DIM:CAM_DIM + 6 * cap]
+    return torch.diagonal(Pm.reshape(B, cap, 6, cap, 6), dim1=1,
+                          dim2=3).permute(0, 3, 1, 2)
+
+
+def innovation_covariances(P: torch.Tensor, H_xv: torch.Tensor,
+                           H_y: torch.Tensor, sigma_z: float):
+    """Per-slot S_i = H_i P H_iᵀ + σ_z² I₂ for all slots from P (B,D,D)
+    (search_IC_matches.m:8), through its 13 camera rows and its slot
+    diagonal blocks. Returns (B, CAP, 2, 2)."""
+    cap = H_xv.shape[1]
+    return innovation_covariances_from_blocks(
+        P[:, :CAM_DIM, :], _slot_diag_blocks(P, cap), H_xv, H_y, sigma_z)
+
+
+def innovation_covariances_from_blocks(top13: torch.Tensor,
+                                       Pyy: torch.Tensor,
+                                       H_xv: torch.Tensor, H_y: torch.Tensor,
+                                       sigma_z: float):
+    """S_i = Hxvᵢ P₁₁ Hxvᵢᵀ + Hxvᵢ P₁ᵧᵢ Hyᵢᵀ + (·)ᵀ + Hyᵢ Pᵧᵢᵧᵢ Hyᵢᵀ + R
+    from the camera rows top13 (B,13,D) and the slot diagonal blocks Pyy
+    (B,CAP,6,6). Returns (B, CAP, 2, 2)."""
+    B, cap = H_xv.shape[:2]
+    P11 = top13[:, :, :CAM_DIM]
+    P1y = top13[:, :, CAM_DIM:CAM_DIM + 6 * cap].reshape(
+        B, CAM_DIM, cap, 6).permute(0, 2, 1, 3)           # (B, CAP, 13, 6)
+    t1 = torch.einsum("bnij,bjk,bnlk->bnil", H_xv, P11, H_xv)
+    t2 = torch.einsum("bnij,bnjk,bnlk->bnil", H_xv, P1y, H_y)
+    t3 = torch.einsum("bnij,bnjk,bnlk->bnil", H_y, Pyy, H_y)
+    R = (sigma_z ** 2) * torch.eye(2, dtype=top13.dtype, device=top13.device)
+    return t1 + t2 + t2.transpose(-1, -2) + t3 + R
 
 
 def innovation_covariances_from_pht(pht3: torch.Tensor, H_xv: torch.Tensor,

@@ -1,9 +1,11 @@
 """1-point RANSAC over a fixed batch of hypotheses (L4), batched.
 
-Port of ``ekf_slam_tpu/filter/ransac.py`` on the path the fused step
-uses: the gain columns P·Hᵀ come from K1 (``pht``). Each hypothesis is a
-1-match state-only EKF update (ransac_hypotheses.m:20-26); all NHYP
-hypotheses of all instances are scored at once by reprojecting every slot
+Port of ``ekf_slam_tpu/filter/ransac.py``. Each hypothesis is a 1-match
+state-only EKF update (ransac_hypotheses.m:20-26): in the fused step its
+gain columns P·Hᵀ come from K1 (``pht``); in the unfused step all NHYP
+moves are P·G, G = Hᵀ·A built from the picked slots' Jacobian blocks, one
+product in K6 (``kernels.f32_matmul_big``). All hypotheses of all
+instances are scored at once by reprojecting every slot
 (compute_hypothesis_support_fast.m, no gating, residual threshold σ_z),
 and the argmax-support hypothesis gives the low-innovation inliers.
 
@@ -18,6 +20,7 @@ import torch
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
 from ekf_slam_tpu_torch.filter import association
 from ekf_slam_tpu_torch.filter.measurement import one_hot
+from ekf_slam_tpu_torch.ops import kernels
 
 
 def sample_ic_indices(u: torch.Tensor, ic_mask: torch.Tensor) -> torch.Tensor:
@@ -83,22 +86,39 @@ def support_residuals_soa(x_hyps: torch.Tensor, z: torch.Tensor,
 
 def run(x: torch.Tensor, z: torch.Tensor, h: torch.Tensor, S: torch.Tensor,
         ic_mask: torch.Tensor, cartesian: torch.Tensor, u: torch.Tensor,
-        cfg: EngineConfig, pht: torch.Tensor):
-    """Full 1-point RANSAC given the prior's visibility-masked gain
-    columns pht (B,D,2·CAP): hypothesis n moves the state by
-    P·Hₙᵀ·Sₙ⁻¹νₙ, read off pht's column pair of its slot. x (B,D);
+        cfg: EngineConfig, pht: torch.Tensor | None = None,
+        P: torch.Tensor | None = None, H_xv: torch.Tensor | None = None,
+        H_y: torch.Tensor | None = None):
+    """Full 1-point RANSAC: hypothesis n moves the state by P·Hₙᵀ·Sₙ⁻¹νₙ.
+    Given the prior's visibility-masked gain columns pht (B,D,2·CAP) the
+    move is read off pht's column pair of its slot; without them it is
+    P·G with G = Hᵀ·A from the visibility-masked Jacobian blocks H_xv
+    (B,CAP,2,13), H_y (B,CAP,2,6) of the picks, and P (B,D,D). x (B,D);
     z, h (B,CAP,2); S (B,CAP,2,2); ic_mask, cartesian (B,CAP);
     u (B,NHYP). Returns (li_mask (B,CAP), best support (B,))."""
     B, cap = ic_mask.shape
     thr = cfg.filter.sigma_z
     picks = sample_ic_indices(u, ic_mask)                 # (B, N)
+    N = picks.shape[1]
     idx2 = picks[..., None].expand(-1, -1, 2)
     nu_p = torch.gather(z, 1, idx2) - torch.gather(h, 1, idx2)
     S_p = torch.gather(S, 1, picks[..., None, None].expand(-1, -1, 2, 2))
     w_p = association._solve_2x2(S_p, nu_p)               # (B, N, 2)
     oh = one_hot(picks, cap, x.dtype)                     # (B, N, CAP)
-    A = torch.einsum("bnc,bnj->bcjn", oh, w_p).reshape(B, 2 * cap, -1)
-    x_hyps = x[:, :, None] + pht @ A                      # (B, D, N)
+    if pht is not None:
+        A = torch.einsum("bnc,bnj->bcjn", oh, w_p).reshape(B, 2 * cap, -1)
+        x_hyps = x[:, :, None] + pht @ A                  # (B, D, N)
+    else:
+        # G = Hᵀ·A: camera rows Hxvᵀw, each pick's 6 map rows at its slot.
+        def picked(a):              # (B, CAP, 2, k) -> (B, N, 2, k)
+            return torch.gather(a, 1, picks[..., None, None].expand(
+                B, N, *a.shape[2:]))
+        cam_g = torch.einsum("bnij,bni->bjn", picked(H_xv), w_p)
+        slot_g = torch.einsum("bnij,bni->bnj", picked(H_y), w_p)
+        map_g = torch.einsum("bnc,bnj->bcjn", oh, slot_g).reshape(
+            B, 6 * cap, N)
+        G = torch.cat([cam_g, map_g], dim=1)              # (B, D, N)
+        x_hyps = x[:, :, None] + kernels.f32_matmul_big(P, G)
 
     res2 = support_residuals_soa(x_hyps, z, cartesian, cfg)
     inliers = ic_mask[..., None] & (res2 < thr * thr)     # (B, CAP, N)

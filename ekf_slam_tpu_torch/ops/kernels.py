@@ -1,20 +1,28 @@
-"""The three fused covariance kernels of the SLAM step, with their plain
-versions — the counterpart of ``ekf_slam_tpu/ops/pallas_kernels.py``'s
-round-2 mega-kernels:
+"""The covariance kernels of the SLAM step, with their plain versions —
+the counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
 
+  fused step (csrc/fused_cov.cu):
   K1 fused_manage_predict_pht — map management + EKF predict + prior P·Hᵀ
   K2 fused_update_tail_pht    — LI-update tail + posterior P·Hᵀ
   K3 fused_update_tail_add    — HI-update tail + batched feature add
+  unfused step:
+  K4 corr_apply_cols          — the folded update tail's apply,
+                                ½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ) (unfused_cov.cu)
+  K5 fused_update_tail        — the update tail alone, K3 without the
+                                feature add (fused_cov.cu)
+  K6 f32_matmul_big           — A·B with a large A, read once
+                                (unfused_cov.cu)
 
 Each wrapper takes batched tensors (leading instance axis B). A tensor on
 the CPU goes to the plain version beside the wrapper; a CUDA tensor goes
-to the hand-written kernel in ``csrc/fused_cov.cu`` (f32 only) or the
-wrapper raises. ``LAUNCHES[name]`` counts kernel launches. The kernels'
-size limits (R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3)
-are checked by the launchers, which return cudaErrorInvalidValue (1).
+to the hand-written kernel (f32 only) or the wrapper raises.
+``LAUNCHES[name]`` counts kernel launches. The kernels' size limits
+(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K4-K6 take any
+width) are checked by the launchers, which return cudaErrorInvalidValue
+(1).
 
-Precondition shared with the Pallas kernels: P enters K2/K3 symmetric, so
-sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
+Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
+so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 from ekf_slam_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
-            "fused_update_tail_add": 0}
+            "fused_update_tail_add": 0, "corr_apply_cols": 0,
+            "fused_update_tail": 0, "f32_matmul_big": 0}
 
 
 def reset_launches() -> None:
@@ -82,9 +91,29 @@ def update_tail_add_plain(P, K, PHt, Jq4, keepN, EN, UN, CN):
     return _lowrank(_keep_mask(_tail(P, K, PHt, Jq4), keepN), EN, UN, CN)
 
 
+def corr_apply_cols_plain(P, A, B):
+    """½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ), B·Aᵀ taken as (A·Bᵀ)ᵀ: bitwise
+    symmetric. P (B,D,D); A, B (B,D,R)."""
+    C = A @ B.transpose(1, 2)
+    return 0.5 * (P + P.transpose(1, 2)) + 0.5 * (C + C.transpose(1, 2))
+
+
+def update_tail_plain(P, K, PHt, Jq4):
+    """T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ, T = I ⊕ Jq4 on dims 3:7."""
+    return _tail(P, K, PHt, Jq4)
+
+
+def matmul_big_plain(A, B):
+    """A·B for A (B,M,K), B (B,K,N)."""
+    return A @ B
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
-         "fused_update_tail_add": update_tail_add_plain}
+         "fused_update_tail_add": update_tail_add_plain,
+         "corr_apply_cols": corr_apply_cols_plain,
+         "fused_update_tail": update_tail_plain,
+         "f32_matmul_big": matmul_big_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -118,20 +147,29 @@ def scaled_error(out, ref, Ht=None) -> float:
     d = torch.diagonal(ref[0], dim1=1, dim2=2).clamp_min(0)
     errs = [_entry_error(out[0].to(ref[0].dtype) - ref[0], d, d)]
     if len(ref) == 2:
-        hph = (Ht.to(ref[1].dtype) * ref[1]).sum(dim=1).clamp_min(0)
-        errs.append(_entry_error(out[1].to(ref[1].dtype) - ref[1], d, hph))
+        errs.append(product_error(out[1], ref[1], d, Ht))
     return max(errs)
+
+
+def product_error(out, ref, P_diag, Ht) -> float:
+    """The error of a product P·Ht (K6, or K1/K2's second output) against
+    its reference ref = P·Ht, each entry in units of its bound
+    sqrt(P_ii·(Htᵀ·P·Ht)_kk); P_diag (B,D) is P's diagonal."""
+    hph = (Ht.to(ref.dtype) * ref).sum(dim=1).clamp_min(0)
+    return _entry_error(out.to(ref.dtype) - ref,
+                        P_diag.to(ref.dtype).clamp_min(0), hph)
 
 
 @contextlib.contextmanager
 def capture_operands():
-    """Within the block every wrapper records a copy of its operands into
-    the yielded {name: args} (the last call wins), then runs as before."""
+    """Within the block every wrapper records a copy of its operands, then
+    runs as before. Yields {name: [args of each call, in call order]}."""
     captured = {}
 
     def recorder(name, fn):
         def record(*args):
-            captured[name] = tuple(a.clone() for a in args)
+            captured.setdefault(name, []).append(
+                tuple(a.clone() for a in args))
             return fn(*args)
         return record
 
@@ -143,8 +181,9 @@ def capture_operands():
 # --- kernel wrappers --------------------------------------------------------
 
 def _check(name, shapes: dict, tensors: dict):
-    """Shapes, contiguity and one device for every operand."""
-    dev = tensors["P"].device
+    """Shapes, contiguity and one device for every operand; True when they
+    lie on a CUDA device (then all f32), False on the CPU."""
+    first, dev = next((k, t.device) for k, t in tensors.items())
     for k, t in tensors.items():
         if tuple(t.shape) != shapes[k]:
             raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, "
@@ -152,7 +191,7 @@ def _check(name, shapes: dict, tensors: dict):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} is not contiguous")
         if t.device != dev:
-            raise ValueError(f"{name}: {k} on {t.device}, P on {dev}")
+            raise ValueError(f"{name}: {k} on {t.device}, {first} on {dev}")
     if dev.type == "cuda":
         for k, t in tensors.items():
             if t.dtype != torch.float32:
@@ -246,4 +285,57 @@ def fused_update_tail_add(P, K, PHt, Jq4, keepN, EN, UN, CN):
     lib = _build.load()
     ptrs = (t.data_ptr() for t in (P, K, PHt, J8, keepN, EN, UN, CN, out))
     _run(name, lib.ekf_k3_update_tail_add, *ptrs, B, D, M2, r)
+    return out
+
+
+def corr_apply_cols(P, A, B):
+    """K4: P (B,D,D); A, B (B,D,R), any R. Returns
+    ½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ) (B,D,D), bitwise symmetric."""
+    name = "corr_apply_cols"
+    Bn, D, _ = P.shape
+    R = A.shape[2]
+    on_card = _check(name, {"P": (Bn, D, D), "A": (Bn, D, R),
+                            "B": (Bn, D, R)}, dict(P=P, A=A, B=B))
+    if not on_card:
+        return corr_apply_cols_plain(P, A, B)
+    out = torch.empty_like(P)
+    lib = _build.load()
+    _run(name, lib.ekf_k4_corr_apply_cols, P.data_ptr(), A.data_ptr(),
+         B.data_ptr(), out.data_ptr(), Bn, D, R)
+    return out
+
+
+def fused_update_tail(P, K, PHt, Jq4):
+    """K5: P (B,D,D); K, PHt (B,D,M2), any M2; Jq4 (B,4,4). Returns
+    T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ (B,D,D)."""
+    name = "fused_update_tail"
+    B, D, _ = P.shape
+    M2 = K.shape[2]
+    on_card = _check(name, {"P": (B, D, D), "K": (B, D, M2),
+                            "PHt": (B, D, M2), "Jq4": (B, 4, 4)},
+                     dict(P=P, K=K, PHt=PHt, Jq4=Jq4))
+    if not on_card:
+        return update_tail_plain(P, K, PHt, Jq4)
+    J8 = _j8(Jq4)
+    out = torch.empty_like(P)
+    lib = _build.load()
+    _run(name, lib.ekf_k5_update_tail, P.data_ptr(), K.data_ptr(),
+         PHt.data_ptr(), J8.data_ptr(), out.data_ptr(), B, D, M2)
+    return out
+
+
+def f32_matmul_big(A, B):
+    """K6: A (B,M,K); B (B,K,N), any N. Returns A·B (B,M,N) in f32 with
+    every partial sum in f32, A read once for N ≤ 256."""
+    name = "f32_matmul_big"
+    Bn, M, Kd = A.shape
+    N = B.shape[2]
+    on_card = _check(name, {"A": (Bn, M, Kd), "B": (Bn, Kd, N)},
+                     dict(A=A, B=B))
+    if not on_card:
+        return matmul_big_plain(A, B)
+    out = torch.empty(Bn, M, N, dtype=A.dtype, device=A.device)
+    lib = _build.load()
+    _run(name, lib.ekf_k6_matmul_big, A.data_ptr(), B.data_ptr(),
+         out.data_ptr(), Bn, M, Kd, N)
     return out

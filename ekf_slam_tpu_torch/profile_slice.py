@@ -1,10 +1,17 @@
 """Time and profile the port's slice on one CUDA card.
 
-    python -m ekf_slam_tpu_torch.profile_slice
+    python -m ekf_slam_tpu_torch.profile_slice [fused|unfused|unfused_pallas]
 
 The slice is the bench workload at full width with the f32 parity
-settings (see ``slice_config``), B = 128 instances, 16 frames. Two
-measurements, each of the two routes of the fused covariance work:
+settings (see ``slice_config``), B = 128 instances, 16 frames, through one
+of the engine's paths (default ``fused``):
+
+  fused           step_fused: K1, K2, K3
+  unfused         step_core: K6 for the products on P, K4 for the tails
+  unfused_pallas  step_core with pallas_update="on": K6, and K5 for the
+                  tails
+
+Two measurements, each of the two routes of the covariance work:
 
   kernels  the hand-written CUDA kernels (the wrappers in ops/kernels.py)
   plain    the wrappers swapped for their plain torch versions
@@ -23,6 +30,7 @@ The last line is one JSON object with every number printed.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import json
@@ -46,12 +54,19 @@ RUNS = 3
 PROFILE_FRAMES = 4
 
 
-def slice_config() -> EngineConfig:
+PATHS = {"fused": ("on", "off"), "unfused": ("off", "off"),
+         "unfused_pallas": ("off", "on")}    # (fused_step, pallas_update)
+
+
+def slice_config(path: str = "fused") -> EngineConfig:
     """The bench workload at full width with the f32 parity settings
     (bench.py:289-317): CAP 100, 128 landmarks, min_features 25,
-    max_new_per_step 10, max_update_obs 64, NHYP 64, Newton gain."""
+    max_new_per_step 10, max_update_obs 64, NHYP 64, Newton gain; the
+    engine path one of PATHS."""
+    fused_step, pallas_update = PATHS[path]
     return EngineConfig(
-        filter=FilterConfig(gain_solver="newton", fused_step="on"),
+        filter=FilterConfig(gain_solver="newton", fused_step=fused_step,
+                            pallas_update=pallas_update),
         map=MapConfig(capacity=100, min_features_in_image=25,
                       max_new_per_step=10, max_update_obs=64),
         ransac=RansacConfig(num_hypotheses=64),
@@ -114,16 +129,21 @@ def device_profile(fn, frames: int) -> dict:
                     for n, (t, c) in top]}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("path", nargs="?", default="fused",
+                        choices=sorted(PATHS))
+    path = parser.parse_args(argv).path
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = slice_config()
+    cfg = slice_config(path)
     st0, _, obs, u = slice_inputs(cfg, dev)
-    result = {"card": torch.cuda.get_device_name(0), "batch": BATCH,
-              "frames": FRAMES, "ab": [], "profile": {}}
+    result = {"card": torch.cuda.get_device_name(0), "path": path,
+              "batch": BATCH, "frames": FRAMES, "ab": [], "profile": {}}
+    print(f"[slice] path={path} card={result['card']!r}", flush=True)
 
     def run_all():
         engine.run_sequence(st0, obs, u, cfg)

@@ -1,14 +1,16 @@
-"""The hand-written CUDA kernels K1-K3 on the card, against their plain
-versions, and one fused frame on the card against the same frame on the
-CPU. Every test needs a CUDA device and skips without one.
+"""The hand-written CUDA kernels K1-K6 on the card, against their plain
+versions, and one frame of each engine path on the card against the same
+frame on the CPU. Every test needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package (the machine with the
 card has no JAX); run it there without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Operands are the kernels' real operands in one fused frame of the port at
-a small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48)."""
+Operands are the kernels' real operands in one frame of the port at a
+small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
+from the fused step, K4 and K6 from the unfused step, K5 from the unfused
+step with pallas_update="on"."""
 
 import pytest
 import torch
@@ -29,7 +31,13 @@ CFG = {
     "sim": {"num_landmarks": 40},
 }
 PLAIN = kernels.PLAIN
-NAMES = sorted(PLAIN)
+NAMES = ["fused_manage_predict_pht", "fused_update_tail_add",
+         "fused_update_tail_pht"]
+# The unfused step's kernels and the filter settings of the frame their
+# operands come from (K5 runs only at f32, as in the JAX package).
+UNFUSED = {"corr_apply_cols": ("off", "float64"),
+           "fused_update_tail": ("on", "float32"),
+           "f32_matmul_big": ("off", "float64")}
 # Each entry's error in units of its Cauchy-Schwarz bound
 # (kernels.scaled_error); the limit's reason is at kernels.SCALED_TOL.
 TOL = kernels.SCALED_TOL
@@ -43,8 +51,10 @@ def card():
     return torch.device("cuda")
 
 
-def _sequence(dtype_name):
-    cfg = EngineConfig.from_dict({**CFG, "dtype": dtype_name})
+def _sequence(dtype_name, **filter_kw):
+    cfg = EngineConfig.from_dict({
+        **CFG, "filter": {**CFG["filter"], **filter_kw},
+        "dtype": dtype_name})
     _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, 3)
     st = engine.bootstrap(init_state(cfg, B), obs.frame(0), cfg)
     u = torch.rand(3, B, cfg.ransac.num_hypotheses, dtype=torch.float64,
@@ -59,6 +69,22 @@ def operands():
     st, _ = engine.step(st, obs.frame(1), u[1], cfg)
     with kernels.capture_operands() as captured:
         engine.step(st, obs.frame(2), u[2], cfg)
+    return {name: calls[-1] for name, calls in captured.items()}
+
+
+@pytest.fixture(scope="module")
+def unfused_operands():
+    """{kernel name: [its operands at each call]} in frame 2 of the port's
+    unfused step on the CPU. K6 is called for RANSAC's P·G, then for the
+    LI and the HI update's P·Hᵀ."""
+    captured = {}
+    for pallas, dtype_name in sorted(set(UNFUSED.values())):
+        cfg, obs, st, u = _sequence(dtype_name, fused_step="off",
+                                    pallas_update=pallas)
+        st, _ = engine.step(st, obs.frame(1), u[1], cfg)
+        with kernels.capture_operands() as calls:
+            engine.step(st, obs.frame(2), u[2], cfg)
+        captured.update(calls)
     return captured
 
 
@@ -148,7 +174,102 @@ def test_cuda_step_matches_cpu_step(card):
     s_gpu, i_gpu = engine.step(st.to(card), obs.frame(1).to(card),
                                u[1].to(card), cfg)
     s_cpu, i_cpu = engine.step(st, obs.frame(1), u[1], cfg)
-    assert kernels.LAUNCHES == {k: 1 for k in kernels.LAUNCHES}
+    assert kernels.LAUNCHES == {k: int(k in NAMES) for k in kernels.LAUNCHES}
+    for f in ("n_ic", "n_li", "n_hi"):
+        assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
+    scale = float(s_cpu.x.abs().max())
+    assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
+    assert kernels.scaled_error(s_gpu.P.cpu().double(),
+                                s_cpu.P.double()) <= 1e-2
+    assert bool(torch.isfinite(s_gpu.P).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(UNFUSED))
+def test_cuda_unfused_kernel_matches_plain(card, unfused_operands, name):
+    """K4, K5, K6 (f32) vs the f64 plain version on the same f32-rounded
+    operands at every call of the frame, each entry within TOL of its own
+    bound (for K6 the product bound sqrt(P_ii·(Gᵀ·P·G)_kk))."""
+    calls = unfused_operands[name]
+    assert len(calls) == (3 if name == "f32_matmul_big" else 2)
+    for operands in calls:
+        args = tuple(a.to(card, torch.float32) for a in operands)
+        before = kernels.LAUNCHES[name]
+        got = getattr(kernels, name)(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got.dtype == torch.float32 and got.is_cuda
+        ref = PLAIN[name](*(a.double() for a in args))
+        if name == "f32_matmul_big":
+            P = args[0].double()
+            err = kernels.product_error(
+                got, ref, torch.diagonal(P, dim1=1, dim2=2), args[1])
+        else:
+            err = kernels.scaled_error(got, ref)
+        assert err <= TOL, err
+
+
+@pytest.mark.cuda
+def test_cuda_corr_apply_cols_is_bitwise_symmetric(card, unfused_operands):
+    """K4's output is bitwise symmetric, even from an asymmetric P."""
+    P, A, B_ = (a.to(card, torch.float32)
+                for a in unfused_operands["corr_apply_cols"][0])
+    P = P + 1e-3 * torch.rand(P.shape, device=card,
+                              generator=torch.Generator(card).manual_seed(0))
+    out = kernels.corr_apply_cols(P, A, B_)
+    assert torch.equal(out, out.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_check_fails_k5_with_identity_renorm(card, unfused_operands):
+    """A planted fault: K5 launched with Jq4 = I (no quaternion renorm
+    transform), held against the plain version with Jq4, reads far above
+    TOL."""
+    args = tuple(a.to(card, torch.float32)
+                 for a in unfused_operands["fused_update_tail"][0])
+    eye = torch.eye(4, device=card).expand_as(args[3]).contiguous()
+    got = kernels.fused_update_tail(*args[:3], eye)
+    ref = kernels.update_tail_plain(*(a.double() for a in args))
+    assert kernels.scaled_error(got, ref) > 100 * TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 31, 300])
+def test_cuda_unfused_kernels_take_any_width(card, R):
+    """K4's rank R and K6's width N have no limit: a width past one
+    256-column chunk (K6), and R / N below one 32-wide chunk."""
+    g = torch.Generator(card).manual_seed(R)
+    B, D = 2, 157
+    X = torch.randn(B, D, D, device=card, generator=g)
+    P = X @ X.transpose(1, 2) / D + torch.eye(D, device=card)
+    A = torch.randn(B, D, R, device=card, generator=g)
+    Bf = torch.randn(B, D, R, device=card, generator=g)
+    out = kernels.corr_apply_cols(P, A, Bf)
+    ref = kernels.corr_apply_cols_plain(*(t.double() for t in (P, A, Bf)))
+    assert torch.equal(out, out.transpose(1, 2))
+    assert float((out.double() - ref).abs().max()) <= 1e-5 * (1 + R)
+    got = kernels.f32_matmul_big(P, A)
+    want = P.double() @ A.double()
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pallas", ["off", "on"])
+def test_cuda_unfused_step_matches_cpu_step(card, pallas):
+    """One unfused f32 frame with CUDA tensors (K4 or K5, and K6) against
+    the same frame on the CPU (plain versions), at the tolerances of
+    test_cuda_step_matches_cpu_step; each kernel launched as often as the
+    frame calls it."""
+    cfg, obs, st, u = _sequence("float32", fused_step="off",
+                                pallas_update=pallas)
+    kernels.reset_launches()
+    s_gpu, i_gpu = engine.step(st.to(card), obs.frame(1).to(card),
+                               u[1].to(card), cfg)
+    s_cpu, i_cpu = engine.step(st, obs.frame(1), u[1], cfg)
+    tail = "fused_update_tail" if pallas == "on" else "corr_apply_cols"
+    assert kernels.LAUNCHES == {k: {tail: 2, "f32_matmul_big": 3}.get(k, 0)
+                                for k in kernels.LAUNCHES}
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())

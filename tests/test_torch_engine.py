@@ -193,6 +193,9 @@ def test_run_sequence_equals_stepping():
 ], ids=["fused_off", "add_rank_150", "full_width_update", "M_eq_cap",
         "iekf", "bf16_storage"])
 def test_step_raises_outside_fused_conditions(change):
+    """fused_step="on" raises for a config the fused step cannot run, as
+    the JAX engine does (engine.py:361-366); "off" runs the unfused step
+    (tests/test_torch_unfused.py holds it against JAX)."""
     d = {k: dict(v) if isinstance(v, dict) else v for k, v in FUSED.items()}
     for k, v in change.items():
         d[k] = {**d[k], **v}
@@ -202,16 +205,31 @@ def test_step_raises_outside_fused_conditions(change):
     obs = FrameObs(torch.zeros(L, 2, dtype=torch.float64),
                    torch.zeros(L, dtype=torch.bool))
     u = torch.zeros(1, tc.ransac.num_hypotheses, dtype=torch.float64)
+    if tc.filter.fused_step == "off":
+        st, info = engine.step(st, obs, u, tc)
+        assert bool(torch.isfinite(st.P).all()) and int(info.n_ic) == 0
+        return
     with pytest.raises(ValueError):
         engine.step(st, obs, u, tc)
 
 
 def test_default_map_config_is_outside_the_fused_step():
     """The bare MapConfig() adds up to 25 features a step (rank 150 > 128):
-    the JAX engine runs the unfused step there, which the port lacks."""
-    _, tc = configs({})
-    with pytest.raises(ValueError):
-        engine.check_fused(tc)
+    the fused step cannot run it, on any device, and `step` runs the
+    unfused step there, as the JAX engine does. The bench workload's map
+    config fits the fused step."""
+    _, tc = configs({"dtype": "float64"})
+    for dev in ("cpu", "cuda"):
+        assert not engine._use_fused(tc, torch.device(dev))
+    st = init_state(tc, 1)
+    L = tc.sim.num_landmarks
+    obs = FrameObs(torch.rand(L, 2, dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(0))
+                   * 200, torch.ones(L, dtype=torch.bool))
+    st = engine.bootstrap(st, obs, tc)
+    assert int(st.active.sum()) == 25
+    st, _ = engine.step(st, obs, torch.zeros(1, 64, dtype=torch.float64), tc)
+    assert st.P.shape == (1, 613, 613) and bool(torch.isfinite(st.P).all())
     _, tc = configs(SLICE)
-    engine.check_fused(tc)
+    assert engine._use_fused(tc, torch.device("cuda"))
     assert dataclasses.asdict(tc)["map"]["capacity"] == 100

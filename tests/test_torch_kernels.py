@@ -26,7 +26,8 @@ from ekf_slam_tpu_torch.ops import _build, kernels
 torch.set_num_threads(1)
 
 B = 3
-NAMES = list(kernels.PLAIN)
+NAMES = ["fused_manage_predict_pht", "fused_update_tail_pht",
+         "fused_update_tail_add"]
 PLAIN = kernels.PLAIN
 TOL = dict(rtol=1e-10, atol=1e-12)
 
@@ -42,7 +43,7 @@ def operands():
     u = torch.tensor(ransac_u(frame_keys(2, B), jc.ransac.num_hypotheses))
     with kernels.capture_operands() as captured:
         engine.step(port_state(jst), port_obs(frame(obs, 2)), u, tc)
-    return captured
+    return {name: calls[-1] for name, calls in captured.items()}
 
 
 def _jax_kernel(name, args):
@@ -165,6 +166,37 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """build() starts one nvcc -c per .cu (headers are not compiled), then
+    one -shared link of all the objects; it leaves the library and the
+    log, not the objects. A stand-in nvcc records its arguments and
+    writes its -o file."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    calls = tmp_path / "calls.txt"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    f'echo "$@" >> "{calls}"\n'
+                    'while [ "$#" -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then : > "$2"; fi; shift\n'
+                    "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    lib, log = _build.build()
+    assert lib.exists() and (lib.parent / "nvcc.log").exists()
+    assert not list(lib.parent.glob("*.o"))
+    lines = calls.read_text().splitlines()
+    cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    compiles = sorted(line.split()[-1].rsplit("/", 1)[-1]
+                      for line in lines if " -c " in line)
+    assert compiles == cu and len(cu) >= 2
+    links = [line for line in lines if " -c " not in line]
+    assert len(links) == 1 and links[0].startswith("-shared")
+    assert sum(a.endswith(".o") for a in links[0].split()) == len(cu)
+    assert _build.build() == (lib, "")                  # cached
 
 
 def test_library_path_keyed_by_sources():

@@ -91,12 +91,15 @@ def ransac_u(keys, num):
     return np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (num,)))(keys))
 
 
+@functools.cache
+def _bootstrap_fn(jc):
+    return jax.jit(lambda o: jengine.bootstrap(j_init_state(jc), o, jc))
+
+
 def sim_and_bootstrap(jc, seed, frames, B):
     """JAX-simulated sequence and a bootstrapped state broadcast to B."""
     _, xs, obs = j_simulate(jax.random.key(seed), jc, frames)
-    st = jax.jit(lambda o: jengine.bootstrap(j_init_state(jc), o, jc))(
-        frame(obs, 0))
-    return xs, obs, batch(st, B)
+    return xs, obs, batch(_bootstrap_fn(jc)(frame(obs, 0)), B)
 
 
 def port_state(jstate, dtype=torch.float64):
