@@ -10,26 +10,40 @@ Phases, one line each, any failure raises (exit code != 0):
                slice's shapes, on operands captured from one real frame:
                K1-K3 from the fused path, K4 and K6 from the unfused path
                (i), K5 and K6 from path (ii), K6 at both of its call sites
-               (RANSAC's P·G and the update's P·Hᵀ). Each entry's error is
-               scaled to its own bound; K4's output must be bitwise
-               symmetric. Then planted faults (K1 without process noise,
-               K5 with the renorm Jacobian replaced by I) must fail that
-               check
-  4. slice     the bench workload (CAP 100, 128 landmarks, f32) at
+               (RANSAC's P·G and the update's P·Hᵀ), K7 from the image
+               path (all B·CAP windows and templates of the frame). Each
+               entry's error is scaled to its own bound; K4's output must
+               be bitwise symmetric. Then planted faults (K1 without
+               process noise, K5 with the renorm Jacobian replaced by I,
+               K7 with the template transposed) must fail that check; the
+               f32 patch variance of the NCC norms must stray less than
+               ncc.FLAT_EPS roundoff units from its f64 value
+               Times: kernel, plain version, one library call where one
+               computes the same function (K6 torch.bmm, K7 a grouped
+               F.conv2d with cuDNN's TF32 off), and the card's bound
+  4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
                  fused  (step_fused)                 K1-K3 once a frame
                  (i)    unfused, pallas_update off   K4 2x, K6 3x a frame
                  (ii)   unfused, pallas_update on    K5 2x, K6 3x a frame
-               with every other kernel launched 0 times; finite state,
-               update cap never hit, tracking error < 0.2; steps/s of the
-               median of three timed runs (fused, (i)) or of one ((ii))
+               finite state, update cap never hit, tracking error < 0.2;
+               then the pixels bench workload (the same map, 240x320
+               rendered frames, R = 12) at B = 32 for 16 frames through
+               frontend.run_images:
+                 image  NCC matcher          K7 1x, K4 2x, K6 3x a frame
+                 image  descriptor matcher   K4 2x, K6 3x a frame
+               finite state, update cap never hit, tracking error < 0.5,
+               the search radius the χ² gate needed beside R. Every other
+               kernel launched 0 times; steps/s of the median of three
+               timed runs (fused, (i), image NCC) or of one
   5. crosscheck one frame of each path with CUDA tensors vs the same frame
                on the CPU (plain path), and the same frame through the
                fused and the unfused step on the card: equal gate counts,
                x and P within tolerance
-Then one JSON line with the kernels' numbers, and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device it fails.
+Then the card's name and power limit, one JSON line with the kernels'
+numbers, and as the last line {"ok": true, "device": {...}}. Without a
+CUDA device it fails.
 """
 
 from __future__ import annotations
@@ -40,14 +54,18 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.ops import _build, kernels
-from ekf_slam_tpu_torch.profile_slice import (BATCH, FRAMES, slice_config,
-                                              slice_inputs)
+from ekf_slam_tpu_torch.profile_slice import (BATCH, FRAMES, IMAGE_BATCH,
+                                              image_config, image_inputs,
+                                              slice_config, slice_inputs)
+from ekf_slam_tpu_torch.vision import frontend, ncc
 
 FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
 UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
+NCC_SRC = "ekf_slam_tpu_torch/csrc/ncc.cu"
 PK = "ekf_slam_tpu/ops/pallas_kernels.py"
 # name -> (source, line of the TPU kernel's wrapper it replaces)
 KERNELS = {
@@ -57,13 +75,67 @@ KERNELS = {
     "corr_apply_cols": (UNFUSED_SRC, f"{PK}:731"),
     "fused_update_tail": (FUSED_SRC, f"{PK}:135"),
     "f32_matmul_big": (UNFUSED_SRC, f"{PK}:192"),
+    "ncc_corr": (NCC_SRC, f"{PK}:802"),
 }
-# Launches a frame of each path (the rest launch 0 times).
+# Launches a frame of each path (the rest launch 0 times). The image step
+# is branchless: frame 0, with no features yet, launches as many.
 PER_FRAME = {
     "fused": {"fused_manage_predict_pht": 1, "fused_update_tail_pht": 1,
               "fused_update_tail_add": 1},
     "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
+    "image": {"ncc_corr": 1, "corr_apply_cols": 2, "f32_matmul_big": 3},
+    "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
+}
+SIM_PATHS = ("fused", "unfused", "unfused_pallas")
+# The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): f32 outside the
+# tensor cores, and device memory.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _sym(D: int) -> int:
+    """Entries of a symmetric D x D output that must be computed."""
+    return D * (D + 1) // 2
+
+
+# Floating-point operations of one call, from its operands: the plain
+# version's multiply-adds, each entry of a symmetric output counted once
+# (the downdate ½(K·PHtᵀ + PHt·Kᵀ): 4R an entry; the low-rank EᵀU + UᵀE +
+# EᵀCE: 6r an entry after EᵀC; K4's ½(A·Bᵀ + B·Aᵀ): 4R), the low-rank
+# terms dense, as the kernels compute them.
+FLOPS = {
+    "fused_manage_predict_pht": lambda P, keep, E6, U6, C66, F13, Q13, Ht:
+        P.shape[0] * (2 * P.shape[1] ** 2 * Ht.shape[2]
+                      + 6 * _sym(P.shape[1]) * E6.shape[1]
+                      + 2 * E6.shape[1] ** 2 * P.shape[1]
+                      + 4 * 13 * 13 * P.shape[1]),
+    "fused_update_tail_pht": lambda P, K, PHt, Jq4, Ht:
+        P.shape[0] * (4 * _sym(P.shape[1]) * K.shape[2]
+                      + 2 * P.shape[1] ** 2 * Ht.shape[2]
+                      + 4 * 4 * 4 * P.shape[1]),
+    "fused_update_tail_add": lambda P, K, PHt, Jq4, keepN, EN, UN, CN:
+        P.shape[0] * (4 * _sym(P.shape[1]) * K.shape[2]
+                      + 6 * _sym(P.shape[1]) * EN.shape[1]
+                      + 2 * EN.shape[1] ** 2 * P.shape[1]
+                      + 4 * 4 * 4 * P.shape[1]),
+    "corr_apply_cols": lambda P, A, B:
+        P.shape[0] * 4 * _sym(P.shape[1]) * A.shape[2],
+    "fused_update_tail": lambda P, K, PHt, Jq4:
+        P.shape[0] * (4 * _sym(P.shape[1]) * K.shape[2]
+                      + 4 * 4 * 4 * P.shape[1]),
+    "f32_matmul_big": lambda A, B:
+        2 * A.shape[0] * A.shape[1] * A.shape[2] * B.shape[2],
+    "ncc_corr": lambda win, tm:
+        2 * win.shape[0] * (win.shape[-1] - tm.shape[-1] + 1) ** 2
+        * tm.shape[-1] ** 2,
+}
+# One PyTorch call that computes the kernel's function, where there is
+# one: timed beside the kernel, never called by the port.
+LIBRARY = {
+    "f32_matmul_big": torch.bmm,
+    "ncc_corr": lambda win, tm: F.conv2d(win[None], tm[:, None],
+                                         groups=win.shape[0])[0],
 }
 # One frame, CUDA vs CPU, both f32: the same math in another summation
 # order; the gain solve and the two updates amplify rounding. x within this
@@ -97,7 +169,10 @@ def max_asym(P: torch.Tensor) -> float:
 
 def kernel_error(name, out, ref, args) -> float:
     """kernels.scaled_error of a kernel's output against its f64 plain
-    version; for K6 the product bound sqrt(P_ii·(Hᵀ·P·H)_kk)."""
+    version; for K6 the product bound sqrt(P_ii·(Hᵀ·P·H)_kk), for K7 the
+    bound ‖window patch‖·‖template‖ (kernels.ncc_error)."""
+    if name == "ncc_corr":
+        return kernels.ncc_error(out, ref, *args)
     if name == "f32_matmul_big":
         A = args[0].double()
         return kernels.product_error(out, ref, torch.diagonal(
@@ -122,11 +197,26 @@ def check_kernel(name, args, site="") -> dict:
                   for o, r in zip(outs, refs))
     ms = cuda_ms(lambda: wrapper(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
+    library = LIBRARY.get(name)
+    library_ms = None
+    if library is not None:
+        lib_err = float((library(*args).double() - refs[0]).abs().max())
+        library_ms = cuda_ms(lambda: library(*args))
+    flops = FLOPS[name](*args)
+    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = ("operations" if flops / PEAK_F32_FLOPS
+                >= nbytes / PEAK_BYTES else "bytes")
     fields = dict(name=name, site=site or "-", shapes=",".join(
         "x".join(str(s) for s in a.shape) for a in args[:2]),
         max_abs_err=f"{abs_err:.3e}", scaled_err=f"{err:.3e}",
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    if name != "f32_matmul_big":
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}")
+    if library_ms is not None:
+        fields["library_abs_err"] = f"{lib_err:.3e}"
+    if name not in ("f32_matmul_big", "ncc_corr"):
         fields["asym"] = f"{max_asym(outs[0]):.3e}"
     phase("kernel", **fields)
     if not err <= kernels.SCALED_TOL:
@@ -139,7 +229,9 @@ def check_kernel(name, args, site="") -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": abs_err,
-            "scaled_err": err, "ms": ms, "plain_ms": plain_ms}
+            "scaled_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def planted_fault(tag, got, ref, err_fn) -> None:
@@ -151,6 +243,23 @@ def planted_fault(tag, got, ref, err_fn) -> None:
         raise AssertionError(f"the check misses {tag}: {fault:.3e}")
 
 
+def flat_stray(win, t) -> None:
+    """The largest stray of the f32 patch variance (ncc.patch_variance, on
+    the card) from its f64 value over the frame's windows, in units of
+    eps·Σwc²: it must stay below ncc.FLAT_EPS, the floor under which
+    ncc_scores_all scores a patch as flat."""
+    var32, _ = ncc.patch_variance(win, t)
+    var64, energy = ncc.patch_variance(win.double(), t)
+    stray = float(((var32.double() - var64).abs()
+                   / (torch.finfo(torch.float32).eps
+                      * energy[:, None, None])).max())
+    phase("flat", flat_stray=f"{stray:.4f}", limit=ncc.FLAT_EPS,
+          windows=win.shape[0])
+    if not stray < ncc.FLAT_EPS:
+        raise AssertionError(f"f32 patch variance strays {stray:.4f} units "
+                             f">= FLAT_EPS {ncc.FLAT_EPS}")
+
+
 def capture_frame(cfg, st0, obs, u, t=2):
     """{name: [operands of each call]} of frame t of the sequence."""
     st, _, _ = engine.run_sequence(st0, obs.window(0, t), u[:t], cfg)
@@ -159,18 +268,27 @@ def capture_frame(cfg, st0, obs, u, t=2):
     return inputs
 
 
-def run_slice(path, cfg, st0, xs, obs, u, runs, card) -> dict:
+def capture_image_frame(cfg, st0, app0, imgs, u, dev, t=2):
+    """{name: [operands of each call]} of image frame t of the sequence."""
+    st, app, _, _ = frontend.run_images(st0, app0, imgs[:t], u[:t], cfg, dev)
+    with kernels.capture_operands() as inputs:
+        frontend.step_image(st, app, imgs[t], u[t], cfg)
+    return inputs
+
+
+def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
     """Phase 4 for one path: a warm-up, then `runs` timed runs of the
-    sequence, each with the counts set to 0 just before and read just
-    after; the gates. Returns the launch counts of the last run."""
-    engine.run_sequence(st0, obs, u, cfg)                # warm-up
+    path's driver `run()` -> (final state, traj, infos), each with the
+    counts set to 0 just before and read just after; the gates. Returns
+    the launch counts of the last run."""
+    run()                                                # warm-up
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
     seconds = []
     for _ in range(runs):
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        final, traj, infos = engine.run_sequence(st0, obs, u, cfg)
+        final, traj, infos = run()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
@@ -185,17 +303,23 @@ def run_slice(path, cfg, st0, xs, obs, u, runs, card) -> dict:
                              f"{cfg.map.max_update_obs}")
     err = float(torch.linalg.vector_norm(
         traj[..., 0:3] - xs[None, :, 0:3], dim=-1).mean())
-    if not err < 0.2:
-        raise AssertionError(f"{path}: tracking error {err:.4f} >= 0.2")
-    rate = BATCH * FRAMES / statistics.median(seconds)
-    phase("slice", path=path, batch=BATCH, frames=FRAMES,
-          seconds=",".join(f"{s:.4f}" for s in seconds),
-          median_steps_per_s=f"{rate:.1f}",
-          track_err=f"{err:.4f}", largest_update=max_obs,
-          update_cap=cfg.map.max_update_obs,
-          launches=json.dumps({k: v for k, v in launches.items() if v},
-                              separators=(",", ":")),
-          card=repr(card))
+    if not err < track_limit:
+        raise AssertionError(f"{path}: tracking error {err:.4f} >= "
+                             f"{track_limit}")
+    rate = batch * FRAMES / statistics.median(seconds)
+    fields = dict(path=path, batch=batch, frames=FRAMES,
+                  seconds=",".join(f"{s:.4f}" for s in seconds),
+                  median_steps_per_s=f"{rate:.1f}",
+                  track_err=f"{err:.4f}", largest_update=max_obs,
+                  update_cap=cfg.map.max_update_obs)
+    if path.startswith("image"):
+        fields.update(
+            search_r_needed=f"{float(infos.search_r_needed.max()):.2f}",
+            search_radius=cfg.vision.search_radius,
+            n_ic_last=f"{float(infos.n_ic[:, -1].float().mean()):.2f}")
+    phase("slice", **fields, launches=json.dumps(
+        {k: v for k, v in launches.items() if v}, separators=(",", ":")),
+        card=repr(card))
     return launches
 
 
@@ -261,8 +385,11 @@ def main() -> None:
 def check_paths(dev, card: str) -> list:
     """Phases 3-5 on device `dev`. Returns the kernels' JSON entries."""
     # -- 3. kernels vs plain on one real frame of each path -------------------
-    cfgs = {p: slice_config(p) for p in PER_FRAME}
+    cfgs = {p: slice_config(p) for p in SIM_PATHS}
     st0, xs, obs, u = slice_inputs(cfgs["fused"], dev)
+    icfgs = {"image": image_config("ncc"),
+             "image_descriptor": image_config("descriptor")}
+    ist0, iapp0, ixs, imgs, iu = image_inputs(icfgs["image"], dev)
     report = {}
     inputs = capture_frame(cfgs["fused"], st0, obs, u)
     for name in PER_FRAME["fused"]:
@@ -294,10 +421,38 @@ def check_paths(dev, card: str) -> list:
         kernels.update_tail_plain(*(a.double() for a in args)),
         kernels.scaled_error)
 
-    # -- 4. the slice: 16 frames at B = 128 through each path -----------------
+    # The image frame's numerator: all B·CAP windows and templates at once.
+    inputs = capture_image_frame(icfgs["image"], ist0, iapp0, imgs, iu, dev)
+    args = inputs["ncc_corr"][0]
+    report["ncc_corr"] = check_kernel("ncc_corr", args, "image")
+    win, tm = args
+    planted_fault(
+        "K7_template_transposed",
+        kernels.ncc_corr(win, tm.transpose(1, 2).contiguous()),
+        kernels.ncc_corr_plain(win.double(), tm.double()),
+        lambda g, r: kernels.ncc_error(g, r, win, tm))
+    flat_stray(win, tm.shape[-1])
+
+    # -- 4. the slices: 16 frames through each path ---------------------------
+    def sim_run(path):
+        return lambda: engine.run_sequence(st0, obs, u, cfgs[path])
+
+    def image_run(path):
+        def run():
+            final, _, traj, infos = frontend.run_images(
+                ist0, iapp0, imgs, iu, icfgs[path], dev)
+            return final, traj, infos
+        return run
+
     launches = {}
-    for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1)):
-        counts = run_slice(path, cfgs[path], st0, xs, obs, u, runs, card)
+    for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
+                       ("image", 3), ("image_descriptor", 1)):
+        if path in SIM_PATHS:
+            counts = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
+                               runs, 0.2, card)
+        else:
+            counts = run_slice(path, icfgs[path], image_run(path),
+                               IMAGE_BATCH, ixs, runs, 0.5, card)
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
     for name, k in report.items():
@@ -313,6 +468,14 @@ def check_paths(dev, card: str) -> list:
                              u[8].cpu(), cfg)
         same_frame(f"{path}:cuda_vs_cpu", on_card[path], on_cpu)
     same_frame("fused_vs_unfused:cuda", on_card["fused"], on_card["unfused"])
+    ist8, iapp8, _, _ = frontend.run_images(ist0, iapp0, imgs[:8], iu[:8],
+                                            icfgs["image"], dev)
+    card_step = frontend.step_image(ist8, iapp8, imgs[8], iu[8],
+                                    icfgs["image"])
+    cpu_step = frontend.step_image(ist8.to("cpu"), iapp8.to("cpu"),
+                                   imgs[8].cpu(), iu[8].cpu(), icfgs["image"])
+    same_frame("image:cuda_vs_cpu", (card_step[0], card_step[2]),
+               (cpu_step[0], cpu_step[2]))
     return list(report.values())
 
 

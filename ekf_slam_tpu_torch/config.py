@@ -122,7 +122,7 @@ class RansacConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
-    """Image front-end parameters (not used by the port's sim path yet)."""
+    """Image front-end parameters (vision/, the image path)."""
 
     search_radius: int = 12
     min_ncc: float = 0.5

@@ -324,8 +324,9 @@ __global__ void __launch_bounds__(NT)
 // runs as a mode of K3 rather than as a copy of its tail: one code path
 // for the tail of both steps. Bound on the H100: one read and one write
 // of P per instance (1.5 MB each at D = 613; 192 MB each way at B = 128)
-// and 4·D²·M2 flops of downdate (192 MFLOP per instance at 2M = 128) on
-// CUDA cores; the design reads each P entry once and keeps the K / PHt
+// and 2·D(D+1)·M2 flops of downdate for its symmetric output (96 MFLOP
+// per instance at 2M = 128; this kernel sums both triangles, twice that)
+// on CUDA cores; the design reads each P entry once and keeps the K / PHt
 // chunks in shared memory, so the FMA loop over shared memory bounds it.
 __global__ void __launch_bounds__(NT)
     k3_kernel(const float* __restrict__ P, const float* __restrict__ K,

@@ -24,14 +24,16 @@ namespace {
 // order, so P⁺ is bitwise symmetric, as the Pallas kernel's is.
 // Bound on the H100: P is read twice (the tile and its transposed twin,
 // the second mostly from L2) and written once, 1.5 MB each per instance
-// at D = 613 — 576 MB at B = 128, 0.17 ms at 3.35 TB/s. The sums are
-// 4·D²·R flops: R = 2·(2M) + 8 = 264 at the bench config's compact update
-// (2M = 128 rows; 408 for a full-width update at CAP 100) makes 397 MFLOP
-// per instance, 51 GFLOP per call at B = 128, which is above the memory
-// time even at the 67 TFLOP/s f32 peak. The simple design: one block per
-// output tile (j, i, b), R looped in MC-wide chunks staged through shared
-// memory (any R), the twin tile staged once for a coalesced read. It
-// computes both triangles; halving the sums by mirroring is a later step.
+// at D = 613 — 576 MB at B = 128, 0.17 ms at 3.35 TB/s. The symmetric
+// output needs its sums for one triangle only, 2·D(D+1)·R flops: R =
+// 2·(2M) + 8 = 264 at the bench config's compact update (2M = 128 rows;
+// 408 for a full-width update at CAP 100) makes 199 MFLOP per instance,
+// 25 GFLOP per call at B = 128 (0.38 ms at the 67 TFLOP/s f32 peak),
+// above the memory time. The simple design: one block per output tile
+// (j, i, b), R looped in MC-wide chunks staged through shared memory (any
+// R), the twin tile staged once for a coalesced read. It computes both
+// triangles, twice the flops; halving the sums by mirroring is a later
+// step.
 __global__ void __launch_bounds__(NT)
     k4_kernel(const float* __restrict__ P, const float* __restrict__ A,
               const float* __restrict__ Bf, float* __restrict__ Pout, int D,

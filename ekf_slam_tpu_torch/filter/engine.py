@@ -51,6 +51,16 @@ class StepInfo:
     n_li: torch.Tensor
     n_hi: torch.Tensor
     ransac_support: torch.Tensor
+    # The χ²-reach of the image matcher's search this frame, max
+    # sqrt(chi2·λmax(S)) over the searched slots (vision/frontend
+    # .step_image); zeros on the sim path.
+    search_r_needed: torch.Tensor
+
+
+def stack_infos(infos) -> StepInfo:
+    """T per-frame StepInfos -> one with (B, T) fields."""
+    return StepInfo(*(torch.stack([getattr(i, f.name) for i in infos], dim=1)
+                      for f in dataclasses.fields(StepInfo)))
 
 
 def gather_measurements(state: FilterState, obs: FrameObs):
@@ -154,6 +164,15 @@ def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
     """Stages 1-7 of the unfused frame given per-slot measurements
     (z (B,CAP,2), z_valid (B,CAP)): manage, predict, then
     ``step_core_from_prior``. Returns (state, visible, ic, StepInfo)."""
+    check_ported(cfg)
+    state = mapman.manage(state, cfg)
+    x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
+    return step_core_from_prior(state, x_prior, P_prior, z, z_valid, u, cfg)
+
+
+def check_ported(cfg: EngineConfig) -> None:
+    """Raise ValueError for filter settings the unfused step (and the image
+    step built on it) does not port: the IEKF, bf16 P storage, share_pht."""
     f = cfg.filter
     if f.use_iterated_update:
         raise ValueError("the iterated update (IEKF) is not ported")
@@ -162,9 +181,6 @@ def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
                          "port stores P in the state's dtype")
     if f.share_pht:
         raise ValueError("share_pht is not ported")
-    state = mapman.manage(state, cfg)
-    x_prior, P_prior = ekf.predict(state.x, state.P, f)
-    return step_core_from_prior(state, x_prior, P_prior, z, z_valid, u, cfg)
 
 
 def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
@@ -199,7 +215,8 @@ def _step_core_epilogue(state: FilterState, x_post, P_post, visible, ic, li,
                                    visible, ic)
     info = StepInfo(n_visible=visible.sum(dim=1), n_ic=ic.sum(dim=1),
                     n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
-                    ransac_support=support)
+                    ransac_support=support,
+                    search_r_needed=x_post.new_zeros(x_post.shape[0]))
     return state, visible, ic, info
 
 
@@ -345,7 +362,8 @@ def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
                                           ap.E, ap.U, ap.C)
     info = StepInfo(n_visible=visible.sum(dim=1), n_ic=n_ic,
                     n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
-                    ransac_support=support)
+                    ransac_support=support,
+                    search_r_needed=P_fin.new_zeros(P_fin.shape[0]))
     return ap.state.replace(P=P_fin), info
 
 
@@ -359,7 +377,4 @@ def run_sequence(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
         state, info = step(state, obs_seq.frame(t), u_seq[t], cfg)
         traj.append(state.x[:, :CAM_DIM])
         infos.append(info)
-    stacked = StepInfo(*(torch.stack([getattr(i, f.name) for i in infos],
-                                     dim=1)
-                         for f in dataclasses.fields(StepInfo)))
-    return state, torch.stack(traj, dim=1), stacked
+    return state, torch.stack(traj, dim=1), stack_infos(infos)

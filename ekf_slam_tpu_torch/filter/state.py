@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ekf_slam_tpu_torch.config import EngineConfig
+from ekf_slam_tpu_torch.ops import device as devices
 
 FIELDS = ("x", "P", "active", "cartesian", "times_predicted",
           "times_measured", "landmark_id")
@@ -54,7 +55,8 @@ class FilterState:
 def init_state(cfg: EngineConfig, batch: int, device=None) -> FilterState:
     """Initial state (initialize_x_and_p.m:1-24) for `batch` instances:
     identity pose at the origin, v0, w0 = 1e-15, P diag = [eps(7),
-    std_v², std_w²]."""
+    std_v², std_w²]. On the card unless `device` names another."""
+    device = devices.resolve(device)
     f = cfg.filter
     cap = cfg.map.capacity
     d = cfg.map.state_dim
@@ -80,7 +82,9 @@ def init_state(cfg: EngineConfig, batch: int, device=None) -> FilterState:
 def state_from_numpy(d, device=None, dtype=torch.float64) -> FilterState:
     """FilterState from a mapping (or object with attributes) of numpy
     arrays with the JAX field names. An unbatched state (x of rank 1)
-    gains a leading instance axis of 1."""
+    gains a leading instance axis of 1. On the card unless `device` names
+    another."""
+    device = devices.resolve(device)
     get = d.__getitem__ if isinstance(d, dict) else lambda k: getattr(d, k)
     arrs = {k: np.asarray(get(k)) for k in FIELDS}
     if arrs["x"].ndim == 1:

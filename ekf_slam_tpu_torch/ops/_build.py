@@ -40,6 +40,7 @@ SIGNATURES = {
     "ekf_k4_corr_apply_cols": [_P] * 4 + [_I] * 3 + [_P],
     "ekf_k5_update_tail": [_P] * 5 + [_I] * 3 + [_P],
     "ekf_k6_matmul_big": [_P] * 3 + [_I] * 4 + [_P],
+    "ekf_k7_ncc_corr": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -1,5 +1,5 @@
-"""The covariance kernels of the SLAM step, with their plain versions —
-the counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
+"""The kernels of the SLAM step, with their plain versions — the
+counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
 
   fused step (csrc/fused_cov.cu):
   K1 fused_manage_predict_pht — map management + EKF predict + prior P·Hᵀ
@@ -12,14 +12,17 @@ the counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
                                 feature add (fused_cov.cu)
   K6 f32_matmul_big           — A·B with a large A, read once
                                 (unfused_cov.cu)
+  image path:
+  K7 ncc_corr                 — the NCC matcher's correlation numerator
+                                over N (window, template) pairs (ncc.cu)
 
-Each wrapper takes batched tensors (leading instance axis B). A tensor on
-the CPU goes to the plain version beside the wrapper; a CUDA tensor goes
-to the hand-written kernel (f32 only) or the wrapper raises.
-``LAUNCHES[name]`` counts kernel launches. The kernels' size limits
-(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K4-K6 take any
-width) are checked by the launchers, which return cudaErrorInvalidValue
-(1).
+Each wrapper takes batched tensors (leading instance axis B; K7 the pair
+axis N). A tensor on the CPU goes to the plain version beside the
+wrapper; a CUDA tensor goes to the hand-written kernel (f32 only) or the
+wrapper raises. ``LAUNCHES[name]`` counts kernel launches. The kernels'
+size limits (R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3;
+K4-K6 take any width; K7 a window that fits shared memory) are checked by
+the launchers, which return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -36,7 +39,7 @@ from ekf_slam_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0, "corr_apply_cols": 0,
-            "fused_update_tail": 0, "f32_matmul_big": 0}
+            "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0}
 
 
 def reset_launches() -> None:
@@ -108,12 +111,28 @@ def matmul_big_plain(A, B):
     return A @ B
 
 
+def ncc_corr_plain(windows, tm):
+    """out[n,oy,ox] = Σ_{dy,dx} windows[n,oy+dy,ox+dx]·tm[n,dy,dx] for
+    windows (N,W2,W2), tm (N,t,t) -> (N,R2,R2), R2 = W2 − t + 1: t² shifted
+    multiply-adds in dy-major order, in the operands' dtype."""
+    t = tm.shape[-1]
+    R2 = windows.shape[-1] - t + 1
+    out = torch.zeros(windows.shape[0], R2, R2, dtype=windows.dtype,
+                      device=windows.device)
+    for dy in range(t):
+        for dx in range(t):
+            out = out + (windows[:, dy:dy + R2, dx:dx + R2]
+                         * tm[:, dy, dx, None, None])
+    return out
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
          "fused_update_tail_add": update_tail_add_plain,
          "corr_apply_cols": corr_apply_cols_plain,
          "fused_update_tail": update_tail_plain,
-         "f32_matmul_big": matmul_big_plain}
+         "f32_matmul_big": matmul_big_plain,
+         "ncc_corr": ncc_corr_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -158,6 +177,20 @@ def product_error(out, ref, P_diag, Ht) -> float:
     hph = (Ht.to(ref.dtype) * ref).sum(dim=1).clamp_min(0)
     return _entry_error(out.to(ref.dtype) - ref,
                         P_diag.to(ref.dtype).clamp_min(0), hph)
+
+
+def ncc_error(out, ref, windows, tm) -> float:
+    """K7's error against its reference ref, each entry in units of its
+    Cauchy–Schwarz bound |out[n,oy,ox]| ≤ ‖window patch at (oy,ox)‖·‖tm_n‖,
+    both norms from f64 box sums. A whole-output relative error would miss
+    a wrong tap."""
+    w, tm = windows.double(), tm.double()
+    patch_sq = ncc_corr_plain(w * w, torch.ones_like(tm)).clamp_min(0)
+    tnorm = torch.linalg.vector_norm(tm, dim=(1, 2))[:, None, None]
+    bound = torch.sqrt(patch_sq) * tnorm
+    diff = out.double() - ref.double()
+    err = torch.where(diff == 0, torch.zeros_like(diff), diff.abs() / bound)
+    return float(err.max())
 
 
 @contextlib.contextmanager
@@ -338,4 +371,25 @@ def f32_matmul_big(A, B):
     lib = _build.load()
     _run(name, lib.ekf_k6_matmul_big, A.data_ptr(), B.data_ptr(),
          out.data_ptr(), Bn, M, Kd, N)
+    return out
+
+
+def ncc_corr(windows, tm):
+    """K7: windows (N,W2,W2); tm (N,t,t) zero-mean templates, t ≤ W2.
+    Returns out (N,R2,R2), R2 = W2 − t + 1, out[n,oy,ox] =
+    Σ_{dy,dx} windows[n,oy+dy,ox+dx]·tm[n,dy,dx]."""
+    name = "ncc_corr"
+    N, W2 = windows.shape[0], windows.shape[-1]
+    t = tm.shape[-1]
+    if not 1 <= t <= W2:
+        raise ValueError(f"{name}: template {t} wider than window {W2}")
+    on_card = _check(name, {"windows": (N, W2, W2), "tm": (N, t, t)},
+                     dict(windows=windows, tm=tm))
+    if not on_card:
+        return ncc_corr_plain(windows, tm)
+    R2 = W2 - t + 1
+    out = torch.empty(N, R2, R2, dtype=windows.dtype, device=windows.device)
+    lib = _build.load()
+    _run(name, lib.ekf_k7_ncc_corr, windows.data_ptr(), tm.data_ptr(),
+         out.data_ptr(), N, W2, t)
     return out

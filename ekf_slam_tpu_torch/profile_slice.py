@@ -1,8 +1,9 @@
 """Time and profile the port's slice on one CUDA card.
 
-    python -m ekf_slam_tpu_torch.profile_slice [fused|unfused|unfused_pallas]
+    python -m ekf_slam_tpu_torch.profile_slice \
+        [fused|unfused|unfused_pallas|image|image_descriptor]
 
-The slice is the bench workload at full width with the f32 parity
+A sim path is the bench workload at full width with the f32 parity
 settings (see ``slice_config``), B = 128 instances, 16 frames, through one
 of the engine's paths (default ``fused``):
 
@@ -11,19 +12,27 @@ of the engine's paths (default ``fused``):
   unfused_pallas  step_core with pallas_update="on": K6, and K5 for the
                   tails
 
+The image path is the JAX pixels bench's workload with the NCC matcher
+(see ``image_config``), B = 32 instances, 16 rendered 240x320 frames,
+through vision/frontend.run_images: K7 for the NCC numerator, K6 and K4
+as on the unfused path. ``image_descriptor`` is the same workload with the
+binary-descriptor matcher (the JAX default): K6 and K4, no K7.
+
 Two measurements, each of the two routes of the covariance work:
 
   kernels  the hand-written CUDA kernels (the wrappers in ops/kernels.py)
   plain    the wrappers swapped for their plain torch versions
 
-A/B       ``run_sequence`` over the 16 frames, legs in the order kernels,
+A/B       the path's driver over the 16 frames, legs in the order kernels,
           plain, plain, kernels; each leg RUNS timed runs. Prints
           every run's seconds and the leg's median steps/s (B·16 / s).
 profile   the first PROFILE_FRAMES frames: their wall time
           unprofiled, then under torch.profiler the device time (sum of
           the CUDA kernel events), the busy share (device time / unprofiled
           wall), the device ops (kernels, copies, fills), the host time in
-          cudaLaunchKernel and the ten ops with the most device time.
+          cudaLaunchKernel, the device time and calls of each of the
+          port's own kernels (csrc/, k1_kernel … k7_kernel) and the ten
+          ops with the most device time.
 
 The last line is one JSON object with every number printed.
 """
@@ -34,6 +43,7 @@ import argparse
 import collections
 import contextlib
 import json
+import re
 import statistics
 import time
 from unittest import mock
@@ -42,13 +52,15 @@ import torch
 from torch.autograd import DeviceType
 
 from ekf_slam_tpu_torch.config import (EngineConfig, FilterConfig, MapConfig,
-                                       RansacConfig, SimConfig)
+                                       RansacConfig, SimConfig, VisionConfig)
 from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
+from ekf_slam_tpu_torch.vision import frontend
 
 BATCH = 128
+IMAGE_BATCH = 32     # bench.py's BENCH_PIXB default for the NCC matcher
 FRAMES = 16
 RUNS = 3
 PROFILE_FRAMES = 4
@@ -86,6 +98,37 @@ def slice_inputs(cfg: EngineConfig, dev, batch: int = BATCH,
     return st0, xs, obs, u
 
 
+def image_config(matcher: str = "ncc") -> EngineConfig:
+    """The JAX pixels bench's workload (bench.py:107-135): CAP 100, 128
+    landmarks, min_features 25, max_new_per_step 10, max_update_obs 64,
+    Newton gain, search radius 12, 8 corners a window, the affine warp,
+    240x320 frames, f32."""
+    return EngineConfig(
+        filter=FilterConfig(gain_solver="newton"),
+        map=MapConfig(capacity=100, min_features_in_image=25,
+                      max_new_per_step=10, max_update_obs=64),
+        vision=VisionConfig(matcher=matcher, search_radius=12,
+                            corners_per_window=8, warp_distortion="affine"),
+        sim=SimConfig(num_landmarks=128),
+        dtype="float32")
+
+
+def image_inputs(cfg: EngineConfig, dev, batch: int = IMAGE_BATCH,
+                 frames: int = FRAMES):
+    """(empty states, empty appearance stores, true states (T,13), frames
+    (T,H,W) rendered on `dev`, RANSAC draws (T,B,NHYP)): the scene from
+    seed 0, the draws from seed 1. No bootstrap: frame 0 initializes from
+    FAST, as bench.py's pixels mode does."""
+    scn, xs, _ = simulate(torch.Generator().manual_seed(0), cfg, frames, dev)
+    imgs = torch.stack([frontend.render_scene_image(scn, xs[t], cfg, dev)
+                        for t in range(frames)])
+    u = torch.rand(frames, batch, cfg.ransac.num_hypotheses, device=dev,
+                   dtype=cfg.torch_dtype,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    return (init_state(cfg, batch, dev),
+            frontend.init_appearance(cfg, batch, dev), xs, imgs, u)
+
+
 def timed(fn) -> float:
     """Seconds of fn() by the host clock, the card idle before and after."""
     torch.cuda.synchronize()
@@ -121,10 +164,14 @@ def device_profile(fn, frames: int) -> dict:
     device_ms = sum(t for t, _ in by_name.values()) / 1e3
     ops = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    own = {m.group(1): {"ms": t / 1e3, "calls": c}
+           for n, (t, c) in by_name.items()
+           if (m := re.search(r"::(k[0-9]_kernel)\(", n))}
     return {"frames": frames, "wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy": device_ms / (wall * 1e3), "device_ops": ops,
             "device_ops_per_frame": ops / frames,
             "launch_host_ms": launch_host_us / 1e3,
+            "port_kernels": dict(sorted(own.items())),
             "top": [{"name": n[:90], "ms": t / 1e3, "calls": c}
                     for n, (t, c) in top]}
 
@@ -132,21 +179,35 @@ def device_profile(fn, frames: int) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("path", nargs="?", default="fused",
-                        choices=sorted(PATHS))
+                        choices=sorted(PATHS) + ["image",
+                                                 "image_descriptor"])
     path = parser.parse_args(argv).path
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = slice_config(path)
-    st0, _, obs, u = slice_inputs(cfg, dev)
+    if path.startswith("image"):
+        cfg = image_config("descriptor" if path == "image_descriptor"
+                           else "ncc")
+        st0, app0, _, imgs, u = image_inputs(cfg, dev)
+        batch = IMAGE_BATCH
+
+        def run(nf):
+            frontend.run_images(st0, app0, imgs[:nf], u[:nf], cfg)
+    else:
+        cfg = slice_config(path)
+        st0, _, obs, u = slice_inputs(cfg, dev)
+        batch = BATCH
+
+        def run(nf):
+            engine.run_sequence(st0, obs.window(0, nf), u[:nf], cfg)
     result = {"card": torch.cuda.get_device_name(0), "path": path,
-              "batch": BATCH, "frames": FRAMES, "ab": [], "profile": {}}
+              "batch": batch, "frames": FRAMES, "ab": [], "profile": {}}
     print(f"[slice] path={path} card={result['card']!r}", flush=True)
 
     def run_all():
-        engine.run_sequence(st0, obs, u, cfg)
+        run(FRAMES)
 
     for name in ("kernels", "plain"):
         with route(name):
@@ -154,7 +215,7 @@ def main(argv=None) -> None:
     for name in ("kernels", "plain", "plain", "kernels"):
         with route(name):
             secs = [timed(run_all) for _ in range(RUNS)]
-        med = BATCH * FRAMES / statistics.median(secs)
+        med = batch * FRAMES / statistics.median(secs)
         print(f"[ab] route={name} seconds="
               f"{','.join(f'{s:.4f}' for s in secs)} "
               f"median_steps_per_s={med:.1f}", flush=True)
@@ -164,7 +225,7 @@ def main(argv=None) -> None:
     nf = PROFILE_FRAMES
 
     def run_window():
-        engine.run_sequence(st0, obs.window(0, nf), u[:nf], cfg)
+        run(nf)
 
     for name in ("kernels", "plain"):
         with route(name):
@@ -173,7 +234,9 @@ def main(argv=None) -> None:
         print(f"[profile] route={name} frames={nf} "
               f"wall_ms={p['wall_ms']:.2f} device_ms={p['device_ms']:.2f} "
               f"busy={p['busy']:.3f} device_ops={p['device_ops']} "
-              f"launch_host_ms={p['launch_host_ms']:.2f}", flush=True)
+              f"launch_host_ms={p['launch_host_ms']:.2f} port_kernels="
+              f"{json.dumps(p['port_kernels'], separators=(',', ':'))}",
+              flush=True)
         for k in p["top"]:
             print(f"  {k['ms']:9.3f} ms x {k['calls']:5d}  {k['name']}",
                   flush=True)

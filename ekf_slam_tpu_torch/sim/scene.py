@@ -24,6 +24,7 @@ import torch
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
 from ekf_slam_tpu_torch.filter import motion
 from ekf_slam_tpu_torch.ops import camera as cam_ops
+from ekf_slam_tpu_torch.ops import device as devices
 from ekf_slam_tpu_torch.ops import quaternion as quat
 
 
@@ -130,7 +131,8 @@ def simulate(gen: torch.Generator, cfg: EngineConfig, num_steps: int,
              device=None):
     """Full dataset on `device`: (scene, true states (T, 13), FrameObs
     with pixels (T, L, 2) and visible (T, L)). Drawn on the generator's
-    (CPU) device, then moved."""
+    (CPU) device, then moved: to the card unless `device` names another."""
+    device = devices.resolve(device)
     scene = make_scene(gen, cfg)
     xs = simulate_trajectory(gen, cfg, num_steps)
     frames = [observe(gen, scene, x, cfg) for x in xs]

@@ -1,0 +1,174 @@
+"""Normalized cross-correlation template matching over a gated window.
+
+Port of ``ekf_slam_tpu/vision/ncc.py`` (crosscorr.m's zero-mean NCC and
+matching.m's χ²-gated search) on one form: each feature's static
+(2R+1)² search window is cut from the shared frame by index arithmetic,
+the correlation numerator of ALL features of ALL instances is one launch
+of K7 (``kernels.ncc_corr``), and the per-offset patch norms come from
+integral images (``_boxsum``). Positions outside the χ² ellipse are masked
+before the argmax.
+
+Not ported: the other numerator lowerings (EKF_NCC), their precision knob
+(EKF_NCC_PREC: the port computes in true f32, or in f64 on f64 inputs),
+the full-image form ncc_scores_plane and the scalar crosscorr /
+crosscorr_svd, which no function of the image path calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ekf_slam_tpu_torch.filter.association import mahalanobis2
+from ekf_slam_tpu_torch.ops import kernels
+
+
+# Roundoff units (eps times the window's centered energy Σwc²) below
+# which a patch variance counts as 0: above the largest stray of the f32
+# variance from its f64 value over real windows, which chip_smoke.py
+# measures on the card (`flat_stray`, failing at FLAT_EPS) and PERF.md
+# records.
+FLAT_EPS = 16
+
+
+def cut(plane: torch.Tensor, v0: torch.Tensor, u0: torch.Tensor,
+        size: int) -> torch.Tensor:
+    """(..., size, size) blocks of plane (..., H, W)'s last two axes at
+    top-left anchors (v0, u0) (N,), which must lie inside:
+    -> (N, ..., size, size), one gather."""
+    k = torch.arange(size, device=plane.device)
+    rows = (v0[:, None] + k).long()[:, :, None]                 # (N, size, 1)
+    cols = (u0[:, None] + k).long()[:, None, :]                 # (N, 1, size)
+    return plane[..., rows, cols].movedim(-3, 0)
+
+
+def extract_patch(img: torch.Tensor, center_uv: torch.Tensor,
+                  half: int) -> torch.Tensor:
+    """(..., 2h+1, 2h+1) patches of img (H, W) around centers (..., 2) =
+    (u, v), clamped inside the image."""
+    return extract_patch_anchored(img, center_uv, half)[0]
+
+
+def extract_patch_anchored(img: torch.Tensor, center_uv: torch.Tensor,
+                           half: int):
+    """Like extract_patch, also returning the clamped top-left anchors
+    (u0, v0) (...,) int32 — near the border they differ from
+    round(center) − half, and any pixel coordinate derived from a patch
+    must come from its anchor. Rounding is half to even (jnp.round)."""
+    H, W = img.shape
+    size = 2 * half + 1
+    lead = center_uv.shape[:-1]
+    u0 = (torch.round(center_uv[..., 0]).to(torch.int32) - half).clamp(
+        0, W - size)
+    v0 = (torch.round(center_uv[..., 1]).to(torch.int32) - half).clamp(
+        0, H - size)
+    patches = cut(img, v0.reshape(-1), u0.reshape(-1), size)
+    return patches.reshape(*lead, size, size), u0, v0
+
+
+def _boxsum(x: torch.Tensor, t: int, R2: int) -> torch.Tensor:
+    """Per-offset t×t patch sums of (..., W2, W2) windows via integral
+    images: two prefix sums and four slices."""
+    ii = torch.cumsum(torch.cumsum(x, dim=-2), dim=-1)
+    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
+    return (ii[..., t:t + R2, t:t + R2] - ii[..., 0:R2, t:t + R2]
+            - ii[..., t:t + R2, 0:R2] + ii[..., 0:R2, 0:R2])
+
+
+def patch_variance(windows: torch.Tensor, t: int):
+    """Per-offset t×t patch variance (times t²) of windows (N, W2, W2),
+    from box sums of the windows less their means, clamped at 0 ->
+    (N, R2, R2); and each window's centered energy Σwc² (N,)."""
+    R2 = windows.shape[-1] - t + 1
+    wc = windows - windows.mean(dim=(-2, -1), keepdim=True)
+    box = _boxsum(wc, t, R2)
+    sq = _boxsum(wc * wc, t, R2)
+    var = torch.clamp(sq - box * box / (t * t), min=0.0)
+    return var, (wc * wc).sum(dim=(-2, -1))
+
+
+def ncc_scores_all(windows: torch.Tensor,
+                   templates: torch.Tensor) -> torch.Tensor:
+    """Zero-mean NCC of templates (N, t, t) against every offset of their
+    windows (N, W2, W2) -> (N, R2, R2), R2 = W2 − t + 1, in [-1, 1]
+    (crosscorr.m:14-27). The numerator needs no patch means (Σ tm = 0):
+    one K7 launch for all N pairs.
+
+    Two departures from the JAX function, both exact in exact arithmetic:
+    the norms' box sums run on windows less their means (the same
+    variance; in f32 the raw integral images' cancellation moved NCC
+    argmaxes off their f64 positions where the centered ones did not), and
+    an offset whose patch variance lies within the integral images'
+    rounding of 0 — below FLAT_EPS units of roundoff of the window's
+    centered energy Σw² — scores 0. Its NCC is 0/0: in f32 the template's
+    rounding residue Σtm ≠ 0 over sqrt(1e-12) scored such flat background
+    patches up to 38.9 in the JAX function and here alike, winning the
+    argmax by rounding, differently on the card and the CPU. At f64 the
+    floor is ~1e-15 of the window's energy and leaves every score as it
+    was."""
+    t = templates.shape[-1]
+    tm = templates - templates.mean(dim=(-2, -1), keepdim=True)
+    tnorm = torch.sqrt((tm * tm).sum(dim=(-2, -1)) + 1e-12)    # (N,)
+    corr = kernels.ncc_corr(windows, tm)
+    var, energy = patch_variance(windows, t)
+    floor = (FLAT_EPS * torch.finfo(windows.dtype).eps
+             * energy)[:, None, None]
+    scores = corr / (torch.sqrt(var + 1e-12) * tnorm[:, None, None])
+    return torch.where(var > floor, scores, torch.zeros_like(scores))
+
+
+def _select_candidate(scores: torch.Tensor, u0: torch.Tensor,
+                      v0: torch.Tensor, h_pred: torch.Tensor,
+                      S: torch.Tensor, half_t: int, chi2_gate: float,
+                      min_ncc: float):
+    """χ²-gated argmax over each feature's (R2, R2) score window: scores
+    (N, R2, R2), anchors u0, v0 (N,), h_pred (N, 2), S (N, 2, 2). Offset
+    (bx, by) puts the template center at (u0+half_t+bx, v0+half_t+by), the
+    innovation of the gate is measured from there. Returns (z (N, 2),
+    score (N,), found (N,)); the first maximum wins ties."""
+    N, R2 = scores.shape[0], scores.shape[-1]
+    dtype = scores.dtype
+    k = torch.arange(R2, dtype=dtype, device=scores.device)
+    cu = u0.to(dtype)[:, None] + half_t + k                    # (N, R2)
+    cv = v0.to(dtype)[:, None] + half_t + k
+    du = (cu - h_pred[:, 0:1])[:, None, :].expand(N, R2, R2)   # [n, y, x]
+    dv = (cv - h_pred[:, 1:2])[:, :, None].expand(N, R2, R2)
+    nu = torch.stack([du, dv], dim=-1)
+    gate = mahalanobis2(nu, S[:, None, None]) < chi2_gate
+    masked = torch.where(gate, scores, torch.full_like(scores, -torch.inf))
+    best = torch.argmax(masked.reshape(N, -1), dim=1)
+    by, bx = best // R2, best % R2
+    score = masked.reshape(N, -1).gather(1, best[:, None])[:, 0]
+    z = torch.stack([cu.gather(1, bx[:, None])[:, 0],
+                     cv.gather(1, by[:, None])[:, 0]], dim=-1)
+    found = torch.isfinite(score) & (score > min_ncc)
+    return z, torch.where(torch.isfinite(score), score,
+                          torch.full_like(score, -1.0)), found
+
+
+def match_feature(img: torch.Tensor, templates: torch.Tensor,
+                  h_pred: torch.Tensor, S: torch.Tensor, chi2_gate: float,
+                  search_radius: int, min_ncc: float):
+    """The NCC search of every feature (matching.m re-design) in one pass:
+    img (H, W) in [0, 1], shared; templates (..., t, t) predicted
+    appearances; h_pred (..., 2) predicted pixels; S (..., 2, 2)
+    innovation covariances. Returns (z (..., 2), score (...), found (...))."""
+    t = templates.shape[-1]
+    lead = h_pred.shape[:-1]
+    win, u0, v0 = extract_patch_anchored(img, h_pred, search_radius + t // 2)
+    scores = ncc_scores_all(win.reshape(-1, *win.shape[-2:]),
+                            templates.reshape(-1, t, t))
+    z, score, found = _select_candidate(
+        scores, u0.reshape(-1), v0.reshape(-1), h_pred.reshape(-1, 2),
+        S.reshape(-1, 2, 2), t // 2, chi2_gate, min_ncc)
+    return z.reshape(*lead, 2), score.reshape(lead), found.reshape(lead)
+
+
+def match_all(img: torch.Tensor, templates: torch.Tensor,
+              h_pred: torch.Tensor, S: torch.Tensor, visible: torch.Tensor,
+              chi2_gate: float, search_radius: int, min_ncc: float):
+    """All-feature NCC search, templates (B, CAP, t, t), h_pred
+    (B, CAP, 2), S (B, CAP, 2, 2), visible (B, CAP): one K7 launch for the
+    batch. Returns (z (B, CAP, 2), score, found & visible)."""
+    z, score, found = match_feature(img, templates, h_pred, S, chi2_gate,
+                                    search_radius, min_ncc)
+    return z, score, found & visible

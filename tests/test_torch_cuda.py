@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels K1-K6 on the card, against their plain
-versions, and one frame of each engine path on the card against the same
-frame on the CPU. Every test needs a CUDA device and skips without one.
+"""The hand-written CUDA kernels K1-K7 on the card, against their plain
+versions, and one frame of each engine path and of the image path on the
+card against the same frame on the CPU. Every test needs a CUDA device and
+skips without one.
 
 This file imports neither JAX nor the JAX package (the machine with the
 card has no JAX); run it there without the suite's conftest:
@@ -10,7 +11,9 @@ card has no JAX); run it there without the suite's conftest:
 Operands are the kernels' real operands in one frame of the port at a
 small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
 from the fused step, K4 and K6 from the unfused step, K5 from the unfused
-step with pallas_update="on"."""
+step with pallas_update="on"; K7 from the image step at
+tests/test_vision.py's pixels config (CAP 24, R = 10: N = B·24 pairs of
+33x33 windows and 13x13 templates)."""
 
 import pytest
 import torch
@@ -20,6 +23,7 @@ from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
+from ekf_slam_tpu_torch.vision import frontend
 
 torch.set_num_threads(1)
 
@@ -41,6 +45,14 @@ UNFUSED = {"corr_apply_cols": ("off", "float64"),
 # Each entry's error in units of its Cauchy-Schwarz bound
 # (kernels.scaled_error); the limit's reason is at kernels.SCALED_TOL.
 TOL = kernels.SCALED_TOL
+IMAGE = {
+    "map": {"capacity": 24, "min_features_in_image": 10,
+            "max_new_per_step": 10},
+    "vision": {"search_radius": 10, "min_ncc": 0.4, "matcher": "ncc"},
+    "sim": {"num_landmarks": 40, "depth_min": 2.0, "depth_max": 6.0,
+            "v_init": [0.002, 0.0, 0.004], "w_init": [0.0, 0.001, 0.0],
+            "traj_accel_std": 2e-4, "traj_alpha_std": 2e-4},
+}
 
 
 @pytest.fixture
@@ -55,8 +67,8 @@ def _sequence(dtype_name, **filter_kw):
     cfg = EngineConfig.from_dict({
         **CFG, "filter": {**CFG["filter"], **filter_kw},
         "dtype": dtype_name})
-    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, 3)
-    st = engine.bootstrap(init_state(cfg, B), obs.frame(0), cfg)
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, 3, "cpu")
+    st = engine.bootstrap(init_state(cfg, B, "cpu"), obs.frame(0), cfg)
     u = torch.rand(3, B, cfg.ransac.num_hypotheses, dtype=torch.float64,
                    generator=torch.Generator().manual_seed(1))
     return cfg, obs, st, u
@@ -276,4 +288,89 @@ def test_cuda_unfused_step_matches_cpu_step(card, pallas):
     assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
     assert kernels.scaled_error(s_gpu.P.cpu().double(),
                                 s_cpu.P.double()) <= 1e-2
+    assert bool(torch.isfinite(s_gpu.P).all())
+
+
+def _image_sequence(dtype_name):
+    """The image path's inputs on the CPU: cfg, empty states and stores,
+    3 rendered frames, RANSAC draws."""
+    cfg = EngineConfig.from_dict({**IMAGE, "dtype": dtype_name})
+    scn, xs, _ = simulate(torch.Generator().manual_seed(0), cfg, 3, "cpu")
+    imgs = torch.stack([frontend.render_scene_image(scn, xs[i], cfg, "cpu")
+                        for i in range(3)])
+    u = torch.rand(3, B, cfg.ransac.num_hypotheses,
+                   dtype=cfg.torch_dtype,
+                   generator=torch.Generator().manual_seed(1))
+    return (cfg, init_state(cfg, B, "cpu"),
+            frontend.init_appearance(cfg, B, "cpu"), imgs, u)
+
+
+@pytest.fixture(scope="module")
+def ncc_operands():
+    """K7's f64 operands (windows, zero-mean templates) in frame 2 of the
+    image path on the CPU."""
+    cfg, st, app, imgs, u = _image_sequence("float64")
+    st, app, _, _ = frontend.run_images(st, app, imgs[:2], u[:2], cfg, "cpu")
+    with kernels.capture_operands() as captured:
+        frontend.step_image(st, app, imgs[2], u[2], cfg)
+    return captured["ncc_corr"][0]
+
+
+@pytest.mark.cuda
+def test_cuda_ncc_corr_matches_plain(card, ncc_operands):
+    """K7 (f32) vs the f64 plain version on the same f32-rounded operands,
+    each entry within TOL of its bound ‖window patch‖·‖template‖."""
+    win, tm = (a.to(card, torch.float32) for a in ncc_operands)
+    assert win.shape == (B * 24, 33, 33) and tm.shape == (B * 24, 13, 13)
+    before = kernels.LAUNCHES["ncc_corr"]
+    got = kernels.ncc_corr(win, tm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ncc_corr"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B * 24, 21, 21)
+    ref = kernels.ncc_corr_plain(win.double(), tm.double())
+    assert kernels.ncc_error(got, ref, win, tm) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_ncc_check_fails_transposed_template(card, ncc_operands):
+    win, tm = (a.to(card, torch.float32) for a in ncc_operands)
+    got = kernels.ncc_corr(win, tm.transpose(1, 2).contiguous())
+    ref = kernels.ncc_corr_plain(win.double(), tm.double())
+    assert kernels.ncc_error(got, ref, win, tm) > 100 * TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,W2,t", [(1, 37, 13), (130, 23, 7), (5, 13, 13)])
+def test_cuda_ncc_corr_takes_other_shapes(card, N, W2, t):
+    """One pair, a pair count past one 128-lane TPU group with a smaller
+    window, and t = W2 (one offset)."""
+    g = torch.Generator(card).manual_seed(N)
+    win = torch.rand(N, W2, W2, device=card, generator=g)
+    tm = torch.rand(N, t, t, device=card, generator=g) - 0.5
+    got = kernels.ncc_corr(win, tm)
+    ref = kernels.ncc_corr_plain(win.double(), tm.double())
+    assert kernels.ncc_error(got, ref, win, tm) <= TOL
+    with pytest.raises(TypeError, match="float32"):
+        kernels.ncc_corr(win.double(), tm.double())
+
+
+@pytest.mark.cuda
+def test_cuda_image_step_matches_cpu_step(card):
+    """One f32 image frame (NCC matcher) with CUDA tensors against the same
+    frame on the CPU, at the tolerances of test_cuda_step_matches_cpu_step;
+    K7 launched once, K4 twice, K6 three times."""
+    cfg, st, app, imgs, u = _image_sequence("float32")
+    st, app, _, _ = frontend.run_images(st, app, imgs[:2], u[:2], cfg, "cpu")
+    kernels.reset_launches()
+    s_gpu, _, i_gpu = frontend.step_image(st.to(card), app.to(card),
+                                          imgs[2].to(card), u[2].to(card),
+                                          cfg)
+    s_cpu, _, i_cpu = frontend.step_image(st, app, imgs[2], u[2], cfg)
+    assert kernels.LAUNCHES == {
+        k: {"ncc_corr": 1, "corr_apply_cols": 2, "f32_matmul_big": 3}.get(
+            k, 0) for k in kernels.LAUNCHES}
+    for f in ("n_ic", "n_li", "n_hi"):
+        assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
+    scale = float(s_cpu.x.abs().max())
+    assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
     assert bool(torch.isfinite(s_gpu.P).all())

@@ -54,7 +54,7 @@ def multiframe():
         _, obs, jst = sim_and_bootstrap(jc, 0, FRAMES, B)
         step = step_fn(jc)
         st = port_state(jst)
-        boot = (jst, engine.bootstrap(init_state(tc, B),
+        boot = (jst, engine.bootstrap(init_state(tc, B, "cpu"),
                                       port_obs(frame(obs, 0)), tc))
         frames = []
         for t in range(1, FRAMES):
@@ -200,7 +200,7 @@ def test_step_raises_outside_fused_conditions(change):
     for k, v in change.items():
         d[k] = {**d[k], **v}
     _, tc = configs(d)
-    st = init_state(tc, 1)
+    st = init_state(tc, 1, "cpu")
     L = tc.sim.num_landmarks
     obs = FrameObs(torch.zeros(L, 2, dtype=torch.float64),
                    torch.zeros(L, dtype=torch.bool))
@@ -221,7 +221,7 @@ def test_default_map_config_is_outside_the_fused_step():
     _, tc = configs({"dtype": "float64"})
     for dev in ("cpu", "cuda"):
         assert not engine._use_fused(tc, torch.device(dev))
-    st = init_state(tc, 1)
+    st = init_state(tc, 1, "cpu")
     L = tc.sim.num_landmarks
     obs = FrameObs(torch.rand(L, 2, dtype=torch.float64,
                               generator=torch.Generator().manual_seed(0))

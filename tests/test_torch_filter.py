@@ -77,11 +77,11 @@ def world():
 
 def test_state_round_trip_and_init(world):
     st = world["st"]
-    back = state_from_numpy(state_to_numpy(st))
+    back = state_from_numpy(state_to_numpy(st), "cpu")
     for k, v in state_to_numpy(back).items():
         np.testing.assert_array_equal(v, state_to_numpy(st)[k])
     j0 = j_init_state(JC)
-    p0 = init_state(TC, 2)
+    p0 = init_state(TC, 2, "cpu")
     for k, v in state_to_numpy(p0).items():
         np.testing.assert_array_equal(v, np.broadcast_to(
             np.asarray(getattr(j0, k)), v.shape), err_msg=k)

@@ -254,7 +254,8 @@ def test_make_scene_inside_initial_frustum():
 
 def test_simulate_shapes_and_dtypes():
     tc = tcfg.EngineConfig.from_dict({"sim": {"num_landmarks": 16}})
-    scene, xs, obs = tscene.simulate(torch.Generator().manual_seed(0), tc, 5)
+    scene, xs, obs = tscene.simulate(torch.Generator().manual_seed(0), tc, 5,
+                                        "cpu")
     assert scene.landmarks.shape == (16, 3)
     assert xs.shape == (5, 13) and xs.dtype == torch.float32
     assert obs.pixels.shape == (5, 16, 2) and obs.pixels.dtype == torch.float32

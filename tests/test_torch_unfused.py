@@ -234,7 +234,7 @@ def test_fused_step_equals_unfused_step(multiframe):
 def _tiny(tc):
     """A zero-observation frame for one instance of config tc."""
     L = tc.sim.num_landmarks
-    return (init_state(tc, 1),
+    return (init_state(tc, 1, "cpu"),
             FrameObs(torch.zeros(L, 2, dtype=torch.float64),
                      torch.zeros(L, dtype=torch.bool)),
             torch.zeros(1, tc.ransac.num_hypotheses, dtype=torch.float64))

@@ -105,7 +105,7 @@ def sim_and_bootstrap(jc, seed, frames, B):
 def port_state(jstate, dtype=torch.float64):
     return state_from_numpy(
         {f.name: np.asarray(getattr(jstate, f.name))
-         for f in dataclasses.fields(jstate)}, dtype=dtype)
+         for f in dataclasses.fields(jstate)}, "cpu", dtype)
 
 
 def port_obs(jobs, dtype=torch.float64):
