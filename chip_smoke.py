@@ -11,23 +11,34 @@ Phases, one line each, any failure raises (exit code != 0):
                K1-K3 from the fused path, K4 and K6 from the unfused path
                (i), K5 and K6 from path (ii), K6 at both of its call sites
                (RANSAC's P·G and the update's P·Hᵀ), K7 from the image
-               path (all B·CAP windows and templates of the frame). Each
-               entry's error is scaled to its own bound; K4's output must
-               be bitwise symmetric. Then planted faults (K1 without
+               path (all B·CAP windows and templates of the frame); from
+               the bf16-P fast mode, K8 from a fast_rows frame in its three
+               modes with P as stored (bf16) and upcast, and K4 and K6 on
+               a fast frame's bf16 P. Each entry's error is scaled to its
+               own bound (a bf16 output may also stray one bf16 ulp); K4's
+               and K8 "full"'s outputs must be bitwise symmetric, K8
+               "expr"'s on a symmetric P. Then planted faults (K1 without
                process noise, K5 with the renorm Jacobian replaced by I,
-               K7 with the template transposed) must fail that check; the
-               f32 patch variance of the NCC norms must stray less than
-               ncc.FLAT_EPS roundoff units from its f64 value
+               K7 with the template transposed, K8 without its renorm
+               rows) must fail that check; the f32 patch variance of the
+               NCC norms must stray less than ncc.FLAT_EPS roundoff units
+               from its f64 value.
                Times: kernel, plain version, one library call where one
                computes the same function (K6 torch.bmm, K7 a grouped
-               F.conv2d with cuDNN's TF32 off), and the card's bound
+               F.conv2d with cuDNN's TF32 off, K8 "expr" torch.baddbmm, on
+               f32 operands), and the card's bound
   4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
                  fused  (step_fused)                 K1-K3 once a frame
                  (i)    unfused, pallas_update off   K4 2x, K6 3x a frame
                  (ii)   unfused, pallas_update on    K5 2x, K6 3x a frame
-               finite state, update cap never hit, tracking error < 0.2;
+               and in bench.py's production fast mode (P stored in bf16,
+               max_update_obs 24; scene FAST_SCENE, see profile_slice):
+                 fast       column-form update       K4 2x, K6 3x a frame
+                 fast_rows  row-form update          K8 2x a frame
+               finite state, update cap never hit, tracking error < 0.2,
+               P still bf16 in the fast mode;
                then the pixels bench workload (the same map, 240x320
                rendered frames, R = 12) at B = 32 for 16 frames through
                frontend.run_images:
@@ -39,8 +50,9 @@ Phases, one line each, any failure raises (exit code != 0):
                timed runs (fused, (i), image NCC) or of one
   5. crosscheck one frame of each path with CUDA tensors vs the same frame
                on the CPU (plain path), and the same frame through the
-               fused and the unfused step on the card: equal gate counts,
-               x and P within tolerance
+               fused and the unfused step, and through the fast mode's row
+               and column forms, on the card: equal gate counts, x and P
+               within tolerance
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line {"ok": true, "device": {...}}. Without a
 CUDA device it fails.
@@ -58,9 +70,11 @@ import torch.nn.functional as F
 
 from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.ops import _build, kernels
-from ekf_slam_tpu_torch.profile_slice import (BATCH, FRAMES, IMAGE_BATCH,
+from ekf_slam_tpu_torch.profile_slice import (BATCH, FAST_PATHS, FAST_SCENE,
+                                              FRAMES, IMAGE_BATCH,
                                               image_config, image_inputs,
-                                              slice_config, slice_inputs)
+                                              slice_config, slice_inputs,
+                                              update_form)
 from ekf_slam_tpu_torch.vision import frontend, ncc
 
 FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
@@ -76,6 +90,7 @@ KERNELS = {
     "fused_update_tail": (FUSED_SRC, f"{PK}:135"),
     "f32_matmul_big": (UNFUSED_SRC, f"{PK}:192"),
     "ncc_corr": (NCC_SRC, f"{PK}:802"),
+    "corr_apply": (UNFUSED_SRC, f"{PK}:741"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
 # is branchless: frame 0, with no features yet, launches as many.
@@ -86,6 +101,8 @@ PER_FRAME = {
     "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
     "image": {"ncc_corr": 1, "corr_apply_cols": 2, "f32_matmul_big": 3},
     "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
+    "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
+    "fast_rows": {"corr_apply": 2},
 }
 SIM_PATHS = ("fused", "unfused", "unfused_pallas")
 # The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): f32 outside the
@@ -102,8 +119,10 @@ def _sym(D: int) -> int:
 # Floating-point operations of one call, from its operands: the plain
 # version's multiply-adds, each entry of a symmetric output counted once
 # (the downdate ½(K·PHtᵀ + PHt·Kᵀ): 4R an entry; the low-rank EᵀU + UᵀE +
-# EᵀCE: 6r an entry after EᵀC; K4's ½(A·Bᵀ + B·Aᵀ): 4R), the low-rank
-# terms dense, as the kernels compute them.
+# EᵀCE: 6r an entry after EᵀC; K4's ½(A·Bᵀ + B·Aᵀ) and K8's ½(AtᵀBt +
+# BtᵀAt) in "expr" / "full": 4R; K8's AtᵀBt in "none", not symmetric: 2R
+# an entry over all D² entries), the low-rank terms dense, as the kernels
+# compute them.
 FLOPS = {
     "fused_manage_predict_pht": lambda P, keep, E6, U6, C66, F13, Q13, Ht:
         P.shape[0] * (2 * P.shape[1] ** 2 * Ht.shape[2]
@@ -129,17 +148,28 @@ FLOPS = {
     "ncc_corr": lambda win, tm:
         2 * win.shape[0] * (win.shape[-1] - tm.shape[-1] + 1) ** 2
         * tm.shape[-1] ** 2,
+    "corr_apply": lambda P, At, Bt, mode:
+        P.shape[0] * (2 * P.shape[1] ** 2 * At.shape[1] if mode == "none"
+                      else 4 * _sym(P.shape[1]) * At.shape[1]),
 }
 # One PyTorch call that computes the kernel's function, where there is
-# one: timed beside the kernel, never called by the port.
+# one: timed beside the kernel, never called by the port. Its bf16
+# operands are upcast to f32 first, outside the timing (no library call
+# takes a bf16 P with f32 products). K8's is its "expr" mode, the JAX XLA
+# form P + ½[At;Bt]ᵀ[Bt;At] (ekf.py:579-582).
 LIBRARY = {
     "f32_matmul_big": torch.bmm,
     "ncc_corr": lambda win, tm: F.conv2d(win[None], tm[:, None],
                                          groups=win.shape[0])[0],
+    "corr_apply": lambda P, At, Bt, mode: torch.baddbmm(
+        P, torch.cat([At, Bt], 1).transpose(1, 2), torch.cat([Bt, At], 1),
+        alpha=0.5),
 }
 # One frame, CUDA vs CPU, both f32: the same math in another summation
 # order; the gain solve and the two updates amplify rounding. x within this
-# share of max|x|, P entrywise within this many Cauchy-Schwarz bounds.
+# share of max|x|, P entrywise within this many Cauchy-Schwarz bounds (a
+# bf16 P beyond one bf16 ulp: two roundings of f32 values that differ in
+# their last bits land one bf16 ulp apart, up to 2^-7 of an entry).
 X_RTOL = 1e-3
 P_TOL = 1e-2
 
@@ -183,13 +213,14 @@ def kernel_error(name, out, ref, args) -> float:
 
 
 def check_kernel(name, args, site="") -> dict:
-    """One kernel against its plain version on the card: errors (f32
-    kernel vs f64 plain on the same inputs, limit kernels.SCALED_TOL),
-    CUDA-event times of kernel and plain, max|P−Pᵀ| of the P output."""
+    """One kernel against its plain version on the card: errors (kernel
+    vs f64 plain on the same inputs, limit kernels.SCALED_TOL), CUDA-event
+    times of kernel, plain and library call, max|P−Pᵀ| of the P output."""
     wrapper, plain = getattr(kernels, name), kernels.PLAIN[name]
     out = wrapper(*args)
     torch.cuda.synchronize()
-    ref = plain(*(a.double() for a in args))
+    ref = plain(*(a.double() if isinstance(a, torch.Tensor) else a
+                  for a in args))
     err = kernel_error(name, out, ref, args)
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -198,17 +229,23 @@ def check_kernel(name, args, site="") -> dict:
     ms = cuda_ms(lambda: wrapper(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
     library = LIBRARY.get(name)
+    if name == "corr_apply" and args[3] != "expr":
+        library = None
     library_ms = None
     if library is not None:
-        lib_err = float((library(*args).double() - refs[0]).abs().max())
-        library_ms = cuda_ms(lambda: library(*args))
+        lib_args = tuple(a.float() if isinstance(a, torch.Tensor)
+                         and a.dtype == torch.bfloat16 else a for a in args)
+        lib_err = float((library(*lib_args).double() - refs[0]).abs().max())
+        library_ms = cuda_ms(lambda: library(*lib_args))
     flops = FLOPS[name](*args)
-    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
+    nbytes = sum(t.numel() * t.element_size() for t in args + outs
+                 if isinstance(t, torch.Tensor))
     bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = ("operations" if flops / PEAK_F32_FLOPS
                 >= nbytes / PEAK_BYTES else "bytes")
     fields = dict(name=name, site=site or "-", shapes=",".join(
         "x".join(str(s) for s in a.shape) for a in args[:2]),
+        dtype=str(args[0].dtype).removeprefix("torch."),
         max_abs_err=f"{abs_err:.3e}", scaled_err=f"{err:.3e}",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
@@ -222,9 +259,10 @@ def check_kernel(name, args, site="") -> dict:
     if not err <= kernels.SCALED_TOL:
         raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
                              f"{kernels.SCALED_TOL}")
-    if name == "corr_apply_cols" and not torch.equal(
-            outs[0], outs[0].transpose(1, 2)):
-        raise AssertionError("corr_apply_cols: output not bitwise "
+    symmetric = name == "corr_apply_cols" or (name == "corr_apply"
+                                              and args[3] == "full")
+    if symmetric and not torch.equal(outs[0], outs[0].transpose(1, 2)):
+        raise AssertionError(f"{name} {site}: output not bitwise "
                              f"symmetric, max|P−Pᵀ| {max_asym(outs[0])}")
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -295,8 +333,11 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
         if launches != want:
             raise AssertionError(f"{path}: kernel launches {launches}, "
                                  f"expected {want}")
-    if not (torch.isfinite(traj).all() and torch.isfinite(final.P).all()):
+    if not (torch.isfinite(traj).all()
+            and torch.isfinite(final.P.float()).all()):
         raise AssertionError(f"{path}: non-finite trajectory or covariance")
+    if cfg.filter.p_storage == "bf16" and final.P.dtype != torch.bfloat16:
+        raise AssertionError(f"{path}: P left bf16 storage: {final.P.dtype}")
     max_obs = int(torch.maximum(infos.n_li.max(), infos.n_hi.max()))
     if max_obs > cfg.map.max_update_obs:
         raise AssertionError(f"{path}: update cap hit: {max_obs} > "
@@ -308,6 +349,7 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
                              f"{track_limit}")
     rate = batch * FRAMES / statistics.median(seconds)
     fields = dict(path=path, batch=batch, frames=FRAMES,
+                  P=str(final.P.dtype).removeprefix("torch."),
                   seconds=",".join(f"{s:.4f}" for s in seconds),
                   median_steps_per_s=f"{rate:.1f}",
                   track_err=f"{err:.4f}", largest_update=max_obs,
@@ -325,7 +367,8 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
 
 def same_frame(tag, a, b) -> None:
     """Two results of one frame: equal gate counts, x within X_RTOL of
-    max|x|, P entrywise within P_TOL of its bounds."""
+    max|x|, P entrywise within P_TOL of its bounds (and one bf16 ulp for
+    a bf16 P, kernels.scaled_error)."""
     (s_a, i_a), (s_b, i_b) = a, b
     for f in ("n_ic", "n_li", "n_hi"):
         x, y = getattr(i_a, f).cpu(), getattr(i_b, f).cpu()
@@ -338,12 +381,16 @@ def same_frame(tag, a, b) -> None:
     if not dx <= X_RTOL * scale:
         raise AssertionError(f"{tag}: x differs by {dx:.3e} > {X_RTOL} * "
                              f"{scale:.3e}")
-    dP = kernels.scaled_error(s_a.P.cpu().double(), s_b.P.cpu().double())
+    dP = kernels.scaled_error(s_a.P.cpu(), s_b.P.cpu().double())
     if not dP <= P_TOL:
         raise AssertionError(f"{tag}: P differs by {dP:.3e} bounds > "
                              f"{P_TOL}")
+    fields = dict(max_abs_x=f"{scale:.3e}", P_scaled_err=f"{dP:.3e}")
+    if s_a.P.dtype == torch.bfloat16:
+        fields["without_ulp"] = "{:.3e}".format(kernels.scaled_error(
+            s_a.P.cpu().double(), s_b.P.cpu().double()))
     phase("crosscheck", pair=tag, counts="equal", max_dx=f"{dx:.3e}",
-          max_abs_x=f"{scale:.3e}", P_scaled_err=f"{dP:.3e}")
+          **fields)
 
 
 def main() -> None:
@@ -433,8 +480,54 @@ def check_paths(dev, card: str) -> list:
         lambda g, r: kernels.ncc_error(g, r, win, tm))
     flat_stray(win, tm.shape[-1])
 
+    # The fast mode (bf16 P, M = 24, scene FAST_SCENE): K8 on a row-form
+    # frame's tails, in each mode with P as stored and upcast; then K4 and
+    # K6 on a column-form frame's bf16 P.
+    fcfgs = {p: slice_config(p) for p in FAST_PATHS}
+    fst0, fxs, fobs, fu = slice_inputs(fcfgs["fast"], dev, scene=FAST_SCENE)
+    with update_form("fast_rows"):
+        inputs = capture_frame(fcfgs["fast_rows"], fst0, fobs, fu)
+    P, At, Bt, mode = inputs["corr_apply"][0]
+    if P.dtype != torch.bfloat16 or mode != "expr":
+        raise AssertionError(f"fast_rows: K8 took P {P.dtype}, mode {mode}")
+    k8 = {}
+    for m in kernels.CORR_MODES:
+        for Pm in (P, P.float()):
+            k8[m, Pm.dtype] = check_kernel(
+                "corr_apply", (Pm, At, Bt, m),
+                f"LI_{m}_{str(Pm.dtype).removeprefix('torch.')}")
+    report["corr_apply"] = k8["expr", torch.bfloat16]
+    for Pm in (P, P.float()):
+        sym = (0.5 * (Pm.float() + Pm.float().transpose(1, 2))).to(Pm.dtype)
+        out = kernels.corr_apply(sym, At, Bt, "expr")
+        if not torch.equal(out, out.transpose(1, 2)):
+            raise AssertionError(f"corr_apply expr on a symmetric {Pm.dtype} "
+                                 f"P: max|P−Pᵀ| {max_asym(out)}")
+    no_renorm = At.clone()
+    no_renorm[:, -4:] = 0
+    planted_fault(
+        "K8_without_renorm_rows", kernels.corr_apply(P, no_renorm, Bt, mode),
+        kernels.corr_apply_plain(P.double(), At.double(), Bt.double(), mode),
+        kernels.scaled_error)
+    with update_form("fast"):
+        inputs = capture_frame(fcfgs["fast"], fst0, fobs, fu)
+    check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0],
+                 "ransac_PG_bf16")
+    for name, site, args in (
+            ("corr_apply_cols", "LI_bf16", inputs["corr_apply_cols"][0]),
+            ("f32_matmul_big", "update_PHt_bf16",
+             inputs["f32_matmul_big"][1])):
+        if args[0].dtype != torch.bfloat16:
+            raise AssertionError(f"fast: {name} took {args[0].dtype}")
+        e = check_kernel(name, args, site)
+        report[name]["bf16_p"] = {k: e[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "scaled_err")}
+
     # -- 4. the slices: 16 frames through each path ---------------------------
     def sim_run(path):
+        if path in FAST_PATHS:
+            return lambda: engine.run_sequence(fst0, fobs, fu, fcfgs[path])
         return lambda: engine.run_sequence(st0, obs, u, cfgs[path])
 
     def image_run(path):
@@ -446,10 +539,15 @@ def check_paths(dev, card: str) -> list:
 
     launches = {}
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
-                       ("image", 3), ("image_descriptor", 1)):
+                       ("fast", 3), ("fast_rows", 3), ("image", 3),
+                       ("image_descriptor", 1)):
         if path in SIM_PATHS:
             counts = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
                                runs, 0.2, card)
+        elif path in FAST_PATHS:
+            with update_form(path):
+                counts = run_slice(path, fcfgs[path], sim_run(path), BATCH,
+                                   fxs, runs, 0.2, card)
         else:
             counts = run_slice(path, icfgs[path], image_run(path),
                                IMAGE_BATCH, ixs, runs, 0.5, card)
@@ -468,6 +566,17 @@ def check_paths(dev, card: str) -> list:
                              u[8].cpu(), cfg)
         same_frame(f"{path}:cuda_vs_cpu", on_card[path], on_cpu)
     same_frame("fused_vs_unfused:cuda", on_card["fused"], on_card["unfused"])
+    with update_form("fast"):
+        fst8, _, _ = engine.run_sequence(fst0, fobs.window(0, 8), fu[:8],
+                                         fcfgs["fast"])
+    for path, cfg in fcfgs.items():
+        with update_form(path):
+            on_card[path] = engine.step(fst8, fobs.frame(8), fu[8], cfg)
+            on_cpu = engine.step(fst8.to("cpu"), fobs.frame(8).to("cpu"),
+                                 fu[8].cpu(), cfg)
+        same_frame(f"{path}:cuda_vs_cpu", on_card[path], on_cpu)
+    same_frame("fast_rows_vs_fast:cuda", on_card["fast_rows"],
+               on_card["fast"])
     ist8, iapp8, _, _ = frontend.run_images(ist0, iapp0, imgs[:8], iu[:8],
                                             icfgs["image"], dev)
     card_step = frontend.step_image(ist8, iapp8, imgs[8], iu[8],

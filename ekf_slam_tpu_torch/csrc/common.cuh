@@ -1,7 +1,9 @@
 // Device helpers shared by the covariance kernels (fused_cov.cu,
-// unfused_cov.cu): the tile geometry, the thread layout, staging of
-// operand blocks into shared memory, the tile's pair of rank-R sums, the
-// P·Hᵀ stripe accumulation, and the launch helper.
+// unfused_cov.cu): the tile geometry, the thread layout, loads and stores
+// of P in its storage type (f32 or bf16: upcast on load, one
+// round-to-nearest-even on store), staging of operand blocks into shared
+// memory, the tile's pair of rank-R sums (column or row factors), the P·Hᵀ
+// stripe accumulation, and the launch helper.
 //
 // Thread layout: 256 threads, thread (tx, ty) owns column tx and the four
 // consecutive rows 4·ty .. 4·ty+3 of a TILE x TILE tile. Row-side operands
@@ -13,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,18 +45,30 @@ __device__ __forceinline__ float at(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
+// An element of P (or of any operand) as f32, and an f32 stored in P's
+// type: bf16 rounds to nearest, ties to even.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // Copy a (rows x cols) block of a row-major matrix with leading dim `ld`,
-// starting at (r0, c0), into smem with leading dim `sld`; entries outside
-// (nrows, ncols) read as 0. transpose: store element (rr, cc) at
-// dst[cc * sld + rr].
-__device__ void stage(float* dst, int sld, const float* src, int ld, int r0,
+// starting at (r0, c0), into smem (f32) with leading dim `sld`; entries
+// outside (nrows, ncols) read as 0. transpose: store element (rr, cc) at
+// dst[cc * sld + rr]. T is float or __nv_bfloat16 (upcast on the way).
+template <typename T>
+__device__ void stage(float* dst, int sld, const T* src, int ld, int r0,
                       int c0, int rows, int cols, int nrows, int ncols,
                       bool transpose = false) {
   for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
     const int rr = idx / cols, cc = idx % cols;
     const int gr = r0 + rr, gc = c0 + cc;
     const float v = (gr < nrows && gc < ncols)
-                        ? src[static_cast<size_t>(gr) * ld + gc]
+                        ? to_f32(src[static_cast<size_t>(gr) * ld + gc])
                         : 0.f;
     dst[transpose ? cc * sld + rr : rr * sld + cc] = v;
   }
@@ -82,6 +97,42 @@ __device__ void pair_sums(const float* X, const float* Y, int D, int R,
     for (int mm = 0; mm < MC; ++mm) {
       const float xj = sXj[t.tx * LD + mm];
       const float yj = sYj[t.tx * LD + mm];
+      const float4 xi = ld4(sXi + mm * LDT + t.r0);
+      const float4 yi = ld4(sYi + mm * LDT + t.r0);
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        a[q] = fmaf(at(xi, q), yj, a[q]);
+        b[q] = fmaf(at(yi, q), xj, b[q]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The same pair of sums for two (R x D) ROW factors Xt, Yt (the row-form
+// update's At, Bt):
+//   a[q] = Σ_k Xt[k][row]·Yt[k][col],   b[q] = Σ_k Yt[k][row]·Xt[k][col],
+// in the same fixed k order, so again b of (r, c) is a of (c, r) product
+// for product. A factor row is contiguous along D, so all four MC x TILE
+// blocks stage straight ([k][row] and [k][col], ld LDT): coalesced loads,
+// no transposed staging; a warp then reads 32 consecutive [k][col] words.
+__device__ void pair_sums_rows(const float* Xt, const float* Yt, int D,
+                               int R, int i0, int j0, float* sXi, float* sYi,
+                               float* sXj, float* sYj, float (&a)[RPT],
+                               float (&b)[RPT]) {
+  const Tid t = tid();
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) a[q] = b[q] = 0.f;
+  for (int m0 = 0; m0 < R; m0 += MC) {
+    stage(sXi, LDT, Xt, D, m0, i0, MC, TILE, R, D);
+    stage(sYi, LDT, Yt, D, m0, i0, MC, TILE, R, D);
+    stage(sXj, LDT, Xt, D, m0, j0, MC, TILE, R, D);
+    stage(sYj, LDT, Yt, D, m0, j0, MC, TILE, R, D);
+    __syncthreads();
+#pragma unroll 8
+    for (int mm = 0; mm < MC; ++mm) {
+      const float xj = sXj[mm * LDT + t.tx];
+      const float yj = sYj[mm * LDT + t.tx];
       const float4 xi = ld4(sXi + mm * LDT + t.r0);
       const float4 yi = ld4(sYi + mm * LDT + t.r0);
 #pragma unroll

@@ -10,18 +10,27 @@ Port of ``ekf_slam_tpu/filter/ekf.py`` in its default forms:
   forms P·Hᵀ in ``kernels.f32_matmul_big`` (K6);
 * ``update``: the whole masked update. Its covariance tail (downdate,
   symmetrize, quaternion renorm; update.m:13-24) runs in K5
-  ``kernels.fused_update_tail`` when ``use_pallas`` is set and x is f32,
+  ``kernels.fused_update_tail`` when ``use_pallas`` is set and P is f32,
   else as the folded rank-(2M'+8) correction applied by K4
-  ``kernels.corr_apply_cols``.
+  ``kernels.corr_apply_cols``;
+* ``update_rows``: the same update in row form (the engine's
+  ``EKF_UPDATE=rows`` layout): the caller's H·P rows feed S, the state
+  move and the folded rank-(2M'+8) row factors, whose correction K8
+  ``kernels.corr_apply`` applies in the ``EKF_TAIL_SYM`` mode.
 
 The fused step runs ``update_gain`` with the gain columns of K1/K2 and
 its tails in K2/K3. Masked rows carry zero H and residual and unit noise,
 so S has an identity block there and their gain columns are exactly zero.
 Every product runs at the tensors' own precision: on the card in IEEE f32
-(allow_tf32 off), on the CPU tests in f64.
+(allow_tf32 off), on the CPU tests in f64. P may be stored in bfloat16
+(FilterConfig.p_storage, the fast mode at f32): ``p_compute`` upcasts what
+is read of it, ``p_store`` rounds a new full P back, and the kernels read
+and write it as stored; no product takes a bf16 operand.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -30,19 +39,43 @@ from ekf_slam_tpu_torch.filter import motion
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
 
+# The update layout of the unfused step (engine.step_core_from_prior):
+# "cols" (the default) updates from the gain columns P·Hᵀ (K6 products,
+# K4 tail); "rows" from one shared H·P row read (measurement
+# .pht_rows_split) that feeds the S gates, RANSAC and update_rows (K8
+# tail). The same switch as the JAX engine's (ekf.py:142).
+_UPDATE = os.environ.get("EKF_UPDATE", "cols")
+# K8's mode in update_rows: "expr" (the default), "full" or "none"
+# (kernels.corr_apply; the JAX package's ekf.py:158).
+_TAIL_SYM = os.environ.get("EKF_TAIL_SYM", "expr")
+
+
+def p_compute(P: torch.Tensor) -> torch.Tensor:
+    """Storage -> compute view of (a part of) the covariance: a bfloat16
+    P upcasts to float32; f32 / f64 storage is returned as it is."""
+    return P.float() if P.dtype == torch.bfloat16 else P
+
+
+def p_store(P_new: torch.Tensor, P_like: torch.Tensor) -> torch.Tensor:
+    """Compute -> storage: a new covariance rounded to P_like's bfloat16
+    storage (round to nearest even); unchanged for f32 / f64 storage."""
+    return (P_new.to(torch.bfloat16) if P_like.dtype == torch.bfloat16
+            else P_new)
+
 
 def predict(x: torch.Tensor, P: torch.Tensor, cfg: FilterConfig):
     """EKF time update (predict_state_and_covariance.m:1-27). x (B,D),
     P (B,D,D). P⁻ = [F P₁₁ Fᵀ + Q, F P₁ₘ; Pₘ₁ Fᵀ, Pₘₘ]: top = F·P[:13]
     is written as the 13-row stripe, its map part transposed as the
-    13-column stripe below it. Returns (x⁻, P⁻)."""
+    13-column stripe below it, both in P's storage dtype.
+    Returns (x⁻, P⁻)."""
     xv = x[:, :CAM_DIM]
     x_pred = torch.cat([motion.fv(xv, cfg), x[:, CAM_DIM:]], dim=1)
     F = motion.dfv_by_dxv(xv, cfg)
     Q = motion.process_noise(xv, cfg)
-    top = F @ P[:, :CAM_DIM, :]                                  # (B, 13, D)
+    top = F @ p_compute(P[:, :CAM_DIM, :])                       # (B, 13, D)
     top = torch.cat([top[:, :, :CAM_DIM] @ F.transpose(1, 2) + Q,
-                     top[:, :, CAM_DIM:]], dim=2)
+                     top[:, :, CAM_DIM:]], dim=2).to(P.dtype)
     P_pred = P.clone()
     P_pred[:, :CAM_DIM, :] = top
     P_pred[:, CAM_DIM:, :CAM_DIM] = top[:, :, CAM_DIM:].transpose(1, 2)
@@ -55,7 +88,7 @@ def update_gain(x: torch.Tensor, P, H: torch.Tensor, z: torch.Tensor,
                 PHt: torch.Tensor | None = None):
     """x (B,D); H (B,M,D); z, h, row_mask, r_diag (B,M); PHt (B,D,M) the
     gain columns P·Hᵀ if the caller has them (then P is not read; else
-    K6 forms them from P (B,D,D)).
+    K6 forms them from P (B,D,D), as stored).
     Returns (x_new un-renormalized, K (B,D,M), PHt masked (B,D,M))."""
     mask = row_mask.to(x.dtype)
     H = H * mask[..., None]
@@ -116,17 +149,64 @@ def update(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
     """Masked EKF measurement update (update.m:1-32). H (B,M,D) dense
     Jacobian; z, h, row_mask, r_diag (B,M). P enters symmetric.
 
-    The tail runs in K5 when use_pallas is set and x is float32 (as the
-    JAX package takes its fused_update_tail kernel only at f32), else as
-    the folded correction in K4, whose output is bitwise symmetric.
-    Returns (x_new, P_new)."""
+    The tail runs in K5 when use_pallas is set and x and P are float32 (as
+    the JAX package takes its fused_update_tail kernel only for an f32 P),
+    else as the folded correction in K4, whose output is bitwise symmetric
+    and in P's storage dtype. Returns (x_new, P_new)."""
     x_new, K, PHt = update_gain(x, P, H, z, h, row_mask, r_diag,
                                 gain_solver)
-    if use_pallas and x.dtype == torch.float32:
+    if use_pallas and x.dtype == torch.float32 and P.dtype == torch.float32:
         Jq = quat.norm_jac(x_new[:, 3:7])
         return _renormalized(x_new), kernels.fused_update_tail(P, K, PHt, Jq)
-    x_new, A_f, B_f = _folded_tail_factors(x_new, P[:, 3:7, :], K, PHt)
+    x_new, A_f, B_f = _folded_tail_factors(x_new, p_compute(P[:, 3:7, :]),
+                                           K, PHt)
     return x_new, kernels.corr_apply_cols(P, A_f, B_f)
+
+
+def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
+                HP: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
+                row_mask: torch.Tensor, r_diag: torch.Tensor,
+                gain_solver: str = "cholesky"):
+    """Masked EKF update in row form (ekf.py:492-583 of the JAX package;
+    the same math as ``update``). H (B,2M,D) dense measurement rows in any
+    order (the engine stacks u-rows then v-rows); HP (B,2M,D) their H·P
+    rows, from the caller's one read of P (measurement.pht_rows_split);
+    z, h, row_mask, r_diag (B,2M). P enters symmetric.
+
+    K = P·Hᵀ·W is never formed: x moves by (HP)ᵀ·W·ν, and the covariance
+    by the symmetric downdate −(HP)ᵀ·N, N = ½(W + Wᵀ)·HP, folded with the
+    quaternion renorm T = I + E₄GE₄ᵀ (G = normJac(q) − I₄) into one
+    rank-(2M+8) correction P⁺ = P + AtᵀBt,
+
+      At = [−N ; E₄ᵀ ; G·M₄ + (G·M₄₄·Gᵀ)·E₄ᵀ],  Bt = [HP ; G·M₄ ; E₄ᵀ],
+      M₄ = rows 3:7 of P − (HP)ᵀN,
+
+    applied by K8 in the _TAIL_SYM mode ("expr": P + ½(AtᵀBt + BtᵀAt),
+    the JAX XLA form ekf.py:579-582). Returns (x_new, P_new in P's
+    dtype)."""
+    dtype = x.dtype
+    mask = row_mask.to(dtype)
+    H = H * mask[..., None]
+    HP = HP * mask[..., None]
+    nu = (z - h) * mask
+    r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
+    S = HP @ H.transpose(1, 2) + torch.diag_embed(r_eff)     # (B, 2M, 2M)
+    W = (_spd_inverse_newton(S) if gain_solver == "newton"
+         else _spd_inverse(S))
+    x_new = x + torch.einsum("bmd,bm->bd", HP, (W @ nu[..., None])[..., 0])
+    N = 0.5 * (W + W.transpose(1, 2)) @ HP                    # (B, 2M, D)
+    B_, D = x.shape
+    eye4 = torch.eye(4, dtype=dtype, device=x.device)
+    G = quat.norm_jac(x_new[:, 3:7]) - eye4
+    M4 = p_compute(P[:, 3:7, :]) - HP[:, :, 3:7].transpose(1, 2) @ N
+    W2T = G @ M4                                              # (B, 4, D)
+    E4T = torch.zeros(4, D, dtype=dtype, device=x.device)
+    E4T[:, 3:7] = eye4
+    E4T = E4T.expand(B_, 4, D)
+    At = torch.cat([-N, E4T, W2T + (G @ M4[:, :, 3:7] @ G.transpose(1, 2))
+                    @ E4T], dim=1)                            # (B, 2M+8, D)
+    Bt = torch.cat([HP, W2T, E4T], dim=1)
+    return _renormalized(x_new), kernels.corr_apply(P, At, Bt, _TAIL_SYM)
 
 
 def _spd_inverse(S: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,14 @@ the JAX engine does (``_use_fused``):
                                         initialize_features)
 
 * ``step_core`` + ``initialize_features``: the unfused step, for every
-  config outside the fused one's conditions (the library default
-  included). Its dense products on P run in K6 (``f32_matmul_big``) and
-  its two update tails in K4 (``corr_apply_cols``) or, with
-  ``pallas_update``, K5 (``fused_update_tail``).
+  config outside the fused one's conditions (the library default and the
+  bf16-P fast mode included). Its dense products on P run in K6
+  (``f32_matmul_big``) and its two update tails in K4
+  (``corr_apply_cols``) or, with ``pallas_update``, K5
+  (``fused_update_tail``). Under ``ekf._UPDATE == "rows"``
+  (EKF_UPDATE=rows) it takes the row form instead: one H·P row read a
+  phase (``measurement.pht_rows_split``) feeds the S gates, RANSAC and
+  ``ekf.update_rows``, whose tails run in K8 (``corr_apply``); no K6.
 
 Stage order per frame: manage → predict → linearize → IC gates → 1-point
 RANSAC → LI update → HI rescue → HI update → counters + feature init.
@@ -172,39 +176,66 @@ def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
 
 def check_ported(cfg: EngineConfig) -> None:
     """Raise ValueError for filter settings the unfused step (and the image
-    step built on it) does not port: the IEKF, bf16 P storage, share_pht."""
+    step built on it) does not port: the IEKF and share_pht."""
     f = cfg.filter
     if f.use_iterated_update:
         raise ValueError("the iterated update (IEKF) is not ported")
-    if f.p_storage != "f32":
-        raise ValueError(f"p_storage={f.p_storage!r} is not ported; the "
-                         "port stores P in the state's dtype")
     if f.share_pht:
         raise ValueError("share_pht is not ported")
+
+
+def _rows_mode(cfg: EngineConfig, device: torch.device) -> bool:
+    """engine.py:174-175: the row-form update under EKF_UPDATE=rows, unless
+    share_pht, the IEKF or the K5 tail (pallas_update) is taken."""
+    f = cfg.filter
+    return (ekf._UPDATE == "rows" and not f.share_pht
+            and not f.use_iterated_update and not _use_pallas(cfg, device))
 
 
 def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
                          u: torch.Tensor, cfg: EngineConfig):
     """Stages 3-7 given the managed state and its prediction
-    (engine.py:152-312 on its default branches): IC gates with S from P,
-    RANSAC with its moves in K6, the LI update, the HI rescue from the
-    posterior, the HI update. Returns (state, visible, ic, StepInfo)."""
+    (engine.py:152-312 on its default and its row-form branches): IC
+    gates, RANSAC, the LI update, the HI rescue from the posterior, the HI
+    update. Column form: S from P's blocks, RANSAC's moves in K6, the
+    updates by _masked_update. Row form: each phase reads P once into the
+    H·P rows of every visible slot, which give S, RANSAC's moves and
+    _masked_update_rows' operand. Returns (state, visible, ic, StepInfo)."""
     f = cfg.filter
+    rows = _rows_mode(cfg, x_prior.device)
     h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
-    S = measurement.innovation_covariances(P_prior, H_xv, H_y, f.sigma_z)
+    S, hp = _phase_gates(P_prior, H_xv, H_y, visible, f.sigma_z, rows)
     ic = association.individually_compatible(z, z_valid, h, visible, S, cfg)
     vm = visible.to(H_xv.dtype)[..., None, None]
     li, support = ransac.run(x_prior, z, h, S, ic, state.cartesian, u, cfg,
-                             P=P_prior, H_xv=H_xv * vm, H_y=H_y * vm)
-    x_post, P_post = _masked_update(x_prior, P_prior, H_xv, H_y, z, h, li,
-                                    cfg)
+                             P=P_prior, H_xv=H_xv * vm, H_y=H_y * vm, hp=hp)
+    x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y, z, h, li,
+                                   cfg)
     h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
-    S_noR = measurement.innovation_covariances(P_post, H_xv2, H_y2, 0.0)
+    S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, rows)
     hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
-    x_post, P_post = _masked_update(x_post, P_post, H_xv2, H_y2, z, h2, hi,
-                                    cfg)
+    x_post, P_post = _phase_update(x_post, P_post, hp2, H_xv2, H_y2, z, h2,
+                                   hi, cfg)
     return _step_core_epilogue(state, x_post, P_post, visible, ic, li, hi,
                                support)
+
+
+def _phase_gates(P, H_xv, H_y, visible, sigma_z: float, rows: bool):
+    """A phase's per-slot S (B,CAP,2,2) and, in row form, the split H·P
+    rows of the visible slots it was read off (else None)."""
+    if not rows:
+        return measurement.innovation_covariances(P, H_xv, H_y, sigma_z), None
+    vm = visible.to(H_xv.dtype)[..., None, None]
+    hp = measurement.pht_rows_split(P, H_xv * vm, H_y * vm)
+    return measurement.innovation_covariances_from_hp(
+        *hp, H_xv * vm, H_y * vm, sigma_z), hp
+
+
+def _phase_update(x, P, hp, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
+    """A phase's update: row form from its H·P rows hp, else column form."""
+    if hp is None:
+        return _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg)
+    return _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask, cfg)
 
 
 def _step_core_epilogue(state: FilterState, x_post, P_post, visible, ic, li,
@@ -260,6 +291,29 @@ def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
         sel_mask.repeat_interleave(2, dim=1),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
         use_pallas, solver)
+
+
+def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
+                        cfg: EngineConfig):
+    """Row-form _masked_update (engine.py:577-599): the M most relevant
+    slots (M = max_update_obs, or CAP when M <= 0 or M > CAP), their
+    Jacobian rows in block order [u-rows; v-rows] and the same rows of the
+    phase's split H·P (hp = (hp_u, hp_v), each (B,CAP,D)), through
+    ekf.update_rows. Returns (x_new, P_new)."""
+    B, cap = slot_mask.shape
+    M = cfg.map.max_update_obs
+    if M <= 0 or M > cap:
+        M = cap
+    sel, sel_mask, take = _gather_slots(slot_mask, M)
+    Hc = measurement.compact_dense_H_block(take(H_xv), take(H_y), sel,
+                                           sel_mask, cap)
+    HP = torch.cat([take(hp[0]), take(hp[1])], dim=1)       # (B, 2M, D)
+    zs, hs = take(z), take(h)
+    return ekf.update_rows(
+        x, P, Hc, HP, torch.cat([zs[..., 0], zs[..., 1]], dim=1),
+        torch.cat([hs[..., 0], hs[..., 1]], dim=1), sel_mask.repeat(1, 2),
+        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
+        cfg.filter.gain_solver)
 
 
 def _linearize(x, state: FilterState, cfg: EngineConfig):

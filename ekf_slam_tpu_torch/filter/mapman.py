@@ -15,6 +15,9 @@ P' = M∘P + EᵀU + UᵀE + EᵀCE, M∘ a keep-mask outer product:
   13 camera rows of P; K3 applies it, ``add_features_batch`` applies it
   with one stacked product (bootstrap).
 * ``update_counters`` (update_features_info.m:4-10).
+
+P is read through ``ekf.p_compute`` and a new full P written through
+``ekf.p_store``, so a bf16-stored P stays bf16.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
+from ekf_slam_tpu_torch.filter.ekf import p_compute, p_store
 from ekf_slam_tpu_torch.filter.measurement import one_hot
 from ekf_slam_tpu_torch.filter.state import FilterState
 from ekf_slam_tpu_torch.ops import camera as cam_ops
@@ -173,23 +177,23 @@ def add_features_batch(state: FilterState, uvd: torch.Tensor,
     batch): P' = M∘P + Gᵀ·(Mid·G), G = [E; U], Mid = [[C, I], [I, 0]] —
     the single stacked product for EᵀU + UᵀE + EᵀCE.
     Returns (state, assigned (B, K))."""
-    p, assigned = add_params(state.P[:, :CAM_DIM, :], state, uvd,
-                             cand_mask, lm_ids, cfg)
+    p, assigned = add_params(p_compute(state.P[:, :CAM_DIM, :]), state,
+                             uvd, cand_mask, lm_ids, cfg)
     return p.state.replace(P=_stacked_apply(state.P, p.keep_f, p.E, p.U,
                                             p.C)), assigned
 
 
 def _stacked_apply(P, keep_f, E, U, C):
     """keep∘P + EᵀU + UᵀE + EᵀCE as one stacked product Gᵀ·(Mid·G),
-    G = [E; U], Mid = [[C, I], [I, 0]]. keep_f (B,D); E, U (B,k,D);
-    C (B,k,k)."""
+    G = [E; U], Mid = [[C, I], [I, 0]], in P's storage dtype. keep_f
+    (B,D); E, U (B,k,D); C (B,k,k)."""
     B, k, _ = E.shape
     eye = torch.eye(k, dtype=U.dtype, device=U.device).expand(B, k, k)
     mid = torch.cat([torch.cat([C, eye], dim=2),
                      torch.cat([eye, torch.zeros_like(C)], dim=2)], dim=1)
     G = torch.cat([E, U], dim=1)                            # (B, 2k, D)
-    return (P * (keep_f[:, :, None] * keep_f[:, None, :])
-            + G.transpose(1, 2) @ (mid @ G))
+    return p_store(p_compute(P) * (keep_f[:, :, None] * keep_f[:, None, :])
+                   + G.transpose(1, 2) @ (mid @ G), P)
 
 
 def manage(state: FilterState, cfg: EngineConfig) -> FilterState:
@@ -242,7 +246,7 @@ def _convert_params(state: FilterState, cfg: EngineConfig,
     y3, theta, phi, rho = (slots[..., 0:3], slots[..., 3], slots[..., 4],
                            slots[..., 5])
     rho_dims = CAM_DIM + 6 * torch.arange(cap, device=device) + 5
-    rho_var = state.P[:, rho_dims, rho_dims] * ks[:, rho_dims]
+    rho_var = p_compute(state.P[:, rho_dims, rho_dims]) * ks[:, rho_dims]
     safe_rho = torch.where(rho == 0, torch.ones_like(rho), rho)
     std_d = torch.sqrt(torch.clamp(rho_var, min=0.0)) / safe_rho ** 2
     mi = quat.azel_to_ray(theta, phi)
@@ -275,7 +279,8 @@ def _convert_params(state: FilterState, cfg: EngineConfig,
     # equal to the JAX one-hot contraction over the slot axis.
     six = torch.arange(6, device=device)
     row_idx = CAM_DIM + 6 * slot[:, None] + six             # (B, 6)
-    slot_rows = (torch.gather(state.P, 1, row_idx[..., None].expand(B, 6, D))
+    slot_rows = (p_compute(torch.gather(state.P, 1,
+                                        row_idx[..., None].expand(B, 6, D)))
                  * do[:, None, None].to(dtype) * ks[:, None, :])
     new_rows = torch.cat([J @ slot_rows,
                           torch.zeros(B, 3, D, dtype=dtype, device=device)],

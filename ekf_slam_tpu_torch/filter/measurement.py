@@ -6,10 +6,13 @@ steps use: prediction with the ±60° FoV and in-image gates
 blocks H_xv (B,CAP,2,13) / H_y (B,CAP,2,6) in the default chain form
 (calculate_Hi_*.m), the dense Jacobian (and its transpose, which the
 fused kernels consume), the compact gathered Jacobian of the M-slot
-updates, and the per-slot innovation covariances (search_IC_matches.m:8)
-— read off the fused kernels' P·Hᵀ columns, or in the unfused step from
-P's camera rows and slot diagonal blocks. A cartesian landmark occupies
-the first 3 dims of its 6-wide slot.
+updates (slot-pair row order, and the row-form update's block order), the
+row-form H·P rows of every slot (``pht_rows_split``), and the per-slot
+innovation covariances (search_IC_matches.m:8) — read off the fused
+kernels' P·Hᵀ columns, the H·P rows, or in the unfused step from P's
+camera rows and slot diagonal blocks. A cartesian landmark occupies the
+first 3 dims of its 6-wide slot. What is read of P goes through
+``ekf.p_compute`` (a bf16-stored P upcasts).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, CameraConfig, EngineConfig
+from ekf_slam_tpu_torch.filter.ekf import p_compute
 from ekf_slam_tpu_torch.ops import camera as cam_ops
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.ops.consts import constant
@@ -152,13 +156,70 @@ def compact_dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,
     return torch.cat([Hxv, Hy.reshape(B, 2 * M, 6 * cap)], dim=2)
 
 
+def compact_dense_H_block(H_xv: torch.Tensor, H_y: torch.Tensor,
+                          slots: torch.Tensor, row_mask: torch.Tensor,
+                          cap: int) -> torch.Tensor:
+    """compact_dense_H in block row order (B, 2M, D): rows [0:M] every
+    gathered slot's u row, rows [M:2M] its v row — the order of the
+    row-form update's H·P operand (the update is invariant to a
+    permutation of its rows)."""
+    B, M = slots.shape
+    mask = row_mask.to(H_xv.dtype)[..., None]
+    oh = one_hot(slots, cap, H_xv.dtype)                  # (B, M, CAP)
+    rows = []
+    for comp in range(2):
+        Hy = torch.einsum("bmc,bmj->bmcj", oh, H_y[:, :, comp] * mask)
+        rows.append(torch.cat([H_xv[:, :, comp] * mask,
+                               Hy.reshape(B, M, 6 * cap)], dim=2))
+    return torch.cat(rows, dim=1)
+
+
+def pht_rows_split(P: torch.Tensor, H_xv: torch.Tensor, H_y: torch.Tensor):
+    """Every slot's gain rows H·P, split by pixel component: (hp_u, hp_v),
+    each (B, CAP, D), hp_comp[c] = H_{c,comp}·P from the 13 camera rows
+    and slot c's own 6 rows of P (H's two blocks). P must be symmetric,
+    so these rows are the gain columns P·Hᵀ transposed. H_xv (B,CAP,2,13),
+    H_y (B,CAP,2,6) carry any slot mask already."""
+    B, cap = H_xv.shape[:2]
+    cam = p_compute(P[:, :CAM_DIM, :])                    # (B, 13, D)
+    Pm = P[:, CAM_DIM:CAM_DIM + 6 * cap, :]
+    hp = []
+    for comp in range(2):
+        acc = H_xv[:, :, comp] @ cam                      # (B, CAP, D)
+        for j in range(6):
+            acc = acc + H_y[:, :, comp, j, None] * p_compute(Pm[:, j::6])
+        hp.append(acc)
+    return hp[0], hp[1]
+
+
+def innovation_covariances_from_hp(hp_u: torch.Tensor, hp_v: torch.Tensor,
+                                   H_xv: torch.Tensor, H_y: torch.Tensor,
+                                   sigma_z: float):
+    """Per-slot S_i[a,b] = hp_a[i]·H_{i,b} + σ_z² δ_ab from the split gain
+    rows (pht_rows_split): the camera block a 13-column slice, the slot
+    block slot i's own 6 columns. H blocks carry the hp rows' mask.
+    Returns (B, CAP, 2, 2)."""
+    B, cap = H_xv.shape[:2]
+    cols = (CAM_DIM + 6 * torch.arange(cap, device=hp_u.device)[:, None]
+            + torch.arange(6, device=hp_u.device)).expand(B, cap, 6)
+    rows = []
+    for hp in (hp_u, hp_v):
+        t_cam = torch.einsum("bck,bcjk->bcj", hp[:, :, :CAM_DIM], H_xv)
+        t_slot = torch.einsum("bcp,bcjp->bcj", torch.gather(hp, 2, cols),
+                              H_y)
+        rows.append(t_cam + t_slot)                       # (B, CAP, 2)
+    R = (sigma_z ** 2) * torch.eye(2, dtype=hp_u.dtype, device=hp_u.device)
+    return torch.stack(rows, dim=2) + R
+
+
 def _slot_diag_blocks(P: torch.Tensor, cap: int) -> torch.Tensor:
-    """(B, CAP, 6, 6) diagonal landmark blocks of P: the diagonal of the
-    (B, CAP, 6, CAP, 6) view of the map block (an exact selection)."""
+    """(B, CAP, 6, 6) diagonal landmark blocks of P in its compute dtype:
+    the diagonal of the (B, CAP, 6, CAP, 6) view of the map block (an
+    exact selection)."""
     B = P.shape[0]
     Pm = P[:, CAM_DIM:CAM_DIM + 6 * cap, CAM_DIM:CAM_DIM + 6 * cap]
-    return torch.diagonal(Pm.reshape(B, cap, 6, cap, 6), dim1=1,
-                          dim2=3).permute(0, 3, 1, 2)
+    return p_compute(torch.diagonal(Pm.reshape(B, cap, 6, cap, 6), dim1=1,
+                                    dim2=3).permute(0, 3, 1, 2))
 
 
 def innovation_covariances(P: torch.Tensor, H_xv: torch.Tensor,
@@ -168,7 +229,8 @@ def innovation_covariances(P: torch.Tensor, H_xv: torch.Tensor,
     diagonal blocks. Returns (B, CAP, 2, 2)."""
     cap = H_xv.shape[1]
     return innovation_covariances_from_blocks(
-        P[:, :CAM_DIM, :], _slot_diag_blocks(P, cap), H_xv, H_y, sigma_z)
+        p_compute(P[:, :CAM_DIM, :]), _slot_diag_blocks(P, cap), H_xv, H_y,
+        sigma_z)
 
 
 def innovation_covariances_from_blocks(top13: torch.Tensor,

@@ -2,9 +2,11 @@
 
 Port of ``ekf_slam_tpu/filter/ransac.py``. Each hypothesis is a 1-match
 state-only EKF update (ransac_hypotheses.m:20-26): in the fused step its
-gain columns P·Hᵀ come from K1 (``pht``); in the unfused step all NHYP
-moves are P·G, G = Hᵀ·A built from the picked slots' Jacobian blocks, one
-product in K6 (``kernels.f32_matmul_big``). All hypotheses of all
+gain columns P·Hᵀ come from K1 (``pht``); in the unfused step's row form
+from the shared H·P rows (``hp``, measurement.pht_rows_split), with no
+read of P; otherwise all NHYP moves are P·G, G = Hᵀ·A built from the
+picked slots' Jacobian blocks, one product in K6
+(``kernels.f32_matmul_big``, P as stored). All hypotheses of all
 instances are scored at once by reprojecting every slot
 (compute_hypothesis_support_fast.m, no gating, residual threshold σ_z),
 and the argmax-support hypothesis gives the low-innovation inliers.
@@ -88,10 +90,12 @@ def run(x: torch.Tensor, z: torch.Tensor, h: torch.Tensor, S: torch.Tensor,
         ic_mask: torch.Tensor, cartesian: torch.Tensor, u: torch.Tensor,
         cfg: EngineConfig, pht: torch.Tensor | None = None,
         P: torch.Tensor | None = None, H_xv: torch.Tensor | None = None,
-        H_y: torch.Tensor | None = None):
+        H_y: torch.Tensor | None = None, hp=None):
     """Full 1-point RANSAC: hypothesis n moves the state by P·Hₙᵀ·Sₙ⁻¹νₙ.
     Given the prior's visibility-masked gain columns pht (B,D,2·CAP) the
-    move is read off pht's column pair of its slot; without them it is
+    move is read off pht's column pair of its slot; given its split H·P
+    rows hp = (hp_u, hp_v), each (B,CAP,D), it is hp_uᵀ·A_u + hp_vᵀ·A_v
+    with A the picks' weights at their slots; without either it is
     P·G with G = Hᵀ·A from the visibility-masked Jacobian blocks H_xv
     (B,CAP,2,13), H_y (B,CAP,2,6) of the picks, and P (B,D,D). x (B,D);
     z, h (B,CAP,2); S (B,CAP,2,2); ic_mask, cartesian (B,CAP);
@@ -108,6 +112,10 @@ def run(x: torch.Tensor, z: torch.Tensor, h: torch.Tensor, S: torch.Tensor,
     if pht is not None:
         A = torch.einsum("bnc,bnj->bcjn", oh, w_p).reshape(B, 2 * cap, -1)
         x_hyps = x[:, :, None] + pht @ A                  # (B, D, N)
+    elif hp is not None:
+        A = torch.einsum("bnc,bnj->bcjn", oh, w_p)        # (B, CAP, 2, N)
+        x_hyps = (x[:, :, None] + hp[0].transpose(1, 2) @ A[:, :, 0]
+                  + hp[1].transpose(1, 2) @ A[:, :, 1])
     else:
         # G = Hᵀ·A: camera rows Hxvᵀw, each pick's 6 map rows at its slot.
         def picked(a):              # (B, CAP, 2, k) -> (B, N, 2, k)

@@ -9,8 +9,11 @@ instance axis B:
 * ``active``, ``cartesian`` (B, CAP) bool; ``times_predicted``,
   ``times_measured``, ``landmark_id`` (B, CAP) int32.
 
-``state_from_numpy`` / ``state_to_numpy`` carry a state across from the
-JAX package (as numpy arrays) and back.
+P is stored in the state's dtype, or in bfloat16 when
+``FilterConfig.p_storage == "bf16"`` at float32 (the fast mode; at float64
+the setting is ignored, as in the JAX package). ``state_from_numpy`` /
+``state_to_numpy`` carry a state across from the JAX package (as numpy
+arrays) and back, a bf16 P bit for bit.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ class FilterState:
 def init_state(cfg: EngineConfig, batch: int, device=None) -> FilterState:
     """Initial state (initialize_x_and_p.m:1-24) for `batch` instances:
     identity pose at the origin, v0, w0 = 1e-15, P diag = [eps(7),
-    std_v², std_w²]. On the card unless `device` names another."""
+    std_v², std_w²], P in bf16 when p_storage is "bf16" at float32. On the
+    card unless `device` names another."""
     device = devices.resolve(device)
     f = cfg.filter
     cap = cfg.map.capacity
@@ -70,8 +74,11 @@ def init_state(cfg: EngineConfig, batch: int, device=None) -> FilterState:
     diag[:, 7:10] = f.std_v_0 ** 2
     diag[:, 10:13] = f.std_w_0 ** 2
     z32 = torch.zeros(batch, cap, dtype=torch.int32, device=device)
+    P = torch.diag_embed(diag)
+    if f.p_storage == "bf16" and dt == torch.float32:
+        P = P.to(torch.bfloat16)
     return FilterState(
-        x=x, P=torch.diag_embed(diag),
+        x=x, P=P,
         active=torch.zeros(batch, cap, dtype=torch.bool, device=device),
         cartesian=torch.zeros(batch, cap, dtype=torch.bool, device=device),
         times_predicted=z32, times_measured=z32.clone(),
@@ -82,8 +89,10 @@ def init_state(cfg: EngineConfig, batch: int, device=None) -> FilterState:
 def state_from_numpy(d, device=None, dtype=torch.float64) -> FilterState:
     """FilterState from a mapping (or object with attributes) of numpy
     arrays with the JAX field names. An unbatched state (x of rank 1)
-    gains a leading instance axis of 1. On the card unless `device` names
-    another."""
+    gains a leading instance axis of 1. x and P come in `dtype`, except a
+    bfloat16 P (numpy's ml_dtypes bfloat16, as a JAX bf16 array converts),
+    which stays bfloat16: it passes through float32, which holds every
+    bf16 value exactly. On the card unless `device` names another."""
     device = devices.resolve(device)
     get = d.__getitem__ if isinstance(d, dict) else lambda k: getattr(d, k)
     arrs = {k: np.asarray(get(k)) for k in FIELDS}
@@ -91,7 +100,10 @@ def state_from_numpy(d, device=None, dtype=torch.float64) -> FilterState:
         arrs = {k: v[None] for k, v in arrs.items()}
     out = {}
     for k, v in arrs.items():
-        if k in ("x", "P"):
+        if k == "P" and v.dtype.name == "bfloat16":
+            out[k] = torch.tensor(v.astype(np.float32),
+                                  device=device).to(torch.bfloat16)
+        elif k in ("x", "P"):
             out[k] = torch.tensor(v, dtype=dtype, device=device)
         elif k in ("active", "cartesian"):
             out[k] = torch.tensor(v.astype(bool), device=device)
@@ -101,6 +113,11 @@ def state_from_numpy(d, device=None, dtype=torch.float64) -> FilterState:
 
 
 def state_to_numpy(s: FilterState) -> dict:
-    """Dict of numpy arrays (batched) with the JAX field names."""
-    return {k: getattr(s, k).detach().cpu().numpy() for k in FIELDS}
+    """Dict of numpy arrays (batched) with the JAX field names. numpy has
+    no bfloat16 of its own, so a bf16 P comes out as the float32 array of
+    the same values (exact; ``jnp.asarray(P, jnp.bfloat16)`` restores it
+    bit for bit)."""
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t)
+            .detach().cpu().numpy()
+            for k, t in ((k, getattr(s, k)) for k in FIELDS)}
 

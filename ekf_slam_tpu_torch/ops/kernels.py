@@ -12,17 +12,24 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
                                 feature add (fused_cov.cu)
   K6 f32_matmul_big           — A·B with a large A, read once
                                 (unfused_cov.cu)
+  K8 corr_apply               — the row-form update's folded tail apply,
+                                P + ½(AtᵀBt + BtᵀAt) and its "none" /
+                                "full" modes (unfused_cov.cu)
   image path:
   K7 ncc_corr                 — the NCC matcher's correlation numerator
                                 over N (window, template) pairs (ncc.cu)
 
 Each wrapper takes batched tensors (leading instance axis B; K7 the pair
 axis N). A tensor on the CPU goes to the plain version beside the
-wrapper; a CUDA tensor goes to the hand-written kernel (f32 only) or the
-wrapper raises. ``LAUNCHES[name]`` counts kernel launches. The kernels'
-size limits (R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3;
-K4-K6 take any width; K7 a window that fits shared memory) are checked by
-the launchers, which return cudaErrorInvalidValue (1).
+wrapper; a CUDA tensor goes to the hand-written kernel or the wrapper
+raises. On the card every operand is float32, except P of K4 and K8 and
+A of K6, which may be the fast mode's bfloat16 P (FilterConfig.p_storage):
+those kernels read it as stored and upcast, and K4 / K8 store their
+output in P's dtype. The plain versions upcast the same way.
+``LAUNCHES[name]`` counts kernel launches. The kernels' size limits
+(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K4-K6 and K8
+take any width; K7 a window that fits shared memory) are checked by the
+launchers, which return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -39,7 +46,8 @@ from ekf_slam_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0, "corr_apply_cols": 0,
-            "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0}
+            "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
+            "corr_apply": 0}
 
 
 def reset_launches() -> None:
@@ -96,9 +104,40 @@ def update_tail_add_plain(P, K, PHt, Jq4, keepN, EN, UN, CN):
 
 def corr_apply_cols_plain(P, A, B):
     """½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ), B·Aᵀ taken as (A·Bᵀ)ᵀ: bitwise
-    symmetric. P (B,D,D); A, B (B,D,R)."""
+    symmetric. P (B,D,D), computed in A's dtype and returned in P's;
+    A, B (B,D,R)."""
+    Pc = P.to(A.dtype)
     C = A @ B.transpose(1, 2)
-    return 0.5 * (P + P.transpose(1, 2)) + 0.5 * (C + C.transpose(1, 2))
+    return (0.5 * (Pc + Pc.transpose(1, 2))
+            + 0.5 * (C + C.transpose(1, 2))).to(P.dtype)
+
+
+CORR_MODES = ("none", "expr", "full")
+
+
+def _corr_mode(symmetrize) -> int:
+    """K8's mode index of `symmetrize`; raises for a mode it has not."""
+    if symmetrize not in CORR_MODES:
+        raise ValueError(f"corr_apply: symmetrize={symmetrize!r}, not one "
+                         f"of {CORR_MODES}")
+    return CORR_MODES.index(symmetrize)
+
+
+def corr_apply_plain(P, At, Bt, symmetrize="expr"):
+    """P + C ("none"), P + ½(C + Cᵀ) ("expr"), ½(P + Pᵀ) + ½(C + Cᵀ)
+    ("full") with C = Atᵀ·Bt, Cᵀ taken as the transpose of C: the
+    correction of "expr" and "full" is bitwise symmetric. P (B,D,D),
+    computed in At's dtype and returned in P's; At, Bt (B,R,D)."""
+    _corr_mode(symmetrize)
+    Pc = P.to(At.dtype)
+    C = At.transpose(1, 2) @ Bt
+    if symmetrize == "none":
+        out = Pc + C
+    else:
+        if symmetrize == "full":
+            Pc = 0.5 * (Pc + Pc.transpose(1, 2))
+        out = Pc + 0.5 * (C + C.transpose(1, 2))
+    return out.to(P.dtype)
 
 
 def update_tail_plain(P, K, PHt, Jq4):
@@ -107,8 +146,8 @@ def update_tail_plain(P, K, PHt, Jq4):
 
 
 def matmul_big_plain(A, B):
-    """A·B for A (B,M,K), B (B,K,N)."""
-    return A @ B
+    """A·B for A (B,M,K), B (B,K,N), in B's dtype."""
+    return A.to(B.dtype) @ B
 
 
 def ncc_corr_plain(windows, tm):
@@ -132,7 +171,8 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "corr_apply_cols": corr_apply_cols_plain,
          "fused_update_tail": update_tail_plain,
          "f32_matmul_big": matmul_big_plain,
-         "ncc_corr": ncc_corr_plain}
+         "ncc_corr": ncc_corr_plain,
+         "corr_apply": corr_apply_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -144,11 +184,23 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
 # stripe transform applied to one side only — reads 0.1 or more.
 SCALED_TOL = 1e-4
 
-def _entry_error(diff, a, b):
-    """max |diff_ij| / sqrt(a_i·b_j); an entry whose bound is 0 must be 0."""
+def _entry_error(diff, a, b, slack=None):
+    """max |diff_ij| / sqrt(a_i·b_j); an entry whose bound is 0 must be 0.
+    slack: a per-entry allowance taken off |diff| first."""
+    diff = diff.abs()
+    if slack is not None:
+        diff = (diff - slack).clamp_min(0)
     bound = torch.sqrt(a[:, :, None] * b[:, None, :])
-    err = torch.where(diff == 0, torch.zeros_like(diff), diff.abs() / bound)
+    err = torch.where(diff == 0, torch.zeros_like(diff), diff / bound)
     return float(err.max())
+
+
+def bf16_ulp(ref):
+    """The spacing of bfloat16 numbers at each entry of ref (8 significant
+    bits: 2^(e−8) for |ref| in [2^(e−1), 2^e)); 0 where ref is 0."""
+    _, e = torch.frexp(ref)
+    return torch.where(ref == 0, torch.zeros_like(ref),
+                       torch.ldexp(torch.ones_like(ref), e - 8))
 
 
 def scaled_error(out, ref, Ht=None) -> float:
@@ -160,11 +212,14 @@ def scaled_error(out, ref, Ht=None) -> float:
     the kernel's Ht operand when it has one. A scale taken over the whole
     matrix would hide a wrong camera block: K1's process noise is ~5e-5
     where P's largest entry is ~5, but it is a large share of the velocity
-    variances it lands on."""
+    variances it lands on. A bfloat16 P output (the fast mode's K4 and K8)
+    is rounded once from f32, so each entry may also stray one bf16 ulp of
+    ref (``bf16_ulp``) beyond that."""
     out = out if isinstance(out, tuple) else (out,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     d = torch.diagonal(ref[0], dim1=1, dim2=2).clamp_min(0)
-    errs = [_entry_error(out[0].to(ref[0].dtype) - ref[0], d, d)]
+    slack = bf16_ulp(ref[0]) if out[0].dtype == torch.bfloat16 else None
+    errs = [_entry_error(out[0].to(ref[0].dtype) - ref[0], d, d, slack)]
     if len(ref) == 2:
         errs.append(product_error(out[1], ref[1], d, Ht))
     return max(errs)
@@ -201,8 +256,9 @@ def capture_operands():
 
     def recorder(name, fn):
         def record(*args):
-            captured.setdefault(name, []).append(
-                tuple(a.clone() for a in args))
+            captured.setdefault(name, []).append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
             return fn(*args)
         return record
 
@@ -213,9 +269,10 @@ def capture_operands():
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _check(name, shapes: dict, tensors: dict):
+def _check(name, shapes: dict, tensors: dict, bf16=()):
     """Shapes, contiguity and one device for every operand; True when they
-    lie on a CUDA device (then all f32), False on the CPU."""
+    lie on a CUDA device (then all float32, the operands named in `bf16`
+    float32 or bfloat16), False on the CPU."""
     first, dev = next((k, t.device) for k, t in tensors.items())
     for k, t in tensors.items():
         if tuple(t.shape) != shapes[k]:
@@ -227,9 +284,12 @@ def _check(name, shapes: dict, tensors: dict):
             raise ValueError(f"{name}: {k} on {t.device}, {first} on {dev}")
     if dev.type == "cuda":
         for k, t in tensors.items():
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name}: the CUDA kernel takes float32, "
-                                f"{k} is {t.dtype}")
+            ok = (torch.float32, torch.bfloat16) if k in bf16 else (
+                torch.float32,)
+            if t.dtype not in ok:
+                raise TypeError(f"{name}: the CUDA kernel takes "
+                                f"{' or '.join(map(str, ok))} for {k}, "
+                                f"got {t.dtype}")
         return True
     if dev.type != "cpu":
         raise ValueError(f"{name}: no kernel or plain version for {dev}")
@@ -322,19 +382,42 @@ def fused_update_tail_add(P, K, PHt, Jq4, keepN, EN, UN, CN):
 
 
 def corr_apply_cols(P, A, B):
-    """K4: P (B,D,D); A, B (B,D,R), any R. Returns
-    ½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ) (B,D,D), bitwise symmetric."""
+    """K4: P (B,D,D), f32 or bf16; A, B (B,D,R), any R. Returns
+    ½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ) (B,D,D) in P's dtype, bitwise symmetric."""
     name = "corr_apply_cols"
     Bn, D, _ = P.shape
     R = A.shape[2]
     on_card = _check(name, {"P": (Bn, D, D), "A": (Bn, D, R),
-                            "B": (Bn, D, R)}, dict(P=P, A=A, B=B))
+                            "B": (Bn, D, R)}, dict(P=P, A=A, B=B), ("P",))
     if not on_card:
         return corr_apply_cols_plain(P, A, B)
     out = torch.empty_like(P)
     lib = _build.load()
     _run(name, lib.ekf_k4_corr_apply_cols, P.data_ptr(), A.data_ptr(),
-         B.data_ptr(), out.data_ptr(), Bn, D, R)
+         B.data_ptr(), out.data_ptr(), Bn, D, R,
+         int(P.dtype == torch.bfloat16))
+    return out
+
+
+def corr_apply(P, At, Bt, symmetrize="expr"):
+    """K8: P (B,D,D), f32 or bf16; At, Bt (B,R,D), any R; symmetrize one
+    of CORR_MODES. Returns P + C, P + ½(C + Cᵀ) or ½(P + Pᵀ) + ½(C + Cᵀ),
+    C = Atᵀ·Bt, (B,D,D) in P's dtype; the correction of "expr" and "full"
+    is bitwise symmetric."""
+    name = "corr_apply"
+    mode = _corr_mode(symmetrize)
+    Bn, D, _ = P.shape
+    R = At.shape[1]
+    on_card = _check(name, {"P": (Bn, D, D), "At": (Bn, R, D),
+                            "Bt": (Bn, R, D)}, dict(P=P, At=At, Bt=Bt),
+                     ("P",))
+    if not on_card:
+        return corr_apply_plain(P, At, Bt, symmetrize)
+    out = torch.empty_like(P)
+    lib = _build.load()
+    _run(name, lib.ekf_k8_corr_apply, P.data_ptr(), At.data_ptr(),
+         Bt.data_ptr(), out.data_ptr(), Bn, D, R, mode,
+         int(P.dtype == torch.bfloat16))
     return out
 
 
@@ -358,19 +441,20 @@ def fused_update_tail(P, K, PHt, Jq4):
 
 
 def f32_matmul_big(A, B):
-    """K6: A (B,M,K); B (B,K,N), any N. Returns A·B (B,M,N) in f32 with
-    every partial sum in f32, A read once for N ≤ 256."""
+    """K6: A (B,M,K), f32 or bf16; B (B,K,N), any N. Returns A·B (B,M,N)
+    in B's dtype (f32 on the card) with every partial sum in f32, A read
+    once for N ≤ 256."""
     name = "f32_matmul_big"
     Bn, M, Kd = A.shape
     N = B.shape[2]
     on_card = _check(name, {"A": (Bn, M, Kd), "B": (Bn, Kd, N)},
-                     dict(A=A, B=B))
+                     dict(A=A, B=B), ("A",))
     if not on_card:
         return matmul_big_plain(A, B)
-    out = torch.empty(Bn, M, N, dtype=A.dtype, device=A.device)
+    out = torch.empty(Bn, M, N, dtype=B.dtype, device=B.device)
     lib = _build.load()
     _run(name, lib.ekf_k6_matmul_big, A.data_ptr(), B.data_ptr(),
-         out.data_ptr(), Bn, M, Kd, N)
+         out.data_ptr(), Bn, M, Kd, N, int(A.dtype == torch.bfloat16))
     return out
 
 

@@ -1,16 +1,23 @@
 """Time and profile the port's slice on one CUDA card.
 
     python -m ekf_slam_tpu_torch.profile_slice \
-        [fused|unfused|unfused_pallas|image|image_descriptor]
+        [fused|unfused|unfused_pallas|fast|fast_rows|image|image_descriptor]
 
-A sim path is the bench workload at full width with the f32 parity
-settings (see ``slice_config``), B = 128 instances, 16 frames, through one
-of the engine's paths (default ``fused``):
+A sim path is the bench workload at full width (see ``slice_config``),
+B = 128 instances, 16 frames, through one of the engine's paths (default
+``fused``). With the f32 parity settings (max_update_obs 64):
 
   fused           step_fused: K1, K2, K3
   unfused         step_core: K6 for the products on P, K4 for the tails
   unfused_pallas  step_core with pallas_update="on": K6, and K5 for the
                   tails
+
+and in bench.py's production fast mode (P stored in bf16,
+max_update_obs 24):
+
+  fast            step_core, column form: K6 and K4 on the bf16 P
+  fast_rows       step_core, row form (EKF_UPDATE=rows, EKF_TAIL_SYM=expr):
+                  K8 for the tails, no K6
 
 The image path is the JAX pixels bench's workload with the NCC matcher
 (see ``image_config``), B = 32 instances, 16 rendered 240x320 frames,
@@ -31,8 +38,8 @@ profile   the first PROFILE_FRAMES frames: their wall time
           the CUDA kernel events), the busy share (device time / unprofiled
           wall), the device ops (kernels, copies, fills), the host time in
           cudaLaunchKernel, the device time and calls of each of the
-          port's own kernels (csrc/, k1_kernel … k7_kernel) and the ten
-          ops with the most device time.
+          port's own kernels (csrc/, k1_kernel … k8_kernel; k4, k6 and
+          k8 by P's type) and the ten ops with the most device time.
 
 The last line is one JSON object with every number printed.
 """
@@ -53,7 +60,7 @@ from torch.autograd import DeviceType
 
 from ekf_slam_tpu_torch.config import (EngineConfig, FilterConfig, MapConfig,
                                        RansacConfig, SimConfig, VisionConfig)
-from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
@@ -67,30 +74,60 @@ PROFILE_FRAMES = 4
 
 
 PATHS = {"fused": ("on", "off"), "unfused": ("off", "off"),
-         "unfused_pallas": ("off", "on")}    # (fused_step, pallas_update)
+         "unfused_pallas": ("off", "on"), "fast": ("off", "off"),
+         "fast_rows": ("off", "off")}    # (fused_step, pallas_update)
+# The fast mode's paths and their update form (ekf._UPDATE).
+FAST_PATHS = {"fast": "cols", "fast_rows": "rows"}
+# The fast mode's scene seed (the f32 paths take scene 0). The bf16 P goes
+# non-finite on scene 0 in both packages alike (tests/test_torch_bf16.py,
+# the scene-0 test); on the CPU, B = 128 (python -m
+# ekf_slam_tpu_torch.scene_gates): scene 0 keeps 66 (cols) and 27 (rows)
+# of 128 instances finite, scene 1 hits the update cap (33 > 24), scene 2
+# passes every gate within 0.023 of the tracking limit, scene 3 with 0.057
+# to spare.
+FAST_SCENE = 3
 
 
 def slice_config(path: str = "fused") -> EngineConfig:
-    """The bench workload at full width with the f32 parity settings
-    (bench.py:289-317): CAP 100, 128 landmarks, min_features 25,
-    max_new_per_step 10, max_update_obs 64, NHYP 64, Newton gain; the
-    engine path one of PATHS."""
+    """The bench workload at full width (bench.py:289-317): CAP 100, 128
+    landmarks, min_features 25, max_new_per_step 10, NHYP 64, Newton gain;
+    the engine path one of PATHS. The f32 parity settings (max_update_obs
+    64, f32 P), or on FAST_PATHS bench.py's default production fast mode
+    (bench.py:282-306: max_update_obs 24, P stored in bf16)."""
     fused_step, pallas_update = PATHS[path]
+    fast = path in FAST_PATHS
     return EngineConfig(
         filter=FilterConfig(gain_solver="newton", fused_step=fused_step,
-                            pallas_update=pallas_update),
+                            pallas_update=pallas_update,
+                            p_storage="bf16" if fast else "f32"),
         map=MapConfig(capacity=100, min_features_in_image=25,
-                      max_new_per_step=10, max_update_obs=64),
+                      max_new_per_step=10,
+                      max_update_obs=24 if fast else 64),
         ransac=RansacConfig(num_hypotheses=64),
         sim=SimConfig(num_landmarks=128),
         dtype="float32")
 
 
+@contextlib.contextmanager
+def update_form(path: str):
+    """The path's update layout for the block: ekf._UPDATE "rows" and
+    ekf._TAIL_SYM "expr" on fast_rows, "cols" elsewhere; both restored
+    after."""
+    old = ekf._UPDATE, ekf._TAIL_SYM
+    ekf._UPDATE = FAST_PATHS.get(path, "cols")
+    ekf._TAIL_SYM = "expr"
+    try:
+        yield
+    finally:
+        ekf._UPDATE, ekf._TAIL_SYM = old
+
+
 def slice_inputs(cfg: EngineConfig, dev, batch: int = BATCH,
-                 frames: int = FRAMES):
+                 frames: int = FRAMES, scene: int = 0):
     """(bootstrapped state, true states (T,13), observations, RANSAC draws
-    (T,B,NHYP)): the scene from seed 0, the draws from seed 1."""
-    _, xs, obs = simulate(torch.Generator().manual_seed(0), cfg, frames, dev)
+    (T,B,NHYP)): the scene from seed `scene`, the draws from seed 1."""
+    _, xs, obs = simulate(torch.Generator().manual_seed(scene), cfg, frames,
+                          dev)
     st0 = engine.bootstrap(init_state(cfg, batch, dev), obs.frame(0), cfg)
     u = torch.rand(frames, batch, cfg.ransac.num_hypotheses, device=dev,
                    dtype=cfg.torch_dtype,
@@ -166,7 +203,7 @@ def device_profile(fn, frames: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     own = {m.group(1): {"ms": t / 1e3, "calls": c}
            for n, (t, c) in by_name.items()
-           if (m := re.search(r"::(k[0-9]_kernel)\(", n))}
+           if (m := re.search(r"::(k[0-9]_kernel(?:<[^>]*>)?)\(", n))}
     return {"frames": frames, "wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy": device_ms / (wall * 1e3), "device_ops": ops,
             "device_ops_per_frame": ops / frames,
@@ -197,7 +234,8 @@ def main(argv=None) -> None:
             frontend.run_images(st0, app0, imgs[:nf], u[:nf], cfg)
     else:
         cfg = slice_config(path)
-        st0, _, obs, u = slice_inputs(cfg, dev)
+        st0, _, obs, u = slice_inputs(
+            cfg, dev, scene=FAST_SCENE if path in FAST_PATHS else 0)
         batch = BATCH
 
         def run(nf):
@@ -205,7 +243,13 @@ def main(argv=None) -> None:
     result = {"card": torch.cuda.get_device_name(0), "path": path,
               "batch": batch, "frames": FRAMES, "ab": [], "profile": {}}
     print(f"[slice] path={path} card={result['card']!r}", flush=True)
+    with update_form(path):
+        _measure(run, batch, result)
+    print(json.dumps(result))
 
+
+def _measure(run, batch: int, result: dict) -> None:
+    """The A/B and the profile of run(frames) into result."""
     def run_all():
         run(FRAMES)
 
@@ -240,7 +284,6 @@ def main(argv=None) -> None:
         for k in p["top"]:
             print(f"  {k['ms']:9.3f} ms x {k['calls']:5d}  {k['name']}",
                   flush=True)
-    print(json.dumps(result))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K7 on the card, against their plain
+"""The hand-written CUDA kernels K1-K8 on the card, against their plain
 versions, and one frame of each engine path and of the image path on the
 card against the same frame on the CPU. Every test needs a CUDA device and
 skips without one.
@@ -13,13 +13,17 @@ small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
 from the fused step, K4 and K6 from the unfused step, K5 from the unfused
 step with pallas_update="on"; K7 from the image step at
 tests/test_vision.py's pixels config (CAP 24, R = 10: N = B·24 pairs of
-33x33 windows and 13x13 templates)."""
+33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
+bf16-P fast mode's unfused step at f32 (row form for K8, 2M + 8 = 40
+factor rows)."""
+
+from unittest import mock
 
 import pytest
 import torch
 
 from ekf_slam_tpu_torch.config import EngineConfig
-from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
@@ -374,3 +378,141 @@ def test_cuda_image_step_matches_cpu_step(card):
     scale = float(s_cpu.x.abs().max())
     assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
     assert bool(torch.isfinite(s_gpu.P).all())
+
+
+def _fast_operands(form):
+    """{kernel name: [operands of each call]} in frame 2 of the bf16-P fast
+    mode (f32, Newton gain, unfused) on the CPU, update form `form`."""
+    cfg, obs, st, u = _sequence("float32", fused_step="off",
+                                gain_solver="newton", p_storage="bf16")
+    u = u.float()
+    with mock.patch.object(ekf, "_UPDATE", form):
+        st, _ = engine.step(st, obs.frame(1), u[1], cfg)
+        with kernels.capture_operands() as calls:
+            engine.step(st, obs.frame(2), u[2], cfg)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def fast_operands():
+    return {form: _fast_operands(form) for form in ("cols", "rows")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["bf16", "f32"])
+@pytest.mark.parametrize("mode", kernels.CORR_MODES)
+def test_cuda_corr_apply_matches_plain(card, fast_operands, mode, store):
+    """K8 vs the f64 plain version on a real row-form tail's operands, P
+    as stored (bf16) and upcast: each entry within TOL of its bound (plus
+    one bf16 ulp for a bf16 output); "full" bitwise symmetric."""
+    calls = fast_operands["rows"]["corr_apply"]
+    assert len(calls) == 2 and calls[0][0].dtype == torch.bfloat16
+    for P, At, Bt, _ in calls:
+        P, At, Bt = (a.to(card) for a in (P, At, Bt))
+        P = P if store == "bf16" else P.float()
+        before = kernels.LAUNCHES["corr_apply"]
+        got = kernels.corr_apply(P, At, Bt, mode)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["corr_apply"] == before + 1
+        assert got.dtype == P.dtype and got.is_cuda
+        ref = kernels.corr_apply_plain(P.double(), At.double(), Bt.double(),
+                                       mode)
+        assert kernels.scaled_error(got, ref) <= TOL
+        if mode == "full":
+            assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_corr_apply_expr_is_symmetric_on_symmetric_p(
+        card, fast_operands, store):
+    P, At, Bt, _ = (a.to(card) if isinstance(a, torch.Tensor) else a
+                    for a in fast_operands["rows"]["corr_apply"][0])
+    Pf = P.float()
+    sym = (0.5 * (Pf + Pf.transpose(1, 2))).to(store)
+    got = kernels.corr_apply(sym, At, Bt, "expr")
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_check_fails_k8_without_renorm(card, fast_operands):
+    """A planted fault: K8 with At's last four rows (the quaternion-renorm
+    block) zeroed, against the plain version with them, reads far above
+    TOL."""
+    P, At, Bt, mode = fast_operands["rows"]["corr_apply"][0]
+    P, At, Bt = (a.to(card) for a in (P, At, Bt))
+    bad = At.clone()
+    bad[:, -4:] = 0
+    got = kernels.corr_apply(P, bad, Bt, mode)
+    ref = kernels.corr_apply_plain(P.double(), At.double(), Bt.double(),
+                                   mode)
+    assert kernels.scaled_error(got, ref) > 100 * TOL
+
+
+@pytest.mark.cuda
+def test_cuda_k4_k6_on_bf16_p_match_plain(card, fast_operands):
+    """K4 and K6 read the fast mode's bf16 P as stored: K4's bf16 output
+    and K6's f32 product against the f64 plain versions."""
+    calls = fast_operands["cols"]
+    assert len(calls["corr_apply_cols"]) == 2
+    assert len(calls["f32_matmul_big"]) == 3
+    for P, A, Bf in calls["corr_apply_cols"]:
+        P, A, Bf = (a.to(card) for a in (P, A, Bf))
+        assert P.dtype == torch.bfloat16
+        got = kernels.corr_apply_cols(P, A, Bf)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, got.transpose(1, 2))
+        ref = kernels.corr_apply_cols_plain(P.double(), A.double(),
+                                            Bf.double())
+        assert kernels.scaled_error(got, ref) <= TOL
+    for P, G in calls["f32_matmul_big"]:
+        P, G = P.to(card), G.to(card)
+        assert P.dtype == torch.bfloat16
+        got = kernels.f32_matmul_big(P, G)
+        assert got.dtype == torch.float32
+        ref = P.double() @ G.double()
+        err = kernels.product_error(got, ref, torch.diagonal(
+            P.double(), dim1=1, dim2=2), G)
+        assert err <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_check_rejects_bf16_factors_and_f64_p(card, fast_operands):
+    P, At, Bt, mode = fast_operands["rows"]["corr_apply"][0]
+    P, At, Bt = (a.to(card) for a in (P, At, Bt))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.corr_apply(P, At.to(torch.bfloat16), Bt, mode)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.corr_apply(P.double(), At, Bt, mode)
+    P, A, Bf = (a.to(card) for a in fast_operands["cols"]["corr_apply_cols"][0])
+    with pytest.raises(TypeError, match="float32"):
+        kernels.corr_apply_cols(P, A.to(torch.bfloat16), Bf)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.f32_matmul_big(P.double(), A.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["cols", "rows"])
+def test_cuda_fast_step_matches_cpu_step(card, form):
+    """One bf16-P fast-mode frame with CUDA tensors against the same frame
+    on the CPU: equal gate counts, x within 1e-4 of the state's scale and
+    P within 1e-2 of its bounds; K4 2x and K6 3x (cols) or K8 2x (rows)."""
+    cfg, obs, st, u = _sequence("float32", fused_step="off",
+                                gain_solver="newton", p_storage="bf16")
+    u = u.float()
+    with mock.patch.object(ekf, "_UPDATE", form):
+        kernels.reset_launches()
+        s_gpu, i_gpu = engine.step(st.to(card), obs.frame(1).to(card),
+                                   u[1].to(card), cfg)
+        s_cpu, i_cpu = engine.step(st, obs.frame(1), u[1], cfg)
+    want = ({"corr_apply_cols": 2, "f32_matmul_big": 3} if form == "cols"
+            else {"corr_apply": 2})
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    assert s_gpu.P.dtype == torch.bfloat16
+    for f in ("n_ic", "n_li", "n_hi"):
+        assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
+    scale = float(s_cpu.x.abs().max())
+    assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
+    assert kernels.scaled_error(s_gpu.P.cpu().double(),
+                                s_cpu.P.double()) <= 1e-2

@@ -312,9 +312,8 @@ def test_step_image_makes_the_frame_planes_once(small_sequence, monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"use_iterated_update": True},
-    {"p_storage": "bf16"},
     {"share_pht": True},
-], ids=["iekf", "bf16_storage", "share_pht"])
+], ids=["iekf", "share_pht"])
 def test_step_image_raises_for_what_is_not_ported(small_sequence, change):
     tc, _, imgs, u = small_sequence
     cfg = tc.replace(filter=dataclasses.replace(tc.filter, **change))

@@ -270,12 +270,11 @@ def test_pallas_update_dispatch():
 
 @pytest.mark.parametrize("change", [
     {"use_iterated_update": True},
-    {"p_storage": "bf16"},
     {"share_pht": True},
-], ids=["iekf", "bf16_storage", "share_pht"])
+], ids=["iekf", "share_pht"])
 def test_step_core_raises_for_what_is_not_ported(change):
-    """(g) the IEKF, bf16-P storage and share_pht stay unported: the
-    unfused step raises rather than take another path."""
+    """(g) the IEKF and share_pht stay unported: the unfused step raises
+    rather than take another path."""
     _, tc = configs(_with(UNFUSED, filter=change))
     st, obs, u = _tiny(tc)
     z, zv = engine.gather_measurements(st, obs)

@@ -5,6 +5,7 @@ and RANSAC draws cross over as numpy arrays."""
 
 import dataclasses
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ekf_slam_tpu import config as jcfg
+from ekf_slam_tpu.filter import ekf as jekf
 from ekf_slam_tpu.filter import engine as jengine
 from ekf_slam_tpu.filter.state import init_state as j_init_state
 from ekf_slam_tpu.ops import pallas_kernels as pk
@@ -79,6 +81,30 @@ def step_fn(cfg):
     compiled program per config and shape."""
     return jax.jit(jax.vmap(lambda s, o, k: jengine.step(s, o, k, cfg),
                             in_axes=(0, None, 0)))
+
+
+def rows_step_fn(cfg):
+    """A fresh jit(vmap(engine.step)) that traces with EKF_UPDATE=rows. The
+    JAX engine reads ekf._UPDATE while tracing, so step_fn's cached
+    column-form program cannot serve. Returns (step, traced): traced[0]
+    counts the ekf.update_rows calls made while tracing (two a trace when
+    the row form was taken)."""
+    traced = [0]
+    update_rows = jekf.update_rows
+
+    def spy(*args, **kw):
+        traced[0] += 1
+        return update_rows(*args, **kw)
+
+    fn = jax.jit(jax.vmap(lambda s, o, k: jengine.step(s, o, k, cfg),
+                          in_axes=(0, None, 0)))
+
+    def step(*args):
+        with mock.patch.object(jekf, "_UPDATE", "rows"), \
+                mock.patch.object(jekf, "update_rows", spy):
+            return fn(*args)
+
+    return step, traced
 
 
 def frame_keys(t, B):
