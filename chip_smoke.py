@@ -25,8 +25,9 @@ Phases, one line each, any failure raises (exit code != 0):
                from its f64 value.
                Times: kernel, plain version, one library call where one
                computes the same function (K6 torch.bmm, K7 a grouped
-               F.conv2d with cuDNN's TF32 off, K8 "expr" torch.baddbmm, on
-               f32 operands), and the card's bound
+               F.conv2d with cuDNN's TF32 off, K8 "expr" and K4
+               torch.baddbmm, on f32 operands), and the card's bound;
+               x_bound and x_library are the kernel's time over each
   4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
@@ -156,8 +157,13 @@ FLOPS = {
 # one: timed beside the kernel, never called by the port. Its bf16
 # operands are upcast to f32 first, outside the timing (no library call
 # takes a bf16 P with f32 products). K8's is its "expr" mode, the JAX XLA
-# form P + ½[At;Bt]ᵀ[Bt;At] (ekf.py:579-582).
+# form P + ½[At;Bt]ᵀ[Bt;At] (ekf.py:579-582); K4's the same form on its
+# column factors, P + ½[A B][B A]ᵀ: K4's function on a symmetric P, which
+# the path's P is.
 LIBRARY = {
+    "corr_apply_cols": lambda P, A, B: torch.baddbmm(
+        P, torch.cat([A, B], 2), torch.cat([B, A], 2).transpose(1, 2),
+        alpha=0.5),
     "f32_matmul_big": torch.bmm,
     "ncc_corr": lambda win, tm: F.conv2d(win[None], tm[:, None],
                                          groups=win.shape[0])[0],
@@ -250,6 +256,8 @@ def check_kernel(name, args, site="") -> dict:
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        x_bound=f"{ms / bound_ms:.2f}",
+        x_library="none" if library_ms is None else f"{ms / library_ms:.2f}",
         gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}")
     if library_ms is not None:
         fields["library_abs_err"] = f"{lib_err:.3e}"

@@ -403,7 +403,8 @@ def corr_apply(P, At, Bt, symmetrize="expr"):
     """K8: P (B,D,D), f32 or bf16; At, Bt (B,R,D), any R; symmetrize one
     of CORR_MODES. Returns P + C, P + ½(C + Cᵀ) or ½(P + Pᵀ) + ½(C + Cᵀ),
     C = Atᵀ·Bt, (B,D,D) in P's dtype; the correction of "expr" and "full"
-    is bitwise symmetric."""
+    is bitwise symmetric (the kernel computes C + Cᵀ once a tile pair, as
+    one sum over [At; Bt]ᵀ[Bt; At], and mirrors it)."""
     name = "corr_apply"
     mode = _corr_mode(symmetrize)
     Bn, D, _ = P.shape
@@ -443,7 +444,7 @@ def fused_update_tail(P, K, PHt, Jq4):
 def f32_matmul_big(A, B):
     """K6: A (B,M,K), f32 or bf16; B (B,K,N), any N. Returns A·B (B,M,N)
     in B's dtype (f32 on the card) with every partial sum in f32, A read
-    once for N ≤ 256."""
+    once for N ≤ 128 (once per 128-column chunk beyond)."""
     name = "f32_matmul_big"
     Bn, M, Kd = A.shape
     N = B.shape[2]

@@ -516,3 +516,106 @@ def test_cuda_fast_step_matches_cpu_step(card, form):
     assert float((s_gpu.x.cpu() - s_cpu.x).abs().max()) <= 1e-4 * scale
     assert kernels.scaled_error(s_gpu.P.cpu().double(),
                                 s_cpu.P.double()) <= 1e-2
+
+
+# --- K6 and K8 on the register-blocked panel product ------------------------
+
+# f32 fmaf chains against f64 on the same operands: each entry within this
+# share of Σ_k |a_k|·|b_k|, its own worst-case scale (a chain of K products
+# strays at most K·2^-24 of it: 3.7e-5 at K = 613, typically its root).
+CHAIN_TOL = 1e-5
+F32_BF16 = pytest.mark.parametrize("store", [torch.float32, torch.bfloat16],
+                                   ids=["f32", "bf16"])
+
+
+def _randn(card, seed, *shape):
+    return torch.randn(*shape, device=card,
+                       generator=torch.Generator(card).manual_seed(seed))
+
+
+def _check_matmul_big(card, M, K, N, store, seed):
+    A = _randn(card, seed, 2, M, K).to(store)
+    Bm = _randn(card, seed + 1, 2, K, N)
+    got = kernels.f32_matmul_big(A, Bm)
+    again = kernels.f32_matmul_big(A, Bm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (2, M, N)
+    assert torch.equal(got, again)
+    want = A.double() @ Bm.double()
+    scale = A.double().abs() @ Bm.double().abs()
+    assert bool(((got.double() - want).abs() <= CHAIN_TOL * scale).all())
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("N", [1, 31, 48, 64, 128, 200, 300])
+def test_cuda_matmul_big_takes_any_width(card, N, store):
+    """K6 at the bench's D = 613 on both column blockings (64, 128), widths
+    that are no multiple of 4 (stores by element) and widths past one
+    128-column chunk; two launches agree bit for bit."""
+    _check_matmul_big(card, 613, 613, N, store, N)
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("M,K,N", [(50, 613, 48), (613, 50, 128),
+                                   (19, 19, 64), (19, 19, 31)])
+def test_cuda_matmul_big_takes_other_shapes(card, M, K, N, store):
+    """K6 with M != K and with A smaller than one row stripe and one
+    contraction tile."""
+    _check_matmul_big(card, M, K, N, store, M + N)
+
+
+def _corr_operands(card, D, R, store, seed, symmetric=False):
+    P = _randn(card, seed, 2, D, D)
+    if symmetric:
+        P = 0.5 * (P + P.transpose(1, 2))
+    return (P.to(store), _randn(card, seed + 1, 2, R, D),
+            _randn(card, seed + 2, 2, R, D))
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("D", [19, 613])
+@pytest.mark.parametrize("R", [1, 31, 56, 300])
+@pytest.mark.parametrize("mode", kernels.CORR_MODES)
+def test_cuda_corr_apply_takes_any_rank(card, mode, R, D, store):
+    """K8 in every mode on random operands: D below one 64-wide tile and
+    the bench's 613 (10 tiles a side, the last ragged), R below one
+    contraction tile, the fast mode's 56 and a tall 300. Each entry within
+    CHAIN_TOL of its scale |P| + |At|ᵀ|Bt| + |Bt|ᵀ|At| (one bf16 ulp more on
+    a bf16 output); "full" bitwise symmetric; two launches agree bit for
+    bit."""
+    P, At, Bt = _corr_operands(card, D, R, store, 7 * R + D)
+    got = kernels.corr_apply(P, At, Bt, mode)
+    again = kernels.corr_apply(P, At, Bt, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == store and torch.equal(got, again)
+    Pd, Ad, Bd = P.double(), At.double(), Bt.double()
+    ref = kernels.corr_apply_plain(Pd, Ad, Bd, mode)
+    C = Ad.abs().transpose(1, 2) @ Bd.abs()
+    limit = CHAIN_TOL * (Pd.abs() + Pd.abs().transpose(1, 2) + C
+                         + C.transpose(1, 2))
+    if store == torch.bfloat16:
+        limit = limit + kernels.bf16_ulp(ref)
+    assert bool(((got.double() - ref).abs() <= limit).all())
+    if mode == "full":
+        assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("D", [19, 613])
+@pytest.mark.parametrize("R", [1, 31, 56, 300])
+def test_cuda_corr_apply_expr_mirrors_its_tiles(card, R, D, store):
+    """K8 "expr" on a symmetric P is bitwise symmetric: off the diagonal
+    because tile (j, i) is written from tile (i, j)'s accumulator, and on
+    each 64 x 64 diagonal tile by itself, whose lower entries are taken
+    from its upper ones."""
+    P, At, Bt = _corr_operands(card, D, R, store, 11 * R + D, symmetric=True)
+    assert torch.equal(P, P.transpose(1, 2))
+    got = kernels.corr_apply(P, At, Bt, "expr")
+    for i0 in range(0, D, 64):
+        blk = got[:, i0:i0 + 64, i0:i0 + 64]
+        assert torch.equal(blk, blk.transpose(1, 2)), i0
+    assert torch.equal(got, got.transpose(1, 2))

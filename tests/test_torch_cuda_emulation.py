@@ -1,0 +1,84 @@
+"""K6 and K8 of csrc/unfused_cov.cu — the CUDA source itself — run on the
+CPU: compiled by g++ against the stand-in headers of tests/cuda_emulation
+(one std::thread a CUDA thread, __syncthreads a barrier, shared memory
+poisoned with NaN, the asynchronous copies done at once with their
+alignment checked), under AddressSanitizer, and held against a plain f64
+loop by tests/cuda_emulation/harness.cpp.
+
+What it can show: a wrong index, mask, ragged edge, tile pair or mirror; a
+read of a word nobody staged; a read or write outside an operand; a bulk
+copy that is not 16-byte aligned; K8's bitwise symmetry. What it cannot:
+races, asynchrony, anything about speed — those are the card's
+(tests/test_torch_cuda.py). Tolerances are the harness's: 1e-5 of each
+entry's own scale Σ|a||b| (f32 chains against f64), one bf16 ulp more on a
+bf16 output.
+
+Skips where no g++ with C++20's <barrier> is installed."""
+
+import pathlib
+import shutil
+import subprocess
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+EMU = ROOT / "tests" / "cuda_emulation"
+CSRC = ROOT / "ekf_slam_tpu_torch" / "csrc"
+FLAGS = ["-std=c++20", "-O1", "-fsanitize=address", "-x", "c++"]
+
+# kernel, P / A type, then B M K N misalign (K6) or B D R mode symP (K8)
+K6_CASES = [(t, 2, 70, 70, n, 0) for t in ("f32", "bf16")
+            for n in (1, 31, 48, 64, 128, 200)] + [
+    ("f32", 1, 50, 140, 48, 0), ("bf16", 1, 140, 50, 64, 0),   # M != K
+    ("f32", 2, 19, 19, 128, 1), ("bf16", 2, 19, 19, 31, 1),    # below a tile
+    ("bf16", 1, 157, 157, 64, 1)]
+K8_CASES = [(t, b, d, r, mode, sym)
+            for t in ("f32", "bf16")
+            for b, d, r in ((2, 70, 56), (2, 19, 1), (1, 157, 20))
+            for mode, sym in ((0, 0), (1, 0), (1, 1), (2, 0))]
+
+
+@pytest.fixture(scope="module")
+def emulate(tmp_path_factory):
+    """The harness, built once: a function (args) -> CompletedProcess."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++: the CUDA sources are compiled for the host")
+    out = tmp_path_factory.mktemp("cuda_emulation")
+    probe = out / "probe.cpp"
+    probe.write_text("#include <barrier>\nint main() { std::barrier<> b(1); "
+                     "b.arrive_and_wait(); }\n")
+    if subprocess.run([gxx, "-std=c++20", str(probe), "-o",
+                       str(out / "probe"), "-lpthread"],
+                      capture_output=True).returncode != 0:
+        pytest.skip("needs a g++ with C++20's <barrier>")
+    binary = out / "emulate"
+    build = subprocess.run(
+        [gxx, *FLAGS, "-I", str(EMU), "-I", str(CSRC),
+         str(EMU / "harness.cpp"), "-o", str(binary), "-lpthread"],
+        capture_output=True, text=True)
+    assert build.returncode == 0, build.stderr[-4000:]
+
+    def run(*args):
+        return subprocess.run([str(binary), *map(str, args)],
+                              capture_output=True, text=True, timeout=300)
+    return run
+
+
+@pytest.mark.parametrize("case", K6_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_matmul_big(emulate, case):
+    """K6 at both column blockings (64, 128), widths that are no
+    multiple of 4, a width past one 128-column chunk, M != K, A below one
+    tile, C off a 16-byte boundary, f32 and bf16 A."""
+    done = emulate("k6", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K8_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_corr_apply(emulate, case):
+    """K8 in its three modes on an f32 and a bf16 P (whose matrices start
+    on odd 2-byte offsets), D of one ragged tile, of two and of three
+    tiles, R below and past one contraction tile; "full" and "expr" on a
+    symmetric P bitwise symmetric."""
+    done = emulate("k8", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
