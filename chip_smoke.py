@@ -17,12 +17,13 @@ Phases, one line each, any failure raises (exit code != 0):
                a fast frame's bf16 P. Each entry's error is scaled to its
                own bound (a bf16 output may also stray one bf16 ulp); K4's
                and K8 "full"'s outputs must be bitwise symmetric, K8
-               "expr"'s on a symmetric P. Then planted faults (K1 without
-               process noise, K5 with the renorm Jacobian replaced by I,
-               K7 with the template transposed, K8 without its renorm
-               rows) must fail that check; the f32 patch variance of the
-               NCC norms must stray less than ncc.FLAT_EPS roundoff units
-               from its f64 value.
+               "expr"'s and K3's on a symmetric P. Then planted faults (K1
+               without process noise, K3 with keepN all ones on P with
+               stale values in the new slots, K5 with the renorm Jacobian
+               replaced by I, K7 with the template transposed, K8 without
+               its renorm rows) must fail that check; the f32 patch
+               variance of the NCC norms must stray less than
+               ncc.FLAT_EPS roundoff units from its f64 value.
                Times: kernel, plain version, one library call where one
                computes the same function (K6 torch.bmm, K7 a grouped
                F.conv2d with cuDNN's TF32 off, K8 "expr" and K4
@@ -456,6 +457,24 @@ def check_paths(dev, card: str) -> list:
                                          args[7]),
         kernels.manage_predict_pht_plain(*(a.double() for a in args)),
         lambda g, r: kernels.scaled_error(g, r, args[7]))
+    args = inputs["fused_update_tail_add"][-1]
+    P, keepN = args[0], args[4]
+    if not bool((keepN == 0).any()):
+        raise AssertionError("the fused frame adds no feature: K3's keep "
+                             "fault needs one")
+    stale = kernels.stale_slots(P, keepN)
+    planted_fault(
+        "K3_with_keep_all_ones",
+        kernels.fused_update_tail_add(stale, *args[1:4],
+                                      torch.ones_like(keepN), *args[5:]),
+        kernels.update_tail_add_plain(*(a.double() for a in (stale,)
+                                        + args[1:])),
+        kernels.scaled_error)
+    out = kernels.fused_update_tail_add(0.5 * (P + P.transpose(1, 2)),
+                                        *args[1:])
+    if not torch.equal(out, out.transpose(1, 2)):
+        raise AssertionError(f"fused_update_tail_add on a symmetric P: "
+                             f"max|P−Pᵀ| {max_asym(out)}")
 
     # The unfused frame calls K6 for RANSAC's P·G first, then for each
     # update's P·Hᵀ (LI, HI).

@@ -3,7 +3,7 @@
 // upcast on load, one round-to-nearest-even on store), the launch helper,
 // and two generations of building blocks.
 //
-// 1. The 32 x 32 tile helpers of K1-K5: staging of operand blocks into
+// 1. The 32 x 32 tile helpers of K1 and K2: staging of operand blocks into
 //    shared memory (stage), the tile's pair of rank-R sums for column
 //    factors (pair_sums), the P·Hᵀ stripe accumulation (accumulate_pht).
 //    Thread layout: 256 threads, thread (tx, ty) owns column tx and the
@@ -11,7 +11,7 @@
 //    operands sit in shared memory transposed ([k][row]), so one 16-byte
 //    load feeds four rows; the column-side operand is one scalar per k.
 //
-// 2. The register-blocked panel product of K6 and K8, designed for the
+// 2. The register-blocked panel product of K3-K6 and K8, designed for the
 //    H100's CUDA cores: acc[r][c] += Σ_k X[k][r]·Y[k][c] from a [k][row]
 //    panel and a [k][col] panel in shared memory (panel_fma), each thread
 //    a TM x TN micro-tile (8 x 8: 64 FMAs for four 16-byte shared loads a
@@ -151,7 +151,7 @@ __device__ void accumulate_pht(float (&acc)[RPT][MAX_CG], const float* sTt,
   }
 }
 
-// --- the register-blocked panel product (K6, K8) ---------------------------
+// --- the register-blocked panel product (K3-K6, K8) ------------------------
 
 constexpr int BK = 8;                   // contraction depth of a ring stage
 
@@ -296,38 +296,59 @@ struct RowPanel {
 };
 
 // Loader of a [k][row] panel from a row-major source whose ROWS are the
-// panel's rows (K6's A = P): element (row0 + r, t·BK + k) lands at
-// dst[k·LD + r], a transposed store. A warp takes 4 rows x 8 k (lane =
+// panel's rows and whose columns are the contraction (K6's A = P; the
+// column-form factors of K4 and K3/K5): element (row0 + r, t·BK + k) lands
+// at dst[k·LD + r], a transposed store. A warp takes 4 rows x 8 k (lane =
 // 4·k + r mod 4): with LD ≡ 4 mod 32 its 32 words fall in 32 banks, and
 // panel_fma still reads 16 bytes along r. The source's rows may be
 // unaligned (D = 613: 2,452 B in f32, 1,226 B in bf16), so every load is
 // one element: f32 by cp.async; bf16 into registers at begin(), converted
 // and stored at end(), after the multiply it overlaps. A thread keeps one
 // k and rows RSTEP apart: one address a tile, the rest at compile-time
-// multiples of `ld`.
-template <typename T, int BM, int THREADS>
+// multiples of `ld`. With SOURCES = 2 the contraction runs over two
+// sources of `ncols` columns each (the same `ld`), one after the other,
+// each padded to whole BK-deep tiles with zeros: tiles 0 .. tiles0−1 read
+// the first, the rest the second (K4's [A | B], K3's [K | PHt]), as
+// RowPanel does along its rows.
+template <typename T, int BM, int THREADS, int SOURCES = 1>
 struct ColPanel {
   static_assert(BK == 8 && THREADS % 32 == 0 && BM % (THREADS / 8) == 0,
                 "lane map: 8 k x 4 rows a warp; whole passes");
+  static_assert(SOURCES == 1 || SOURCES == 2, "one or two sources");
   static constexpr int LD = BM + 4;
   static constexpr int RSTEP = THREADS / 8;
   static constexpr int COUNT = BM / RSTEP;
   static constexpr bool ASYNC = sizeof(T) == 4;
   const T* src;                         // element (row0 + r0, k) of tile 0
+  const T* src1;                        // the same in the second source
   int ld, r0, k, rows_left, ncols;      // rows_left: nrows − (row0 + r0)
+  int tiles0;
   unsigned short held[COUNT];           // raw bf16 bits between begin and end
 
   __device__ ColPanel(const T* a, int ld_, int row0, int nrows, int ncols_)
+      : ColPanel(a, a, 0, ld_, row0, nrows, ncols_) {}
+
+  __device__ ColPanel(const T* a, const T* b, int tiles0_, int ld_, int row0,
+                      int nrows, int ncols_)
       : ld(ld_),
         r0(((static_cast<int>(threadIdx.x) >> 5) << 2) |
            (static_cast<int>(threadIdx.x) & 3)),
         k((static_cast<int>(threadIdx.x) >> 2) & 7),
-        rows_left(nrows - row0 - r0), ncols(ncols_) {
-    src = a + static_cast<size_t>(row0 + r0) * ld + k;
+        rows_left(nrows - row0 - r0), ncols(ncols_), tiles0(tiles0_) {
+    const size_t off = static_cast<size_t>(row0 + r0) * ld + k;
+    src = a + off;
+    src1 = b + off;
   }
 
   __device__ __forceinline__ void begin(int t, float* dst) {
-    const T* p = src + t * BK;
+    const T* base = src;
+    if constexpr (SOURCES == 2) {
+      if (t >= tiles0) {
+        t -= tiles0;
+        base = src1;
+      }
+    }
+    const T* p = base + t * BK;
     const bool k_ok = t * BK + k < ncols;
     dst += k * LD + r0;
 #pragma unroll
@@ -444,7 +465,7 @@ struct PTile {
   static constexpr int LINE = 16 / static_cast<int>(sizeof(T));
   static constexpr int PITCH = PT_TILE + LINE;     // entries a row
   static constexpr int BYTES = PT_TILE * PITCH * static_cast<int>(sizeof(T));
-  const T* raw;
+  T* raw;
   int lead0, D;       // entries of row 0 before its first one in its line
 
   // Entry index, mod LINE, of P(r0 + r, c0) counted from address 0.
@@ -454,12 +475,17 @@ struct PTile {
          sizeof(T)) % LINE);
   }
 
-  __device__ PTile(const void* raw_, const T* P, int D_, int r0, int c0)
-      : raw(static_cast<const T*>(raw_)), lead0(lead(P, D_, r0, c0, 0)),
-        D(D_) {}
+  __device__ PTile(void* raw_, const T* P, int D_, int r0, int c0)
+      : raw(static_cast<T*>(raw_)), lead0(lead(P, D_, r0, c0, 0)), D(D_) {}
+
+  // Entry (r, c) of the tile in shared memory: read by at(), and written in
+  // place by a kernel that transforms the tile before its epilogue (K3).
+  __device__ __forceinline__ T& ref(int r, int c) const {
+    return raw[r * PITCH + ((lead0 + r * D) & (LINE - 1)) + c];
+  }
 
   __device__ __forceinline__ float at(int r, int c) const {
-    return to_f32(raw[r * PITCH + ((lead0 + r * D) & (LINE - 1)) + c]);
+    return to_f32(ref(r, c));
   }
 
   // Start this thread's share of the copies of tile (r0, c0) of P (D x D)
@@ -522,6 +548,13 @@ __device__ void store_tile_pair(T* __restrict__ out, int D, int i0, int j0,
       store(o + (a - row0) * D, p + scale * s);
     }
   }
+}
+
+// Tile pair number p of the nt(nt+1)/2 pairs i <= j of an nt x nt grid of
+// tiles, row by row: (0, 0) .. (0, nt−1), (1, 1) .. (nt−1, nt−1).
+__device__ __forceinline__ void pair_of(int p, int nt, int& i, int& j) {
+  for (i = 0; p >= nt - i; ++i) p -= nt - i;
+  j = i + p;
 }
 
 // Round a shared-memory offset (in floats) up to a 16-byte boundary.

@@ -10,12 +10,11 @@
 // K8 round their output once to P's type. Every other operand and every
 // sum is f32: a sequential fmaf chain in a fixed order, deterministic, no
 // atomics, on CUDA cores: no TF32, no tensor cores, no TMA tensor map
-// (P's rows are 2,452 or 1,226 bytes at D = 613, not multiples of 16). K4
-// stands on the 32 x 32 tile helpers of common.cuh; K6 and K8 on its
-// register-blocked panel product (8 x 8 micro-tiles, a two-stage ring in
-// shared memory whose loads overlap the multiply) and K8 on its mirrored
-// epilogue, its tiles of P fetched by bulk copies of the 16-byte lines that
-// cover each row.
+// (P's rows are 2,452 or 1,226 bytes at D = 613, not multiples of 16). All
+// three stand on common.cuh's register-blocked panel product (8 x 8
+// micro-tiles, a two-stage ring in shared memory whose loads overlap the
+// multiply), K4 and K8 also on its mirrored epilogue, their tiles of P
+// fetched by bulk copies of the 16-byte lines that cover each row.
 //
 // Plain C ABI (bound with ctypes): each launcher returns the cudaError_t of
 // its launch and launches on the caller's stream; `p_bf16` picks the
@@ -25,63 +24,22 @@
 
 namespace {
 
+// The covariance tails of the unfused step: K4, the column-form factors'
+// apply, and K8, the row-form factors' apply, on one body.
+//
 // K4 — replaces ekf_slam_tpu/ops/pallas_kernels.py corr_apply_cols
-// (_corr_sym_cols_kernel): the folded update tail's one-pass apply,
+// (_corr_apply_cols_single, _corr_sym_cols_kernel): the folded update
+// tail's one-pass apply,
 //   P⁺ = ½(P + Pᵀ) + ½(A·Bᵀ + B·Aᵀ),   A, B (D, R),
-// entry by entry 0.5f·(P[r][c] + P[c][r]) + 0.5f·(s1 + s2) with
-// s1 = Σ_k A[r][k]·B[c][k] and s2 = Σ_k B[r][k]·A[c][k] (pair_sums). s1 of
-// entry (r, c) is s2 of entry (c, r), product for product in the same
-// order, so P⁺ is bitwise symmetric, as the Pallas kernel's is.
-// Bound on the H100: P is read twice (the tile and its transposed twin,
-// the second mostly from L2) and written once, 1.5 MB each per instance
-// at D = 613 — 576 MB at B = 128, 0.17 ms at 3.35 TB/s. The symmetric
-// output needs its sums for one triangle only, 2·D(D+1)·R flops: R =
-// 2·(2M) + 8 = 264 at the bench config's compact update (2M = 128 rows;
-// 408 for a full-width update at CAP 100) makes 199 MFLOP per instance,
-// 25 GFLOP per call at B = 128 (0.38 ms at the 67 TFLOP/s f32 peak),
-// above the memory time (a bf16 P halves the bytes). The simple design:
-// one block per output tile (j, i, b), R looped in MC-wide chunks staged
-// through shared memory (any R), the twin tile staged once for a coalesced
-// read. It computes both triangles, twice the flops; halving the sums by
-// mirroring is a later step.
-template <typename PT>
-__global__ void __launch_bounds__(NT)
-    k4_kernel(const PT* __restrict__ P, const float* __restrict__ A,
-              const float* __restrict__ Bf, PT* __restrict__ Pout, int D,
-              int R) {
-  extern __shared__ __align__(16) float sm[];
-  const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
-  const int i0 = i * TILE, j0 = j * TILE;
-  const size_t DD = static_cast<size_t>(D) * D;
-  P += b * DD;
-  Pout += b * DD;
-  A += static_cast<size_t>(b) * D * R;
-  Bf += static_cast<size_t>(b) * D * R;
-
-  float* sPt = sm;                            // TILE x LD: tile (j, i) of P
-  float* sAi = sPt + up4(TILE * LD);          // MC x LDT (transposed)
-  float* sBi = sAi + MC * LDT;
-  float* sAj = sBi + MC * LDT;                // TILE x LD
-  float* sBj = sAj + up4(TILE * LD);
-
-  stage(sPt, LD, P, D, j0, i0, TILE, TILE, D, D);
-  float s1[RPT], s2[RPT];
-  pair_sums(A, Bf, D, R, i0, j0, sAi, sBi, sAj, sBj, s1, s2);
-  __syncthreads();
-  const Tid t = tid();
-  const int gj = j0 + t.tx;
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int gi = i0 + t.r0 + q;
-    if (gi < D && gj < D) {
-      const float pij = to_f32(P[static_cast<size_t>(gi) * D + gj]);
-      const float pji = sPt[t.tx * LD + t.r0 + q];
-      store(Pout + static_cast<size_t>(gi) * D + gj,
-            0.5f * (pij + pji) + 0.5f * (s1[q] + s2[q]));
-    }
-  }
-}
-
+// bitwise symmetric, as the Pallas kernel's output is.
+// Bound on the H100: the symmetric output needs its sums for one triangle
+// only, 4·R flops an entry over D(D+1)/2 entries: R = 2·(2M) + 8 = 264 at
+// the bench config's compact update (2M = 128 rows; 408 for a full-width
+// update at CAP 100, 104 in the fast mode) makes 25.4 GFLOP a call at
+// B = 128, D = 613 (0.38 ms at the 67 TFLOP/s f32 peak), above the 550 MB
+// of P read and written and the factors read (0.16 ms at 3.35 TB/s; a
+// bf16 P halves P's bytes), so the FMA units bind.
+//
 // K8 — replaces ekf_slam_tpu/ops/pallas_kernels.py corr_apply
 // (_corr_kernel, _corr_expr_kernel, _corr_sym_kernel): the row-form
 // update's folded tail apply (ekf.update_rows), At, Bt (R, D) the factors
@@ -89,53 +47,59 @@ __global__ void __launch_bounds__(NT)
 // M = 24). With S = AtᵀBt + BtᵀAt:
 //   mode 0 "none"  P + AtᵀBt
 //   mode 1 "expr"  P + ½·S                            (the default)
-//   mode 2 "full"  ½(P + Pᵀ) + ½·S
-// P is read in its storage type, the sum rounded once to it.
+//   mode 2 "full"  ½(P + Pᵀ) + ½·S                    (K4's function)
 // Bound on the H100 at the fast mode (B = 128, D = 613, R = 56, bf16 P):
-// the symmetric correction needs 4·R flops an entry over D(D+1)/2 entries,
-// 5.4 GFLOP a call (0.081 ms at 67 TFLOP/s); P read and written in bf16
-// plus the factors is 227 MB (0.068 ms), so the operations bind.
-// Design: S is one product over the concatenated contraction, S = XᵀY with
-// X = [At; Bt], Y = [Bt; At] (2R rows), so one accumulator an entry
-// (panel_product, 8 x 8 micro-tiles). One block of 64 threads per tile PAIR
-// (i <= j) of 64 x 64 tiles — 55 blocks an instance at D = 613 — computes
-// S(i, j) once and writes out(i, j) and out(j, i) = … + ½·S(i, j)ᵀ
-// (store_tile_pair): the bound's flop count (plus the diagonal tiles' lower
-// halves), and the correction is bitwise symmetric by construction off the
-// diagonal. On a diagonal tile the single chain sums entry (r, c) and
-// entry (c, r) in different orders, so its lower entries are taken from its
-// upper ones. The two tiles of P are fetched into shared memory by bulk
-// copies started before the product and awaited after it (PTile), so the
-// epilogue waits on no global load; "full" averages P(i, j) with P(j, i)ᵀ
-// from the same two tiles, each read once. "none" is not symmetric: all D²
-// tiles, contraction R, X = At, Y = Bt, no mirroring. Any R: the
-// contraction streams through the ring in BK-deep tiles, each factor padded
-// to whole tiles with rows of zeros.
+// 4·R flops an entry over D(D+1)/2 entries, 5.4 GFLOP a call (0.081 ms at
+// 67 TFLOP/s); P read and written in bf16 plus the factors is 227 MB
+// (0.068 ms), so the operations bind.
+//
+// Design (both): S is one product over the concatenated contraction,
+// S = X·Yᵀ with X = [A | B], Y = [B | A] (K4: 2R columns of the (D, R)
+// factors) or X = [At; Bt]ᵀ, Y = [Bt; At]ᵀ (K8: 2R rows of the (R, D)
+// factors), so one accumulator an entry (panel_product, 8 x 8
+// micro-tiles). One block of 64 threads per tile PAIR (i <= j) of 64 x 64
+// tiles — 55 blocks an instance at D = 613 — computes S(i, j) once and
+// writes out(i, j) and out(j, i) = … + ½·S(i, j)ᵀ (store_tile_pair): the
+// bound's flop count (plus the diagonal tiles' lower halves and the ragged
+// last tile: 1.197x at D = 613), and the correction is bitwise symmetric
+// by construction off the diagonal. On a diagonal tile the single chain
+// sums entry (r, c) and entry (c, r) in different orders, so its lower
+// entries are taken from its upper ones. The two tiles of P are fetched
+// into shared memory by bulk copies started before the product and awaited
+// after it (PTile), so the epilogue waits on no global load; "full"
+// averages P(i, j) with P(j, i)ᵀ from the same two tiles, each read once.
+// K8's "none" is not symmetric: all D² tiles, contraction R, X = At,
+// Y = Bt, no mirroring. The loaders differ by the factors' layout: K8's
+// factor rows are the contraction, staged as they lie (RowPanel); K4's
+// factor rows are the output's rows and the contraction is contiguous, so
+// both sides stage transposed, [k][row] (ColPanel with two sources). Any
+// R: the contraction streams through the ring in BK-deep tiles, each
+// factor padded to whole tiles with zeros.
 using G8 = Blocking<PT_TILE, PT_TILE, 8, 8>;
 using Panel8 = RowPanel<PT_TILE, G8::THREADS>;
+using Col8 = ColPanel<float, PT_TILE, G8::THREADS, 2>;
 
+// Shared memory of corr_pair: the accumulator tile (over the ring of
+// either loader pair), P's two tiles, the mbarrier.
 template <typename PT>
-__global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
-    k8_kernel(const PT* __restrict__ P, const float* __restrict__ At,
-              const float* __restrict__ Bt, PT* __restrict__ Pout, int D,
-              int R, int mode) {
-  extern __shared__ __align__(16) float sm[];
-  const int nt = (D + PT_TILE - 1) / PT_TILE, b = blockIdx.y;
-  int i, j;
-  if (mode == 0) {
-    i = blockIdx.x / nt, j = blockIdx.x % nt;
-  } else {                              // pair index -> (i, j), i <= j
-    int p = blockIdx.x;
-    for (i = 0; p >= nt - i; ++i) p -= nt - i;
-    j = i + p;
-  }
-  const int i0 = i * PT_TILE, j0 = j * PT_TILE;
-  const size_t DD = static_cast<size_t>(D) * D;
-  P += b * DD;
-  Pout += b * DD;
-  At += static_cast<size_t>(b) * R * D;
-  Bt += static_cast<size_t>(b) * R * D;
+constexpr size_t corr_smem() {
+  static_assert(ring_floats<Panel8, Panel8>() <= PT_TILE * LDC &&
+                    ring_floats<Col8, Col8>() <= PT_TILE * LDC,
+                "the accumulator tile lies over the ring");
+  return sizeof(float) * up4(PT_TILE * LDC) + 2 * PTile<PT>::BYTES +
+         sizeof(unsigned long long);
+}
 
+// Tile pair (i0, j0) of one instance: out = P + scale·X_i·Y_jᵀ in `mode`
+// (0 none: tile (i0, j0) alone, scale 1; 1 expr; 2 full: scale ½ and the
+// (j0, i0) tile mirrored), the product over `ntiles` BK-deep tiles of the
+// loaders lx, ly.
+template <typename PT, typename LX, typename LY>
+__device__ __forceinline__ void corr_pair(const PT* __restrict__ P,
+                                          PT* __restrict__ Pout, int D,
+                                          int i0, int j0, int mode,
+                                          int ntiles, LX& lx, LY& ly) {
+  extern __shared__ __align__(16) float sm[];
   float* sC = sm;                       // PT_TILE x LDC, over the ring
   char* raw_ij = reinterpret_cast<char*>(sm + up4(PT_TILE * LDC));
   char* raw_ji = raw_ij + PTile<PT>::BYTES;
@@ -153,10 +117,8 @@ __global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
   const PTile<PT> pij(raw_ij, P, D, i0, j0);
   const PTile<PT> pji(twin ? raw_ji : raw_ij, P, D, j0, i0);
 
-  const int tiles = (R + BK - 1) / BK;   // of one factor's R rows
-  Panel8 lx(At, Bt, tiles, R, D, i0, D), ly(Bt, At, tiles, R, D, j0, D);
   float acc[G8::TM][G8::TN];
-  panel_product<G8>(acc, sm, mode == 0 ? tiles : 2 * tiles, lx, ly);
+  panel_product<G8>(acc, sm, ntiles, lx, ly);
 #pragma unroll
   for (int q = 0; q < G8::TM; ++q)
 #pragma unroll
@@ -167,6 +129,48 @@ __global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
   store_tile_pair<PT, G8::THREADS>(Pout, D, i0, j0, sC, pij, pji,
                                    mode == 0 ? 1.f : 0.5f, mode != 0,
                                    mode == 2);
+}
+
+template <typename PT>
+__global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
+    k4_kernel(const PT* __restrict__ P, const float* __restrict__ A,
+              const float* __restrict__ Bf, PT* __restrict__ Pout, int D,
+              int R) {
+  const int nt = (D + PT_TILE - 1) / PT_TILE, b = blockIdx.y;
+  int i, j;
+  pair_of(blockIdx.x, nt, i, j);
+  const size_t DD = static_cast<size_t>(D) * D;
+  P += b * DD;
+  Pout += b * DD;
+  A += static_cast<size_t>(b) * D * R;
+  Bf += static_cast<size_t>(b) * D * R;
+  const int tiles = (R + BK - 1) / BK;   // of one factor's R columns
+  Col8 lx(A, Bf, tiles, R, i * PT_TILE, D, R);
+  Col8 ly(Bf, A, tiles, R, j * PT_TILE, D, R);
+  corr_pair(P, Pout, D, i * PT_TILE, j * PT_TILE, 2, 2 * tiles, lx, ly);
+}
+
+template <typename PT>
+__global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
+    k8_kernel(const PT* __restrict__ P, const float* __restrict__ At,
+              const float* __restrict__ Bt, PT* __restrict__ Pout, int D,
+              int R, int mode) {
+  const int nt = (D + PT_TILE - 1) / PT_TILE, b = blockIdx.y;
+  int i, j;
+  if (mode == 0)
+    i = blockIdx.x / nt, j = blockIdx.x % nt;
+  else
+    pair_of(blockIdx.x, nt, i, j);
+  const size_t DD = static_cast<size_t>(D) * D;
+  P += b * DD;
+  Pout += b * DD;
+  At += static_cast<size_t>(b) * R * D;
+  Bt += static_cast<size_t>(b) * R * D;
+  const int tiles = (R + BK - 1) / BK;   // of one factor's R rows
+  Panel8 lx(At, Bt, tiles, R, D, i * PT_TILE, D);
+  Panel8 ly(Bt, At, tiles, R, D, j * PT_TILE, D);
+  corr_pair(P, Pout, D, i * PT_TILE, j * PT_TILE, mode,
+            mode == 0 ? tiles : 2 * tiles, lx, ly);
 }
 
 // K6 — replaces ekf_slam_tpu/ops/pallas_kernels.py f32_matmul_big
@@ -267,16 +271,15 @@ extern "C" {
 cudaError_t ekf_k4_corr_apply_cols(const void* P, const float* A,
                                    const float* B, void* Pout, int Bn, int D,
                                    int R, int p_bf16, void* stream) {
-  if (R < 1 || D < 1) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (3 * up4(TILE * LD) + 2 * MC * LDT);
+  if (R < 1 || D < 1 || Bn > 65535) return cudaErrorInvalidValue;
   void* args[] = {&P, &A, &B, &Pout, &D, &R};
-  const int nt = (D + TILE - 1) / TILE;
+  const int nt = (D + PT_TILE - 1) / PT_TILE;
   const void* fn = p_bf16
       ? reinterpret_cast<const void*>(k4_kernel<__nv_bfloat16>)
       : reinterpret_cast<const void*>(k4_kernel<float>);
-  return launch(fn, dim3(nt, nt, Bn), smem, args,
-                static_cast<cudaStream_t>(stream));
+  return launch(fn, dim3(nt * (nt + 1) / 2, Bn),
+                p_bf16 ? corr_smem<__nv_bfloat16>() : corr_smem<float>(),
+                args, static_cast<cudaStream_t>(stream), G8::THREADS);
 }
 
 // K6. A (B,M,K), f32 or (a_bf16) bf16; B (B,K,N) and C (B,M,N) f32, any
@@ -297,17 +300,13 @@ cudaError_t ekf_k8_corr_apply(const void* P, const float* At,
                               int R, int mode, int p_bf16, void* stream) {
   if (R < 1 || D < 1 || mode < 0 || mode > 2 || Bn > 65535)
     return cudaErrorInvalidValue;
-  static_assert(ring_floats<Panel8, Panel8>() <= PT_TILE * LDC,
-                "the accumulator tile lies over the ring");
-  const size_t smem =
-      sizeof(float) * up4(PT_TILE * LDC) + sizeof(unsigned long long) +
-      2 * (p_bf16 ? PTile<__nv_bfloat16>::BYTES : PTile<float>::BYTES);
   void* args[] = {&P, &At, &Bt, &Pout, &D, &R, &mode};
   const int nt = (D + PT_TILE - 1) / PT_TILE;
   const void* fn = p_bf16
       ? reinterpret_cast<const void*>(k8_kernel<__nv_bfloat16>)
       : reinterpret_cast<const void*>(k8_kernel<float>);
-  return launch(fn, dim3(mode == 0 ? nt * nt : nt * (nt + 1) / 2, Bn), smem,
+  return launch(fn, dim3(mode == 0 ? nt * nt : nt * (nt + 1) / 2, Bn),
+                p_bf16 ? corr_smem<__nv_bfloat16>() : corr_smem<float>(),
                 args, static_cast<cudaStream_t>(stream), G8::THREADS);
 }
 

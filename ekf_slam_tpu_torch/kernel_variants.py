@@ -1,24 +1,32 @@
-"""Time K6 and K8 as built, and as built with one design choice changed,
-on one CUDA card: the evidence behind the choices in csrc/unfused_cov.cu
-and csrc/common.cuh, and the tool for the next one.
+"""Time the panel-product kernels (K3 / K5, K4, K6, K8) as built, and as
+built with one design choice changed, on one CUDA card: the evidence
+behind the choices in csrc/fused_cov.cu, csrc/unfused_cov.cu and
+csrc/common.cuh, and the tool for the next one.
 
     python -m ekf_slam_tpu_torch.kernel_variants [variant ...] [--sass]
+                                                  [--widths]
 
-A variant is a list of text substitutions on the two sources. Each is
-built into its own library under build/variants/<name>/ (one nvcc, a few
-seconds), bound by ctypes and timed at the bench shapes (B = 128,
-D = 613) on random operands: K6 at its four call sites (A in f32 with
-N = 128 and 64, A in bf16 with N = 48 and 64) beside ``torch.bmm``, K8 in
-its three modes on a bf16 and an f32 P (R = 56) beside ``torch.baddbmm``;
-CUDA events, the mean of 20 launches after 3 warm ones. Variants whose
-name says ``timing_only`` skip part of the work and give wrong outputs:
-they split a kernel's time into its phases. ``--sass`` also prints, for
-every K6 / K8 kernel of the first variant, the instruction mix of its
-multiply loop from ``cuobjdump -sass`` (the share of FFMA among the
-instructions of the multiply loop).
+A variant is a list of text substitutions on the sources. Each is built
+into its own library under build/variants/<name>/ (one nvcc a source, in
+parallel, a few seconds), bound by ctypes and timed at the bench shapes
+(B = 128, D = 613) on random operands: K6 at its four call sites (A in f32
+with N = 128 and 64, A in bf16 with N = 48 and 64) beside ``torch.bmm``;
+K8 in its three modes on a bf16 and an f32 P (R = 56) and K4 on an f32 P
+(R = 264) and a bf16 P (R = 104) beside ``torch.baddbmm``; K3 (M2 = 128,
+r = 60) and K5 (M2 = 128). CUDA events, the mean of 20 launches after 3
+warm ones. Variants whose name says ``timing_only`` skip part of the work
+and give wrong outputs: they split a kernel's time into its phases.
+``--sass`` also prints, for every K3 / K4 / K6 / K8 kernel of the first
+variant, the instruction mix of its multiply loop from ``cuobjdump -sass``
+(the share of FFMA among the instructions of the loop with the most FFMAs;
+K3's two products run the same loop). ``--widths`` also times K5 and K4
+(f32 P, as built) at contraction widths around the bench's 128 and 264:
+time against width splits a kernel's cost per 8-deep contraction tile
+from its fixed cost a call, and shows whether a power-of-two row stride of
+the column-form factors costs.
 
-Prints the card's name and power limit, ptxas' registers and spills of the
-K6 / K8 kernels of each variant, one line of times (ms) a variant, and as
+Prints the card's name and power limit, ptxas' registers and spills of
+those kernels in each variant, one line of times (ms) a variant, and as
 the last line one JSON object with every number.
 """
 
@@ -33,14 +41,23 @@ import subprocess
 
 import torch
 
-from ekf_slam_tpu_torch.ops import _build
+from ekf_slam_tpu_torch.ops import _build, kernels
 
 OUT = _build.BUILD_DIR.parent / "variants"
-B, D, R = 128, 613, 56
+B, D = 128, 613
+K8_R, K4_R = 56, {"f32": 264, "bf16": 104}
+K3_M2, K3_R = 128, 60
+WIDTHS = (120, 124, 128, 132, 136, 256, 264)
 K6_SITES = (("f32_N128", torch.float32, 128), ("f32_N64", torch.float32, 64),
             ("bf16_N48", torch.bfloat16, 48), ("bf16_N64", torch.bfloat16, 64))
+SOURCES = ("unfused_cov.cu", "fused_cov.cu", "common.cuh")
+TIMED = ("k3_kernel", "k4_kernel", "k6_kernel", "k8_kernel")
+# A kernel's name in a mangled symbol: k3_kernel, k8_kernelIf, ...
+NAME = r"(k\dv?_kernel(?:I\w*?(?=EEv))?)"
 G8 = "using G8 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
 G6 = "using G6 = Blocking<64, BN, 8, 8, BN == 64 ? 255 : 128>;"
+G3 = "using G3 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
+# K4 / K8 (corr_pair in unfused_cov.cu)
 FETCH = """  unsigned bytes = PTile<PT>::template fetch<G8::THREADS>(raw_ij, P, D, i0,
                                                           j0, mbar);
   if (twin)
@@ -49,63 +66,114 @@ FETCH = """  unsigned bytes = PTile<PT>::template fetch<G8::THREADS>(raw_ij, P, 
 """
 EPILOGUE = "  store_tile_pair<PT, G8::THREADS>(Pout,"
 NO_EPILOGUE = (EPILOGUE, "  if (D < 0) store_tile_pair<PT, G8::THREADS>(Pout,")
-# name -> ((old, new) substitutions on unfused_cov.cu, on common.cuh)
+NO_PRODUCT = (("mode == 0 ? tiles : 2 * tiles, lx, ly", "0, lx, ly"),
+              ("2, 2 * tiles, lx, ly", "2, 0, lx, ly"))
+# K3 / K5 (fused_cov.cu)
+FETCH3 = """  unsigned bytes = PTile<float>::fetch<G3::THREADS>(raw_ij, P, D, i0, j0,
+                                                     mbar);
+  if (twin)
+    bytes += PTile<float>::fetch<G3::THREADS>(raw_ji, P, D, j0, i0, mbar);
+"""
+K3_NO_PASSES = (
+    ("  downdate_pair(", "  if (D < 0) downdate_pair("),
+    ("  if (i == 0) renorm_stripe(", "  if (D < 0 && i == 0) renorm_stripe("),
+    ("    keep_pair(", "    if (D < 0) keep_pair("),
+    ("  store_tile_pair<float, G3::THREADS>(Pout,",
+     "  if (D < 0) store_tile_pair<float, G3::THREADS>(Pout,"))
+# name -> {source: ((old, new) substitutions)}
 VARIANTS = {
-    "base": ((), ()),
-    # K8's micro-tile: 4 x 8 on 128 threads, 8 x 4 on 128 threads
-    "k8_micro_4x8": (((G8, G8.replace("8, 8>", "4, 8>")),), ()),
-    "k8_micro_8x4": (((G8, G8.replace("8, 8>", "8, 4>")),), ()),
+    "base": {},
+    # K8's micro-tile (and K4's, which shares its blocking): 4 x 8 on 128
+    # threads, 8 x 4 on 128 threads
+    "k8_micro_4x8": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "4, 8>")),)},
+    "k8_micro_8x4": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 4>")),)},
+    # the tile-pair kernels' register budget (K3 / K5, K4, K8): 255 (four
+    # blocks an SM, what an f32 P's shared memory allows), 168 (six, a
+    # bf16 P's)
+    "pair_regs_255": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 255>")),),
+                      "fused_cov.cu": ((G3, G3.replace("8, 8>", "8, 8, 255>")),)},
+    "pair_regs_168": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 168>")),),
+                      "fused_cov.cu": ((G3, G3.replace("8, 8>", "8, 8, 168>")),)},
     # K6's row stripe: 128 rows a block
-    "k6_rows_128": (((G6, G6.replace("<64,", "<128,")),), ()),
+    "k6_rows_128": {"unfused_cov.cu": ((G6, G6.replace("<64,", "<128,")),)},
     # register budgets: 128 everywhere; none (ptxas may use 255)
-    "registers_128": (((G6, G6.replace("BN == 64 ? 255 : 128", "128")),), ()),
-    "no_register_cap": ((), (("MIN_BLOCKS = 65536 / (REGS * THREADS)",
-                              "MIN_BLOCKS = 1"),)),
-    # K8 without its epilogue: the fetch of P and the product
-    "k8_timing_only_no_epilogue": ((NO_EPILOGUE,), ()),
+    "registers_128": {"unfused_cov.cu": (
+        (G6, G6.replace("BN == 64 ? 255 : 128", "128")),)},
+    "no_register_cap": {"common.cuh": (
+        ("MIN_BLOCKS = 65536 / (REGS * THREADS)", "MIN_BLOCKS = 1"),)},
+    # K4 and K8 without their epilogue: the fetch of P and the product
+    "corr_timing_only_no_epilogue": {"unfused_cov.cu": (NO_EPILOGUE,)},
     # ... and without the fetch either: the product alone
-    "k8_timing_only_product": ((NO_EPILOGUE, (FETCH, "  unsigned bytes = 0;\n")),
-                               ()),
-    # K8 without its product: the fetch and the epilogue
-    "k8_timing_only_no_product": (
-        (("mode == 0 ? tiles : 2 * tiles, lx, ly", "0, lx, ly"),), ()),
+    "corr_timing_only_product": {"unfused_cov.cu": (
+        NO_EPILOGUE, (FETCH, "  unsigned bytes = 0;\n"))},
+    # K4 and K8 without their product: the fetch and the epilogue
+    "corr_timing_only_no_product": {"unfused_cov.cu": NO_PRODUCT},
+    # K3 / K5: the two products alone (and K3's V prologue), no fetch of
+    # P, no pass over its tiles, no store
+    "k3_timing_only_product": {"fused_cov.cu": (
+        (FETCH3, "  unsigned bytes = 0;\n"), *K3_NO_PASSES)},
+    # K3's prologue alone: V = UN + ½·CN·EN, no k3_kernel
+    "k3_timing_only_prologue": {"fused_cov.cu": (
+        ("  return k3_launch(P, K, PHt, J8, keep, E, V, Pout, B, D, M2, r, s);",
+         "  return D < 0 ? k3_launch(P, K, PHt, J8, keep, E, V, Pout, B, D, "
+         "M2, r, s) : cudaSuccess;"),)},
+    # ColPanel (K3 / K5's and K4's factors, K6's A) with every warp's loads
+    # on one row instead of four: one cache line a load, as RowPanel's
+    "colpanel_timing_only_one_line": {"common.cuh": ((
+        """        r0(((static_cast<int>(threadIdx.x) >> 5) << 2) |
+           (static_cast<int>(threadIdx.x) & 3)),""",
+        """        r0((static_cast<int>(threadIdx.x) >> 5) << 2),"""),)},
+    # ... and without the products: the fetch, the passes, the store
+    "k3_timing_only_no_product": {"fused_cov.cu": (
+        ("panel_product<G3>(acc, sm, 2 * tiles, lx, ly);",
+         "panel_product<G3>(acc, sm, 0, lx, ly);"),
+        ("panel_product<G3>(acc, sm, 2 * tiles2, ex, ey);",
+         "panel_product<G3>(acc, sm, 0, ex, ey);"))},
 }
 
 
 def build(name: str) -> ctypes.CDLL:
-    """Build variant `name`; prints ptxas' lines for the K6 / K8 kernels."""
-    subs, common_subs = VARIANTS[name]
+    """Build variant `name`; prints ptxas' lines for the timed kernels."""
     out = OUT / name
     out.mkdir(parents=True, exist_ok=True)
-    for file, edits in (("unfused_cov.cu", subs), ("common.cuh", common_subs)):
+    for file in SOURCES:
         text = (_build.CSRC / file).read_text()
-        for old, new in edits:
+        for old, new in VARIANTS[name].get(file, ()):
             if old not in text:
                 raise ValueError(f"{name}: {old!r} not in {file}")
             text = text.replace(old, new)
         (out / file).write_text(text)
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.FLAGS, *_build.LINK_FLAGS, "-o",
-         str(out / "lib.so"), str(out / "unfused_cov.cu")],
-        capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc = _build._nvcc()
+    cu = [out / f for f in SOURCES if f.endswith(".cu")]
+    procs = [subprocess.Popen([nvcc, *_build.FLAGS, "-c", "-o",
+                               str(p.with_suffix(".o")), str(p)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p in cu]
+    log = "".join(proc.communicate()[0] for proc in procs)
+    if any(proc.returncode for proc in procs):
         raise RuntimeError(f"{name}: nvcc failed:\n{log}")
+    link = subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(out / "lib.so"),
+                           *(str(p.with_suffix(".o")) for p in cu)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"{name}: link failed:\n{link.stdout}"
+                           f"{link.stderr}")
     kernel = None
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?(k\d_kernelI\w*?)"
-                          r"EEv", line)
+        entry = re.search(r"Compiling entry function '\w*?" + NAME, line)
         if entry:
             kernel = entry.group(1)
-        elif kernel and kernel[:2] in ("k6", "k8") and (
+        elif kernel and kernel.startswith(TIMED) and (
                 "registers" in line or "spill" in line):
             print(f"  [{name}] {kernel}: "
                   + line.replace("ptxas info    :", "").strip(), flush=True)
     lib = ctypes.CDLL(str(out / "lib.so"))
-    for fn, argtypes in _build.SIGNATURES.items():
-        if fn in ("ekf_k6_matmul_big", "ekf_k8_corr_apply"):
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("ekf_k3_update_tail_add", "ekf_k4_corr_apply_cols",
+               "ekf_k5_update_tail", "ekf_k6_matmul_big",
+               "ekf_k8_corr_apply"):
+        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -130,32 +198,122 @@ def launcher(fn, *args):
     return run
 
 
-def loop_mix(lib_path, wanted=("k6_kernel", "k8_kernel")) -> dict:
-    """{kernel: (instructions, {opcode: count})} of the loop (a backward
-    branch and its target) with the most FFMAs of each wanted kernel."""
+def loop_mix(lib_path, wanted=TIMED) -> dict:
+    """{kernel: (instructions, {opcode: count})} of the multiply loop of
+    each wanted kernel: of the loops (a backward branch and its target)
+    with at least 256 FFMAs, the one with the largest FFMA share (a longer
+    range that also spans other code has more FFMAs and a smaller
+    share)."""
     sass = subprocess.run(["cuobjdump", "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     mixes = {}
     for body in sass.split("Function :")[1:]:
-        name = re.search(r"(k\d_kernelI\w*?)EEv", body)
+        name = re.search(NAME, body)
         if not name or not name.group(1).startswith(wanted):
             continue
         ops = [(int(m.group(1), 16), m.group(2), m.group(0))
                for m in re.finditer(
                    r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)[^\n]*",
                    body)]
-        best = []
+        best, share = [], 0.0
         for addr, op, text in ops:
             target = re.search(r"BRA\s+(?:\w+,\s*)?0x([0-9a-f]+)", text)
             if op.startswith("BRA") and target and int(target.group(1),
                                                        16) < addr:
                 loop = [o.split(".")[0] for a, o, _ in ops
                         if int(target.group(1), 16) <= a <= addr]
-                if loop.count("FFMA") > best.count("FFMA"):
-                    best = loop
+                ffma = loop.count("FFMA")
+                if ffma >= 256 and ffma / len(loop) > share:
+                    best, share = loop, ffma / len(loop)
         mixes[name.group(1)] = (len(best), dict(
             collections.Counter(best).most_common(8)))
     return mixes
+
+
+def operands(dev) -> dict:
+    """Random operands at the bench shapes, P symmetric."""
+    g = torch.Generator(dev).manual_seed(0)
+    n = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    P = n(B, D, D)
+    P = 0.5 * (P + P.transpose(1, 2))
+    ops = {"P": {torch.float32: P, torch.bfloat16: P.to(torch.bfloat16)},
+           "H": {k: n(B, D, k) for k in sorted({k for _, _, k in K6_SITES})},
+           "At": n(B, K8_R, D), "Bt": n(B, K8_R, D),
+           "A4": {t: n(B, D, r) for t, r in K4_R.items()},
+           "B4": {t: n(B, D, r) for t, r in K4_R.items()},
+           "K": n(B, D, K3_M2), "PHt": n(B, D, K3_M2),
+           "J8": torch.eye(8, device=dev).repeat(B, 1, 1),
+           "keep": torch.ones(B, D, device=dev),
+           "E": n(B, K3_R, D), "U": n(B, K3_R, D), "V": n(B, K3_R, D)}
+    C = n(B, K3_R, K3_R)
+    ops["C"] = 0.5 * (C + C.transpose(1, 2))
+    return ops
+
+
+def library_times(o) -> dict:
+    P32 = o["P"][torch.float32]
+    lib = {site: cuda_ms(lambda n=n: torch.bmm(P32, o["H"][n]))
+           for site, _, n in K6_SITES}
+    XY = torch.cat([o["At"], o["Bt"]], 1).transpose(1, 2), torch.cat(
+        [o["Bt"], o["At"]], 1)
+    lib["k8_expr"] = cuda_ms(lambda: torch.baddbmm(P32, *XY, alpha=0.5))
+    for t in K4_R:
+        A, Bf = o["A4"][t], o["B4"][t]
+        XY4 = torch.cat([A, Bf], 2), torch.cat([Bf, A], 2).transpose(1, 2)
+        lib[f"k4_{t}"] = cuda_ms(lambda XY4=XY4: torch.baddbmm(P32, *XY4,
+                                                               alpha=0.5))
+    return lib
+
+
+def time_variant(lib, o, dev) -> dict:
+    times = {}
+    ptr = lambda t: t.data_ptr()
+    for site, dtype, n in K6_SITES:
+        out = torch.empty(B, D, n, device=dev)
+        times["k6_" + site] = cuda_ms(launcher(
+            lib.ekf_k6_matmul_big, ptr(o["P"][dtype]), ptr(o["H"][n]),
+            ptr(out), B, D, D, n, int(dtype == torch.bfloat16)))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        P = o["P"][dtype]
+        out = torch.empty_like(P)
+        for mode, mode_name in enumerate(("none", "expr", "full")):
+            times[f"k8_{mode_name}_{tag}"] = cuda_ms(launcher(
+                lib.ekf_k8_corr_apply, ptr(P), ptr(o["At"]), ptr(o["Bt"]),
+                ptr(out), B, D, K8_R, mode, int(dtype == torch.bfloat16)))
+        times[f"k4_{tag}"] = cuda_ms(launcher(
+            lib.ekf_k4_corr_apply_cols, ptr(P), ptr(o["A4"][tag]),
+            ptr(o["B4"][tag]), ptr(out), B, D, K4_R[tag],
+            int(dtype == torch.bfloat16)))
+    P = o["P"][torch.float32]
+    out = torch.empty_like(P)
+    times["k3"] = cuda_ms(launcher(
+        lib.ekf_k3_update_tail_add, *map(ptr, (
+            P, o["K"], o["PHt"], o["J8"], o["keep"], o["E"], o["U"], o["C"],
+            o["V"], out)), B, D, K3_M2, K3_R))
+    times["k5"] = cuda_ms(launcher(
+        lib.ekf_k5_update_tail, *map(ptr, (P, o["K"], o["PHt"], o["J8"],
+                                           out)), B, D, K3_M2))
+    return times
+
+
+def width_sweep(dev) -> dict:
+    """{width: {"k5": ms, "k4": ms}}: K5 and K4 through the port's
+    wrappers on a symmetric f32 P with (B, D, width) factors."""
+    g = torch.Generator(dev).manual_seed(0)
+    P = torch.randn(B, D, D, device=dev, generator=g)
+    P = 0.5 * (P + P.transpose(1, 2))
+    J = torch.eye(4, device=dev).repeat(B, 1, 1)
+    out = {}
+    for w in WIDTHS:
+        K = torch.randn(B, D, w, device=dev, generator=g)
+        H = torch.randn(B, D, w, device=dev, generator=g)
+        out[w] = {"k5": cuda_ms(lambda: kernels.fused_update_tail(P, K, H, J)),
+                  "k4": cuda_ms(lambda: kernels.corr_apply_cols(P, K, H))}
+        tiles = 2 * ((w + 7) // 8)          # 8-deep stages of [K | PHt]
+        print(f"[width] M2=R={w} row_bytes={4 * w} " + " ".join(
+            f"{k}_ms={v:.4f} {k}_per_tile={v / tiles:.5f}"
+            for k, v in out[w].items()), flush=True)
+    return out
 
 
 def main() -> None:
@@ -163,6 +321,7 @@ def main() -> None:
     parser.add_argument("variants", nargs="*", default=["base"],
                         help=f"of {', '.join(VARIANTS)} (default: base)")
     parser.add_argument("--sass", action="store_true")
+    parser.add_argument("--widths", action="store_true")
     args = parser.parse_args()
     unknown = [v for v in args.variants if v not in VARIANTS]
     if unknown:
@@ -176,39 +335,17 @@ def main() -> None:
     print(card, flush=True)
 
     dev = torch.device("cuda")
-    g = torch.Generator(dev).manual_seed(0)
-    P = torch.randn(B, D, D, device=dev, generator=g)
-    P = {torch.float32: P, torch.bfloat16: P.to(torch.bfloat16)}
-    H = {n: torch.randn(B, D, n, device=dev, generator=g)
-         for n in sorted({n for _, _, n in K6_SITES})}
-    At = torch.randn(B, R, D, device=dev, generator=g)
-    Bt = torch.randn(B, R, D, device=dev, generator=g)
-    XY = torch.cat([At, Bt], 1).transpose(1, 2), torch.cat([Bt, At], 1)
-    result = {"card": card, "library_ms": {
-        **{site: cuda_ms(lambda: torch.bmm(P[torch.float32], H[n]))
-           for site, _, n in K6_SITES},
-        "k8_expr": cuda_ms(lambda: torch.baddbmm(P[torch.float32], *XY,
-                                                 alpha=0.5))}, "variants": {}}
+    o = operands(dev)
+    result = {"card": card, "library_ms": library_times(o), "variants": {}}
     print("[library] " + " ".join(f"{k}={v:.4f}" for k, v in
                                   result["library_ms"].items()), flush=True)
     for name in args.variants:
-        lib = build(name)
-        times = {}
-        for site, dtype, n in K6_SITES:
-            out = torch.empty(B, D, n, device=dev)
-            times["k6_" + site] = cuda_ms(launcher(
-                lib.ekf_k6_matmul_big, P[dtype].data_ptr(), H[n].data_ptr(),
-                out.data_ptr(), B, D, D, n, int(dtype == torch.bfloat16)))
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            out = torch.empty_like(P[dtype])
-            for mode, mode_name in enumerate(("none", "expr", "full")):
-                times[f"k8_{mode_name}_{tag}"] = cuda_ms(launcher(
-                    lib.ekf_k8_corr_apply, P[dtype].data_ptr(), At.data_ptr(),
-                    Bt.data_ptr(), out.data_ptr(), B, D, R, mode,
-                    int(dtype == torch.bfloat16)))
+        times = time_variant(build(name), o, dev)
         result["variants"][name] = times
         print(f"[variant] name={name} " + " ".join(
             f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+    if args.widths:
+        result["widths"] = width_sweep(dev)
     if args.sass:
         result["loop_mix"] = loop_mix(OUT / args.variants[0] / "lib.so")
         for kernel, (count, mix) in result["loop_mix"].items():

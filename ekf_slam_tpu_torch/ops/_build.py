@@ -36,7 +36,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ekf_k1_manage_predict_pht": [_P] * 10 + [_I] * 4 + [_P],
     "ekf_k2_update_tail_pht": [_P] * 7 + [_I] * 4 + [_P],
-    "ekf_k3_update_tail_add": [_P] * 9 + [_I] * 4 + [_P],
+    "ekf_k3_update_tail_add": [_P] * 10 + [_I] * 4 + [_P],
     "ekf_k4_corr_apply_cols": [_P] * 4 + [_I] * 4 + [_P],
     "ekf_k5_update_tail": [_P] * 5 + [_I] * 3 + [_P],
     "ekf_k6_matmul_big": [_P] * 3 + [_I] * 5 + [_P],

@@ -27,9 +27,9 @@ A of K6, which may be the fast mode's bfloat16 P (FilterConfig.p_storage):
 those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
 ``LAUNCHES[name]`` counts kernel launches. The kernels' size limits
-(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K4-K6 and K8
-take any width; K7 a window that fits shared memory) are checked by the
-launchers, which return cudaErrorInvalidValue (1).
+(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K3/K5's M2,
+K4's and K8's R and K6's N have none; K7 a window that fits shared memory)
+are checked by the launchers, which return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -248,6 +248,17 @@ def ncc_error(out, ref, windows, tm) -> float:
     return float(err.max())
 
 
+def stale_slots(P, keepN):
+    """P with a stale variance on each dim that keepN drops (the largest
+    landmark variance of its instance), as a slot freed without zeroing
+    would hold: the operand of K3's planted keep fault. On the path the
+    new slots' rows enter K3 as zeros (a deleted feature's rows are zeroed
+    where it is deleted), so a K3 that ignored keepN would read right
+    there."""
+    var = torch.diagonal(P, dim1=1, dim2=2)[:, 13:].max(dim=1).values
+    return P + torch.diag_embed((keepN == 0) * var[:, None])
+
+
 @contextlib.contextmanager
 def capture_operands():
     """Within the block every wrapper records a copy of its operands, then
@@ -375,8 +386,9 @@ def fused_update_tail_add(P, K, PHt, Jq4, keepN, EN, UN, CN):
         return update_tail_add_plain(P, K, PHt, Jq4, keepN, EN, UN, CN)
     J8 = _j8(Jq4)
     out = torch.empty_like(P)
+    V = torch.empty_like(UN)            # the kernel's scratch: UN + ½·CN·EN
     lib = _build.load()
-    ptrs = (t.data_ptr() for t in (P, K, PHt, J8, keepN, EN, UN, CN, out))
+    ptrs = (t.data_ptr() for t in (P, K, PHt, J8, keepN, EN, UN, CN, V, out))
     _run(name, lib.ekf_k3_update_tail_add, *ptrs, B, D, M2, r)
     return out
 

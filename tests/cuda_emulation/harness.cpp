@@ -1,19 +1,25 @@
-// Runs K6 (f32_matmul_big) or K8 (corr_apply) of csrc/unfused_cov.cu on the
-// CPU through the stand-in headers beside this file, on random operands,
-// and holds the result against a plain f64 loop.
+// Runs K3/K5 (fused_update_tail_add / fused_update_tail) of
+// csrc/fused_cov.cu, or K4 (corr_apply_cols), K6 (f32_matmul_big) or K8
+// (corr_apply) of csrc/unfused_cov.cu on the CPU through the stand-in
+// headers beside this file, on random operands, and holds the result
+// against a plain f64 loop.
 //
 //   g++ -std=c++20 -O1 -fsanitize=address -I tests/cuda_emulation
 //       -I ekf_slam_tpu_torch/csrc -x c++ tests/cuda_emulation/harness.cpp
 //       -o emulate -lpthread
+//   ./emulate k3 f32 B D M2 r symP             (r = 0: K5)
+//   ./emulate k4 f32|bf16 B D R
 //   ./emulate k6 f32|bf16 B M K N misalign     (misalign: C off 16 bytes)
 //   ./emulate k8 f32|bf16 B D R mode symP      (mode 0 none, 1 expr, 2 full)
 //
-// Prints one line and exits 0 when every entry is within tolerance (K6:
-// 1e-5 of Σ|a||b|; K8: 1e-5 of |P| + |At|ᵀ|Bt| + |Bt|ᵀ|At|, plus one bf16
-// ulp on a bf16 output), every entry was written, and K8's output is
-// bitwise symmetric where it must be ("full"; "expr" on a symmetric P).
-// P lies at an odd offset inside a larger buffer, as a matrix of a batch
-// does, so the bulk copies of its 16-byte lines stay inside the buffer.
+// Prints one line and exits 0 when every entry is within tolerance (1e-5
+// of the entry's own scale — the same sums over absolute values — plus one
+// bf16 ulp on a bf16 output), every entry was written, and the output is
+// bitwise symmetric where it must be (K4; K8 "full", and "expr" on a
+// symmetric P; K3 and K5 on a symmetric P). P lies at an odd offset inside
+// a larger buffer, as a matrix of a batch does, so the bulk copies of its
+// 16-byte lines stay inside the buffer.
+#include "fused_cov.cu"
 #include "unfused_cov.cu"
 
 #include <random>
@@ -43,6 +49,76 @@ void register_k8() {
                   *(const float**)a[2], *(PT**)a[3], *(int*)a[4],
                   *(int*)a[5], *(int*)a[6]);
   };
+}
+
+template <typename PT>
+void register_k4() {
+  g_kernels[reinterpret_cast<const void*>(k4_kernel<PT>)] = [](void** a) {
+    k4_kernel<PT>(*(const PT**)a[0], *(const float**)a[1],
+                  *(const float**)a[2], *(PT**)a[3], *(int*)a[4],
+                  *(int*)a[5]);
+  };
+}
+
+void register_k3() {
+  g_kernels[reinterpret_cast<const void*>(k3v_kernel)] = [](void** a) {
+    k3v_kernel(*(const float**)a[0], *(const float**)a[1],
+               *(const float**)a[2], *(float**)a[3], *(int*)a[4],
+               *(int*)a[5]);
+  };
+  g_kernels[reinterpret_cast<const void*>(k3_kernel)] = [](void** a) {
+    k3_kernel(*(const float**)a[0], *(const float**)a[1],
+              *(const float**)a[2], *(const float**)a[3],
+              *(const float**)a[4], *(const float**)a[5],
+              *(const float**)a[6], *(float**)a[7], *(int*)a[8],
+              *(int*)a[9], *(int*)a[10]);
+  };
+}
+
+// P (Bn x D x D) at an odd offset inside a buffer, random, symmetric when
+// `sym`; its entries upcast to f64 in `Pd`.
+template <typename PT>
+PT* random_p(std::vector<PT>& buf, std::vector<double>& Pd, int Bn, int D,
+             bool sym) {
+  const size_t DD = static_cast<size_t>(D) * D;
+  buf.assign(Bn * DD + 32, PT{});
+  PT* P = buf.data() + 8 + D % 3;
+  Pd.resize(Bn * DD);
+  for (size_t b = 0; b < static_cast<size_t>(Bn); ++b)
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j) {
+        put(&P[b * DD + i * D + j], rnd());
+        if (sym && j < i) P[b * DD + i * D + j] = P[b * DD + j * D + i];
+      }
+  for (size_t n = 0; n < Bn * DD; ++n) Pd[n] = value(P[n]);
+  return P;
+}
+
+// Every entry of `out` against `ref` within 1e-5 of `scale` (one bf16 ulp
+// more on a bf16 output); prints `tag` and returns whether it holds and the
+// output is bitwise symmetric where `must_sym`.
+template <typename PT>
+bool report(const char* tag, int rc, const std::vector<PT>& out,
+            const std::vector<double>& ref, const std::vector<double>& scale,
+            int Bn, int D, bool must_sym) {
+  const size_t DD = static_cast<size_t>(D) * D;
+  double worst = 0;
+  bool symmetric = true;
+  for (size_t b = 0; b < static_cast<size_t>(Bn); ++b)
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j) {
+        const size_t n = b * DD + i * D + j;
+        const double got = value(out[n]);
+        double limit = 1e-5 * scale[n] + 1e-30;
+        if (sizeof(PT) == 2) limit += std::abs(ref[n]) / 128;  // >= 1 ulp
+        const double err = std::abs(got - ref[n]) / limit;
+        worst = std::isnan(got) ? 1e9 : std::max(worst, err);
+        if (memcmp(&out[n], &out[b * DD + j * D + i], sizeof(PT)))
+          symmetric = false;
+      }
+  printf("%s rc=%d blocks=%ld worst=%.3f of the limit symmetric=%d\n", tag,
+         rc, g_blocks, worst, symmetric);
+  return rc == 0 && worst <= 1 && (symmetric || !must_sym);
 }
 
 template <typename AT>
@@ -82,65 +158,203 @@ template <typename PT>
 bool run_k8(int Bn, int D, int R, int mode, bool sym_p) {
   register_k8<PT>();
   const size_t DD = static_cast<size_t>(D) * D;
-  std::vector<PT> buf(Bn * DD + 32), out(Bn * DD);
-  PT* P = buf.data() + 8 + D % 3;
+  std::vector<PT> buf, out(Bn * DD);
+  std::vector<double> Pd, ref(Bn * DD), scale(Bn * DD);
+  const PT* P = random_p(buf, Pd, Bn, D, sym_p);
   std::vector<float> At(static_cast<size_t>(Bn) * R * D), Bt(At.size());
-  for (int b = 0; b < Bn; ++b)
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < D; ++j) {
-        put(&P[b * DD + i * D + j], rnd());
-        if (sym_p && j < i) P[b * DD + i * D + j] = P[b * DD + j * D + i];
-      }
   for (auto& a : At) a = rnd();
   for (auto& b : Bt) b = rnd();
   for (auto& o : out) put(&o, NAN);
   const int rc = ekf_k8_corr_apply(P, At.data(), Bt.data(), out.data(), Bn, D,
                                    R, mode, sizeof(PT) == 2, nullptr);
-  double worst = 0;
-  bool symmetric = true;
   for (int b = 0; b < Bn; ++b)
     for (int i = 0; i < D; ++i)
       for (int j = 0; j < D; ++j) {
-        double s1 = 0, s2 = 0, scale = 0;
+        double s1 = 0, s2 = 0, sc = 0;
         for (int k = 0; k < R; ++k) {
           const size_t row = (static_cast<size_t>(b) * R + k) * D;
           const double p1 = static_cast<double>(At[row + i]) * Bt[row + j];
           const double p2 = static_cast<double>(Bt[row + i]) * At[row + j];
-          s1 += p1, s2 += p2, scale += std::abs(p1) + std::abs(p2);
+          s1 += p1, s2 += p2, sc += std::abs(p1) + std::abs(p2);
         }
-        const double pij = value(P[b * DD + i * D + j]);
-        const double pji = value(P[b * DD + j * D + i]);
-        const double ref = mode == 0   ? pij + s1
-                           : mode == 1 ? pij + 0.5 * (s1 + s2)
-                                       : 0.5 * (pij + pji) + 0.5 * (s1 + s2);
-        const double got = value(out[b * DD + i * D + j]);
-        double limit = 1e-5 * (std::abs(pij) + std::abs(pji) + scale) + 1e-30;
-        if (sizeof(PT) == 2) limit += std::abs(ref) / 128;  // >= one bf16 ulp
-        const double err = std::abs(got - ref) / limit;
-        worst = std::isnan(got) ? 1e9 : std::max(worst, err);
-        if (memcmp(&out[b * DD + i * D + j], &out[b * DD + j * D + i],
-                   sizeof(PT)))
-          symmetric = false;
+        const double pij = Pd[b * DD + i * D + j];
+        const double pji = Pd[b * DD + j * D + i];
+        const size_t n = b * DD + i * D + j;
+        ref[n] = mode == 0   ? pij + s1
+                 : mode == 1 ? pij + 0.5 * (s1 + s2)
+                             : 0.5 * (pij + pji) + 0.5 * (s1 + s2);
+        scale[n] = std::abs(pij) + std::abs(pji) + sc;
       }
-  const bool must = mode == 2 || (mode == 1 && sym_p);
-  printf("k8 rc=%d blocks=%ld worst=%.3f of the limit symmetric=%d\n", rc,
-         g_blocks, worst, symmetric);
-  return rc == 0 && worst <= 1 && (symmetric || !must);
+  return report("k8", rc, out, ref, scale, Bn, D,
+                mode == 2 || (mode == 1 && sym_p));
+}
+
+template <typename PT>
+bool run_k4(int Bn, int D, int R) {
+  register_k4<PT>();
+  const size_t DD = static_cast<size_t>(D) * D;
+  std::vector<PT> buf, out(Bn * DD);
+  std::vector<double> Pd, ref(Bn * DD), scale(Bn * DD);
+  const PT* P = random_p(buf, Pd, Bn, D, false);
+  std::vector<float> A(static_cast<size_t>(Bn) * D * R), Bf(A.size());
+  for (auto& a : A) a = rnd();
+  for (auto& b : Bf) b = rnd();
+  for (auto& o : out) put(&o, NAN);
+  const int rc = ekf_k4_corr_apply_cols(P, A.data(), Bf.data(), out.data(),
+                                        Bn, D, R, sizeof(PT) == 2, nullptr);
+  for (int b = 0; b < Bn; ++b)
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j) {
+        const size_t ri = (static_cast<size_t>(b) * D + i) * R;
+        const size_t rj = (static_cast<size_t>(b) * D + j) * R;
+        double s = 0, sc = 0;
+        for (int k = 0; k < R; ++k) {
+          const double p1 = static_cast<double>(A[ri + k]) * Bf[rj + k];
+          const double p2 = static_cast<double>(Bf[ri + k]) * A[rj + k];
+          s += p1 + p2, sc += std::abs(p1) + std::abs(p2);
+        }
+        const double pij = Pd[b * DD + i * D + j];
+        const double pji = Pd[b * DD + j * D + i];
+        const size_t n = b * DD + i * D + j;
+        ref[n] = 0.5 * (pij + pji) + 0.5 * s;
+        scale[n] = std::abs(pij) + std::abs(pji) + sc;
+      }
+  return report("k4", rc, out, ref, scale, Bn, D, true);
+}
+
+// K3 (r > 0) or K5 (r = 0): keepN∘(T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ)
+// + ENᵀUN + UNᵀEN + ENᵀ·CN·EN with a symmetric CN, its f64 reference and
+// scale carried through the same steps (absolute values for the scale).
+// The kernel takes the lower entries of the 8 x 8 renorm corner from its
+// upper ones (the same entries where P is symmetric, its precondition), so
+// the reference does too.
+bool run_k3(int Bn, int D, int M2, int r, bool sym_p) {
+  register_k3();
+  const size_t DD = static_cast<size_t>(D) * D;
+  std::vector<float> buf, out(Bn * DD, NAN);
+  std::vector<double> Pd;
+  const float* P = random_p(buf, Pd, Bn, D, sym_p);
+  std::vector<float> K(static_cast<size_t>(Bn) * D * M2), PHt(K.size());
+  std::vector<float> J8(Bn * 64), keep(Bn * D);
+  std::vector<float> E(static_cast<size_t>(Bn) * r * D), U(E.size()),
+      V(E.size(), NAN), C(static_cast<size_t>(Bn) * r * r);
+  for (auto& k : K) k = rnd();
+  for (auto& h : PHt) h = rnd();
+  for (int b = 0; b < Bn; ++b)
+    for (int a = 0; a < 8; ++a)
+      for (int c = 0; c < 8; ++c)
+        J8[b * 64 + a * 8 + c] = a >= 3 && a < 7 && c >= 3 && c < 7
+                                     ? (a == c) + 0.3f * rnd()
+                                     : static_cast<float>(a == c);
+  for (auto& k : keep) k = rnd() > -1.f ? 1.f : 0.f;
+  for (auto& e : E) e = rnd();
+  for (auto& u : U) u = rnd();
+  for (int b = 0; b < Bn; ++b)
+    for (int k = 0; k < r; ++k)
+      for (int l = 0; l <= k; ++l)
+        C[(static_cast<size_t>(b) * r + l) * r + k] =
+            C[(static_cast<size_t>(b) * r + k) * r + l] = rnd();
+  const int rc =
+      r > 0 ? ekf_k3_update_tail_add(P, K.data(), PHt.data(), J8.data(),
+                                     keep.data(), E.data(), U.data(),
+                                     C.data(), V.data(), out.data(), Bn, D,
+                                     M2, r, nullptr)
+            : ekf_k5_update_tail(P, K.data(), PHt.data(), J8.data(),
+                                 out.data(), Bn, D, M2, nullptr);
+  std::vector<double> ref(Bn * DD), scale(Bn * DD);
+  for (int b = 0; b < Bn; ++b) {
+    double* t = ref.data() + b * DD;
+    double* s = scale.data() + b * DD;
+    auto fk = [&](int i, int m) { return K[(size_t(b) * D + i) * M2 + m]; };
+    auto fh = [&](int i, int m) { return PHt[(size_t(b) * D + i) * M2 + m]; };
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j) {
+        double d = 0, ad = 0;
+        for (int m = 0; m < M2; ++m) {
+          const double p1 = double(fk(i, m)) * fh(j, m);
+          const double p2 = double(fh(i, m)) * fk(j, m);
+          d += p1 + p2, ad += std::abs(p1) + std::abs(p2);
+        }
+        const double p = Pd[b * DD + i * D + j];
+        t[i * D + j] = p - 0.5 * d;
+        s[i * D + j] = std::abs(p) + 0.5 * ad;
+      }
+    const float* J = J8.data() + b * 64;
+    const int n8 = std::min(8, D);
+    std::vector<double> row(8), arow(8);
+    for (int j = 0; j < D; ++j) {                 // rows 0:8 <- J8·rows
+      for (int a = 0; a < n8; ++a) {
+        row[a] = arow[a] = 0;
+        for (int k = 0; k < n8; ++k) {
+          row[a] += J[a * 8 + k] * t[k * D + j];
+          arow[a] += std::abs(J[a * 8 + k]) * s[k * D + j];
+        }
+      }
+      for (int a = 0; a < n8; ++a) t[a * D + j] = row[a], s[a * D + j] = arow[a];
+    }
+    for (int i = 0; i < D; ++i) {                 // columns 0:8 <- cols·J8ᵀ
+      for (int c = 0; c < n8; ++c) {
+        row[c] = arow[c] = 0;
+        for (int k = 0; k < n8; ++k) {
+          row[c] += t[i * D + k] * J[c * 8 + k];
+          arow[c] += s[i * D + k] * std::abs(J[c * 8 + k]);
+        }
+      }
+      for (int c = 0; c < n8; ++c) t[i * D + c] = row[c], s[i * D + c] = arow[c];
+    }
+    for (int i = 0; i < n8; ++i)                  // the corner's lower entries
+      for (int j = 0; j < i; ++j)                 // from its upper ones
+        t[i * D + j] = t[j * D + i], s[i * D + j] = s[j * D + i];
+    if (r == 0) continue;
+    auto fe = [&](int k, int i) { return double(E[(size_t(b) * r + k) * D + i]); };
+    auto fu = [&](int k, int i) { return double(U[(size_t(b) * r + k) * D + i]); };
+    auto fc = [&](int k, int l) { return double(C[(size_t(b) * r + k) * r + l]); };
+    std::vector<double> CE(static_cast<size_t>(r) * D), aCE(CE.size());
+    for (int k = 0; k < r; ++k)
+      for (int i = 0; i < D; ++i)
+        for (int l = 0; l < r; ++l) {
+          CE[size_t(k) * D + i] += fc(k, l) * fe(l, i);
+          aCE[size_t(k) * D + i] += std::abs(fc(k, l) * fe(l, i));
+        }
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j) {
+        const bool kept = keep[b * D + i] > 0 && keep[b * D + j] > 0;
+        double a = kept ? t[i * D + j] : 0, as = kept ? s[i * D + j] : 0;
+        for (int k = 0; k < r; ++k) {
+          a += fe(k, i) * fu(k, j) + fu(k, i) * fe(k, j) +
+               fe(k, i) * CE[size_t(k) * D + j];
+          as += std::abs(fe(k, i) * fu(k, j)) + std::abs(fu(k, i) * fe(k, j)) +
+                std::abs(fe(k, i)) * aCE[size_t(k) * D + j];
+        }
+        t[i * D + j] = a, s[i * D + j] = as;
+      }
+  }
+  return report(r > 0 ? "k3" : "k5", rc, out, ref, scale, Bn, D, sym_p);
 }
 
 }  // namespace
 
 int main(int argc, char** argv) {
-  if (argc != 8) return 2;
+  if (argc < 3) return 2;
   const std::string kernel = argv[1], type = argv[2];
-  int n[5];
-  for (int i = 0; i < 5; ++i) n[i] = atoi(argv[3 + i]);
+  std::vector<int> n;
+  for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
+  const size_t want = kernel == "k4" ? 3 : 5;
+  if (n.size() != want) return 2;
+  const bool bf16 = type == "bf16";
   bool ok;
-  if (kernel == "k6")
-    ok = type == "bf16" ? run_k6<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
-                        : run_k6<float>(n[0], n[1], n[2], n[3], n[4]);
+  if (kernel == "k3")
+    ok = !bf16 && run_k3(n[0], n[1], n[2], n[3], n[4]);
+  else if (kernel == "k4")
+    ok = bf16 ? run_k4<__nv_bfloat16>(n[0], n[1], n[2])
+              : run_k4<float>(n[0], n[1], n[2]);
+  else if (kernel == "k6")
+    ok = bf16 ? run_k6<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
+              : run_k6<float>(n[0], n[1], n[2], n[3], n[4]);
+  else if (kernel == "k8")
+    ok = bf16 ? run_k8<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
+              : run_k8<float>(n[0], n[1], n[2], n[3], n[4]);
   else
-    ok = type == "bf16" ? run_k8<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
-                        : run_k8<float>(n[0], n[1], n[2], n[3], n[4]);
+    return 2;
   return ok ? 0 : 1;
 }

@@ -15,7 +15,8 @@ step with pallas_update="on"; K7 from the image step at
 tests/test_vision.py's pixels config (CAP 24, R = 10: N = B·24 pairs of
 33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
 bf16-P fast mode's unfused step at f32 (row form for K8, 2M + 8 = 40
-factor rows)."""
+factor rows); K3 again from a fused frame that adds ten features an
+instance (rank r = 60)."""
 
 from unittest import mock
 
@@ -619,3 +620,129 @@ def test_cuda_corr_apply_expr_mirrors_its_tiles(card, R, D, store):
         blk = got[:, i0:i0 + 64, i0:i0 + 64]
         assert torch.equal(blk, blk.transpose(1, 2)), i0
     assert torch.equal(got, got.transpose(1, 2))
+
+
+# --- K4 and K3 / K5 on the tile-pair panel product --------------------------
+
+# A fused frame that adds features: up to 10 an instance (r = 60), frame 2
+# adds 12 over the 3 instances.
+ADD_CFG = {**CFG, "map": {**CFG["map"], "min_features_in_image": 24,
+                          "max_new_per_step": 10}}
+
+
+@pytest.fixture(scope="module")
+def add_operands():
+    """K3's f64 operands in frame 2 of ADD_CFG's fused step on the CPU."""
+    cfg = EngineConfig.from_dict({**ADD_CFG, "dtype": "float64"})
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, 3, "cpu")
+    st = engine.bootstrap(init_state(cfg, B, "cpu"), obs.frame(0), cfg)
+    u = torch.rand(3, B, cfg.ransac.num_hypotheses, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(1))
+    st, _ = engine.step(st, obs.frame(1), u[1], cfg)
+    with kernels.capture_operands() as captured:
+        engine.step(st, obs.frame(2), u[2], cfg)
+    args = captured["fused_update_tail_add"][-1]
+    assert args[5].shape[1] == 60 and bool((args[4] == 0).any())
+    return args
+
+
+@pytest.mark.cuda
+def test_cuda_k3_is_bitwise_symmetric_on_a_symmetric_p(card, add_operands):
+    """K3 on a frame with r = 60 and P symmetrized first: the output is
+    bitwise symmetric — the downdate and the add mirrored a tile pair at a
+    time, the renorm stripe's rows and columns summed in one order, the
+    8 x 8 corner's lower entries from its upper ones — and within TOL of
+    the plain version."""
+    args = tuple(a.to(card, torch.float32) for a in add_operands)
+    P = 0.5 * (args[0] + args[0].transpose(1, 2))
+    assert torch.equal(P, P.transpose(1, 2))
+    got = kernels.fused_update_tail_add(P, *args[1:])
+    assert torch.equal(got, got.transpose(1, 2))
+    ref = kernels.update_tail_add_plain(P.double(),
+                                        *(a.double() for a in args[1:]))
+    assert kernels.scaled_error(got, ref) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_check_fails_k3_with_keep_all_ones(card, add_operands):
+    """A planted fault: K3 launched with keepN all ones on a frame that
+    adds features, P holding stale values in the new slots
+    (kernels.stale_slots),
+    against the plain version with the frame's keepN, reads far above
+    TOL."""
+    args = [a.to(card, torch.float32) for a in add_operands]
+    args[0] = kernels.stale_slots(args[0], args[4])
+    got = kernels.fused_update_tail_add(*args[:4], torch.ones_like(args[4]),
+                                        *args[5:])
+    ref = kernels.update_tail_add_plain(*(a.double() for a in args))
+    assert kernels.scaled_error(got, ref) > 100 * TOL
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("R", [1, 31, 264, 408])
+def test_cuda_corr_apply_cols_takes_any_rank(card, R, store):
+    """K4 at the bench's D = 613 from an asymmetric P: R below one
+    contraction tile, odd, the bench's 264 and the full width's 408. Each
+    entry within CHAIN_TOL of its scale |P| + |Pᵀ| + |A||B|ᵀ + |B||A|ᵀ
+    (one bf16 ulp more on a bf16 output), bitwise symmetric, two launches
+    bit for bit."""
+    P = _randn(card, R, 2, 613, 613).to(store)
+    A, Bf = _randn(card, R + 1, 2, 613, R), _randn(card, R + 2, 2, 613, R)
+    got = kernels.corr_apply_cols(P, A, Bf)
+    again = kernels.corr_apply_cols(P, A, Bf)
+    torch.cuda.synchronize()
+    assert got.dtype == store and torch.equal(got, again)
+    assert torch.equal(got, got.transpose(1, 2))
+    Pd, Ad, Bd = P.double(), A.double(), Bf.double()
+    ref = kernels.corr_apply_cols_plain(Pd, Ad, Bd)
+    C = Ad.abs() @ Bd.abs().transpose(1, 2)
+    limit = CHAIN_TOL * (Pd.abs() + Pd.abs().transpose(1, 2) + C
+                         + C.transpose(1, 2))
+    if store == torch.bfloat16:
+        limit = limit + kernels.bf16_ulp(ref)
+    assert bool(((got.double() - ref).abs() <= limit).all())
+
+
+def _k3_scale(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None):
+    """Each entry's scale: the function's sums over absolute values."""
+    a = torch.abs
+    S = a(P) + 0.5 * (a(K) @ a(PHt).transpose(1, 2)
+                      + a(PHt) @ a(K).transpose(1, 2))
+    S = kernels._stripe(S, a(Jq4), 3, 7)
+    if EN is None:
+        return S
+    Et = a(EN).transpose(1, 2)
+    return (kernels._keep_mask(S, keepN) + Et @ a(UN)
+            + a(UN).transpose(1, 2) @ a(EN) + Et @ a(CN) @ a(EN))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M2", [1, 128, 200])
+@pytest.mark.parametrize("r", [0, 6, 60, 128])
+def test_cuda_update_tail_takes_any_width(card, r, M2):
+    """K5 (r = 0) and K3 at the bench's D = 613 on random operands (P and
+    CN symmetric, the kernels' precondition; Jq4 near I; keepN mostly 1):
+    M2 below one contraction tile, the bench's 128 and 200; r = 6K up to
+    the limit 128. Each entry within CHAIN_TOL of its scale, bitwise
+    symmetric, two launches bit for bit."""
+    n = lambda seed, *shape: _randn(card, 97 * r + M2 + seed, *shape)
+    P = n(0, 2, 613, 613)
+    P = 0.5 * (P + P.transpose(1, 2))
+    ops = [P, n(1, 2, 613, M2), n(2, 2, 613, M2),
+           torch.eye(4, device=card) + 0.3 * n(3, 2, 4, 4)]
+    if r:
+        C = n(4, 2, r, r)
+        ops += [(n(5, 2, 613) > -1).float(), n(6, 2, r, 613),
+                n(7, 2, r, 613), 0.5 * (C + C.transpose(1, 2))]
+    fn = kernels.fused_update_tail_add if r else kernels.fused_update_tail
+    got = fn(*ops)
+    again = fn(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(1, 2))
+    dops = [o.double() for o in ops]
+    ref = (kernels.update_tail_add_plain if r
+           else kernels.update_tail_plain)(*dops)
+    limit = CHAIN_TOL * _k3_scale(*dops)
+    assert bool(((got.double() - ref).abs() <= limit).all())

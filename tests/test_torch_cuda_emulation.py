@@ -1,13 +1,16 @@
-"""K6 and K8 of csrc/unfused_cov.cu — the CUDA source itself — run on the
-CPU: compiled by g++ against the stand-in headers of tests/cuda_emulation
-(one std::thread a CUDA thread, __syncthreads a barrier, shared memory
-poisoned with NaN, the asynchronous copies done at once with their
-alignment checked), under AddressSanitizer, and held against a plain f64
-loop by tests/cuda_emulation/harness.cpp.
+"""K3 / K5 of csrc/fused_cov.cu and K4, K6 and K8 of csrc/unfused_cov.cu —
+the CUDA source itself — run on the CPU: compiled by g++ against the
+stand-in headers of tests/cuda_emulation (one std::thread a CUDA thread,
+__syncthreads a barrier, shared memory poisoned with NaN, the asynchronous
+copies done at once with their alignment checked), under
+AddressSanitizer, and held against a plain f64 loop by
+tests/cuda_emulation/harness.cpp.
 
 What it can show: a wrong index, mask, ragged edge, tile pair or mirror; a
 read of a word nobody staged; a read or write outside an operand; a bulk
-copy that is not 16-byte aligned; K8's bitwise symmetry. What it cannot:
+copy that is not 16-byte aligned; every entry written; bitwise symmetry
+(K4; K8 "full" and "expr" on a symmetric P; K3 / K5 on a symmetric P).
+What it cannot:
 races, asynchrony, anything about speed — those are the card's
 (tests/test_torch_cuda.py). Tolerances are the harness's: 1e-5 of each
 entry's own scale Σ|a||b| (f32 chains against f64), one bf16 ulp more on a
@@ -36,6 +39,15 @@ K8_CASES = [(t, b, d, r, mode, sym)
             for t in ("f32", "bf16")
             for b, d, r in ((2, 70, 56), (2, 19, 1), (1, 157, 20))
             for mode, sym in ((0, 0), (1, 0), (1, 1), (2, 0))]
+# P type, then B D R
+K4_CASES = [(t, b, d, r) for t in ("f32", "bf16")
+            for b, d, r in ((2, 70, 56), (2, 19, 1), (1, 157, 20))]
+# B D M2 r symP (r = 0: K5)
+K3_CASES = [(2, 70, m2, r, 1) for r in (0, 6, 60) for m2 in (1, 20)] + [
+    (2, 19, 20, 6, 1), (2, 19, 1, 0, 1),      # one ragged tile, D < 64
+    (1, 157, 20, 60, 1),                      # the stripe on a twin pair
+    (1, 70, 3, 128, 1),                       # r at its limit
+    (1, 70, 20, 6, 0), (1, 70, 20, 0, 0)]     # P not symmetric: values
 
 
 @pytest.fixture(scope="module")
@@ -81,4 +93,26 @@ def test_emulated_corr_apply(emulate, case):
     tiles, R below and past one contraction tile; "full" and "expr" on a
     symmetric P bitwise symmetric."""
     done = emulate("k8", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K4_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_corr_apply_cols(emulate, case):
+    """K4 on an f32 and a bf16 P (matrices on odd offsets) from an
+    asymmetric P: D of one ragged tile, of two and of three tiles, R below
+    and past one contraction tile; every entry written, the output bitwise
+    symmetric."""
+    done = emulate("k4", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K3_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_update_tail_add(emulate, case):
+    """K3 at r = 6, 60 and 128 and K5 (r = 0) at M2 below one and past two
+    contraction tiles: the downdate, the renorm stripe on the pairs of tile
+    row 0 (diagonal and twin), the keep mask, the add through V (its
+    prologue's zero padding at r = 6); one ragged tile (D = 19) and three
+    tiles; bitwise symmetric on a symmetric P, and right on an asymmetric
+    one."""
+    done = emulate("k3", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]

@@ -1,17 +1,25 @@
-"""The schedule of the card's K8 (corr_apply) modelled in torch, and
-chip_smoke's yardsticks for K4, K6 and K8 (its operation counts and its
-library calls), on CPU tensors against the plain versions.
+"""The schedules of the card's tile-pair kernels modelled in torch — K8
+(corr_apply), K4 (corr_apply_cols) and K3 / K5 (fused_update_tail_add,
+fused_update_tail) — and chip_smoke's yardsticks for K4, K6 and K8 (their
+operation counts and library calls), on CPU tensors against the plain
+versions.
 
-The CUDA kernel runs only on a card (tests/test_torch_cuda.py). What it
-does with its tiles is arithmetic that a CPU can check: `k8_schedule`
+The CUDA kernels run only on a card (tests/test_torch_cuda.py). What they
+do with their tiles is arithmetic that a CPU can check. `k8_schedule`
 below walks the tile pairs i <= j of 64 x 64 tiles as the kernel does,
 sums S = [At; Bt]ᵀ[Bt; At] over the concatenated contraction in k order
 (one accumulator an entry), takes a diagonal tile's lower entries from its
-upper ones, and writes tile (i, j) and, mirrored, tile (j, i). Held
-against kernels.corr_apply_plain at f64 to 1e-12 of each entry's scale
-(the same products in another order), and at f32 for what the kernel
-promises bit for bit: "full" symmetric, "expr" symmetric on a symmetric P,
-every diagonal block by itself too.
+upper ones, and writes tile (i, j) and, mirrored, tile (j, i).
+`k4_schedule` is the same on column factors, S = [A | B]·[B | A]ᵀ.
+`k3_schedule` adds K3's steps: the downdate S1 = [K | PHt]·[PHt | K]ᵀ into
+each entry's own P, the renorm stripe on the pairs of tile row 0 (rows,
+then columns, then the 8 x 8 corner's lower entries from its upper ones),
+the keep mask and the rank-2r add S2 = [EN; V]ᵀ[V; EN] with
+V = UN + ½·CN·EN. Held against the plain versions at f64 to 1e-12 of each
+entry's scale (the same products in another order), and at f32 for what
+the kernels promise bit for bit: K8 "full" and K4 symmetric, K8 "expr"
+and K3 / K5 symmetric on a symmetric P, every diagonal block by itself
+too.
 
 This file imports torch and the port only."""
 
@@ -147,6 +155,257 @@ def test_k8_single_chain_needs_the_diagonal_rule():
     assert torch.equal(off, got[:, TILE:, :TILE].transpose(1, 2))
 
 
+# --- K4 and K3 / K5 -----------------------------------------------------------
+
+def _pairs(D):
+    """(i, row slice, column slice) of the tile pairs i <= j, in order."""
+    tiles = [slice(i, min(i + TILE, D)) for i in range(0, D, TILE)]
+    return [(i, ti, tj) for i, ti in enumerate(tiles) for tj in tiles[i:]]
+
+
+def _diag(S, ti, tj, diagonal_rule=True):
+    """A tile pair's accumulator; on a diagonal tile the lower entries
+    from the upper ones."""
+    s = S[:, ti, tj]
+    if ti == tj and diagonal_rule:
+        s = torch.triu(s) + torch.triu(s, 1).transpose(1, 2)
+    return s
+
+
+def k4_schedule(P, A, Bf, diagonal_rule=True):
+    """corr_apply_cols as the card's kernel schedules it: S = X·Yᵀ, one
+    chain over X = [A | B], Y = [B | A] (2R columns), then the mirrored
+    "full" epilogue of each tile pair. P (B,D,D); A, B (B,D,R); computed in
+    A's dtype, returned in P's."""
+    Pc = P.to(A.dtype)
+    S = _chain(torch.cat([A, Bf], 2).transpose(1, 2),
+               torch.cat([Bf, A], 2).transpose(1, 2))
+    out = torch.full_like(Pc, float("nan"))
+    for _, ti, tj in _pairs(P.shape[1]):
+        v = 0.5 * (Pc[:, ti, tj] + Pc[:, tj, ti].transpose(1, 2)) \
+            + 0.5 * _diag(S, ti, tj, diagonal_rule)
+        out[:, ti, tj] = v
+        out[:, tj, ti] = v.transpose(1, 2)
+    return out.to(P.dtype)
+
+
+def k3_schedule(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None,
+                v_form=True):
+    """fused_update_tail_add (K5's fused_update_tail without keepN … CN) as
+    the card's kernel schedules it, a tile pair (i, j), i <= j, at a time:
+    (a) t = P − ½·S1, S1 one chain over [K | PHt]·[PHt | K]ᵀ, tile (j, i)
+    from S1ᵀ, each entry from its own entry of P; (b) on the pairs of tile
+    row 0 rows 0:8 of tile (0, j) <- J8·rows and columns 0:8 of tile
+    (j, 0) <- columns·J8ᵀ, in k order, and on (0, 0) rows, then columns,
+    then the 8 x 8 corner's lower entries from its upper ones; (c) keep
+    mask, then + S2, S2 one chain over [EN; V]ᵀ[V; EN], V = UN + ½·CN·EN
+    (v_form False: the reference's ENᵀUN + UNᵀEN + ENᵀ·CN·EN instead).
+    Computed and returned in P's dtype."""
+    D = P.shape[1]
+    J8 = kernels._j8(Jq4)
+    S1 = _chain(torch.cat([K, PHt], 2).transpose(1, 2),
+                torch.cat([PHt, K], 2).transpose(1, 2))
+    t = torch.full_like(P, float("nan"))
+    for _, ti, tj in _pairs(D):
+        s = _diag(S1, ti, tj)
+        t[:, ti, tj] = P[:, ti, tj] - 0.5 * s
+        t[:, tj, ti] = P[:, tj, ti] - 0.5 * s.transpose(1, 2)
+    for i, ti, tj in _pairs(D):
+        if i != 0:
+            continue
+        rows = t[:, 0:8, tj]
+        t[:, 0:8, tj] = _chain(J8.transpose(1, 2), rows)
+        cols = t[:, tj, 0:8]
+        t[:, tj, 0:8] = _chain(cols.transpose(1, 2), J8.transpose(1, 2))
+        if ti == tj:
+            c = t[:, 0:8, 0:8]
+            t[:, 0:8, 0:8] = torch.triu(c) + torch.triu(c, 1).transpose(1, 2)
+    if EN is None:
+        return t
+    t = kernels._keep_mask(t, keepN)
+    if v_form:
+        V = UN + 0.5 * _chain(CN.transpose(1, 2), EN)
+        S2 = _chain(torch.cat([EN, V], 1), torch.cat([V, EN], 1))
+    else:
+        Et = EN.transpose(1, 2)
+        S2 = Et @ UN + UN.transpose(1, 2) @ EN + Et @ CN @ EN
+    out = torch.full_like(P, float("nan"))
+    for _, ti, tj in _pairs(D):
+        s = _diag(S2, ti, tj)
+        out[:, ti, tj] = t[:, ti, tj] + s
+        out[:, tj, ti] = t[:, tj, ti] + s.transpose(1, 2)
+    return out
+
+
+def _k3_operands(B, D, M2, r, seed, dtype=torch.float64):
+    """Random K3 operands: a symmetric P, Jq4 near I, keepN mostly 1, a
+    symmetric CN (the precondition of the V form)."""
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64)
+    P = n(B, D, D)
+    P = 0.5 * (P + P.transpose(1, 2))
+    Jq4 = torch.eye(4, dtype=torch.float64) + 0.3 * n(B, 4, 4)
+    ops = [P, n(B, D, M2), n(B, D, M2), Jq4]
+    if r:
+        C = n(B, r, r)
+        ops += [(torch.rand(B, D, generator=g) > 0.15).double(), n(B, r, D),
+                n(B, r, D), 0.5 * (C + C.transpose(1, 2))]
+    return [x.to(dtype) for x in ops]
+
+
+def _k3_scale(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None):
+    """Each entry's scale: the function's sums over absolute values."""
+    a = lambda x: x.abs()
+    S = a(P) + 0.5 * (a(K) @ a(PHt).transpose(1, 2)
+                      + a(PHt) @ a(K).transpose(1, 2))
+    S = kernels._stripe(S, a(Jq4), 3, 7)
+    if EN is None:
+        return S
+    Et = a(EN).transpose(1, 2)
+    return (kernels._keep_mask(S, keepN) + Et @ a(UN)
+            + a(UN).transpose(1, 2) @ a(EN) + Et @ a(CN) @ a(EN))
+
+
+def _k3_plain(*ops):
+    return (kernels.update_tail_plain(*ops) if len(ops) == 4
+            else kernels.update_tail_add_plain(*ops))
+
+
+@pytest.mark.parametrize("D,B", [(19, 3), (70, 2), (613, 1)])
+@pytest.mark.parametrize("R", [1, 56, 128])
+def test_k4_schedule_matches_plain(R, D, B):
+    """Tile pairs, the chain over [A | B]·[B | A]ᵀ, the mirrored write and
+    the diagonal rule give corr_apply_cols_plain's function: at f64 within
+    F64_TOL of each entry's scale, every entry written; at f32 bitwise
+    symmetric from an asymmetric P."""
+    P, At, Bt = _operands(B, D, R, 31 * D + R)
+    A, Bf = At.transpose(1, 2), Bt.transpose(1, 2)
+    got = k4_schedule(P, A, Bf)
+    want = kernels.corr_apply_cols_plain(P, A, Bf)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= F64_TOL * _scale(P, At, Bt)).all())
+    got32 = k4_schedule(P.float(), A.float(), Bf.float())
+    assert got32.dtype == torch.float32
+    assert torch.equal(got32, got32.transpose(1, 2))
+
+
+def test_k4_single_chain_needs_the_diagonal_rule():
+    """As for K8: without the rule a diagonal tile is not symmetric at
+    f32; off the diagonal the mirror alone suffices."""
+    P, At, Bt = _operands(2, 70, 56, 6, torch.float32)
+    got = k4_schedule(P, At.transpose(1, 2), Bt.transpose(1, 2),
+                      diagonal_rule=False)
+    blk = got[:, :TILE, :TILE]
+    assert not torch.equal(blk, blk.transpose(1, 2))
+    assert torch.equal(got[:, :TILE, TILE:],
+                       got[:, TILE:, :TILE].transpose(1, 2))
+
+
+@pytest.mark.parametrize("D,B", [(19, 2), (70, 2), (613, 1)])
+@pytest.mark.parametrize("M2", [1, 56, 128])
+@pytest.mark.parametrize("r", [0, 6, 60])
+def test_k3_schedule_matches_plain(r, M2, D, B):
+    """The tile-pair schedule of K3 (r > 0) and K5 (r = 0) gives
+    update_tail_add_plain's / update_tail_plain's function on a symmetric P
+    and CN: at f64 within F64_TOL of each entry's scale, every entry
+    written; at f32 bitwise symmetric, every diagonal block too."""
+    ops = _k3_operands(B, D, M2, r, 1000 * D + 10 * M2 + r)
+    got = k3_schedule(*ops)
+    want = _k3_plain(*ops)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= F64_TOL * _k3_scale(*ops)).all())
+    got32 = k3_schedule(*(x.float() for x in ops))
+    assert got32.dtype == torch.float32
+    for i0 in range(0, D, TILE):
+        blk = got32[:, i0:i0 + TILE, i0:i0 + TILE]
+        assert torch.equal(blk, blk.transpose(1, 2)), i0
+    assert torch.equal(got32, got32.transpose(1, 2))
+
+
+def test_k3_v_form_adds_the_symmetric_part_of_cn():
+    """ENᵀV + VᵀEN, V = UN + ½·CN·EN, is ENᵀUN + UNᵀEN + ENᵀ·sym(CN)·EN.
+    At a symmetric CN it is the reference's add (f64, F64_TOL); at an
+    asymmetric one it leaves out exactly −ENᵀ·skew(CN)·EN, skew(CN) =
+    ½(CN − CNᵀ), and the f32 result stays bitwise symmetric."""
+    ops = _k3_operands(2, 70, 20, 12, 77)
+    scale = _k3_scale(*ops)
+    assert bool(((k3_schedule(*ops) - _k3_plain(*ops)).abs()
+                 <= F64_TOL * scale).all())
+    CN = ops[7]
+    skew = 1e-3 * torch.randn(CN.shape, dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(3))
+    skew = skew - skew.transpose(1, 2)
+    ops[7] = CN + skew
+    gap = k3_schedule(*ops) - _k3_plain(*ops)
+    EN = ops[5]
+    want = -EN.transpose(1, 2) @ (0.5 * (skew - skew.transpose(1, 2))) @ EN
+    assert float(want.abs().max()) > 1e-3
+    assert bool(((gap - want).abs() <= F64_TOL * scale).all())
+    got32 = k3_schedule(*(x.float() for x in ops))
+    assert torch.equal(got32, got32.transpose(1, 2))
+
+
+def _fused_frame(dtype_name, max_new, frames, min_features=12):
+    """K3's operands in the last of `frames` frames of a small fused
+    sequence (CAP 24, B = 3) on the CPU."""
+    from ekf_slam_tpu_torch.config import EngineConfig
+    from ekf_slam_tpu_torch.filter import engine
+    from ekf_slam_tpu_torch.filter.state import init_state
+    from ekf_slam_tpu_torch.sim import simulate
+    cfg = EngineConfig.from_dict({
+        "filter": {"fused_step": "on"}, "dtype": dtype_name,
+        "map": {"capacity": 24, "min_features_in_image": min_features,
+                "max_new_per_step": max_new, "max_update_obs": 16},
+        "sim": {"num_landmarks": 40}})
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, frames,
+                         "cpu")
+    st = engine.bootstrap(init_state(cfg, 3, "cpu"), obs.frame(0), cfg)
+    u = torch.rand(frames, 3, cfg.ransac.num_hypotheses,
+                   dtype=cfg.torch_dtype,
+                   generator=torch.Generator().manual_seed(1))
+    for t in range(1, frames - 1):
+        st, _ = engine.step(st, obs.frame(t), u[t], cfg)
+    with kernels.capture_operands() as captured:
+        engine.step(st, obs.frame(frames - 1), u[frames - 1], cfg)
+    return captured["fused_update_tail_add"][0]
+
+
+def test_k3_keep_fault_shows_only_on_stale_slots():
+    """chip_smoke's planted K3 fault (keepN all ones): on a real frame that
+    adds features the new slots' rows of P are zeros, so ignoring keepN
+    changes nothing; on kernels.stale_slots(P) it reads far above the
+    limit."""
+    ops = list(_fused_frame("float64", 10, 3, min_features=24))
+    keepN = ops[4]
+    assert bool((keepN == 0).any())
+    ones = torch.ones_like(keepN)
+    want = kernels.update_tail_add_plain(*ops)
+    blind = kernels.update_tail_add_plain(*ops[:4], ones, *ops[5:])
+    assert kernels.scaled_error(blind, want) == 0.0
+    ops[0] = kernels.stale_slots(ops[0], keepN)
+    want = kernels.update_tail_add_plain(*ops)
+    blind = kernels.update_tail_add_plain(*ops[:4], ones, *ops[5:])
+    assert kernels.scaled_error(blind, want) > 100 * kernels.SCALED_TOL
+
+
+def test_k3_cn_of_the_path_is_symmetric_to_rounding():
+    """mapman.add_params builds CN by an einsum that does not sum entries
+    (k, l) and (l, k) in the same order: on a real f32 frame of the fused
+    step (CAP 24, r = 48) CN is symmetric to its last bits, not bitwise,
+    and the part the V form leaves out, ENᵀ·skew(CN)·EN, reads 1.0e-7 of
+    each entry's bound: under 1e-2 of the limit kernels.SCALED_TOL."""
+    ops = _fused_frame("float32", 8, 2)
+    EN, CN = ops[5].double(), ops[7].double()
+    assert EN.shape[1] == 48
+    skew = 0.5 * (CN - CN.transpose(1, 2))
+    assert float(skew.abs().max()) > 0                 # not bitwise
+    assert float(skew.abs().max()) <= 1e-6 * float(CN.abs().max())
+    want = kernels.update_tail_add_plain(*(x.double() for x in ops))
+    left_out = -EN.transpose(1, 2) @ skew @ EN
+    assert kernels.scaled_error(want + left_out, want) \
+        <= 1e-2 * kernels.SCALED_TOL
+
+
 # --- chip_smoke's yardsticks --------------------------------------------------
 
 def test_library_call_of_k6_is_the_plain_product():
@@ -197,6 +456,16 @@ def _meta(*shape):
     ("corr_apply_cols", ((2, 5, 5), (2, 5, 3), (2, 5, 3)), 2 * 4 * 15 * 3),
     ("corr_apply_cols", ((128, 613, 613), (128, 613, 264), (128, 613, 264)),
      128 * 4 * (613 * 614 // 2) * 264),                  # 25.44 GFLOP
+    # the downdate's 4·M2 and the add's 6·r an entry of the triangle, CN·EN
+    # dense, the stripe's 4·4·4 an entry of the 8-row stripe
+    ("fused_update_tail", ((128, 613, 613), (128, 613, 128), (128, 613, 128),
+                           (128, 4, 4)),
+     128 * (4 * (613 * 614 // 2) * 128 + 64 * 613)),      # 12.34 GFLOP
+    ("fused_update_tail_add", ((128, 613, 613), (128, 613, 128),
+                               (128, 613, 128), (128, 4, 4), (128, 613),
+                               (128, 60, 613), (128, 60, 613), (128, 60, 60)),
+     128 * (4 * (613 * 614 // 2) * 128 + 6 * (613 * 614 // 2) * 60
+            + 2 * 60 * 60 * 613 + 64 * 613)),            # 21.58 GFLOP
 ])
 def test_operation_counts(name, args, flops):
     """chip_smoke.FLOPS, the numerator of a kernel's operations bound, from
@@ -212,3 +481,15 @@ def test_operation_counts(name, args, flops):
 def test_operation_count_of_k8_by_mode(mode, flops):
     args = (_meta(128, 613, 613), _meta(128, 56, 613), _meta(128, 56, 613))
     assert chip_smoke.FLOPS["corr_apply"](*args, mode) == flops
+
+
+def test_kernel_variants_edit_the_sources():
+    """Every text substitution of kernel_variants finds its text exactly
+    once in the source it edits (the tool raises on the card otherwise)."""
+    from ekf_slam_tpu_torch import kernel_variants
+    from ekf_slam_tpu_torch.ops import _build
+    for name, edits in kernel_variants.VARIANTS.items():
+        for file, subs in edits.items():
+            text = (_build.CSRC / file).read_text()
+            for old, _ in subs:
+                assert text.count(old) == 1, (name, file, old)
