@@ -18,8 +18,9 @@ Phases, one line each, any failure raises (exit code != 0):
                own bound (a bf16 output may also stray one bf16 ulp); K4's
                and K8 "full"'s outputs must be bitwise symmetric, K8
                "expr"'s and K3's on a symmetric P. Then planted faults (K1
-               without process noise, K3 with keepN all ones on P with
-               stale values in the new slots, K5 with the renorm Jacobian
+               without process noise, K2 with its P·Hᵀ taken from the P
+               before the tail, K3 with keepN all ones on P with stale
+               values in the new slots, K5 with the renorm Jacobian
                replaced by I, K7 with the template transposed, K8 without
                its renorm rows) must fail that check; the f32 patch
                variance of the NCC norms must stray less than
@@ -121,14 +122,14 @@ def _sym(D: int) -> int:
 # Floating-point operations of one call, from its operands: the plain
 # version's multiply-adds, each entry of a symmetric output counted once
 # (the downdate ½(K·PHtᵀ + PHt·Kᵀ): 4R an entry; the low-rank EᵀU + UᵀE +
-# EᵀCE: 6r an entry after EᵀC; K4's ½(A·Bᵀ + B·Aᵀ) and K8's ½(AtᵀBt +
-# BtᵀAt) in "expr" / "full": 4R; K8's AtᵀBt in "none", not symmetric: 2R
-# an entry over all D² entries), the low-rank terms dense, as the kernels
-# compute them.
+# EᵀCE as [E; V]ᵀ[V; E] with V = U + ½·C·E: 4r an entry and 2r²D for V;
+# K4's ½(A·Bᵀ + B·Aᵀ) and K8's ½(AtᵀBt + BtᵀAt) in "expr" / "full": 4R;
+# K8's AtᵀBt in "none", not symmetric: 2R an entry over all D² entries),
+# the low-rank factors dense, as the kernels compute them.
 FLOPS = {
     "fused_manage_predict_pht": lambda P, keep, E6, U6, C66, F13, Q13, Ht:
         P.shape[0] * (2 * P.shape[1] ** 2 * Ht.shape[2]
-                      + 6 * _sym(P.shape[1]) * E6.shape[1]
+                      + 4 * _sym(P.shape[1]) * E6.shape[1]
                       + 2 * E6.shape[1] ** 2 * P.shape[1]
                       + 4 * 13 * 13 * P.shape[1]),
     "fused_update_tail_pht": lambda P, K, PHt, Jq4, Ht:
@@ -137,7 +138,7 @@ FLOPS = {
                       + 4 * 4 * 4 * P.shape[1]),
     "fused_update_tail_add": lambda P, K, PHt, Jq4, keepN, EN, UN, CN:
         P.shape[0] * (4 * _sym(P.shape[1]) * K.shape[2]
-                      + 6 * _sym(P.shape[1]) * EN.shape[1]
+                      + 4 * _sym(P.shape[1]) * EN.shape[1]
                       + 2 * EN.shape[1] ** 2 * P.shape[1]
                       + 4 * 4 * 4 * P.shape[1]),
     "corr_apply_cols": lambda P, A, B:
@@ -457,6 +458,15 @@ def check_paths(dev, card: str) -> list:
                                          args[7]),
         kernels.manage_predict_pht_plain(*(a.double() for a in args)),
         lambda g, r: kernels.scaled_error(g, r, args[7]))
+    # K2 composed of its pass and K6's product: the product reading the P
+    # before the tail instead of the P it wrote
+    args = inputs["fused_update_tail_pht"][-1]
+    P_li, _ = kernels.fused_update_tail_pht(*args)
+    planted_fault(
+        "K2_product_of_P_before_tail",
+        (P_li, kernels.f32_matmul_big(args[0], args[4])),
+        kernels.update_tail_pht_plain(*(a.double() for a in args)),
+        lambda g, r: kernels.scaled_error(g, r, args[4]))
     args = inputs["fused_update_tail_add"][-1]
     P, keepN = args[0], args[4]
     if not bool((keepN == 0).any()):

@@ -1,37 +1,28 @@
 // Device helpers shared by the covariance kernels (fused_cov.cu,
 // unfused_cov.cu): loads and stores of P in its storage type (f32 or bf16:
 // upcast on load, one round-to-nearest-even on store), the launch helper,
-// and two generations of building blocks.
+// and the building blocks of every covariance kernel (K1-K6, K8).
 //
-// 1. The 32 x 32 tile helpers of K1 and K2: staging of operand blocks into
-//    shared memory (stage), the tile's pair of rank-R sums for column
-//    factors (pair_sums), the P·Hᵀ stripe accumulation (accumulate_pht).
-//    Thread layout: 256 threads, thread (tx, ty) owns column tx and the
-//    four consecutive rows 4·ty .. 4·ty+3 of a TILE x TILE tile. Row-side
-//    operands sit in shared memory transposed ([k][row]), so one 16-byte
-//    load feeds four rows; the column-side operand is one scalar per k.
-//
-// 2. The register-blocked panel product of K3-K6 and K8, designed for the
-//    H100's CUDA cores: acc[r][c] += Σ_k X[k][r]·Y[k][c] from a [k][row]
-//    panel and a [k][col] panel in shared memory (panel_fma), each thread
-//    a TM x TN micro-tile (8 x 8: 64 FMAs for four 16-byte shared loads a
-//    k, against 8 FMAs for four loads in pair_sums), the k loop over a
-//    compile-time BK and fully unrolled, no predicate in it (ragged edges
-//    are staged as zeros). panel_product runs it over the contraction
-//    through a two-stage ring in shared memory: the loads of tile t+1 are
-//    started before tile t is multiplied (cp.async for f32 sources; a bf16
-//    source, 2-byte aligned on odd rows and so below cp.async's 4-byte
-//    minimum, goes through registers: ld.global before the multiply,
-//    convert and st.shared after) — one __syncthreads a tile. Sums are
-//    IEEE fmaf chains in k order: deterministic, no atomics, no tensor
-//    cores. store_tile_pair is the mirrored epilogue of a symmetric
-//    update: one accumulator tile written to the (i, j) tile and,
-//    transposed through shared memory, to the (j, i) tile, both coalesced;
-//    the tiles of P it adds to are fetched by bulk copies (PTile) that
-//    land under the product.
+// The register-blocked panel product, designed for the H100's CUDA cores:
+// acc[r][c] += Σ_k X[k][r]·Y[k][c] from a [k][row] panel and a [k][col]
+// panel in shared memory (panel_fma), each thread a TM x TN micro-tile
+// (8 x 8: 64 FMAs for four 16-byte shared loads a k), the k loop over a
+// compile-time BK and fully unrolled, no predicate in it (ragged edges are
+// staged as zeros). panel_product runs it over the contraction through a
+// two-stage ring in shared memory: the loads of tile t+1 are started
+// before tile t is multiplied (cp.async for f32 sources; a bf16 source,
+// 2-byte aligned on odd rows and so below cp.async's 4-byte minimum, goes
+// through registers: ld.global before the multiply, convert and st.shared
+// after) — one __syncthreads a tile. Sums are IEEE fmaf chains in k order:
+// deterministic, no atomics, no tensor cores. store_tile_pair is the
+// mirrored epilogue of a symmetric update: one accumulator tile written to
+// the (i, j) tile and, transposed through shared memory, to the (j, i)
+// tile, both coalesced; the tiles of P it adds to are fetched by bulk
+// copies (PTile) that land under the product.
 //
 // Each .cu includes this header once; everything here has internal
-// linkage.
+// linkage except the declaration of K6's launcher (unfused_cov.cu), whose
+// product K1 and K2 (fused_cov.cu) run as their P·Hᵀ half.
 
 #pragma once
 
@@ -40,29 +31,10 @@
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int NT = 256;                 // threads per block
-constexpr int RPT = 4;                  // rows per thread (TILE·TILE / NT)
-constexpr int LD = TILE + 1;            // leading dim of [row][col] tiles
-constexpr int LDT = TILE + 4;           // leading dim of [k][row] buffers
-constexpr int MC = 32;                  // contraction chunk of pair_sums
-constexpr int MAX_CG = 8;               // column groups of 32: 256 columns
-
-struct Tid {
-  int tx, r0;                           // column, first of the 4 rows
-};
-
-__device__ __forceinline__ Tid tid() {
-  return {static_cast<int>(threadIdx.x) % TILE,
-          RPT * (static_cast<int>(threadIdx.x) / TILE)};
-}
+constexpr int NT = 256;                 // threads a block: K7, launch()
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float at(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
 // An element of P (or of any operand) as f32, and an f32 stored in P's
@@ -76,82 +48,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Copy a (rows x cols) block of a row-major matrix with leading dim `ld`,
-// starting at (r0, c0), into smem (f32) with leading dim `sld`; entries
-// outside (nrows, ncols) read as 0. transpose: store element (rr, cc) at
-// dst[cc * sld + rr]. T is float or __nv_bfloat16 (upcast on the way).
-template <typename T>
-__device__ void stage(float* dst, int sld, const T* src, int ld, int r0,
-                      int c0, int rows, int cols, int nrows, int ncols,
-                      bool transpose = false) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
-    const int rr = idx / cols, cc = idx % cols;
-    const int gr = r0 + rr, gc = c0 + cc;
-    const float v = (gr < nrows && gc < ncols)
-                        ? to_f32(src[static_cast<size_t>(gr) * ld + gc])
-                        : 0.f;
-    dst[transpose ? cc * sld + rr : rr * sld + cc] = v;
-  }
-}
-
-// The pair of rank-R sums of tile (i0, j0) for two (D x R) factors X, Y:
-//   a[q] = Σ_k X[row][k]·Y[col][k],   b[q] = Σ_k Y[row][k]·X[col][k],
-// each a sequential fmaf chain in k order over MC-wide chunks (entries past
-// R stage as 0 and add nothing). So b of entry (r, c) is the same chain of
-// the same products as a of entry (c, r): the (i,j) and (j,i) tiles are
-// float-exact mirrors. The row side (X_i, Y_i) is staged [k][row], the
-// column side [col][k]; four MC x TILE buffers.
-__device__ void pair_sums(const float* X, const float* Y, int D, int R,
-                          int i0, int j0, float* sXi, float* sYi, float* sXj,
-                          float* sYj, float (&a)[RPT], float (&b)[RPT]) {
-  const Tid t = tid();
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) a[q] = b[q] = 0.f;
-  for (int m0 = 0; m0 < R; m0 += MC) {
-    stage(sXi, LDT, X, R, i0, m0, TILE, MC, D, R, true);
-    stage(sYi, LDT, Y, R, i0, m0, TILE, MC, D, R, true);
-    stage(sXj, LD, X, R, j0, m0, TILE, MC, D, R);
-    stage(sYj, LD, Y, R, j0, m0, TILE, MC, D, R);
-    __syncthreads();
-#pragma unroll 8
-    for (int mm = 0; mm < MC; ++mm) {
-      const float xj = sXj[t.tx * LD + mm];
-      const float yj = sYj[t.tx * LD + mm];
-      const float4 xi = ld4(sXi + mm * LDT + t.r0);
-      const float4 yi = ld4(sYi + mm * LDT + t.r0);
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        a[q] = fmaf(at(xi, q), yj, a[q]);
-        b[q] = fmaf(at(yi, q), xj, b[q]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Product stripe accumulation: acc[q][cg] += Σ_k T[row q][k]·H[k][col] for
-// k < kmax and the columns col = tx + TILE·cg < R, with T staged
-// transposed in sTt ([k][row], ld LDT) and H in sH ([k][col], ld R ≤ 256).
-__device__ void accumulate_pht(float (&acc)[RPT][MAX_CG], const float* sTt,
-                               const float* sHt, int R, int kmax) {
-  const Tid t = tid();
-  const int ncg = (R + TILE - 1) / TILE;
-  for (int k = 0; k < kmax; ++k) {
-    const float4 tv = ld4(sTt + k * LDT + t.r0);
-#pragma unroll
-    for (int cg = 0; cg < MAX_CG; ++cg) {
-      if (cg < ncg) {
-        const int c = t.tx + TILE * cg;
-        const float hv = c < R ? sHt[k * R + c] : 0.f;
-#pragma unroll
-        for (int q = 0; q < RPT; ++q)
-          acc[q][cg] = fmaf(at(tv, q), hv, acc[q][cg]);
-      }
-    }
-  }
-}
-
-// --- the register-blocked panel product (K3-K6, K8) ------------------------
+// --- the register-blocked panel product ---------------------------------
 
 constexpr int BK = 8;                   // contraction depth of a ring stage
 
@@ -572,3 +469,10 @@ cudaError_t launch(const void* fn, dim3 grid, size_t smem, void** args,
 }
 
 }  // namespace
+
+// K6's launcher (unfused_cov.cu): C = A·B for A (Bn, M, K), f32 or
+// (a_bf16) bf16, and B (Bn, K, N), C (Bn, M, N) f32. K1 and K2 form their
+// P·Hᵀ with it.
+extern "C" cudaError_t ekf_k6_matmul_big(const void* A, const float* B,
+                                         float* C, int Bn, int M, int K,
+                                         int N, int a_bf16, void* stream);

@@ -177,7 +177,8 @@ __global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
 // (_mm_kernel): C = A·B in full f32 for a large A (M x K, the covariance
 // P, f32 or bf16) and a narrow B (K x N): update_gain's P·Hᵀ (N = 2M =
 // 128, 48 in the fast mode, or 2·CAP = 200 full width) and RANSAC's P·G
-// (N = NHYP = 64).
+// (N = NHYP = 64). Its launcher is also the P·Hᵀ half of K1 and K2
+// (fused_cov.cu): P_new·Ht with N = 2·CAP = 200.
 // Bound on the H100: A is 1.5 MB per instance at D = 613, 192 MB at
 // B = 128 (0.06 ms at 3.35 TB/s); the product is 2·D²·N flops, 96 MFLOP
 // per instance at N = 128 (12 GFLOP per call, >= 0.18 ms at the f32 peak),
@@ -189,7 +190,10 @@ __global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
 // micro-tile. BN is 64 for N <= 64 (N = 48 runs with a quarter of its
 // columns zeros: no slower on the card than a 48-column blocking of 8 x 4
 // micro-tiles), else 128; wider N takes a grid axis of 128-column chunks
-// (A is then read once a chunk, from L2). Every output
+// (A is then read once a chunk, from L2): K1's and K2's N = 200 runs as two
+// chunks, 28% of the columns padding, yet measured faster on an H100 than
+// one 224-column chunk of 224 threads (two blocks an SM) or two 104-column
+// chunks of 8 x 4 micro-tiles (PERF.md §6). Every output
 // entry is written by one thread: no atomics. C's rows are stored 16 bytes
 // at a time when N is a multiple of 4 and C is 16-byte aligned (`vec`),
 // else by element. At D = 613, B = 128 the grid is 10 x 128 = 1,280 blocks

@@ -1,6 +1,6 @@
-"""Time the panel-product kernels (K3 / K5, K4, K6, K8) as built, and as
-built with one design choice changed, on one CUDA card: the evidence
-behind the choices in csrc/fused_cov.cu, csrc/unfused_cov.cu and
+"""Time the panel-product kernels (K1, K2, K3 / K5, K4, K6, K8) as built,
+and as built with one design choice changed, on one CUDA card: the
+evidence behind the choices in csrc/fused_cov.cu, csrc/unfused_cov.cu and
 csrc/common.cuh, and the tool for the next one.
 
     python -m ekf_slam_tpu_torch.kernel_variants [variant ...] [--sass]
@@ -13,13 +13,15 @@ parallel, a few seconds), bound by ctypes and timed at the bench shapes
 with N = 128 and 64, A in bf16 with N = 48 and 64) beside ``torch.bmm``;
 K8 in its three modes on a bf16 and an f32 P (R = 56) and K4 on an f32 P
 (R = 264) and a bf16 P (R = 104) beside ``torch.baddbmm``; K3 (M2 = 128,
-r = 60) and K5 (M2 = 128). CUDA events, the mean of 20 launches after 3
-warm ones. Variants whose name says ``timing_only`` skip part of the work
-and give wrong outputs: they split a kernel's time into its phases.
-``--sass`` also prints, for every K3 / K4 / K6 / K8 kernel of the first
-variant, the instruction mix of its multiply loop from ``cuobjdump -sass``
-(the share of FFMA among the instructions of the loop with the most FFMAs;
-K3's two products run the same loop). ``--widths`` also times K5 and K4
+r = 60) and K5 (M2 = 128); K1 (r = 6) and K2 (M2 = 128) at R = 2·CAP =
+200, and their product alone, K6 on an f32 P at N = 200, beside
+``torch.bmm``. CUDA events, the mean of 20 launches after 3 warm ones.
+Variants whose name says ``timing_only`` skip part of the work and give
+wrong outputs: they split a kernel's time into its phases. ``--sass`` also
+prints, for every K1 / K3 / K4 / K6 / K8 kernel of the first variant, the
+instruction mix of its multiply loop from ``cuobjdump -sass`` (the share
+of FFMA among the instructions of the loop with the most FFMAs; K3's two
+products and K1's pass run the same loop). ``--widths`` also times K5 and K4
 (f32 P, as built) at contraction widths around the bench's 128 and 264:
 time against width splits a kernel's cost per 8-deep contraction tile
 from its fixed cost a call, and shows whether a power-of-two row stride of
@@ -47,13 +49,15 @@ OUT = _build.BUILD_DIR.parent / "variants"
 B, D = 128, 613
 K8_R, K4_R = 56, {"f32": 264, "bf16": 104}
 K3_M2, K3_R = 128, 60
+K1_R, K1_r = 200, 6                   # 2·CAP gain columns, the rank-6 add
 WIDTHS = (120, 124, 128, 132, 136, 256, 264)
 K6_SITES = (("f32_N128", torch.float32, 128), ("f32_N64", torch.float32, 64),
             ("bf16_N48", torch.bfloat16, 48), ("bf16_N64", torch.bfloat16, 64))
 SOURCES = ("unfused_cov.cu", "fused_cov.cu", "common.cuh")
-TIMED = ("k3_kernel", "k4_kernel", "k6_kernel", "k8_kernel")
-# A kernel's name in a mangled symbol: k3_kernel, k8_kernelIf, ...
-NAME = r"(k\dv?_kernel(?:I\w*?(?=EEv))?)"
+TIMED = ("k1p_kernel", "k3_kernel", "k3v_kernel", "k4_kernel", "k6_kernel",
+         "k8_kernel")
+# A kernel's name in a mangled symbol: k3_kernel, k1p_kernel, k8_kernelIf, ...
+NAME = r"(k\d[vp]?_kernel(?:I\w*?(?=EEv))?)"
 G8 = "using G8 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
 G6 = "using G6 = Blocking<64, BN, 8, 8, BN == 64 ? 255 : 128>;"
 G3 = "using G3 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
@@ -69,17 +73,28 @@ NO_EPILOGUE = (EPILOGUE, "  if (D < 0) store_tile_pair<PT, G8::THREADS>(Pout,")
 NO_PRODUCT = (("mode == 0 ? tiles : 2 * tiles, lx, ly", "0, lx, ly"),
               ("2, 2 * tiles, lx, ly", "2, 0, lx, ly"))
 # K3 / K5 (fused_cov.cu)
-FETCH3 = """  unsigned bytes = PTile<float>::fetch<G3::THREADS>(raw_ij, P, D, i0, j0,
+FETCH3 = """  sJ[threadIdx.x] = J8[threadIdx.x];
+  __syncthreads();
+  unsigned bytes = PTile<float>::fetch<G3::THREADS>(raw_ij, P, D, i0, j0,
                                                      mbar);
   if (twin)
     bytes += PTile<float>::fetch<G3::THREADS>(raw_ji, P, D, j0, i0, mbar);
 """
+K3_STORE = """  store_tile_pair<float, G3::THREADS>(Pout, D, i0, j0, sC, tij, tji, 1.f,"""
 K3_NO_PASSES = (
-    ("  downdate_pair(", "  if (D < 0) downdate_pair("),
-    ("  if (i == 0) renorm_stripe(", "  if (D < 0 && i == 0) renorm_stripe("),
+    ("  add_pair(tij, tji, sC, -0.5f, twin);",
+     "  if (D < 0) add_pair(tij, tji, sC, -0.5f, twin);"),
+    ("  if (i == 0) stripe_pair<8>(", "  if (D < 0 && i == 0) stripe_pair<8>("),
     ("    keep_pair(", "    if (D < 0) keep_pair("),
-    ("  store_tile_pair<float, G3::THREADS>(Pout,",
-     "  if (D < 0) store_tile_pair<float, G3::THREADS>(Pout,"))
+    (K3_STORE, "  if (D < 0)\n" + K3_STORE))
+# K1 and K2 (fused_cov.cu): their tile-pair pass (with K1's V prologue)
+# and their product, K6's launcher
+K1_PRODUCT = "  return ekf_k6_matmul_big(Pout, Ht, PHt, B, D, D, R, 0, stream);"
+K2_PRODUCT = "  return ekf_k6_matmul_big(Pout, Ht, PHt2, B, D, D, R, 0, stream);"
+K1_PASS = "  cudaError_t err = v_launch(E, U, C, V, B, D, r, s);"
+K2_PASS = """  const cudaError_t err =
+      k3_launch(P, K, PHt, J8, nullptr, nullptr, nullptr, Pout, B, D, M2, 0,"""
+PAIR_BLOCKS = "constexpr int PAIR_BLOCKS = 4;"
 # name -> {source: ((old, new) substitutions)}
 VARIANTS = {
     "base": {},
@@ -87,13 +102,14 @@ VARIANTS = {
     # threads, 8 x 4 on 128 threads
     "k8_micro_4x8": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "4, 8>")),)},
     "k8_micro_8x4": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 4>")),)},
-    # the tile-pair kernels' register budget (K3 / K5, K4, K8): 255 (four
-    # blocks an SM, what an f32 P's shared memory allows), 168 (six, a
-    # bf16 P's)
-    "pair_regs_255": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 255>")),),
-                      "fused_cov.cu": ((G3, G3.replace("8, 8>", "8, 8, 255>")),)},
-    "pair_regs_168": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 168>")),),
-                      "fused_cov.cu": ((G3, G3.replace("8, 8>", "8, 8, 168>")),)},
+    # K4 and K8's register budget: 255 (four blocks an SM, what an f32
+    # P's shared memory allows), 168 (six, a bf16 P's)
+    "pair_regs_255": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 255>")),)},
+    "pair_regs_168": {"unfused_cov.cu": ((G8, G8.replace("8, 8>", "8, 8, 168>")),)},
+    # K3 / K5 and K1's pass with 128 registers (eight blocks an SM; their
+    # shared memory allows four)
+    "fused_pair_regs_128": {"fused_cov.cu": (
+        (PAIR_BLOCKS, PAIR_BLOCKS.replace("4", "8")),)},
     # K6's row stripe: 128 rows a block
     "k6_rows_128": {"unfused_cov.cu": ((G6, G6.replace("<64,", "<128,")),)},
     # register budgets: 128 everywhere; none (ptxas may use 255)
@@ -129,6 +145,17 @@ VARIANTS = {
          "panel_product<G3>(acc, sm, 0, lx, ly);"),
         ("panel_product<G3>(acc, sm, 2 * tiles2, ex, ey);",
          "panel_product<G3>(acc, sm, 0, ex, ey);"))},
+    # K1 and K2 without their product: the tile-pair pass (K1's with its
+    # V prologue) alone
+    "k12_timing_only_pass": {"fused_cov.cu": (
+        (K1_PRODUCT, "  return cudaSuccess;"),
+        (K2_PRODUCT, "  return cudaSuccess;"))},
+    # ... and the product alone, on the P the timing harness left in Pout
+    "k12_timing_only_product": {"fused_cov.cu": (
+        (K1_PASS, K1_PRODUCT.replace("return", "if (D > 0) return") + "\n"
+         + K1_PASS),
+        (K2_PASS, K2_PRODUCT.replace("return", "if (D > 0) return") + "\n"
+         + K2_PASS))},
 }
 
 
@@ -169,7 +196,8 @@ def build(name: str) -> ctypes.CDLL:
             print(f"  [{name}] {kernel}: "
                   + line.replace("ptxas info    :", "").strip(), flush=True)
     lib = ctypes.CDLL(str(out / "lib.so"))
-    for fn in ("ekf_k3_update_tail_add", "ekf_k4_corr_apply_cols",
+    for fn in ("ekf_k1_manage_predict_pht", "ekf_k2_update_tail_pht",
+               "ekf_k3_update_tail_add", "ekf_k4_corr_apply_cols",
                "ekf_k5_update_tail", "ekf_k6_matmul_big",
                "ekf_k8_corr_apply"):
         getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
@@ -244,9 +272,14 @@ def operands(dev) -> dict:
            "K": n(B, D, K3_M2), "PHt": n(B, D, K3_M2),
            "J8": torch.eye(8, device=dev).repeat(B, 1, 1),
            "keep": torch.ones(B, D, device=dev),
-           "E": n(B, K3_R, D), "U": n(B, K3_R, D), "V": n(B, K3_R, D)}
+           "E": n(B, K3_R, D), "U": n(B, K3_R, D), "V": n(B, K3_R, D),
+           "Ht": n(B, D, K1_R), "E6": n(B, K1_r, D), "U6": n(B, K1_r, D),
+           "V6": n(B, K1_r, D), "F16": torch.eye(16, device=dev).repeat(B, 1, 1),
+           "Q16": torch.zeros(B, 16, 16, device=dev)}
     C = n(B, K3_R, K3_R)
     ops["C"] = 0.5 * (C + C.transpose(1, 2))
+    C = n(B, K1_r, K1_r)
+    ops["C66"] = 0.5 * (C + C.transpose(1, 2))
     return ops
 
 
@@ -254,6 +287,7 @@ def library_times(o) -> dict:
     P32 = o["P"][torch.float32]
     lib = {site: cuda_ms(lambda n=n: torch.bmm(P32, o["H"][n]))
            for site, _, n in K6_SITES}
+    lib[f"f32_N{K1_R}"] = cuda_ms(lambda: torch.bmm(P32, o["Ht"]))
     XY = torch.cat([o["At"], o["Bt"]], 1).transpose(1, 2), torch.cat(
         [o["Bt"], o["At"]], 1)
     lib["k8_expr"] = cuda_ms(lambda: torch.baddbmm(P32, *XY, alpha=0.5))
@@ -293,6 +327,21 @@ def time_variant(lib, o, dev) -> dict:
     times["k5"] = cuda_ms(launcher(
         lib.ekf_k5_update_tail, *map(ptr, (P, o["K"], o["PHt"], o["J8"],
                                            out)), B, D, K3_M2))
+    # K1 and K2 write P_new to `out` and read it back for the product; it
+    # starts as P, so the product-only variants multiply real values
+    out.copy_(P)
+    pht = torch.empty(B, D, K1_R, device=dev)
+    times[f"k6_f32_N{K1_R}"] = cuda_ms(launcher(
+        lib.ekf_k6_matmul_big, ptr(P), ptr(o["Ht"]), ptr(pht), B, D, D, K1_R,
+        0))
+    times["k1"] = cuda_ms(launcher(
+        lib.ekf_k1_manage_predict_pht, *map(ptr, (
+            P, o["keep"], o["E6"], o["U6"], o["C66"], o["F16"], o["Q16"],
+            o["Ht"], o["V6"], out, pht)), B, D, K1_R, K1_r))
+    times["k2"] = cuda_ms(launcher(
+        lib.ekf_k2_update_tail_pht, *map(ptr, (
+            P, o["K"], o["PHt"], o["J8"], o["Ht"], out, pht)), B, D, K3_M2,
+        K1_R))
     return times
 
 

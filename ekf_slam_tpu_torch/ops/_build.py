@@ -34,7 +34,7 @@ LIB_NAME = "libekf_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    "ekf_k1_manage_predict_pht": [_P] * 10 + [_I] * 4 + [_P],
+    "ekf_k1_manage_predict_pht": [_P] * 11 + [_I] * 4 + [_P],
     "ekf_k2_update_tail_pht": [_P] * 7 + [_I] * 4 + [_P],
     "ekf_k3_update_tail_add": [_P] * 10 + [_I] * 4 + [_P],
     "ekf_k4_corr_apply_cols": [_P] * 4 + [_I] * 4 + [_P],

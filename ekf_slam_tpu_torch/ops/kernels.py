@@ -26,10 +26,12 @@ raises. On the card every operand is float32, except P of K4 and K8 and
 A of K6, which may be the fast mode's bfloat16 P (FilterConfig.p_storage):
 those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
-``LAUNCHES[name]`` counts kernel launches. The kernels' size limits
-(R = 2·CAP ≤ 256 for K1/K2, feature-add rank ≤ 128 for K3; K3/K5's M2,
-K4's and K8's R and K6's N have none; K7 a window that fits shared memory)
-are checked by the launchers, which return cudaErrorInvalidValue (1).
+``LAUNCHES[name]`` counts calls of a wrapper that launched its kernel (K1
+launches three kernels a call, K2 and K3 two: one count). The kernels'
+size limits (the rank r ≤ 128 of K1's and K3's add; K1/K2's R, K3/K5's
+M2, K4's and K8's R and K6's N have none; K7 a window that fits shared
+memory) are checked by the launchers, which return cudaErrorInvalidValue
+(1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -343,9 +345,10 @@ def fused_manage_predict_pht(P, keep, E6, U6, C66, F13, Q13, Ht):
     Q16[:, :13, :13] = Q13
     out = torch.empty_like(P)
     pht = torch.empty(B, D, R, dtype=P.dtype, device=P.device)
+    V = torch.empty_like(U6)            # the kernel's scratch: U6 + ½·C66·E6
     lib = _build.load()
-    ptrs = (t.data_ptr() for t in (P, keep, E6, U6, C66, F16, Q16, Ht, out,
-                                   pht))
+    ptrs = (t.data_ptr() for t in (P, keep, E6, U6, C66, F16, Q16, Ht, V,
+                                   out, pht))
     _run(name, lib.ekf_k1_manage_predict_pht, *ptrs, B, D, R, r)
     return out, pht
 

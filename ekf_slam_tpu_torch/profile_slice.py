@@ -38,9 +38,11 @@ profile   the first PROFILE_FRAMES frames: their wall time
           the CUDA kernel events), the busy share (device time / unprofiled
           wall), the device ops (kernels, copies, fills), the host time in
           cudaLaunchKernel, the device time and calls of each of the
-          port's own kernels (csrc/, k1_kernel … k8_kernel and K3's
-          prologue k3v_kernel; k4, k6 and k8 by P's type) and the ten
-          ops with the most device time.
+          port's own kernels (csrc/: k1p_kernel, K1's pass; k3_kernel,
+          K2's pass (r = 0) and K3's; k3v_kernel, K1's and K3's prologue;
+          k4_kernel … k8_kernel, k4, k6 and k8 by P's type and k6 by
+          column blocking; k6_kernel<float, 128> also forms K1's and K2's
+          P·Hᵀ) and the ten ops with the most device time.
 
 The last line is one JSON object with every number printed.
 """
@@ -204,7 +206,7 @@ def device_profile(fn, frames: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     own = {m.group(1): {"ms": t / 1e3, "calls": c}
            for n, (t, c) in by_name.items()
-           if (m := re.search(r"::(k[0-9]v?_kernel(?:<[^>]*>)?)\(", n))}
+           if (m := re.search(r"::(k[0-9][vp]?_kernel(?:<[^>]*>)?)\(", n))}
     return {"frames": frames, "wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy": device_ms / (wall * 1e3), "device_ops": ops,
             "device_ops_per_frame": ops / frames,

@@ -1,12 +1,14 @@
-// Runs K3/K5 (fused_update_tail_add / fused_update_tail) of
-// csrc/fused_cov.cu, or K4 (corr_apply_cols), K6 (f32_matmul_big) or K8
-// (corr_apply) of csrc/unfused_cov.cu on the CPU through the stand-in
-// headers beside this file, on random operands, and holds the result
-// against a plain f64 loop.
+// Runs K1 (fused_manage_predict_pht), K2 (fused_update_tail_pht) or K3/K5
+// (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, or K4
+// (corr_apply_cols), K6 (f32_matmul_big) or K8 (corr_apply) of
+// csrc/unfused_cov.cu on the CPU through the stand-in headers beside this
+// file, on random operands, and holds the result against a plain f64 loop.
 //
 //   g++ -std=c++20 -O1 -fsanitize=address -I tests/cuda_emulation
 //       -I ekf_slam_tpu_torch/csrc -x c++ tests/cuda_emulation/harness.cpp
 //       -o emulate -lpthread
+//   ./emulate k1 f32 B D R r symP
+//   ./emulate k2 f32 B D M2 R symP
 //   ./emulate k3 f32 B D M2 r symP             (r = 0: K5)
 //   ./emulate k4 f32|bf16 B D R
 //   ./emulate k6 f32|bf16 B M K N misalign     (misalign: C off 16 bytes)
@@ -16,7 +18,9 @@
 // of the entry's own scale — the same sums over absolute values — plus one
 // bf16 ulp on a bf16 output), every entry was written, and the output is
 // bitwise symmetric where it must be (K4; K8 "full", and "expr" on a
-// symmetric P; K3 and K5 on a symmetric P). P lies at an odd offset inside
+// symmetric P; K1, K2, K3 and K5 on a symmetric P). K1's and K2's P·Hᵀ
+// output is held to 1e-5 of its own scale, Σ_k scale(P_ik)·|Ht_kc|, the
+// reference's P output times Ht in f64. P lies at an odd offset inside
 // a larger buffer, as a matrix of a batch does, so the bulk copies of its
 // 16-byte lines stay inside the buffer.
 #include "fused_cov.cu"
@@ -58,6 +62,11 @@ void register_k4() {
                   *(const float**)a[2], *(PT**)a[3], *(int*)a[4],
                   *(int*)a[5]);
   };
+}
+
+void register_k6_f32() {
+  register_k6<float, 64>();
+  register_k6<float, 128>();
 }
 
 void register_k3() {
@@ -222,22 +231,109 @@ bool run_k4(int Bn, int D, int R) {
   return report("k4", rc, out, ref, scale, Bn, D, true);
 }
 
-// K3 (r > 0) or K5 (r = 0): keepN∘(T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ)
-// + ENᵀUN + UNᵀEN + ENᵀ·CN·EN with a symmetric CN, its f64 reference and
-// scale carried through the same steps (absolute values for the scale).
-// The kernel takes the lower entries of the 8 x 8 renorm corner from its
-// upper ones (the same entries where P is symmetric, its precondition), so
-// the reference does too.
-bool run_k3(int Bn, int D, int M2, int r, bool sym_p) {
+void register_k1() {
   register_k3();
+  register_k6_f32();
+  g_kernels[reinterpret_cast<const void*>(k1p_kernel)] = [](void** a) {
+    k1p_kernel(*(const float**)a[0], *(const float**)a[1],
+               *(const float**)a[2], *(const float**)a[3],
+               *(const float**)a[4], *(const float**)a[5], *(float**)a[6],
+               *(int*)a[7], *(int*)a[8]);
+  };
+}
+
+// J (W x W, row-major) on dims 0:W of one instance's f64 reference t and
+// its scale s (absolute values): rows, then columns, then the W x W
+// corner's lower entries from its upper ones, as the kernels do (the same
+// entries where P is symmetric, their precondition).
+void stripe_ref(double* t, double* s, const float* J, int W, int D) {
+  const int n = std::min(W, D);
+  std::vector<double> row(W), arow(W);
+  for (int j = 0; j < D; ++j) {                   // rows 0:W <- J·rows
+    for (int a = 0; a < n; ++a) {
+      row[a] = arow[a] = 0;
+      for (int k = 0; k < n; ++k) {
+        row[a] += J[a * W + k] * t[k * D + j];
+        arow[a] += std::abs(J[a * W + k]) * s[k * D + j];
+      }
+    }
+    for (int a = 0; a < n; ++a) t[a * D + j] = row[a], s[a * D + j] = arow[a];
+  }
+  for (int i = 0; i < D; ++i) {                   // columns 0:W <- cols·Jᵀ
+    for (int c = 0; c < n; ++c) {
+      row[c] = arow[c] = 0;
+      for (int k = 0; k < n; ++k) {
+        row[c] += t[i * D + k] * J[c * W + k];
+        arow[c] += s[i * D + k] * std::abs(J[c * W + k]);
+      }
+    }
+    for (int c = 0; c < n; ++c) t[i * D + c] = row[c], s[i * D + c] = arow[c];
+  }
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < i; ++j)
+      t[i * D + j] = t[j * D + i], s[i * D + j] = s[j * D + i];
+}
+
+// keep∘t + EᵀU + UᵀE + Eᵀ·C·E on one instance's reference and scale
+// (E, U (r, D), C (r, r) of that instance).
+void add_ref(double* t, double* s, const float* keep, const float* E,
+             const float* U, const float* C, int D, int r) {
+  auto fe = [&](int k, int i) { return double(E[size_t(k) * D + i]); };
+  auto fu = [&](int k, int i) { return double(U[size_t(k) * D + i]); };
+  auto fc = [&](int k, int l) { return double(C[size_t(k) * r + l]); };
+  std::vector<double> CE(static_cast<size_t>(r) * D), aCE(CE.size());
+  for (int k = 0; k < r; ++k)
+    for (int i = 0; i < D; ++i)
+      for (int l = 0; l < r; ++l) {
+        CE[size_t(k) * D + i] += fc(k, l) * fe(l, i);
+        aCE[size_t(k) * D + i] += std::abs(fc(k, l) * fe(l, i));
+      }
+  for (int i = 0; i < D; ++i)
+    for (int j = 0; j < D; ++j) {
+      const bool kept = keep[i] > 0 && keep[j] > 0;
+      double a = kept ? t[i * D + j] : 0, as = kept ? s[i * D + j] : 0;
+      for (int k = 0; k < r; ++k) {
+        a += fe(k, i) * fu(k, j) + fu(k, i) * fe(k, j) +
+             fe(k, i) * CE[size_t(k) * D + j];
+        as += std::abs(fe(k, i) * fu(k, j)) + std::abs(fu(k, i) * fe(k, j)) +
+              std::abs(fe(k, i)) * aCE[size_t(k) * D + j];
+      }
+      t[i * D + j] = a, s[i * D + j] = as;
+    }
+}
+
+// The P·Hᵀ output (Bn x D x R) of K1 / K2 against ref·Ht in f64, each
+// entry within 1e-5 of Σ_k scale_ik·|Ht_kc|; every entry written.
+bool report_pht(const char* tag, const std::vector<float>& pht,
+                const std::vector<double>& ref,
+                const std::vector<double>& scale,
+                const std::vector<float>& Ht, int Bn, int D, int R) {
   const size_t DD = static_cast<size_t>(D) * D;
-  std::vector<float> buf, out(Bn * DD, NAN);
-  std::vector<double> Pd;
-  const float* P = random_p(buf, Pd, Bn, D, sym_p);
-  std::vector<float> K(static_cast<size_t>(Bn) * D * M2), PHt(K.size());
-  std::vector<float> J8(Bn * 64), keep(Bn * D);
-  std::vector<float> E(static_cast<size_t>(Bn) * r * D), U(E.size()),
-      V(E.size(), NAN), C(static_cast<size_t>(Bn) * r * r);
+  double worst = 0;
+  for (int b = 0; b < Bn; ++b)
+    for (int i = 0; i < D; ++i)
+      for (int c = 0; c < R; ++c) {
+        double v = 0, sc = 0;
+        for (int k = 0; k < D; ++k) {
+          const double h = Ht[(size_t(b) * D + k) * R + c];
+          v += ref[b * DD + size_t(i) * D + k] * h;
+          sc += scale[b * DD + size_t(i) * D + k] * std::abs(h);
+        }
+        const double got = pht[(size_t(b) * D + i) * R + c];
+        const double err = std::abs(got - v) / (1e-5 * sc + 1e-30);
+        worst = std::isnan(got) ? 1e9 : std::max(worst, err);
+      }
+  printf("%s P·Hᵀ worst=%.3f of the limit\n", tag, worst);
+  return worst <= 1;
+}
+
+// Random tail operands of Bn instances: K, PHt (D x M2), J8 = I₈ with a
+// Jq4 near I at 3:7.
+void tail_operands(std::vector<float>& K, std::vector<float>& PHt,
+                   std::vector<float>& J8, int Bn, int D, int M2) {
+  K.resize(static_cast<size_t>(Bn) * D * M2);
+  PHt.resize(K.size());
+  J8.resize(Bn * 64);
   for (auto& k : K) k = rnd();
   for (auto& h : PHt) h = rnd();
   for (int b = 0; b < Bn; ++b)
@@ -246,22 +342,16 @@ bool run_k3(int Bn, int D, int M2, int r, bool sym_p) {
         J8[b * 64 + a * 8 + c] = a >= 3 && a < 7 && c >= 3 && c < 7
                                      ? (a == c) + 0.3f * rnd()
                                      : static_cast<float>(a == c);
-  for (auto& k : keep) k = rnd() > -1.f ? 1.f : 0.f;
-  for (auto& e : E) e = rnd();
-  for (auto& u : U) u = rnd();
-  for (int b = 0; b < Bn; ++b)
-    for (int k = 0; k < r; ++k)
-      for (int l = 0; l <= k; ++l)
-        C[(static_cast<size_t>(b) * r + l) * r + k] =
-            C[(static_cast<size_t>(b) * r + k) * r + l] = rnd();
-  const int rc =
-      r > 0 ? ekf_k3_update_tail_add(P, K.data(), PHt.data(), J8.data(),
-                                     keep.data(), E.data(), U.data(),
-                                     C.data(), V.data(), out.data(), Bn, D,
-                                     M2, r, nullptr)
-            : ekf_k5_update_tail(P, K.data(), PHt.data(), J8.data(),
-                                 out.data(), Bn, D, M2, nullptr);
-  std::vector<double> ref(Bn * DD), scale(Bn * DD);
+}
+
+// T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ of every instance in f64, and its scale.
+void tail_ref(std::vector<double>& ref, std::vector<double>& scale,
+              const std::vector<double>& Pd, const std::vector<float>& K,
+              const std::vector<float>& PHt, const std::vector<float>& J8,
+              int Bn, int D, int M2) {
+  const size_t DD = static_cast<size_t>(D) * D;
+  ref.assign(Bn * DD, 0);
+  scale.assign(Bn * DD, 0);
   for (int b = 0; b < Bn; ++b) {
     double* t = ref.data() + b * DD;
     double* s = scale.data() + b * DD;
@@ -279,57 +369,116 @@ bool run_k3(int Bn, int D, int M2, int r, bool sym_p) {
         t[i * D + j] = p - 0.5 * d;
         s[i * D + j] = std::abs(p) + 0.5 * ad;
       }
-    const float* J = J8.data() + b * 64;
-    const int n8 = std::min(8, D);
-    std::vector<double> row(8), arow(8);
-    for (int j = 0; j < D; ++j) {                 // rows 0:8 <- J8·rows
-      for (int a = 0; a < n8; ++a) {
-        row[a] = arow[a] = 0;
-        for (int k = 0; k < n8; ++k) {
-          row[a] += J[a * 8 + k] * t[k * D + j];
-          arow[a] += std::abs(J[a * 8 + k]) * s[k * D + j];
-        }
-      }
-      for (int a = 0; a < n8; ++a) t[a * D + j] = row[a], s[a * D + j] = arow[a];
-    }
-    for (int i = 0; i < D; ++i) {                 // columns 0:8 <- cols·J8ᵀ
-      for (int c = 0; c < n8; ++c) {
-        row[c] = arow[c] = 0;
-        for (int k = 0; k < n8; ++k) {
-          row[c] += t[i * D + k] * J[c * 8 + k];
-          arow[c] += s[i * D + k] * std::abs(J[c * 8 + k]);
-        }
-      }
-      for (int c = 0; c < n8; ++c) t[i * D + c] = row[c], s[i * D + c] = arow[c];
-    }
-    for (int i = 0; i < n8; ++i)                  // the corner's lower entries
-      for (int j = 0; j < i; ++j)                 // from its upper ones
-        t[i * D + j] = t[j * D + i], s[i * D + j] = s[j * D + i];
-    if (r == 0) continue;
-    auto fe = [&](int k, int i) { return double(E[(size_t(b) * r + k) * D + i]); };
-    auto fu = [&](int k, int i) { return double(U[(size_t(b) * r + k) * D + i]); };
-    auto fc = [&](int k, int l) { return double(C[(size_t(b) * r + k) * r + l]); };
-    std::vector<double> CE(static_cast<size_t>(r) * D), aCE(CE.size());
+    stripe_ref(t, s, J8.data() + b * 64, 8, D);
+  }
+}
+
+// The feature add's operands: keep mostly 1, E, U (r x D), C symmetric.
+void add_operands(std::vector<float>& keep, std::vector<float>& E,
+                  std::vector<float>& U, std::vector<float>& C, int Bn, int D,
+                  int r) {
+  keep.resize(Bn * D);
+  E.resize(static_cast<size_t>(Bn) * r * D);
+  U.resize(E.size());
+  C.resize(static_cast<size_t>(Bn) * r * r);
+  for (auto& k : keep) k = rnd() > -1.f ? 1.f : 0.f;
+  for (auto& e : E) e = rnd();
+  for (auto& u : U) u = rnd();
+  for (int b = 0; b < Bn; ++b)
     for (int k = 0; k < r; ++k)
-      for (int i = 0; i < D; ++i)
-        for (int l = 0; l < r; ++l) {
-          CE[size_t(k) * D + i] += fc(k, l) * fe(l, i);
-          aCE[size_t(k) * D + i] += std::abs(fc(k, l) * fe(l, i));
-        }
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < D; ++j) {
-        const bool kept = keep[b * D + i] > 0 && keep[b * D + j] > 0;
-        double a = kept ? t[i * D + j] : 0, as = kept ? s[i * D + j] : 0;
-        for (int k = 0; k < r; ++k) {
-          a += fe(k, i) * fu(k, j) + fu(k, i) * fe(k, j) +
-               fe(k, i) * CE[size_t(k) * D + j];
-          as += std::abs(fe(k, i) * fu(k, j)) + std::abs(fu(k, i) * fe(k, j)) +
-                std::abs(fe(k, i)) * aCE[size_t(k) * D + j];
-        }
-        t[i * D + j] = a, s[i * D + j] = as;
+      for (int l = 0; l <= k; ++l)
+        C[(static_cast<size_t>(b) * r + l) * r + k] =
+            C[(static_cast<size_t>(b) * r + k) * r + l] = rnd();
+}
+
+// K3 (r > 0) or K5 (r = 0): keepN∘(T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ)
+// + ENᵀUN + UNᵀEN + ENᵀ·CN·EN with a symmetric CN, its f64 reference and
+// scale carried through the same steps (absolute values for the scale).
+bool run_k3(int Bn, int D, int M2, int r, bool sym_p) {
+  register_k3();
+  const size_t DD = static_cast<size_t>(D) * D;
+  std::vector<float> buf, out(Bn * DD, NAN), K, PHt, J8, keep, E, U, C;
+  std::vector<double> Pd, ref, scale;
+  const float* P = random_p(buf, Pd, Bn, D, sym_p);
+  tail_operands(K, PHt, J8, Bn, D, M2);
+  add_operands(keep, E, U, C, Bn, D, r);
+  std::vector<float> V(E.size(), NAN);
+  const int rc =
+      r > 0 ? ekf_k3_update_tail_add(P, K.data(), PHt.data(), J8.data(),
+                                     keep.data(), E.data(), U.data(),
+                                     C.data(), V.data(), out.data(), Bn, D,
+                                     M2, r, nullptr)
+            : ekf_k5_update_tail(P, K.data(), PHt.data(), J8.data(),
+                                 out.data(), Bn, D, M2, nullptr);
+  tail_ref(ref, scale, Pd, K, PHt, J8, Bn, D, M2);
+  if (r > 0)
+    for (int b = 0; b < Bn; ++b)
+      add_ref(ref.data() + b * DD, scale.data() + b * DD,
+              keep.data() + size_t(b) * D, E.data() + size_t(b) * r * D,
+              U.data() + size_t(b) * r * D, C.data() + size_t(b) * r * r, D,
+              r);
+  return report(r > 0 ? "k3" : "k5", rc, out, ref, scale, Bn, D, sym_p);
+}
+
+// K2: K5's tail, then P_li·Ht.
+bool run_k2(int Bn, int D, int M2, int R, bool sym_p) {
+  register_k3();
+  register_k6_f32();
+  const size_t DD = static_cast<size_t>(D) * D;
+  std::vector<float> buf, out(Bn * DD, NAN), K, PHt, J8;
+  std::vector<float> Ht(static_cast<size_t>(Bn) * D * R), pht(Ht.size(), NAN);
+  std::vector<double> Pd, ref, scale;
+  const float* P = random_p(buf, Pd, Bn, D, sym_p);
+  tail_operands(K, PHt, J8, Bn, D, M2);
+  for (auto& h : Ht) h = rnd();
+  const int rc = ekf_k2_update_tail_pht(P, K.data(), PHt.data(), J8.data(),
+                                        Ht.data(), out.data(), pht.data(), Bn,
+                                        D, M2, R, nullptr);
+  tail_ref(ref, scale, Pd, K, PHt, J8, Bn, D, M2);
+  const bool ok = report("k2", rc, out, ref, scale, Bn, D, sym_p);
+  return report_pht("k2", pht, ref, scale, Ht, Bn, D, R) && ok;
+}
+
+// K1: Lp·(keep∘P + EᵀU + UᵀE + EᵀCE)·Lpᵀ + Q̃ with F16 = F13 ⊕ I₃ (F13
+// near I), a symmetric Q13 zero-padded to Q16, a symmetric C; then P⁻·Ht.
+bool run_k1(int Bn, int D, int R, int r, bool sym_p) {
+  register_k1();
+  const size_t DD = static_cast<size_t>(D) * D;
+  std::vector<float> buf, out(Bn * DD, NAN), keep, E, U, C;
+  std::vector<float> F16(Bn * 256), Q16(Bn * 256, 0.f);
+  std::vector<float> Ht(static_cast<size_t>(Bn) * D * R), pht(Ht.size(), NAN);
+  std::vector<double> Pd;
+  const float* P = random_p(buf, Pd, Bn, D, sym_p);
+  add_operands(keep, E, U, C, Bn, D, r);
+  std::vector<float> V(E.size(), NAN);
+  for (int b = 0; b < Bn; ++b)
+    for (int a = 0; a < 16; ++a)
+      for (int c = 0; c < 16; ++c) {
+        F16[b * 256 + a * 16 + c] =
+            (a == c) + (a < 13 && c < 13 ? 0.3f * rnd() : 0.f);
+        if (a < 13 && c <= a)
+          Q16[b * 256 + a * 16 + c] = Q16[b * 256 + c * 16 + a] = rnd();
+      }
+  for (auto& h : Ht) h = rnd();
+  const int rc = ekf_k1_manage_predict_pht(
+      P, keep.data(), E.data(), U.data(), C.data(), F16.data(), Q16.data(),
+      Ht.data(), V.data(), out.data(), pht.data(), Bn, D, R, r, nullptr);
+  std::vector<double> ref(Pd), scale(Bn * DD);
+  for (size_t n = 0; n < Bn * DD; ++n) scale[n] = std::abs(Pd[n]);
+  for (int b = 0; b < Bn; ++b) {
+    double* t = ref.data() + b * DD;
+    double* s = scale.data() + b * DD;
+    add_ref(t, s, keep.data() + size_t(b) * D, E.data() + size_t(b) * r * D,
+            U.data() + size_t(b) * r * D, C.data() + size_t(b) * r * r, D, r);
+    stripe_ref(t, s, F16.data() + b * 256, 16, D);
+    for (int a = 0; a < 16; ++a)
+      for (int c = 0; c < 16; ++c) {
+        t[a * D + c] += Q16[b * 256 + a * 16 + c];
+        s[a * D + c] += std::abs(Q16[b * 256 + a * 16 + c]);
       }
   }
-  return report(r > 0 ? "k3" : "k5", rc, out, ref, scale, Bn, D, sym_p);
+  const bool ok = report("k1", rc, out, ref, scale, Bn, D, sym_p);
+  return report_pht("k1", pht, ref, scale, Ht, Bn, D, R) && ok;
 }
 
 }  // namespace
@@ -343,7 +492,11 @@ int main(int argc, char** argv) {
   if (n.size() != want) return 2;
   const bool bf16 = type == "bf16";
   bool ok;
-  if (kernel == "k3")
+  if (kernel == "k1")
+    ok = !bf16 && run_k1(n[0], n[1], n[2], n[3], n[4]);
+  else if (kernel == "k2")
+    ok = !bf16 && run_k2(n[0], n[1], n[2], n[3], n[4]);
+  else if (kernel == "k3")
     ok = !bf16 && run_k3(n[0], n[1], n[2], n[3], n[4]);
   else if (kernel == "k4")
     ok = bf16 ? run_k4<__nv_bfloat16>(n[0], n[1], n[2])

@@ -29,6 +29,7 @@ from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.vision import frontend
+from torch_scales import k1_scale, k3_scale, within
 
 torch.set_num_threads(1)
 
@@ -141,7 +142,9 @@ def test_cuda_check_fails_k1_without_process_noise(card, operands):
 @pytest.mark.cuda
 def test_cuda_downdate_is_symmetric(card, operands):
     """(i,j) and (j,i) tiles of K2's symmetric downdate are float-exact
-    mirrors away from the 8x8 renorm corner."""
+    mirrors: K2's pass (K5's kernel) writes each tile pair once to both
+    triangles and takes the 8x8 renorm corner's lower entries from its
+    upper ones, so the whole output is bitwise symmetric."""
     args = tuple(a.to(card, torch.float32)
                  for a in operands["fused_update_tail_pht"])
     P = args[0]
@@ -149,6 +152,20 @@ def test_cuda_downdate_is_symmetric(card, operands):
     out, _ = kernels.fused_update_tail_pht(*args)
     asym = (out - out.transpose(1, 2))[:, 8:, 8:]
     assert float(asym.abs().max()) == 0.0
+    assert torch.equal(out, out.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_check_fails_k2_product_of_p_before_tail(card, operands):
+    """A planted fault: K2's P·Ht2 taken from the P before the tail (what
+    the composed K2 gives if its product reads the wrong buffer), held
+    against the plain version, reads far above TOL."""
+    args = tuple(a.to(card, torch.float32)
+                 for a in operands["fused_update_tail_pht"])
+    P_li, _ = kernels.fused_update_tail_pht(*args)
+    got = (P_li, kernels.f32_matmul_big(args[0], args[4]))
+    ref = kernels.update_tail_pht_plain(*(a.double() for a in args))
+    assert kernels.scaled_error(got, ref, args[4]) > 100 * TOL
 
 
 @pytest.mark.cuda
@@ -163,13 +180,9 @@ def test_cuda_wrapper_rejects_f64_and_mixed_devices(card, operands):
 
 @pytest.mark.cuda
 def test_cuda_launcher_rejects_sizes_past_its_limits(card, operands):
-    """R = 2·CAP > 256 for K1, rank > 128 for K3: the launcher returns
-    cudaErrorInvalidValue and the wrapper raises."""
-    args = [a.to(card, torch.float32)
-            for a in operands["fused_manage_predict_pht"]]
-    args[7] = torch.zeros(*args[7].shape[:2], 260, device=card)
-    with pytest.raises(RuntimeError, match="cudaError_t 1"):
-        kernels.fused_manage_predict_pht(*args)
+    """Rank > 128 for K3: the launcher returns cudaErrorInvalidValue and
+    the wrapper raises. (K1's and K2's R has no limit:
+    test_cuda_manage_predict_pht_takes_any_width.)"""
     args = [a.to(card, torch.float32)
             for a in operands["fused_update_tail_add"]]
     B, r, D = args[5].shape
@@ -704,19 +717,6 @@ def test_cuda_corr_apply_cols_takes_any_rank(card, R, store):
     assert bool(((got.double() - ref).abs() <= limit).all())
 
 
-def _k3_scale(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None):
-    """Each entry's scale: the function's sums over absolute values."""
-    a = torch.abs
-    S = a(P) + 0.5 * (a(K) @ a(PHt).transpose(1, 2)
-                      + a(PHt) @ a(K).transpose(1, 2))
-    S = kernels._stripe(S, a(Jq4), 3, 7)
-    if EN is None:
-        return S
-    Et = a(EN).transpose(1, 2)
-    return (kernels._keep_mask(S, keepN) + Et @ a(UN)
-            + a(UN).transpose(1, 2) @ a(EN) + Et @ a(CN) @ a(EN))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("M2", [1, 128, 200])
 @pytest.mark.parametrize("r", [0, 6, 60, 128])
@@ -744,5 +744,54 @@ def test_cuda_update_tail_takes_any_width(card, r, M2):
     dops = [o.double() for o in ops]
     ref = (kernels.update_tail_add_plain if r
            else kernels.update_tail_plain)(*dops)
-    limit = CHAIN_TOL * _k3_scale(*dops)
+    limit = CHAIN_TOL * k3_scale(*dops)
     assert bool(((got.double() - ref).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 200, 260])
+def test_cuda_manage_predict_pht_takes_any_width(card, R):
+    """K1 at the bench's D = 613, r = 6, on random operands (P, C66 and
+    Q13 symmetric; F13 near I; keep mostly 1): R below one column group,
+    the bench's 2·CAP = 200 (two 128-column chunks of the product) and 260
+    (past the old stripe kernel's 256-column limit: three chunks).
+    Both outputs within CHAIN_TOL of their scale, P⁻ bitwise symmetric,
+    two launches bit for bit."""
+    n = lambda seed, *shape: _randn(card, 31 * R + seed, *shape)
+    P, C, Q = n(0, 2, 613, 613), n(1, 2, 6, 6), n(2, 2, 13, 13)
+    ops = [0.5 * (P + P.transpose(1, 2)), (n(3, 2, 613) > -1).float(),
+           n(4, 2, 6, 613), n(5, 2, 6, 613), 0.5 * (C + C.transpose(1, 2)),
+           torch.eye(13, device=card) + 0.3 * n(6, 2, 13, 13),
+           0.5 * (Q + Q.transpose(1, 2)), n(7, 2, 613, R)]
+    got = kernels.fused_manage_predict_pht(*ops)
+    again = kernels.fused_manage_predict_pht(*ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert got[1].shape == (2, 613, R)
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+    dops = [o.double() for o in ops]
+    ref = kernels.manage_predict_pht_plain(*dops)
+    assert within(got, ref, k1_scale(*dops), CHAIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M2", [1, 128])
+@pytest.mark.parametrize("R", [1, 200, 260])
+def test_cuda_update_tail_pht_takes_any_width(card, R, M2):
+    """K2 at the bench's D = 613 on random operands (P symmetric, Jq4 near
+    I): M2 below one contraction tile and the bench's 128, R as for K1.
+    Both outputs within CHAIN_TOL of their scale, P_li bitwise symmetric,
+    two launches bit for bit."""
+    n = lambda seed, *shape: _randn(card, 97 * R + M2 + seed, *shape)
+    P = n(0, 2, 613, 613)
+    ops = [0.5 * (P + P.transpose(1, 2)), n(1, 2, 613, M2), n(2, 2, 613, M2),
+           torch.eye(4, device=card) + 0.3 * n(3, 2, 4, 4), n(4, 2, 613, R)]
+    got = kernels.fused_update_tail_pht(*ops)
+    again = kernels.fused_update_tail_pht(*ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+    dops = [o.double() for o in ops]
+    ref = kernels.update_tail_pht_plain(*dops)
+    scale = k3_scale(*dops[:4])
+    assert within(got, ref, (scale, scale @ dops[4].abs()), CHAIN_TOL)

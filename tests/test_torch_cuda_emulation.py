@@ -1,5 +1,5 @@
-"""K3 / K5 of csrc/fused_cov.cu and K4, K6 and K8 of csrc/unfused_cov.cu —
-the CUDA source itself — run on the CPU: compiled by g++ against the
+"""K1, K2 and K3 / K5 of csrc/fused_cov.cu and K4, K6 and K8 of
+csrc/unfused_cov.cu — the CUDA source itself — run on the CPU: compiled by g++ against the
 stand-in headers of tests/cuda_emulation (one std::thread a CUDA thread,
 __syncthreads a barrier, shared memory poisoned with NaN, the asynchronous
 copies done at once with their alignment checked), under
@@ -9,7 +9,8 @@ tests/cuda_emulation/harness.cpp.
 What it can show: a wrong index, mask, ragged edge, tile pair or mirror; a
 read of a word nobody staged; a read or write outside an operand; a bulk
 copy that is not 16-byte aligned; every entry written; bitwise symmetry
-(K4; K8 "full" and "expr" on a symmetric P; K3 / K5 on a symmetric P).
+(K4; K8 "full" and "expr" on a symmetric P; K1, K2, K3 / K5 on a
+symmetric P).
 What it cannot:
 races, asynchrony, anything about speed — those are the card's
 (tests/test_torch_cuda.py). Tolerances are the harness's: 1e-5 of each
@@ -32,6 +33,7 @@ FLAGS = ["-std=c++20", "-O1", "-fsanitize=address", "-x", "c++"]
 # kernel, P / A type, then B M K N misalign (K6) or B D R mode symP (K8)
 K6_CASES = [(t, 2, 70, 70, n, 0) for t in ("f32", "bf16")
             for n in (1, 31, 48, 64, 128, 200)] + [
+    ("f32", 1, 157, 157, 300, 0),                 # 3 chunks of 128
     ("f32", 1, 50, 140, 48, 0), ("bf16", 1, 140, 50, 64, 0),   # M != K
     ("f32", 2, 19, 19, 128, 1), ("bf16", 2, 19, 19, 31, 1),    # below a tile
     ("bf16", 1, 157, 157, 64, 1)]
@@ -48,7 +50,15 @@ K3_CASES = [(2, 70, m2, r, 1) for r in (0, 6, 60) for m2 in (1, 20)] + [
     (1, 157, 20, 60, 1),                      # the stripe on a twin pair
     (1, 70, 3, 128, 1),                       # r at its limit
     (1, 70, 20, 6, 0), (1, 70, 20, 0, 0)]     # P not symmetric: values
-
+# B D R r symP (K1), B D M2 R symP (K2): one ragged tile (D = 19 < 64),
+# two, and three (the stripe on twin pairs); R below one 4-column group,
+# ragged, and the bench's 2·CAP = 200 (two of K6's 128-column chunks, at
+# D = 70 on two instances: every operand's batch offset); r = 1 and the
+# path's 6, M2 below one and past two contraction tiles; P asymmetric once
+K1_CASES = [(1, 19, 1, 1, 1), (1, 19, 31, 1, 1), (1, 70, 1, 6, 1),
+            (2, 70, 200, 6, 1), (1, 157, 31, 6, 1), (1, 70, 31, 6, 0)]
+K2_CASES = [(1, 19, 1, 1, 1), (1, 19, 20, 31, 1), (1, 70, 20, 1, 1),
+            (2, 70, 20, 200, 1), (1, 157, 20, 31, 1), (1, 70, 20, 31, 0)]
 
 @pytest.fixture(scope="module")
 def emulate(tmp_path_factory):
@@ -115,4 +125,26 @@ def test_emulated_update_tail_add(emulate, case):
     tiles; bitwise symmetric on a symmetric P, and right on an asymmetric
     one."""
     done = emulate("k3", "f32", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_manage_predict_pht(emulate, case):
+    """K1's three launches (V = U6 + ½·C66·E6, the tile-pair pass, K6's
+    product): the keep mask, the rank-2r add through V, the 16-wide predict
+    stripe on the pairs of tile row 0 (twin pairs at D = 157), the 16 x 16
+    corner's lower entries from its upper ones, Q̃ on (0, 0), then P⁻·Ht at
+    R below one column group, ragged, and 200 (two 128-column chunks);
+    bitwise symmetric on a symmetric P, C66 and Q13, and right on an
+    asymmetric P."""
+    done = emulate("k1", "f32", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_update_tail_pht(emulate, case):
+    """K2's two launches (K5's tail, then K6's product on the P it wrote):
+    M2 below one and past two contraction tiles, R as for K1; bitwise
+    symmetric on a symmetric P, right on an asymmetric one."""
+    done = emulate("k2", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]

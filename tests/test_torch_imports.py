@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ekf_slam_tpu_torch, and not
-chip_smoke.py, imports JAX, its libraries or the JAX package — the machine
-with the card has no JAX."""
+chip_smoke.py or the card's tests (tests/test_torch_cuda.py and its
+helper), imports JAX, its libraries or the JAX package — the machine with
+the card has no JAX."""
 
 import ast
 import pathlib
@@ -13,7 +14,8 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ekf_slam_tpu")
 FILES = sorted((ROOT / "ekf_slam_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "torch_scales.py"]
 
 
 def _imported_roots(path: pathlib.Path):

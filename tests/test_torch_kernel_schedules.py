@@ -1,8 +1,8 @@
 """The schedules of the card's tile-pair kernels modelled in torch — K8
-(corr_apply), K4 (corr_apply_cols) and K3 / K5 (fused_update_tail_add,
-fused_update_tail) — and chip_smoke's yardsticks for K4, K6 and K8 (their
-operation counts and library calls), on CPU tensors against the plain
-versions.
+(corr_apply), K4 (corr_apply_cols), K3 / K5 (fused_update_tail_add,
+fused_update_tail), K1 (fused_manage_predict_pht) and K2
+(fused_update_tail_pht) — and chip_smoke's yardsticks (operation counts
+and library calls), on CPU tensors against the plain versions.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py). What they
 do with their tiles is arithmetic that a CPU can check. `k8_schedule`
@@ -15,11 +15,15 @@ upper ones, and writes tile (i, j) and, mirrored, tile (j, i).
 each entry's own P, the renorm stripe on the pairs of tile row 0 (rows,
 then columns, then the 8 x 8 corner's lower entries from its upper ones),
 the keep mask and the rank-2r add S2 = [EN; V]ᵀ[V; EN] with
-V = UN + ½·CN·EN. Held against the plain versions at f64 to 1e-12 of each
-entry's scale (the same products in another order), and at f32 for what
-the kernels promise bit for bit: K8 "full" and K4 symmetric, K8 "expr"
-and K3 / K5 symmetric on a symmetric P, every diagonal block by itself
-too.
+V = UN + ½·CN·EN. `k1_schedule` is K1's pass: the keep mask, the add
+S2 = [E6; V]ᵀ[V; E6], the 16-wide predict stripe on the pairs of tile row
+0 (its 16 x 16 corner's lower entries from its upper ones), Q̃ on (0, 0);
+then, as for K2 (K5's schedule), the product P_new·Ht as one chain over k
+in order. Held against the plain versions at f64 to 1e-12 of each entry's
+scale (the same products in another order), and at f32 for what the
+kernels promise bit for bit: K8 "full" and K4 symmetric, K8 "expr", K3 /
+K5, K2 and K1 symmetric on a symmetric P (K1: and a symmetric C66 and
+Q13), every diagonal block by itself too.
 
 This file imports torch and the port only."""
 
@@ -30,6 +34,7 @@ import pytest
 import torch
 
 from ekf_slam_tpu_torch.ops import kernels
+from torch_scales import k1_scale, k3_scale, within
 
 torch.set_num_threads(1)
 
@@ -189,8 +194,26 @@ def k4_schedule(P, A, Bf, diagonal_rule=True):
     return out.to(P.dtype)
 
 
-def k3_schedule(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None,
-                v_form=True):
+def _stripe_pairs(t, J):
+    """In place: the stripe transform J (W x W) on dims 0:W of the pairs of
+    tile row 0 — rows 0:W of tile (0, j) <- J·rows, columns 0:W of tile
+    (j, 0) <- columns·Jᵀ, each an fmaf chain in k order — and on (0, 0)
+    rows, then columns, then the W x W corner's lower entries from its
+    upper ones."""
+    W = J.shape[-1]
+    for i, ti, tj in _pairs(t.shape[1]):
+        if i != 0:
+            continue
+        rows = t[:, 0:W, tj]
+        t[:, 0:W, tj] = _chain(J.transpose(1, 2), rows)
+        cols = t[:, tj, 0:W]
+        t[:, tj, 0:W] = _chain(cols.transpose(1, 2), J.transpose(1, 2))
+        if ti == tj:
+            c = t[:, 0:W, 0:W]
+            t[:, 0:W, 0:W] = torch.triu(c) + torch.triu(c, 1).transpose(1, 2)
+
+
+def k3_schedule(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None):
     """fused_update_tail_add (K5's fused_update_tail without keepN … CN) as
     the card's kernel schedules it, a tile pair (i, j), i <= j, at a time:
     (a) t = P − ½·S1, S1 one chain over [K | PHt]·[PHt | K]ᵀ, tile (j, i)
@@ -198,8 +221,7 @@ def k3_schedule(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None,
     row 0 rows 0:8 of tile (0, j) <- J8·rows and columns 0:8 of tile
     (j, 0) <- columns·J8ᵀ, in k order, and on (0, 0) rows, then columns,
     then the 8 x 8 corner's lower entries from its upper ones; (c) keep
-    mask, then + S2, S2 one chain over [EN; V]ᵀ[V; EN], V = UN + ½·CN·EN
-    (v_form False: the reference's ENᵀUN + UNᵀEN + ENᵀ·CN·EN instead).
+    mask, then + S2, S2 one chain over [EN; V]ᵀ[V; EN], V = UN + ½·CN·EN.
     Computed and returned in P's dtype."""
     D = P.shape[1]
     J8 = kernels._j8(Jq4)
@@ -210,31 +232,51 @@ def k3_schedule(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None,
         s = _diag(S1, ti, tj)
         t[:, ti, tj] = P[:, ti, tj] - 0.5 * s
         t[:, tj, ti] = P[:, tj, ti] - 0.5 * s.transpose(1, 2)
-    for i, ti, tj in _pairs(D):
-        if i != 0:
-            continue
-        rows = t[:, 0:8, tj]
-        t[:, 0:8, tj] = _chain(J8.transpose(1, 2), rows)
-        cols = t[:, tj, 0:8]
-        t[:, tj, 0:8] = _chain(cols.transpose(1, 2), J8.transpose(1, 2))
-        if ti == tj:
-            c = t[:, 0:8, 0:8]
-            t[:, 0:8, 0:8] = torch.triu(c) + torch.triu(c, 1).transpose(1, 2)
+    _stripe_pairs(t, J8)
     if EN is None:
         return t
     t = kernels._keep_mask(t, keepN)
-    if v_form:
-        V = UN + 0.5 * _chain(CN.transpose(1, 2), EN)
-        S2 = _chain(torch.cat([EN, V], 1), torch.cat([V, EN], 1))
-    else:
-        Et = EN.transpose(1, 2)
-        S2 = Et @ UN + UN.transpose(1, 2) @ EN + Et @ CN @ EN
-    out = torch.full_like(P, float("nan"))
-    for _, ti, tj in _pairs(D):
-        s = _diag(S2, ti, tj)
+    return _add_v_form(t, EN, UN, CN)
+
+
+def _product(P, Ht):
+    """P·Ht as K6's panel product sums it: one fmaf chain over k in order."""
+    return _chain(P.transpose(1, 2), Ht)
+
+
+def _add_v_form(t, E, U, C):
+    """t + Eᵀ·V + Vᵀ·E, V = U + ½·C·E, as one chain over [E; V]ᵀ[V; E] a
+    tile pair (a diagonal tile's lower entries from its upper ones)."""
+    V = U + 0.5 * _chain(C.transpose(1, 2), E)
+    S = _chain(torch.cat([E, V], 1), torch.cat([V, E], 1))
+    out = torch.full_like(t, float("nan"))
+    for _, ti, tj in _pairs(t.shape[1]):
+        s = _diag(S, ti, tj)
         out[:, ti, tj] = t[:, ti, tj] + s
         out[:, tj, ti] = t[:, tj, ti] + s.transpose(1, 2)
     return out
+
+
+def k1_schedule(P, keep, E6, U6, C66, F13, Q13, Ht):
+    """fused_manage_predict_pht as the card schedules it: k1p_kernel's tile
+    pairs (the keep mask; + S2 = [E6; V]ᵀ[V; E6], V = U6 + ½·C66·E6; on the
+    pairs of tile row 0 the predict stripe with F16 = F13 ⊕ I₃, and on
+    (0, 0) its 16 x 16 corner's lower entries from its upper ones, then
+    + Q̃), then K6's product P⁻·Ht. Returns (P⁻, PHt) in P's dtype."""
+    B = P.shape[0]
+    F16 = torch.eye(16, dtype=P.dtype).repeat(B, 1, 1)
+    F16[:, :13, :13] = F13
+    t = _add_v_form(kernels._keep_mask(P, keep), E6, U6, C66)
+    _stripe_pairs(t, F16)
+    t[:, :13, :13] = t[:, :13, :13] + Q13
+    return t, _product(t, Ht)
+
+
+def k2_schedule(P, K, PHt, Jq4, Ht):
+    """fused_update_tail_pht as the card schedules it: K5's pass
+    (k3_schedule), then K6's product P_li·Ht."""
+    t = k3_schedule(P, K, PHt, Jq4)
+    return t, _product(t, Ht)
 
 
 def _k3_operands(B, D, M2, r, seed, dtype=torch.float64):
@@ -251,19 +293,6 @@ def _k3_operands(B, D, M2, r, seed, dtype=torch.float64):
         ops += [(torch.rand(B, D, generator=g) > 0.15).double(), n(B, r, D),
                 n(B, r, D), 0.5 * (C + C.transpose(1, 2))]
     return [x.to(dtype) for x in ops]
-
-
-def _k3_scale(P, K, PHt, Jq4, keepN=None, EN=None, UN=None, CN=None):
-    """Each entry's scale: the function's sums over absolute values."""
-    a = lambda x: x.abs()
-    S = a(P) + 0.5 * (a(K) @ a(PHt).transpose(1, 2)
-                      + a(PHt) @ a(K).transpose(1, 2))
-    S = kernels._stripe(S, a(Jq4), 3, 7)
-    if EN is None:
-        return S
-    Et = a(EN).transpose(1, 2)
-    return (kernels._keep_mask(S, keepN) + Et @ a(UN)
-            + a(UN).transpose(1, 2) @ a(EN) + Et @ a(CN) @ a(EN))
 
 
 def _k3_plain(*ops):
@@ -313,7 +342,7 @@ def test_k3_schedule_matches_plain(r, M2, D, B):
     got = k3_schedule(*ops)
     want = _k3_plain(*ops)
     assert bool(torch.isfinite(got).all())
-    assert bool(((got - want).abs() <= F64_TOL * _k3_scale(*ops)).all())
+    assert bool(((got - want).abs() <= F64_TOL * k3_scale(*ops)).all())
     got32 = k3_schedule(*(x.float() for x in ops))
     assert got32.dtype == torch.float32
     for i0 in range(0, D, TILE):
@@ -328,7 +357,7 @@ def test_k3_v_form_adds_the_symmetric_part_of_cn():
     asymmetric one it leaves out exactly −ENᵀ·skew(CN)·EN, skew(CN) =
     ½(CN − CNᵀ), and the f32 result stays bitwise symmetric."""
     ops = _k3_operands(2, 70, 20, 12, 77)
-    scale = _k3_scale(*ops)
+    scale = k3_scale(*ops)
     assert bool(((k3_schedule(*ops) - _k3_plain(*ops)).abs()
                  <= F64_TOL * scale).all())
     CN = ops[7]
@@ -345,9 +374,10 @@ def test_k3_v_form_adds_the_symmetric_part_of_cn():
     assert torch.equal(got32, got32.transpose(1, 2))
 
 
-def _fused_frame(dtype_name, max_new, frames, min_features=12):
-    """K3's operands in the last of `frames` frames of a small fused
-    sequence (CAP 24, B = 3) on the CPU."""
+def _fused_frame(dtype_name, max_new, frames, min_features=12,
+                 name="fused_update_tail_add"):
+    """Kernel `name`'s operands (K3's by default) in the last of `frames`
+    frames of a small fused sequence (CAP 24, B = 3) on the CPU."""
     from ekf_slam_tpu_torch.config import EngineConfig
     from ekf_slam_tpu_torch.filter import engine
     from ekf_slam_tpu_torch.filter.state import init_state
@@ -367,7 +397,7 @@ def _fused_frame(dtype_name, max_new, frames, min_features=12):
         st, _ = engine.step(st, obs.frame(t), u[t], cfg)
     with kernels.capture_operands() as captured:
         engine.step(st, obs.frame(frames - 1), u[frames - 1], cfg)
-    return captured["fused_update_tail_add"][0]
+    return captured[name][0]
 
 
 def test_k3_keep_fault_shows_only_on_stale_slots():
@@ -404,6 +434,87 @@ def test_k3_cn_of_the_path_is_symmetric_to_rounding():
     left_out = -EN.transpose(1, 2) @ skew @ EN
     assert kernels.scaled_error(want + left_out, want) \
         <= 1e-2 * kernels.SCALED_TOL
+
+
+def _k1_operands(B, D, R, r, seed, dtype=torch.float64):
+    """Random K1 operands: a symmetric P, keep mostly 1, a symmetric C66
+    and Q13 (the path's Q13 is symmetric to rounding), F13 near I."""
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64)
+    P, C, Q = n(B, D, D), n(B, r, r), n(B, 13, 13)
+    ops = [0.5 * (P + P.transpose(1, 2)),
+           (torch.rand(B, D, generator=g) > 0.15).double(), n(B, r, D),
+           n(B, r, D), 0.5 * (C + C.transpose(1, 2)),
+           torch.eye(13, dtype=torch.float64) + 0.3 * n(B, 13, 13),
+           0.5 * (Q + Q.transpose(1, 2)), n(B, D, R)]
+    return [x.to(dtype) for x in ops]
+
+
+@pytest.mark.parametrize("D,B", [(19, 2), (70, 2), (613, 1)])
+@pytest.mark.parametrize("R", [1, 200])
+@pytest.mark.parametrize("r", [1, 6])
+def test_k1_schedule_matches_plain(r, R, D, B):
+    """K1's tile-pair pass and product give manage_predict_pht_plain's
+    function: at f64 both outputs within F64_TOL of each entry's scale,
+    every entry written; at f32 P⁻ bitwise symmetric (P, C66 and Q13
+    symmetric), every diagonal block too."""
+    ops = _k1_operands(B, D, R, r, 1000 * D + 10 * R + r)
+    got = k1_schedule(*ops)
+    want = kernels.manage_predict_pht_plain(*ops)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert within(got, want, k1_scale(*ops), F64_TOL)
+    P32, pht32 = k1_schedule(*(x.float() for x in ops))
+    assert P32.dtype == pht32.dtype == torch.float32
+    for i0 in range(0, D, TILE):
+        blk = P32[:, i0:i0 + TILE, i0:i0 + TILE]
+        assert torch.equal(blk, blk.transpose(1, 2)), i0
+    assert torch.equal(P32, P32.transpose(1, 2))
+
+
+def test_k1_corner_follows_q13():
+    """With a Q13 that is not symmetric (the path's, (G·Pn)·Gᵀ, is
+    symmetric to rounding only) P⁻ is the same outside the 13 x 13 corner,
+    bitwise symmetric there, and the corner is the symmetric stripe value
+    plus Q13, one rounding an entry."""
+    ops = _k1_operands(2, 70, 4, 6, 11, torch.float32)
+    ops[6] = ops[6] + 1e-3 * torch.triu(torch.ones_like(ops[6]), 1)
+    P32, _ = k1_schedule(*ops)
+    bare, _ = k1_schedule(*ops[:6], torch.zeros_like(ops[6]), ops[7])
+    corner = bare[:, :13, :13]
+    assert torch.equal(corner, corner.transpose(1, 2))
+    assert torch.equal(P32[:, :13, :13], corner + ops[6])
+    assert not torch.equal(P32[:, :13, :13], P32[:, :13, :13].transpose(1, 2))
+    P32[:, :13, :13] = corner
+    assert torch.equal(P32, bare)
+    assert torch.equal(P32, P32.transpose(1, 2))
+
+
+@pytest.mark.parametrize("D,B", [(19, 2), (70, 2), (613, 1)])
+@pytest.mark.parametrize("M2,R", [(1, 200), (128, 1), (128, 200)])
+def test_k2_schedule_matches_plain(M2, R, D, B):
+    """K2 as K5's tile-pair pass, then the product on the P it wrote:
+    update_tail_pht_plain's function at f64 within F64_TOL of each entry's
+    scale; at f32 P_li bitwise symmetric on a symmetric P."""
+    ops = _k3_operands(B, D, M2, 0, 1000 * D + M2 + R)
+    Ht = torch.randn(B, D, R, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(R))
+    got = k2_schedule(*ops, Ht)
+    want = kernels.update_tail_pht_plain(*ops, Ht)
+    scale = k3_scale(*ops)
+    assert within(got, want, (scale, scale @ Ht.abs()), F64_TOL)
+    P32, _ = k2_schedule(*(x.float() for x in ops), Ht.float())
+    assert torch.equal(P32, P32.transpose(1, 2))
+
+
+def test_k2_product_fault_reads_far_above_the_limit():
+    """chip_smoke's planted K2 fault: P·Ht2 taken from the P before the
+    tail, what a composed K2 gives if its product reads the wrong buffer.
+    On a real f64 frame it reads far above the limit, in P·Ht2 alone."""
+    ops = _fused_frame("float64", 8, 3, name="fused_update_tail_pht")
+    P_li, pht = kernels.update_tail_pht_plain(*ops)
+    fault = kernels.scaled_error((P_li, ops[0] @ ops[4]), (P_li, pht),
+                                 ops[4])
+    assert fault > 100 * kernels.SCALED_TOL
 
 
 # --- chip_smoke's yardsticks --------------------------------------------------
@@ -456,16 +567,30 @@ def _meta(*shape):
     ("corr_apply_cols", ((2, 5, 5), (2, 5, 3), (2, 5, 3)), 2 * 4 * 15 * 3),
     ("corr_apply_cols", ((128, 613, 613), (128, 613, 264), (128, 613, 264)),
      128 * 4 * (613 * 614 // 2) * 264),                  # 25.44 GFLOP
-    # the downdate's 4·M2 and the add's 6·r an entry of the triangle, CN·EN
-    # dense, the stripe's 4·4·4 an entry of the 8-row stripe
+    # the downdate's 4·M2 and the add [EN; V]ᵀ[V; EN]'s 4·r an entry of the
+    # triangle, V = UN + ½·CN·EN dense, the stripe's 4·4·4 an entry of the
+    # 8-row stripe
     ("fused_update_tail", ((128, 613, 613), (128, 613, 128), (128, 613, 128),
                            (128, 4, 4)),
      128 * (4 * (613 * 614 // 2) * 128 + 64 * 613)),      # 12.34 GFLOP
     ("fused_update_tail_add", ((128, 613, 613), (128, 613, 128),
                                (128, 613, 128), (128, 4, 4), (128, 613),
                                (128, 60, 613), (128, 60, 613), (128, 60, 60)),
-     128 * (4 * (613 * 614 // 2) * 128 + 6 * (613 * 614 // 2) * 60
-            + 2 * 60 * 60 * 613 + 64 * 613)),            # 21.58 GFLOP
+     128 * (4 * (613 * 614 // 2) * 128 + 4 * (613 * 614 // 2) * 60
+            + 2 * 60 * 60 * 613 + 64 * 613)),            # 18.68 GFLOP
+    # K1: the product 2·D²·R, the add 4r an entry of the triangle and
+    # V = U6 + ½·C66·E6 dense, the predict stripe 4·13·13 an entry of its
+    # rows
+    ("fused_manage_predict_pht", ((128, 613, 613), (128, 613), (128, 6, 613),
+                                  (128, 6, 613), (128, 6, 6), (128, 13, 13),
+                                  (128, 13, 13), (128, 613, 200)),
+     128 * (2 * 613 * 613 * 200 + 4 * (613 * 614 // 2) * 6 + 2 * 36 * 613
+            + 4 * 13 * 13 * 613)),                       # 19.88 GFLOP
+    # K2: K5's count and the product
+    ("fused_update_tail_pht", ((128, 613, 613), (128, 613, 128),
+                               (128, 613, 128), (128, 4, 4), (128, 613, 200)),
+     128 * (4 * (613 * 614 // 2) * 128 + 2 * 613 * 613 * 200
+            + 64 * 613)),                                # 31.58 GFLOP
 ])
 def test_operation_counts(name, args, flops):
     """chip_smoke.FLOPS, the numerator of a kernel's operations bound, from
