@@ -10,8 +10,10 @@ Phases, one line each, any failure raises (exit code != 0):
                slice's shapes, on operands captured from one real frame:
                K1-K3 from the fused path, K4 and K6 from the unfused path
                (i), K5 and K6 from path (ii), K6 at both of its call sites
-               (RANSAC's P·G and the update's P·Hᵀ), K7 from the image
-               path (all B·CAP windows and templates of the frame); from
+               (RANSAC's P·G and the update's P·Hᵀ), K7 in both forms
+               (ncc_corr, ncc_corr_norms) on the image path's operands
+               of ncc_corr_norms (all B·CAP windows and templates of the
+               frame); from
                the bf16-P fast mode, K8 from a fast_rows frame in its three
                modes with P as stored (bf16) and upcast, and K4 and K6 on
                a fast frame's bf16 P. Each entry's error is scaled to its
@@ -22,9 +24,13 @@ Phases, one line each, any failure raises (exit code != 0):
                before the tail, K3 with keepN all ones on P with stale
                values in the new slots, K5 with the renorm Jacobian
                replaced by I, K7 with the template transposed, K8 without
-               its renorm rows) must fail that check; the f32 patch
-               variance of the NCC norms must stray less than
-               ncc.FLAT_EPS roundoff units from its f64 value.
+               its renorm rows) must fail that check. The norms form's
+               patch variance must stray less than ncc.FLAT_EPS units of
+               eps·Σwc² from its f64 value and its energies agree to
+               1e-5, and its windows rolled up one row (box sums one row
+               down) must read > 100x FLAT_EPS; the plain version's f32
+               variance (the CPU path's) must stray less than FLAT_EPS
+               too.
                Times: kernel, plain version, one library call where one
                computes the same function (K6 torch.bmm, K7 a grouped
                F.conv2d with cuDNN's TF32 off, K8 "expr" and K4
@@ -45,7 +51,7 @@ Phases, one line each, any failure raises (exit code != 0):
                then the pixels bench workload (the same map, 240x320
                rendered frames, R = 12) at B = 32 for 16 frames through
                frontend.run_images:
-                 image  NCC matcher          K7 1x, K4 2x, K6 3x a frame
+                 image  NCC matcher          K7 norms 1x, K4 2x, K6 3x
                  image  descriptor matcher   K4 2x, K6 3x a frame
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
@@ -93,6 +99,7 @@ KERNELS = {
     "fused_update_tail": (FUSED_SRC, f"{PK}:135"),
     "f32_matmul_big": (UNFUSED_SRC, f"{PK}:192"),
     "ncc_corr": (NCC_SRC, f"{PK}:802"),
+    "ncc_corr_norms": (NCC_SRC, f"{PK}:802"),
     "corr_apply": (UNFUSED_SRC, f"{PK}:741"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
@@ -102,7 +109,8 @@ PER_FRAME = {
               "fused_update_tail_add": 1},
     "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
-    "image": {"ncc_corr": 1, "corr_apply_cols": 2, "f32_matmul_big": 3},
+    "image": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
+              "f32_matmul_big": 3},
     "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast_rows": {"corr_apply": 2},
@@ -125,7 +133,21 @@ def _sym(D: int) -> int:
 # EᵀCE as [E; V]ᵀ[V; E] with V = U + ½·C·E: 4r an entry and 2r²D for V;
 # K4's ½(A·Bᵀ + B·Aᵀ) and K8's ½(AtᵀBt + BtᵀAt) in "expr" / "full": 4R;
 # K8's AtᵀBt in "none", not symmetric: 2R an entry over all D² entries),
-# the low-rank factors dense, as the kernels compute them.
+# the low-rank factors dense, as the kernels compute them. K7's norms, a
+# pair, the least that direct sums need (no running sums): W2² each for
+# the mean, the centring, the squares and Σwc²; t − 1 adds for each row
+# sum of wc and of wc² (W2·R2 of each) and for each column sum of those
+# (R2² of each); 4 an offset for the variance.
+def _ncc_flops(win, tm, norms: bool) -> int:
+    N, W2, t = win.shape[0], win.shape[-1], tm.shape[-1]
+    R2 = W2 - t + 1
+    corr = 2 * N * R2 ** 2 * t ** 2
+    if not norms:
+        return corr
+    return corr + N * (4 * W2 ** 2 + 2 * (t - 1) * (W2 * R2 + R2 ** 2)
+                       + 4 * R2 ** 2)
+
+
 FLOPS = {
     "fused_manage_predict_pht": lambda P, keep, E6, U6, C66, F13, Q13, Ht:
         P.shape[0] * (2 * P.shape[1] ** 2 * Ht.shape[2]
@@ -148,9 +170,8 @@ FLOPS = {
                       + 4 * 4 * 4 * P.shape[1]),
     "f32_matmul_big": lambda A, B:
         2 * A.shape[0] * A.shape[1] * A.shape[2] * B.shape[2],
-    "ncc_corr": lambda win, tm:
-        2 * win.shape[0] * (win.shape[-1] - tm.shape[-1] + 1) ** 2
-        * tm.shape[-1] ** 2,
+    "ncc_corr": lambda win, tm: _ncc_flops(win, tm, False),
+    "ncc_corr_norms": lambda win, tm: _ncc_flops(win, tm, True),
     "corr_apply": lambda P, At, Bt, mode:
         P.shape[0] * (2 * P.shape[1] ** 2 * At.shape[1] if mode == "none"
                       else 4 * _sym(P.shape[1]) * At.shape[1]),
@@ -180,6 +201,9 @@ LIBRARY = {
 # their last bits land one bf16 ulp apart, up to 2^-7 of an entry).
 X_RTOL = 1e-3
 P_TOL = 1e-2
+# K7's norms form, f32 against its f64 plain version: each window's Σwc²
+# (a sum of W2² squares) within this share.
+ENERGY_RTOL = 1e-5
 
 
 def phase(tag: str, **fields) -> None:
@@ -208,9 +232,12 @@ def max_asym(P: torch.Tensor) -> float:
 def kernel_error(name, out, ref, args) -> float:
     """kernels.scaled_error of a kernel's output against its f64 plain
     version; for K6 the product bound sqrt(P_ii·(Hᵀ·P·H)_kk), for K7 the
-    bound ‖window patch‖·‖template‖ (kernels.ncc_error)."""
+    bound ‖window patch‖·‖template‖ (kernels.ncc_error; for the norms
+    form, of its correlation)."""
     if name == "ncc_corr":
         return kernels.ncc_error(out, ref, *args)
+    if name == "ncc_corr_norms":
+        return kernels.ncc_error(out[0], ref[0], *args)
     if name == "f32_matmul_big":
         A = args[0].double()
         return kernels.product_error(out, ref, torch.diagonal(
@@ -222,8 +249,10 @@ def kernel_error(name, out, ref, args) -> float:
 
 def check_kernel(name, args, site="") -> dict:
     """One kernel against its plain version on the card: errors (kernel
-    vs f64 plain on the same inputs, limit kernels.SCALED_TOL), CUDA-event
-    times of kernel, plain and library call, max|P−Pᵀ| of the P output."""
+    vs f64 plain on the same inputs, limit kernels.SCALED_TOL; K7's norms
+    form also its variance stray, limit ncc.FLAT_EPS, and its energies'
+    error, limit ENERGY_RTOL), CUDA-event times of kernel, plain and
+    library call, max|P−Pᵀ| of the P output."""
     wrapper, plain = getattr(kernels, name), kernels.PLAIN[name]
     out = wrapper(*args)
     torch.cuda.synchronize()
@@ -263,12 +292,23 @@ def check_kernel(name, args, site="") -> dict:
         gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}")
     if library_ms is not None:
         fields["library_abs_err"] = f"{lib_err:.3e}"
-    if name not in ("f32_matmul_big", "ncc_corr"):
+    if name not in ("f32_matmul_big", "ncc_corr", "ncc_corr_norms"):
         fields["asym"] = f"{max_asym(outs[0]):.3e}"
+    norms = {}
+    if name == "ncc_corr_norms":
+        norms = {"var_stray": kernels.var_stray(outs[1], refs[1], refs[2]),
+                 "energy_rel_err": kernels.energy_error(outs[2], refs[2])}
+        fields.update(var_stray=f"{norms['var_stray']:.4f}",
+                      var_limit=ncc.FLAT_EPS,
+                      energy_rel_err=f"{norms['energy_rel_err']:.3e}")
     phase("kernel", **fields)
     if not err <= kernels.SCALED_TOL:
         raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
                              f"{kernels.SCALED_TOL}")
+    if norms and not (norms["var_stray"] < ncc.FLAT_EPS
+                      and norms["energy_rel_err"] <= ENERGY_RTOL):
+        raise AssertionError(f"{name} {site}: norms off their limits: "
+                             f"{norms}")
     symmetric = name == "corr_apply_cols" or (name == "corr_apply"
                                               and args[3] == "full")
     if symmetric and not torch.equal(outs[0], outs[0].transpose(1, 2)):
@@ -279,28 +319,26 @@ def check_kernel(name, args, site="") -> dict:
             "replaces": replaces, "max_abs_err": abs_err,
             "scaled_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **norms}
 
 
-def planted_fault(tag, got, ref, err_fn) -> None:
+def planted_fault(tag, got, ref, err_fn, limit=kernels.SCALED_TOL) -> None:
     """A kernel launched with a planted fault must read > 100x the limit."""
     fault = err_fn(got, ref)
-    phase("fault", planted=tag, scaled_err=f"{fault:.3e}",
-          limit=kernels.SCALED_TOL)
-    if not fault > 100 * kernels.SCALED_TOL:
+    phase("fault", planted=tag, scaled_err=f"{fault:.3e}", limit=limit)
+    if not fault > 100 * limit:
         raise AssertionError(f"the check misses {tag}: {fault:.3e}")
 
 
 def flat_stray(win, t) -> None:
-    """The largest stray of the f32 patch variance (ncc.patch_variance, on
-    the card) from its f64 value over the frame's windows, in units of
-    eps·Σwc²: it must stay below ncc.FLAT_EPS, the floor under which
-    ncc_scores_all scores a patch as flat."""
+    """The largest stray of the plain version's f32 patch variance
+    (ncc.patch_variance, integral images, on the card: the CPU path's
+    norms) from its f64 value over the frame's windows, in units of
+    eps·Σwc² (kernels.var_stray): it must stay below ncc.FLAT_EPS, the
+    floor under which ncc_scores_all scores a patch as flat."""
     var32, _ = ncc.patch_variance(win, t)
     var64, energy = ncc.patch_variance(win.double(), t)
-    stray = float(((var32.double() - var64).abs()
-                   / (torch.finfo(torch.float32).eps
-                      * energy[:, None, None])).max())
+    stray = kernels.var_stray(var32, var64, energy)
     phase("flat", flat_stray=f"{stray:.4f}", limit=ncc.FLAT_EPS,
           windows=win.shape[0])
     if not stray < ncc.FLAT_EPS:
@@ -505,16 +543,23 @@ def check_paths(dev, card: str) -> list:
         kernels.update_tail_plain(*(a.double() for a in args)),
         kernels.scaled_error)
 
-    # The image frame's numerator: all B·CAP windows and templates at once.
+    # The image frame's numerator and norms: all B·CAP windows and
+    # templates at once, through both forms of K7.
     inputs = capture_image_frame(icfgs["image"], ist0, iapp0, imgs, iu, dev)
-    args = inputs["ncc_corr"][0]
-    report["ncc_corr"] = check_kernel("ncc_corr", args, "image")
+    args = inputs["ncc_corr_norms"][0]
+    for name in ("ncc_corr", "ncc_corr_norms"):
+        report[name] = check_kernel(name, args, "image")
     win, tm = args
     planted_fault(
         "K7_template_transposed",
         kernels.ncc_corr(win, tm.transpose(1, 2).contiguous()),
         kernels.ncc_corr_plain(win.double(), tm.double()),
         lambda g, r: kernels.ncc_error(g, r, win, tm))
+    planted_fault(
+        "K7_box_sums_one_row_down",
+        kernels.ncc_corr_norms(torch.roll(win, -1, 1).contiguous(), tm)[1],
+        kernels.ncc_corr_norms_plain(win.double(), tm.double()),
+        lambda g, r: kernels.var_stray(g, r[1], r[2]), limit=ncc.FLAT_EPS)
     flat_stray(win, tm.shape[-1])
 
     # The fast mode (bf16 P, M = 24, scene FAST_SCENE): K8 on a row-form
@@ -574,7 +619,7 @@ def check_paths(dev, card: str) -> list:
             return final, traj, infos
         return run
 
-    launches = {}
+    launches, image_counts = {}, {}
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
                        ("fast", 3), ("fast_rows", 3), ("image", 3),
                        ("image_descriptor", 1)):
@@ -588,10 +633,14 @@ def check_paths(dev, card: str) -> list:
         else:
             counts = run_slice(path, icfgs[path], image_run(path),
                                IMAGE_BATCH, ixs, runs, 0.5, card)
+            if path == "image":
+                image_counts = counts
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
     for name, k in report.items():
-        k["launches"] = launches[name]
+        # ncc_corr, on no path since the matcher takes the norms form: its
+        # count in the image run, which run_slice held to 0
+        k["launches"] = launches.get(name, image_counts[name])
 
     # -- 5. one frame: CUDA vs CPU on each path, fused vs unfused on the card
     st8, _, _ = engine.run_sequence(st0, obs.window(0, 8), u[:8],

@@ -1,7 +1,7 @@
-"""Time the panel-product kernels (K1, K2, K3 / K5, K4, K6, K8) as built,
-and as built with one design choice changed, on one CUDA card: the
-evidence behind the choices in csrc/fused_cov.cu, csrc/unfused_cov.cu and
-csrc/common.cuh, and the tool for the next one.
+"""Time the panel-product kernels (K1, K2, K3 / K5, K4, K6, K8) and K7 as
+built, and as built with one design choice changed, on one CUDA card: the
+evidence behind the choices in csrc/fused_cov.cu, csrc/unfused_cov.cu,
+csrc/common.cuh and csrc/ncc.cu, and the tool for the next one.
 
     python -m ekf_slam_tpu_torch.kernel_variants [variant ...] [--sass]
                                                   [--widths]
@@ -15,13 +15,16 @@ K8 in its three modes on a bf16 and an f32 P (R = 56) and K4 on an f32 P
 (R = 264) and a bf16 P (R = 104) beside ``torch.baddbmm``; K3 (M2 = 128,
 r = 60) and K5 (M2 = 128); K1 (r = 6) and K2 (M2 = 128) at R = 2·CAP =
 200, and their product alone, K6 on an f32 P at N = 200, beside
-``torch.bmm``. CUDA events, the mean of 20 launches after 3 warm ones.
+``torch.bmm``; K7 at the pixels bench (N = 3,200 pairs, W2 = 37, t = 13),
+the correlation beside a grouped ``F.conv2d`` (TF32 off) and the norms
+form. CUDA events, the mean of 20 launches after 3 warm ones.
 Variants whose name says ``timing_only`` skip part of the work and give
 wrong outputs: they split a kernel's time into its phases. ``--sass`` also
-prints, for every K1 / K3 / K4 / K6 / K8 kernel of the first variant, the
-instruction mix of its multiply loop from ``cuobjdump -sass`` (the share
-of FFMA among the instructions of the loop with the most FFMAs; K3's two
-products and K1's pass run the same loop). ``--widths`` also times K5 and K4
+prints, for every K1 / K3 / K4 / K6 / K7 / K8 kernel of the first
+variant, the instruction mix of its multiply loop from ``cuobjdump -sass``
+(the share of FFMA among the instructions of the loop with the most
+FFMAs; K3's two products and K1's pass run the same loop; K7's loop over
+window rows at t = 13, compiled unrolled). ``--widths`` also times K5 and K4
 (f32 P, as built) at contraction widths around the bench's 128 and 264:
 time against width splits a kernel's cost per 8-deep contraction tile
 from its fixed cost a call, and shows whether a power-of-two row stride of
@@ -53,9 +56,10 @@ K1_R, K1_r = 200, 6                   # 2·CAP gain columns, the rank-6 add
 WIDTHS = (120, 124, 128, 132, 136, 256, 264)
 K6_SITES = (("f32_N128", torch.float32, 128), ("f32_N64", torch.float32, 64),
             ("bf16_N48", torch.bfloat16, 48), ("bf16_N64", torch.bfloat16, 64))
-SOURCES = ("unfused_cov.cu", "fused_cov.cu", "common.cuh")
+K7_N, K7_W2, K7_T = 3200, 37, 13      # B 32 · CAP 100 pairs, R = 12
+SOURCES = ("unfused_cov.cu", "fused_cov.cu", "ncc.cu", "common.cuh")
 TIMED = ("k1p_kernel", "k3_kernel", "k3v_kernel", "k4_kernel", "k6_kernel",
-         "k8_kernel")
+         "k7_kernel", "k8_kernel")
 # A kernel's name in a mangled symbol: k3_kernel, k1p_kernel, k8_kernelIf, ...
 NAME = r"(k\d[vp]?_kernel(?:I\w*?(?=EEv))?)"
 G8 = "using G8 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
@@ -95,6 +99,8 @@ K1_PASS = "  cudaError_t err = v_launch(E, U, C, V, B, D, r, s);"
 K2_PASS = """  const cudaError_t err =
       k3_launch(P, K, PHt, J8, nullptr, nullptr, nullptr, Pout, B, D, M2, 0,"""
 PAIR_BLOCKS = "constexpr int PAIR_BLOCKS = 4;"
+# K7 (ncc.cu)
+K7_UNROLLED = "constexpr int K7_T = 13;"
 # name -> {source: ((old, new) substitutions)}
 VARIANTS = {
     "base": {},
@@ -145,6 +151,22 @@ VARIANTS = {
          "panel_product<G3>(acc, sm, 0, lx, ly);"),
         ("panel_product<G3>(acc, sm, 2 * tiles2, ex, ey);",
          "panel_product<G3>(acc, sm, 0, ex, ey);"))},
+    # K7 split: the norms form without its passes for the mean and Σwc²,
+    # without its tiles' variances; either form without its global
+    # stores, or without the copies that stage its operands
+    "k7_timing_only_no_stats": {"ncc.cu": ((
+        "    if constexpr (NORMS) {      // each pair's mean, then its Σwc²",
+        "    if constexpr (NORMS) if (G.N < 0) {"),)},
+    "k7_timing_only_no_var_tile": {"ncc.cu": ((
+        "        var_tile<T, TY, TX>(", "        if (G.N < 0) var_tile<T, TY, TX>("),)},
+    "k7_timing_only_no_stores": {"ncc.cu": ((
+        "      if (oy0 + ty < R2 && ox0 + c < R2)",
+        "      if (oy0 + ty < R2 && ox0 + c < R2 && v[ty][c] == 1e30f)"),)},
+    "k7_timing_only_no_staging": {"ncc.cu": ((
+        "    cp_async4(dst + w.p * bstride", "    if (count < 0) cp_async4(dst + w.p * bstride"),)},
+    # K7 at t = 13 through the run-time-t loop (nothing compiled unrolled)
+    "k7_runtime_t": {"ncc.cu": ((K7_UNROLLED,
+                                 K7_UNROLLED.replace("13", "0")),)},
     # K1 and K2 without their product: the tile-pair pass (K1's with its
     # V prologue) alone
     "k12_timing_only_pass": {"fused_cov.cu": (
@@ -199,6 +221,7 @@ def build(name: str) -> ctypes.CDLL:
     for fn in ("ekf_k1_manage_predict_pht", "ekf_k2_update_tail_pht",
                "ekf_k3_update_tail_add", "ekf_k4_corr_apply_cols",
                "ekf_k5_update_tail", "ekf_k6_matmul_big",
+               "ekf_k7_ncc_corr", "ekf_k7_ncc_corr_norms",
                "ekf_k8_corr_apply"):
         getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
@@ -276,6 +299,9 @@ def operands(dev) -> dict:
            "Ht": n(B, D, K1_R), "E6": n(B, K1_r, D), "U6": n(B, K1_r, D),
            "V6": n(B, K1_r, D), "F16": torch.eye(16, device=dev).repeat(B, 1, 1),
            "Q16": torch.zeros(B, 16, 16, device=dev)}
+    ops["win"] = torch.rand(K7_N, K7_W2, K7_W2, device=dev, generator=g)
+    tm = n(K7_N, K7_T, K7_T)
+    ops["tm"] = tm - tm.mean(dim=(1, 2), keepdim=True)
     C = n(B, K3_R, K3_R)
     ops["C"] = 0.5 * (C + C.transpose(1, 2))
     C = n(B, K1_r, K1_r)
@@ -296,6 +322,8 @@ def library_times(o) -> dict:
         XY4 = torch.cat([A, Bf], 2), torch.cat([Bf, A], 2).transpose(1, 2)
         lib[f"k4_{t}"] = cuda_ms(lambda XY4=XY4: torch.baddbmm(P32, *XY4,
                                                                alpha=0.5))
+    lib["k7_conv"] = cuda_ms(lambda: torch.nn.functional.conv2d(
+        o["win"][None], o["tm"][:, None], groups=K7_N))
     return lib
 
 
@@ -338,6 +366,15 @@ def time_variant(lib, o, dev) -> dict:
         lib.ekf_k1_manage_predict_pht, *map(ptr, (
             P, o["keep"], o["E6"], o["U6"], o["C66"], o["F16"], o["Q16"],
             o["Ht"], o["V6"], out, pht)), B, D, K1_R, K1_r))
+    R2 = K7_W2 - K7_T + 1
+    corr = torch.empty(K7_N, R2, R2, device=dev)
+    var, energy = torch.empty_like(corr), torch.empty(K7_N, device=dev)
+    times["k7_corr"] = cuda_ms(launcher(
+        lib.ekf_k7_ncc_corr, ptr(o["win"]), ptr(o["tm"]), ptr(corr), K7_N,
+        K7_W2, K7_T))
+    times["k7_norms"] = cuda_ms(launcher(
+        lib.ekf_k7_ncc_corr_norms, *map(ptr, (o["win"], o["tm"], corr, var,
+                                              energy)), K7_N, K7_W2, K7_T))
     times["k2"] = cuda_ms(launcher(
         lib.ekf_k2_update_tail_pht, *map(ptr, (
             P, o["K"], o["PHt"], o["J8"], o["Ht"], out, pht)), B, D, K3_M2,
@@ -378,6 +415,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

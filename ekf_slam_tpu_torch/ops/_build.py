@@ -41,6 +41,7 @@ SIGNATURES = {
     "ekf_k5_update_tail": [_P] * 5 + [_I] * 3 + [_P],
     "ekf_k6_matmul_big": [_P] * 3 + [_I] * 5 + [_P],
     "ekf_k7_ncc_corr": [_P] * 3 + [_I] * 3 + [_P],
+    "ekf_k7_ncc_corr_norms": [_P] * 5 + [_I] * 3 + [_P],
     "ekf_k8_corr_apply": [_P] * 4 + [_I] * 5 + [_P],
 }
 

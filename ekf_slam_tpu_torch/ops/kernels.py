@@ -15,9 +15,12 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
   K8 corr_apply               — the row-form update's folded tail apply,
                                 P + ½(AtᵀBt + BtᵀAt) and its "none" /
                                 "full" modes (unfused_cov.cu)
-  image path:
+  image path (ncc.cu, one kernel template in two forms):
   K7 ncc_corr                 — the NCC matcher's correlation numerator
-                                over N (window, template) pairs (ncc.cu)
+                                over N (window, template) pairs
+     ncc_corr_norms           — the same, and from the same staging the
+                                windows' patch variances and energies:
+                                the form the image path runs
 
 Each wrapper takes batched tensors (leading instance axis B; K7 the pair
 axis N). A tensor on the CPU goes to the plain version beside the
@@ -49,7 +52,7 @@ from ekf_slam_tpu_torch.ops import _build
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0, "corr_apply_cols": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
-            "corr_apply": 0}
+            "ncc_corr_norms": 0, "corr_apply": 0}
 
 
 def reset_launches() -> None:
@@ -167,6 +170,35 @@ def ncc_corr_plain(windows, tm):
     return out
 
 
+def _boxsum(x, t: int, R2: int):
+    """Per-offset t×t patch sums of (..., W2, W2) windows via integral
+    images: two prefix sums and four slices."""
+    ii = torch.cumsum(torch.cumsum(x, dim=-2), dim=-1)
+    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
+    return (ii[..., t:t + R2, t:t + R2] - ii[..., 0:R2, t:t + R2]
+            - ii[..., t:t + R2, 0:R2] + ii[..., 0:R2, 0:R2])
+
+
+def patch_variance_plain(windows, t: int):
+    """Per-offset t×t patch variance (times t²) of windows (N, W2, W2),
+    from box sums of the windows less their means, clamped at 0 ->
+    (N, R2, R2); and each window's centered energy Σwc² (N,)."""
+    R2 = windows.shape[-1] - t + 1
+    wc = windows - windows.mean(dim=(-2, -1), keepdim=True)
+    box = _boxsum(wc, t, R2)
+    sq = _boxsum(wc * wc, t, R2)
+    var = torch.clamp(sq - box * box / (t * t), min=0.0)
+    return var, (wc * wc).sum(dim=(-2, -1))
+
+
+def ncc_corr_norms_plain(windows, tm):
+    """(ncc_corr_plain(windows, tm), *patch_variance_plain(windows, t)):
+    the correlation (N,R2,R2), the patch variances (N,R2,R2) and the
+    windows' centered energies (N,)."""
+    return (ncc_corr_plain(windows, tm),
+            *patch_variance_plain(windows, tm.shape[-1]))
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
          "fused_update_tail_add": update_tail_add_plain,
@@ -174,6 +206,7 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail": update_tail_plain,
          "f32_matmul_big": matmul_big_plain,
          "ncc_corr": ncc_corr_plain,
+         "ncc_corr_norms": ncc_corr_norms_plain,
          "corr_apply": corr_apply_plain}
 
 
@@ -248,6 +281,22 @@ def ncc_error(out, ref, windows, tm) -> float:
     diff = out.double() - ref.double()
     err = torch.where(diff == 0, torch.zeros_like(diff), diff.abs() / bound)
     return float(err.max())
+
+
+def var_stray(var, ref_var, ref_energy) -> float:
+    """The largest stray of patch variances `var` from their reference,
+    in units of eps_f32·Σwc² of the pair's window (ref_energy): the units
+    of ncc.FLAT_EPS, the floor under which the matcher scores a patch as
+    flat."""
+    unit = torch.finfo(torch.float32).eps * ref_energy.double()
+    return float(((var.double() - ref_var.double()).abs()
+                  / unit[:, None, None]).max())
+
+
+def energy_error(energy, ref_energy) -> float:
+    """The largest relative error of the windows' energies Σwc²."""
+    ref = ref_energy.double()
+    return float(((energy.double() - ref).abs() / ref).max())
 
 
 def stale_slots(P, keepN):
@@ -474,17 +523,23 @@ def f32_matmul_big(A, B):
     return out
 
 
-def ncc_corr(windows, tm):
-    """K7: windows (N,W2,W2); tm (N,t,t) zero-mean templates, t ≤ W2.
-    Returns out (N,R2,R2), R2 = W2 − t + 1, out[n,oy,ox] =
-    Σ_{dy,dx} windows[n,oy+dy,ox+dx]·tm[n,dy,dx]."""
-    name = "ncc_corr"
+def _ncc_operands(name, windows, tm):
+    """K7's operand checks: (on the card?, N, W2, t)."""
     N, W2 = windows.shape[0], windows.shape[-1]
     t = tm.shape[-1]
     if not 1 <= t <= W2:
         raise ValueError(f"{name}: template {t} wider than window {W2}")
     on_card = _check(name, {"windows": (N, W2, W2), "tm": (N, t, t)},
                      dict(windows=windows, tm=tm))
+    return on_card, N, W2, t
+
+
+def ncc_corr(windows, tm):
+    """K7: windows (N,W2,W2); tm (N,t,t) zero-mean templates, t ≤ W2.
+    Returns out (N,R2,R2), R2 = W2 − t + 1, out[n,oy,ox] =
+    Σ_{dy,dx} windows[n,oy+dy,ox+dx]·tm[n,dy,dx]."""
+    name = "ncc_corr"
+    on_card, N, W2, t = _ncc_operands(name, windows, tm)
     if not on_card:
         return ncc_corr_plain(windows, tm)
     R2 = W2 - t + 1
@@ -493,3 +548,24 @@ def ncc_corr(windows, tm):
     _run(name, lib.ekf_k7_ncc_corr, windows.data_ptr(), tm.data_ptr(),
          out.data_ptr(), N, W2, t)
     return out
+
+
+def ncc_corr_norms(windows, tm):
+    """K7 with the NCC norms, as ncc_corr takes its operands. Returns
+    (corr (N,R2,R2), var (N,R2,R2), energy (N,)): ncc_corr's output; each
+    offset's t×t patch variance (times t²) of the window less its mean,
+    clamped at 0; each window's Σwc². The kernel forms the norms from
+    direct box sums of the staged window, the plain version from integral
+    images."""
+    name = "ncc_corr_norms"
+    on_card, N, W2, t = _ncc_operands(name, windows, tm)
+    if not on_card:
+        return ncc_corr_norms_plain(windows, tm)
+    R2 = W2 - t + 1
+    corr = torch.empty(N, R2, R2, dtype=windows.dtype, device=windows.device)
+    var = torch.empty_like(corr)
+    energy = torch.empty(N, dtype=windows.dtype, device=windows.device)
+    lib = _build.load()
+    _run(name, lib.ekf_k7_ncc_corr_norms, windows.data_ptr(), tm.data_ptr(),
+         corr.data_ptr(), var.data_ptr(), energy.data_ptr(), N, W2, t)
+    return corr, var, energy

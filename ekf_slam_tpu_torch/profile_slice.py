@@ -21,8 +21,8 @@ max_update_obs 24):
 
 The image path is the JAX pixels bench's workload with the NCC matcher
 (see ``image_config``), B = 32 instances, 16 rendered 240x320 frames,
-through vision/frontend.run_images: K7 for the NCC numerator, K6 and K4
-as on the unfused path. ``image_descriptor`` is the same workload with the
+through vision/frontend.run_images: K7's norms form for the NCC
+numerator and patch norms, K6 and K4 as on the unfused path. ``image_descriptor`` is the same workload with the
 binary-descriptor matcher (the JAX default): K6 and K4, no K7.
 
 Two measurements, each of the two routes of the covariance work:
@@ -41,8 +41,8 @@ profile   the first PROFILE_FRAMES frames: their wall time
           port's own kernels (csrc/: k1p_kernel, K1's pass; k3_kernel,
           K2's pass (r = 0) and K3's; k3v_kernel, K1's and K3's prologue;
           k4_kernel … k8_kernel, k4, k6 and k8 by P's type and k6 by
-          column blocking; k6_kernel<float, 128> also forms K1's and K2's
-          P·Hᵀ) and the ten ops with the most device time.
+          column blocking, k7 by its template width and form (true: the
+          norms); k6_kernel<float, 128> also forms K1's and K2's P·Hᵀ) and the ten ops with the most device time.
 
 The last line is one JSON object with every number printed.
 """

@@ -3,10 +3,11 @@
 Port of ``ekf_slam_tpu/vision/ncc.py`` (crosscorr.m's zero-mean NCC and
 matching.m's χ²-gated search) on one form: each feature's static
 (2R+1)² search window is cut from the shared frame by index arithmetic,
-the correlation numerator of ALL features of ALL instances is one launch
-of K7 (``kernels.ncc_corr``), and the per-offset patch norms come from
-integral images (``_boxsum``). Positions outside the χ² ellipse are masked
-before the argmax.
+and the correlation numerator and the per-offset patch norms of ALL
+features of ALL instances are one launch of K7's norms form
+(``kernels.ncc_corr_norms``: direct box sums on the card, integral images
+in its plain version). Positions outside the χ² ellipse are masked before
+the argmax.
 
 Not ported: the other numerator lowerings (EKF_NCC), their precision knob
 (EKF_NCC_PREC: the port computes in true f32, or in f64 on f64 inputs),
@@ -65,51 +66,36 @@ def extract_patch_anchored(img: torch.Tensor, center_uv: torch.Tensor,
     return patches.reshape(*lead, size, size), u0, v0
 
 
-def _boxsum(x: torch.Tensor, t: int, R2: int) -> torch.Tensor:
-    """Per-offset t×t patch sums of (..., W2, W2) windows via integral
-    images: two prefix sums and four slices."""
-    ii = torch.cumsum(torch.cumsum(x, dim=-2), dim=-1)
-    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
-    return (ii[..., t:t + R2, t:t + R2] - ii[..., 0:R2, t:t + R2]
-            - ii[..., t:t + R2, 0:R2] + ii[..., 0:R2, 0:R2])
-
-
 def patch_variance(windows: torch.Tensor, t: int):
     """Per-offset t×t patch variance (times t²) of windows (N, W2, W2),
-    from box sums of the windows less their means, clamped at 0 ->
-    (N, R2, R2); and each window's centered energy Σwc² (N,)."""
-    R2 = windows.shape[-1] - t + 1
-    wc = windows - windows.mean(dim=(-2, -1), keepdim=True)
-    box = _boxsum(wc, t, R2)
-    sq = _boxsum(wc * wc, t, R2)
-    var = torch.clamp(sq - box * box / (t * t), min=0.0)
-    return var, (wc * wc).sum(dim=(-2, -1))
+    from integral images of the windows less their means, clamped at 0 ->
+    (N, R2, R2); and each window's centered energy Σwc² (N,): the norms of
+    K7's plain version (kernels.patch_variance_plain)."""
+    return kernels.patch_variance_plain(windows, t)
 
 
 def ncc_scores_all(windows: torch.Tensor,
                    templates: torch.Tensor) -> torch.Tensor:
     """Zero-mean NCC of templates (N, t, t) against every offset of their
     windows (N, W2, W2) -> (N, R2, R2), R2 = W2 − t + 1, in [-1, 1]
-    (crosscorr.m:14-27). The numerator needs no patch means (Σ tm = 0):
-    one K7 launch for all N pairs.
+    (crosscorr.m:14-27). The numerator needs no patch means (Σ tm = 0);
+    it and the norms are one K7 launch for all N pairs.
 
     Two departures from the JAX function, both exact in exact arithmetic:
     the norms' box sums run on windows less their means (the same
     variance; in f32 the raw integral images' cancellation moved NCC
     argmaxes off their f64 positions where the centered ones did not), and
-    an offset whose patch variance lies within the integral images'
-    rounding of 0 — below FLAT_EPS units of roundoff of the window's
-    centered energy Σw² — scores 0. Its NCC is 0/0: in f32 the template's
+    an offset whose patch variance lies within the box sums' rounding of 0
+    — below FLAT_EPS units of roundoff of the window's centered energy
+    Σw² — scores 0. Its NCC is 0/0: in f32 the template's
     rounding residue Σtm ≠ 0 over sqrt(1e-12) scored such flat background
     patches up to 38.9 in the JAX function and here alike, winning the
     argmax by rounding, differently on the card and the CPU. At f64 the
     floor is ~1e-15 of the window's energy and leaves every score as it
     was."""
-    t = templates.shape[-1]
     tm = templates - templates.mean(dim=(-2, -1), keepdim=True)
     tnorm = torch.sqrt((tm * tm).sum(dim=(-2, -1)) + 1e-12)    # (N,)
-    corr = kernels.ncc_corr(windows, tm)
-    var, energy = patch_variance(windows, t)
+    corr, var, energy = kernels.ncc_corr_norms(windows, tm)
     floor = (FLAT_EPS * torch.finfo(windows.dtype).eps
              * energy)[:, None, None]
     scores = corr / (torch.sqrt(var + 1e-12) * tnorm[:, None, None])

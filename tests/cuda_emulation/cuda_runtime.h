@@ -51,6 +51,22 @@ constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+// A card of two SMs that hold one block each: a launcher that sizes its
+// grid to the resident blocks (K7) walks each block over several groups.
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 2;
+  return 0;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, const void*, int, size_t) {
+  *n = 1;
+  return 0;
+}
 
 // The block's dynamic shared memory: every kernel declares it as
 // `extern __shared__ float sm[]` inside the sources' unnamed namespace.

@@ -1,8 +1,9 @@
 // Runs K1 (fused_manage_predict_pht), K2 (fused_update_tail_pht) or K3/K5
-// (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, or K4
+// (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, K4
 // (corr_apply_cols), K6 (f32_matmul_big) or K8 (corr_apply) of
-// csrc/unfused_cov.cu on the CPU through the stand-in headers beside this
-// file, on random operands, and holds the result against a plain f64 loop.
+// csrc/unfused_cov.cu, or K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu on
+// the CPU through the stand-in headers beside this file, on random
+// operands, and holds the result against a plain f64 loop.
 //
 //   g++ -std=c++20 -O1 -fsanitize=address -I tests/cuda_emulation
 //       -I ekf_slam_tpu_torch/csrc -x c++ tests/cuda_emulation/harness.cpp
@@ -13,6 +14,7 @@
 //   ./emulate k4 f32|bf16 B D R
 //   ./emulate k6 f32|bf16 B M K N misalign     (misalign: C off 16 bytes)
 //   ./emulate k8 f32|bf16 B D R mode symP      (mode 0 none, 1 expr, 2 full)
+//   ./emulate k7 f32 N W2 t norms              (norms 1: ncc_corr_norms)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -22,8 +24,11 @@
 // output is held to 1e-5 of its own scale, Σ_k scale(P_ik)·|Ht_kc|, the
 // reference's P output times Ht in f64. P lies at an odd offset inside
 // a larger buffer, as a matrix of a batch does, so the bulk copies of its
-// 16-byte lines stay inside the buffer.
+// 16-byte lines stay inside the buffer. K7's correlation is held to 1e-5 of
+// Σ|w||tm| an offset, its patch variance to 1e-5 of the pair's Σwc² and
+// its energy to 1e-5 of itself; its windows start at odd 4-byte offsets.
 #include "fused_cov.cu"
+#include "ncc.cu"
 #include "unfused_cov.cu"
 
 #include <random>
@@ -481,6 +486,78 @@ bool run_k1(int Bn, int D, int R, int r, bool sym_p) {
   return report_pht("k1", pht, ref, scale, Ht, Bn, D, R) && ok;
 }
 
+
+template <int T, bool NORMS>
+void register_k7_form() {
+  g_kernels[reinterpret_cast<const void*>(
+      k7_kernel<T, K7_TY, K7_TX, NORMS>)] = [](void** a) {
+    k7_kernel<T, K7_TY, K7_TX, NORMS>(
+        *(const float**)a[0], *(const float**)a[1], *(float**)a[2],
+        *(float**)a[3], *(float**)a[4], *(K7Geo*)a[5]);
+  };
+}
+
+// K7 on N random pairs: windows in [0, 1) plus 0, 40 or 80 (pair n % 3: a
+// window centred on another pair's mean loses its variance to
+// cancellation), zero-mean templates; the correlation, and with `norms`
+// the patch variances and energies, against f64 loops (the norms by
+// direct box sums of the centred window).
+bool run_k7(int N, int W2, int t, bool norms) {
+  register_k7_form<K7_T, false>();
+  register_k7_form<K7_T, true>();
+  register_k7_form<0, false>();
+  register_k7_form<0, true>();
+  const int R2 = W2 - t + 1;
+  const size_t nw = static_cast<size_t>(W2) * W2, nt = size_t(t) * t;
+  const size_t no = static_cast<size_t>(R2) * R2;
+  std::vector<float> wbuf(N * nw + 1), tm(N * nt), corr(N * no, NAN),
+      var(N * no, NAN), energy(N, NAN);
+  float* win = wbuf.data() + 1;
+  std::uniform_real_distribution<float> unit(0.f, 1.f);
+  for (size_t i = 0; i < N * nw; ++i) win[i] = 40.f * (i / nw % 3) + unit(rng);
+  for (int n = 0; n < N; ++n) {
+    double m = 0;
+    for (size_t i = 0; i < nt; ++i) m += tm[n * nt + i] = rnd();
+    for (size_t i = 0; i < nt; ++i) tm[n * nt + i] -= float(m / nt);
+  }
+  const int rc = norms ? ekf_k7_ncc_corr_norms(win, tm.data(), corr.data(),
+                                                var.data(), energy.data(), N,
+                                                W2, t, nullptr)
+                       : ekf_k7_ncc_corr(win, tm.data(), corr.data(), N, W2,
+                                         t, nullptr);
+  auto worse = [](double& worst, double got, double ref, double limit) {
+    const double e = std::abs(got - ref) / (limit + 1e-30);
+    worst = std::isnan(got) ? 1e9 : std::max(worst, e);
+  };
+  double wc_ = 0, wv = 0, we = 0;
+  std::vector<double> c(nw);
+  for (int n = 0; n < N; ++n) {
+    const float* w = win + n * nw;
+    double m = 0, e = 0;
+    for (size_t i = 0; i < nw; ++i) m += w[i];
+    m /= double(nw);
+    for (size_t i = 0; i < nw; ++i) e += (c[i] = w[i] - m) * c[i];
+    for (int oy = 0; oy < R2; ++oy)
+      for (int ox = 0; ox < R2; ++ox) {
+        double s = 0, sc = 0, box = 0, sq = 0;
+        for (int dy = 0; dy < t; ++dy)
+          for (int dx = 0; dx < t; ++dx) {
+            const size_t i = size_t(oy + dy) * W2 + ox + dx;
+            const double p = double(w[i]) * tm[n * nt + dy * t + dx];
+            s += p, sc += std::abs(p), box += c[i], sq += c[i] * c[i];
+          }
+        const size_t o = n * no + size_t(oy) * R2 + ox;
+        worse(wc_, corr[o], s, 1e-5 * sc);
+        if (norms)
+          worse(wv, var[o], std::max(sq - box * box / (t * t), 0.0), 1e-5 * e);
+      }
+    if (norms) worse(we, energy[n], e, 1e-5 * e);
+  }
+  printf("k7 rc=%d blocks=%ld worst corr=%.3f var=%.3f energy=%.3f of the "
+         "limit\n", rc, g_blocks, wc_, wv, we);
+  return rc == 0 && wc_ <= 1 && wv <= 1 && we <= 1;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -488,7 +565,7 @@ int main(int argc, char** argv) {
   const std::string kernel = argv[1], type = argv[2];
   std::vector<int> n;
   for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
-  const size_t want = kernel == "k4" ? 3 : 5;
+  const size_t want = kernel == "k4" ? 3 : kernel == "k7" ? 4 : 5;
   if (n.size() != want) return 2;
   const bool bf16 = type == "bf16";
   bool ok;
@@ -504,6 +581,8 @@ int main(int argc, char** argv) {
   else if (kernel == "k6")
     ok = bf16 ? run_k6<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k6<float>(n[0], n[1], n[2], n[3], n[4]);
+  else if (kernel == "k7")
+    ok = !bf16 && run_k7(n[0], n[1], n[2], n[3]);
   else if (kernel == "k8")
     ok = bf16 ? run_k8<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k8<float>(n[0], n[1], n[2], n[3], n[4]);

@@ -11,9 +11,9 @@ card has no JAX); run it there without the suite's conftest:
 Operands are the kernels' real operands in one frame of the port at a
 small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
 from the fused step, K4 and K6 from the unfused step, K5 from the unfused
-step with pallas_update="on"; K7 from the image step at
-tests/test_vision.py's pixels config (CAP 24, R = 10: N = B·24 pairs of
-33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
+step with pallas_update="on"; K7 (both forms) on the operands of the
+image step's ncc_corr_norms at tests/test_vision.py's pixels config (CAP
+24, R = 10: N = B·24 pairs of 33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
 bf16-P fast mode's unfused step at f32 (row form for K8, 2M + 8 = 40
 factor rows); K3 again from a fused frame that adds ten features an
 instance (rank r = 60)."""
@@ -28,7 +28,7 @@ from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
-from ekf_slam_tpu_torch.vision import frontend
+from ekf_slam_tpu_torch.vision import frontend, ncc
 from torch_scales import k1_scale, k3_scale, within
 
 torch.set_num_threads(1)
@@ -326,12 +326,12 @@ def _image_sequence(dtype_name):
 @pytest.fixture(scope="module")
 def ncc_operands():
     """K7's f64 operands (windows, zero-mean templates) in frame 2 of the
-    image path on the CPU."""
+    image path on the CPU, where the matcher calls ncc_corr_norms."""
     cfg, st, app, imgs, u = _image_sequence("float64")
     st, app, _, _ = frontend.run_images(st, app, imgs[:2], u[:2], cfg, "cpu")
     with kernels.capture_operands() as captured:
         frontend.step_image(st, app, imgs[2], u[2], cfg)
-    return captured["ncc_corr"][0]
+    return captured["ncc_corr_norms"][0]
 
 
 @pytest.mark.cuda
@@ -372,11 +372,78 @@ def test_cuda_ncc_corr_takes_other_shapes(card, N, W2, t):
         kernels.ncc_corr(win.double(), tm.double())
 
 
+def _norms_within_limits(got, ref):
+    """K7's norms form (f32) against its f64 plain version: the
+    correlation within TOL of its bounds, the variance within
+    ncc.FLAT_EPS units of eps·Σwc², the energy to 1e-5."""
+    return (kernels.var_stray(got[1], ref[1], ref[2]) < ncc.FLAT_EPS
+            and kernels.energy_error(got[2], ref[2]) <= 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ncc_corr_norms_matches_plain(card, ncc_operands):
+    """K7's norms form on the image frame's pairs: one launch, the three
+    outputs of their shapes, each within its limit."""
+    win, tm = (a.to(card, torch.float32) for a in ncc_operands)
+    before = kernels.LAUNCHES["ncc_corr_norms"]
+    got = kernels.ncc_corr_norms(win, tm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ncc_corr_norms"] == before + 1
+    assert [tuple(g.shape) for g in got] == [(B * 24, 21, 21)] * 2 + [
+        (B * 24,)]
+    assert all(g.dtype == torch.float32 for g in got)
+    ref = kernels.ncc_corr_norms_plain(win.double(), tm.double())
+    assert kernels.ncc_error(got[0], ref[0], win, tm) <= TOL
+    assert _norms_within_limits(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_ncc_norms_check_fails_box_sums_one_row_down(card,
+                                                          ncc_operands):
+    """The windows rolled up one row (each offset's box sums taken one
+    row down) read > 100x ncc.FLAT_EPS against the true windows' norms."""
+    win, tm = (a.to(card, torch.float32) for a in ncc_operands)
+    _, var, _ = kernels.ncc_corr_norms(torch.roll(win, -1, 1).contiguous(),
+                                       tm)
+    ref = kernels.ncc_corr_norms_plain(win.double(), tm.double())
+    assert kernels.var_stray(var, ref[1], ref[2]) > 100 * ncc.FLAT_EPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,W2,t", [(1, 37, 13), (130, 23, 7), (5, 13, 13),
+                                    (7, 9, 1), (3200, 37, 13)])
+def test_cuda_ncc_corr_norms_takes_other_shapes(card, N, W2, t):
+    """One pair, a run-time t on 130 pairs, t = W2 (one offset), t = 1
+    and the bench's 3,200 pairs; both forms' correlations equal bit for
+    bit (one kernel template, one sum order)."""
+    g = torch.Generator(card).manual_seed(N)
+    win = torch.rand(N, W2, W2, device=card, generator=g)
+    tm = torch.rand(N, t, t, device=card, generator=g) - 0.5
+    got = kernels.ncc_corr_norms(win, tm)
+    ref = kernels.ncc_corr_norms_plain(win.double(), tm.double())
+    assert kernels.ncc_error(got[0], ref[0], win, tm) <= TOL
+    assert _norms_within_limits(got, ref)
+    assert torch.equal(got[0], kernels.ncc_corr(win, tm))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.ncc_corr_norms(win.double(), tm.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ncc_corr", "ncc_corr_norms"])
+def test_cuda_ncc_launcher_rejects_a_window_past_shared_memory(card, name):
+    """One pair's staging past a block's shared memory: the launcher
+    returns cudaErrorInvalidValue and the wrapper raises."""
+    win = torch.zeros(1, 400, 400, device=card)
+    tm = torch.zeros(1, 3, 3, device=card)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        getattr(kernels, name)(win, tm)
+
+
 @pytest.mark.cuda
 def test_cuda_image_step_matches_cpu_step(card):
     """One f32 image frame (NCC matcher) with CUDA tensors against the same
     frame on the CPU, at the tolerances of test_cuda_step_matches_cpu_step;
-    K7 launched once, K4 twice, K6 three times."""
+    K7's norms form launched once, K4 twice, K6 three times."""
     cfg, st, app, imgs, u = _image_sequence("float32")
     st, app, _, _ = frontend.run_images(st, app, imgs[:2], u[:2], cfg, "cpu")
     kernels.reset_launches()
@@ -385,8 +452,8 @@ def test_cuda_image_step_matches_cpu_step(card):
                                           cfg)
     s_cpu, _, i_cpu = frontend.step_image(st, app, imgs[2], u[2], cfg)
     assert kernels.LAUNCHES == {
-        k: {"ncc_corr": 1, "corr_apply_cols": 2, "f32_matmul_big": 3}.get(
-            k, 0) for k in kernels.LAUNCHES}
+        k: {"ncc_corr_norms": 1, "corr_apply_cols": 2,
+            "f32_matmul_big": 3}.get(k, 0) for k in kernels.LAUNCHES}
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())

@@ -1,12 +1,14 @@
-"""K1, K2 and K3 / K5 of csrc/fused_cov.cu and K4, K6 and K8 of
-csrc/unfused_cov.cu — the CUDA source itself — run on the CPU: compiled by g++ against the
+"""K1, K2 and K3 / K5 of csrc/fused_cov.cu, K4, K6 and K8 of
+csrc/unfused_cov.cu and K7 of csrc/ncc.cu (both forms) — the CUDA source
+itself — run on the CPU: compiled by g++ against the
 stand-in headers of tests/cuda_emulation (one std::thread a CUDA thread,
 __syncthreads a barrier, shared memory poisoned with NaN, the asynchronous
 copies done at once with their alignment checked), under
 AddressSanitizer, and held against a plain f64 loop by
 tests/cuda_emulation/harness.cpp.
 
-What it can show: a wrong index, mask, ragged edge, tile pair or mirror; a
+What it can show: a wrong index, mask, ragged edge, tile pair, mirror,
+micro-tile, staging buffer or persistent block's group; a
 read of a word nobody staged; a read or write outside an operand; a bulk
 copy that is not 16-byte aligned; every entry written; bitwise symmetry
 (K4; K8 "full" and "expr" on a symmetric P; K1, K2, K3 / K5 on a
@@ -15,7 +17,7 @@ What it cannot:
 races, asynchrony, anything about speed — those are the card's
 (tests/test_torch_cuda.py). Tolerances are the harness's: 1e-5 of each
 entry's own scale Σ|a||b| (f32 chains against f64), one bf16 ulp more on a
-bf16 output.
+bf16 output; K7's variance 1e-5 of its pair's Σwc².
 
 Skips where no g++ with C++20's <barrier> is installed."""
 
@@ -59,6 +61,15 @@ K1_CASES = [(1, 19, 1, 1, 1), (1, 19, 31, 1, 1), (1, 70, 1, 6, 1),
             (2, 70, 200, 6, 1), (1, 157, 31, 6, 1), (1, 70, 31, 6, 0)]
 K2_CASES = [(1, 19, 1, 1, 1), (1, 19, 20, 31, 1), (1, 70, 20, 1, 1),
             (2, 70, 20, 200, 1), (1, 157, 20, 31, 1), (1, 70, 20, 31, 0)]
+# N W2 t norms (K7). The stand-in card holds two blocks, so a launch of
+# more groups than two walks each block over several (the persistent loop,
+# its one staging buffer restaged for each group). At 5 x 5 micro-tiles and 128 threads: the bench
+# shape (t = 13, compiled unrolled: 5 pairs a group, 11 = 5 + 5 + 1) in
+# both forms; R2 = 21, ragged micro-tiles (13 = 5 + 5 + 3); t = 7 at run
+# time (R2 = 17 ragged, 7 pairs in one group) in both forms; t = W2 (one
+# offset); t = 1; t = 6 on 30 pairs (14 + 14 + 2 a group).
+K7_CASES = [(11, 37, 13, 0), (11, 37, 13, 1), (13, 33, 13, 1), (7, 23, 7, 0),
+            (7, 23, 7, 1), (3, 13, 13, 1), (3, 9, 1, 1), (30, 20, 6, 1)]
 
 @pytest.fixture(scope="module")
 def emulate(tmp_path_factory):
@@ -147,4 +158,15 @@ def test_emulated_update_tail_pht(emulate, case):
     M2 below one and past two contraction tiles, R as for K1; bitwise
     symmetric on a symmetric P, right on an asymmetric one."""
     done = emulate("k2", "f32", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K7_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emulated_ncc_corr(emulate, case):
+    """K7, ncc_corr (norms 0) and ncc_corr_norms (1): the correlation of
+    every offset, and the patch variances and energies from direct box
+    sums of the staged window, with the template width compiled unrolled
+    (13) and at run time, ragged micro-tiles and groups, several groups a
+    block; every output written."""
+    done = emulate("k7", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]

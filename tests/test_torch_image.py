@@ -255,22 +255,24 @@ def test_run_images_equals_the_step_loop(small_sequence):
 
 
 def test_ncc_numerator_is_one_call_a_frame_for_the_batch(small_sequence):
-    """K7's wrapper is called once a frame with all B·CAP pairs (its plain
-    version on the CPU); the descriptor matcher never calls it."""
+    """K7's norms form is called once a frame with all B·CAP pairs (its
+    plain version on the CPU); the descriptor matcher never calls it, and
+    neither matcher calls the correlation-only form."""
     tc, _, imgs, u = small_sequence
     st = init_state(tc, B, "cpu")
     app = frontend.init_appearance(tc, B, "cpu")
     with kernels.capture_operands() as calls:
         frontend.run_images(st, app, imgs, u, tc, "cpu")
     cap, W2 = tc.map.capacity, 2 * tc.vision.search_radius + 13
-    assert [tuple(c[0].shape) for c in calls["ncc_corr"]] == [
+    assert [tuple(c[0].shape) for c in calls["ncc_corr_norms"]] == [
         (B * cap, W2, W2)] * 3
+    assert "ncc_corr" not in calls
     assert len(calls["corr_apply_cols"]) == 2 * 3
     assert len(calls["f32_matmul_big"]) == 3 * 3
     _, tcd = configs(_with_vision(PIXELS, matcher="descriptor"))
     with kernels.capture_operands() as calls:
         frontend.run_images(st, app, imgs, u, tcd, "cpu")
-    assert "ncc_corr" not in calls
+    assert "ncc_corr_norms" not in calls and "ncc_corr" not in calls
 
 
 def test_sim_path_step_info_has_zero_search_reach():

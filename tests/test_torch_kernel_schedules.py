@@ -23,7 +23,11 @@ in order. Held against the plain versions at f64 to 1e-12 of each entry's
 scale (the same products in another order), and at f32 for what the
 kernels promise bit for bit: K8 "full" and K4 symmetric, K8 "expr", K3 /
 K5, K2 and K1 symmetric on a symmetric P (K1: and a symmetric C66 and
-Q13), every diagonal block by itself too.
+Q13), every diagonal block by itself too. `k7_norms_schedule` is K7's
+norms form: the window centred on its mean, direct t-term row sums of wc
+and wc², then t of those down each column, var = max(sq − box²/t², 0);
+held to the plain version's integral images at f64, and at f32 within
+ncc.FLAT_EPS units of eps·Σwc² of the f64 variance.
 
 This file imports torch and the port only."""
 
@@ -552,6 +556,40 @@ def test_library_call_of_k4_is_k4_on_a_symmetric_p():
                  ) > 1e-3
 
 
+def k7_norms_schedule(win, t):
+    """K7's norms as the card forms them, in win's dtype: (var, energy)."""
+    W2 = win.shape[-1]
+    R2 = W2 - t + 1
+    mean = win.sum(dim=2).sum(dim=1) / (W2 * W2)
+    wc = win - mean[:, None, None]
+    energy = (wc * wc).sum(dim=2).sum(dim=1)
+    rs = sum(wc[:, :, dx:dx + R2] for dx in range(t))          # (N, W2, R2)
+    rs2 = sum(wc[:, :, dx:dx + R2] ** 2 for dx in range(t))
+    box = sum(rs[:, dy:dy + R2] for dy in range(t))             # (N, R2, R2)
+    sq = sum(rs2[:, dy:dy + R2] for dy in range(t))
+    return torch.clamp(sq - box * box / (t * t), min=0.0), energy
+
+
+@pytest.mark.parametrize("N,W2,t", [(6, 37, 13), (5, 23, 7), (3, 9, 1),
+                                    (2, 13, 13)])
+def test_k7_norms_schedule_matches_plain(N, W2, t):
+    """Direct box sums against the plain version's integral images: at f64
+    within 1e-12 of each pair's Σwc²; at f32 (image-like windows, a
+    constant block among them) within ncc.FLAT_EPS / 4 units of eps·Σwc²
+    of the f64 variance, energies to 1e-6."""
+    from ekf_slam_tpu_torch.vision import ncc
+    g = torch.Generator().manual_seed(W2 + t)
+    win = torch.rand(N, W2, W2, generator=g, dtype=torch.float64)
+    win[0, :W2 // 2 + 1, :W2 // 2 + 1] = 0.3
+    var, energy = kernels.patch_variance_plain(win, t)
+    got, e = k7_norms_schedule(win, t)
+    assert float(((got - var).abs() / energy[:, None, None]).max()) <= 1e-12
+    torch.testing.assert_close(e, energy, rtol=1e-12, atol=0)
+    v32, e32 = k7_norms_schedule(win.float(), t)
+    assert kernels.var_stray(v32, var, energy) < ncc.FLAT_EPS / 4
+    assert kernels.energy_error(e32, energy) <= 1e-6
+
+
 def _meta(*shape):
     return torch.empty(*shape, device="meta")
 
@@ -591,6 +629,18 @@ def _meta(*shape):
                                (128, 613, 128), (128, 4, 4), (128, 613, 200)),
      128 * (4 * (613 * 614 // 2) * 128 + 2 * 613 * 613 * 200
             + 64 * 613)),                                # 31.58 GFLOP
+    # K7: 2·N·R2²·t²; the norms form adds, a pair, 4·W2² (the mean, the
+    # centring, the squares, Σwc²), t − 1 adds for each of 2·W2·R2 row sums
+    # and 2·R2² column sums, 4 an offset for the variance
+    ("ncc_corr", ((2, 5, 5), (2, 3, 3)), 2 * 2 * 9 * 9),
+    ("ncc_corr", ((3200, 37, 37), (3200, 13, 13)),
+     2 * 3200 * 25 * 25 * 13 * 13),                     # 0.676 GFLOP
+    ("ncc_corr_norms", ((2, 5, 5), (2, 3, 3)),
+     2 * 2 * 9 * 9 + 2 * (4 * 25 + 2 * 2 * (5 * 3 + 9) + 4 * 9)),
+    ("ncc_corr_norms", ((3200, 37, 37), (3200, 13, 13)),
+     2 * 3200 * 25 * 25 * 13 * 13 + 3200 * (
+         4 * 37 * 37 + 2 * 12 * (37 * 25 + 25 * 25)
+         + 4 * 25 * 25)),                                # 0.8206 GFLOP
 ])
 def test_operation_counts(name, args, flops):
     """chip_smoke.FLOPS, the numerator of a kernel's operations bound, from
