@@ -62,6 +62,27 @@ Phases, one line each, any failure raises (exit code != 0):
                fused and the unfused step, and through the fast mode's row
                and column forms, on the card: equal gate counts, x and P
                within tolerance
+  6. loop      the CALC2 loop-closure path (models/loop_runner.run_online)
+               at full width: VSS(VSSConfig()), width 32 at 192x256, with
+               the port's own seeded weights, over a 128-frame rendered pan
+               at B = 4 with LoopConfig's defaults (capacity 4096, top_k 7,
+               64 hypotheses, ratio 0.7, consistency 7 / 9) except min_db
+               and exclude_recent, cut to T // 4 (printed as `reduced`):
+               x and P finite, the DB holding frames 0..T-1, K4 and K6 once
+               a frame (the pose constraint's masked ekf.update) and no
+               other kernel; frames/s of the median of three runs, device
+               ms a frame of the VSS, the query and the fusion and the
+               card's busy share (torch.profiler, 8 frames). The first 3
+               frames and one query against the warm DB on the card vs
+               the CPU: descriptor cosine >= 1 - 1e-5, keypoints, candidates
+               and gate decisions equal. K4 and K6 on the constraint's
+               operands against their plain versions. Then bench.py's
+               BENCH_MODE=loop protocol through the port's harness
+               (python -m ekf_slam_tpu_torch.run_loop_closure: pixels
+               front-end, pan, 150 frames, 4 seeds, width 8 at 48x64,
+               sim_threshold 0.9, min_inliers 10) and its three gates:
+               loops declared, ATE with fusion <= 1.05x without, final
+               position error with fusion <= 0.5x without.
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line {"ok": true, "device": {...}}. Without a
 CUDA device it fails.
@@ -69,6 +90,7 @@ CUDA device it fails.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -77,8 +99,14 @@ import time
 import torch
 import torch.nn.functional as F
 
-from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch import run_loop_closure
+from ekf_slam_tpu_torch.filter import engine, loop_fusion
+from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.models import keypoints, loop_runner
+from ekf_slam_tpu_torch.models import loopclosure as lc
+from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig
 from ekf_slam_tpu_torch.ops import _build, kernels
+from ekf_slam_tpu_torch.sim.scene import Scene
 from ekf_slam_tpu_torch.profile_slice import (BATCH, FAST_PATHS, FAST_SCENE,
                                               FRAMES, IMAGE_BATCH,
                                               image_config, image_inputs,
@@ -471,6 +499,7 @@ def main() -> None:
             print("  ptxas:", line.strip(), flush=True)
 
     report = check_paths(dev, card)
+    check_loop(dev, card, {k["name"]: k for k in report})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -672,6 +701,240 @@ def check_paths(dev, card: str) -> list:
     same_frame("image:cuda_vs_cpu", (card_step[0], card_step[2]),
                (cpu_step[0], cpu_step[2]))
     return list(report.values())
+
+
+# The loop phase: the reference's input size, full width, B instances,
+# T frames; the descriptor's cosine card vs CPU.
+LOOP_BATCH = 4
+LOOP_FRAMES = 128
+LOOP_HW = (192, 256)
+LOOP_CHECK_FRAMES = 3
+LOOP_PROFILE_FRAMES = 8
+DESCR_COS = 1 - 1e-5
+LOOP_RANGES = ("loop.vss", "loop.query", "loop.fusion")
+# bench.py's BENCH_MODE=loop run (bench.py:245-271) and its gates.
+LOOP_GATE_ARGS = ["--frontend", "pixels", "--traj", "pan", "--frames", "150",
+                  "--ensemble", "4", "--vss-width", "8", "--vss-hw", "48",
+                  "64", "--sim-threshold", "0.9", "--min-inliers", "10"]
+
+
+def loop_inputs(dev):
+    """A 128-frame rendered pan (T, B, 192, 256, 3), each instance's frames
+    with its own pixel noise; the filter state of the image workload (CAP
+    100, D = 613); the model; the LoopConfig."""
+    cfg = run_loop_closure.harness_config()
+    T, B = LOOP_FRAMES, LOOP_BATCH
+    scn = run_loop_closure.make_surround_scene(
+        torch.Generator().manual_seed(0), cfg)
+    scn = Scene(scn.landmarks.to(dev))
+    xs = run_loop_closure.pan_trajectory(cfg, T).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    frames = []
+    for t in range(T):
+        img = frontend.render_scene_image(scn, xs[t], cfg, dev)
+        noisy = torch.clamp(img + 0.02 * torch.randn(
+            (B,) + img.shape, generator=gen, device=dev), 0.0, 1.0)
+        frames.append(torch.cat([run_loop_closure.to_vss(n, LOOP_HW)
+                                 for n in noisy]))
+    st = init_state(image_config("descriptor"), B, dev)
+    model = VSS(VSSConfig(), LOOP_HW, torch.Generator().manual_seed(0))
+    lcfg = lc.LoopConfig(min_db=T // 4, exclude_recent=T // 4)
+    return torch.stack(frames), st.x, st.P, model.to(dev), lcfg
+
+
+def range_device_ms(fn) -> dict:
+    """fn() once unprofiled for its wall ms, once under torch.profiler:
+    device ms of each LOOP_RANGES range (the kernels of the ops inside
+    it) and of all kernels (the ranges' own device annotations left out,
+    which span their kernels)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {r: 0.0 for r in LOOP_RANGES}
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name not in out:
+                by_kernel[e.name[:60]] += e.device_time
+        elif e.name in out:
+            out[e.name] += e.device_time_total
+    return {**{r: v / 1e3 for r, v in out.items()},
+            "device": sum(by_kernel.values()) / 1e3, "wall": wall,
+            "top": [(n, t / 1e3) for n, t in by_kernel.most_common(6)]}
+
+
+def same_descriptors(tag, card_model, cpu_model, images) -> None:
+    """One frame's descriptors (cosine) and keypoints, card vs CPU."""
+    with torch.no_grad():
+        a = card_model(images, descriptor_only=True)
+        b = cpu_model(images.cpu(), descriptor_only=True)
+    cos = torch.nn.functional.cosine_similarity(
+        a["descriptor"].cpu().double(), b["descriptor"].double(), dim=1)
+    ka = keypoints.kp_descriptor(a["c5"])
+    kb = keypoints.kp_descriptor(b["c5"])
+    if not (float(cos.min()) >= DESCR_COS
+            and torch.equal(ka.yx.cpu(), kb.yx)):
+        raise AssertionError(f"{tag}: descriptor cosine {float(cos.min())} "
+                             f"or keypoints differ card vs CPU")
+    kd = float((ka.descr.cpu() - kb.descr).abs().max())
+    phase("loop_check", frame=tag, min_cosine=f"{float(cos.min()):.9f}",
+          keypoints="equal", kp_descr_max_abs=f"{kd:.3e}")
+
+
+def same_query(tag, r_card, r_cpu) -> None:
+    """Gate decisions, candidates and best frame equal; similarities within
+    1e-5; inlier counts printed (the 8-point solve's eigensolver differs)."""
+    for f in ("candidate_ids", "best_id", "is_hypothesis"):
+        if not torch.equal(getattr(r_card, f).cpu(), getattr(r_cpu, f)):
+            raise AssertionError(f"{tag}: {f} differs card vs CPU")
+    fin = torch.isfinite(r_cpu.similarities)
+    dsim = float((r_card.similarities.cpu() - r_cpu.similarities)[fin].abs()
+                 .max()) if bool(fin.any()) else 0.0
+    if not dsim <= 1e-5:
+        raise AssertionError(f"{tag}: similarities differ by {dsim}")
+    phase("loop_check", frame=tag, gates="equal",
+          hypotheses=int(r_cpu.is_hypothesis.sum()), max_dsim=f"{dsim:.3e}",
+          inliers_card=r_card.best_inliers.tolist(),
+          inliers_cpu=r_cpu.best_inliers.tolist())
+
+
+def check_loop(dev, card: str, report: dict) -> None:
+    """Phase 6: the loop-closure path at full width, its card-vs-CPU
+    checks, K4 and K6 on its operands, and bench.py's loop gates."""
+    images, x0, P0, model, lcfg = loop_inputs(dev)
+    T, B = images.shape[:2]
+    gen = torch.Generator(device=dev)
+
+    def run(frames=T):
+        return loop_runner.run_online(model, images[:frames], x0, P0, lcfg,
+                                      generator=gen.manual_seed(3),
+                                      device=dev)
+
+    run(LOOP_CHECK_FRAMES)                               # warm-up
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(corr_apply_cols=T, f32_matmul_big=T)
+    seconds = []
+    for _ in range(3):
+        db = x = P = out = None
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        db, x, P, out = run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"loop: kernel launches {launches}, "
+                                 f"expected {want}")
+    if not (torch.isfinite(x).all() and torch.isfinite(P).all()):
+        raise AssertionError("loop: non-finite x or P")
+    ids = torch.arange(T, dtype=torch.int32, device=dev)
+    if not (bool((db.count == T).all())
+            and torch.equal(db.frame_id[:, :T], ids.expand(B, T))
+            and bool((db.frame_id[:, T:] == -1).all())):
+        raise AssertionError("loop: the DB does not hold frames 0..T-1")
+    db_gb = sum(getattr(db, f).numel() * getattr(db, f).element_size()
+                for f in lc.DB_FIELDS) / 1e9
+    med = statistics.median(seconds)
+    prof = range_device_ms(lambda: run(LOOP_PROFILE_FRAMES))
+    if not all(prof[r] > 0 for r in LOOP_RANGES):
+        raise AssertionError(f"loop: the profiler shows no device time in "
+                             f"a range: {prof}")
+    split = {r.split(".")[1] + "_ms": f"{prof[r] / LOOP_PROFILE_FRAMES:.4f}"
+             for r in LOOP_RANGES}
+    phase("loop", batch=B, frames=T, hw="x".join(map(str, LOOP_HW)),
+          width=model.cfg.width, capacity=lcfg.capacity, top_k=lcfg.top_k,
+          hypotheses=lcfg.ransac_hypotheses,
+          reduced=f"min_db={lcfg.min_db},exclude_recent={lcfg.exclude_recent}"
+                  f" (T//4; LoopConfig 400/200)",
+          db_gb=f"{db_gb:.3f}",
+          seconds=",".join(f"{s:.4f}" for s in seconds),
+          median_frames_per_s=f"{B * T / med:.2f}",
+          spread_frames_per_s=f"{B * T / max(seconds):.2f}-"
+                              f"{B * T / min(seconds):.2f}",
+          **split,
+          device_ms_per_frame=f"{prof['device'] / LOOP_PROFILE_FRAMES:.4f}",
+          busy=f"{prof['device'] / prof['wall']:.3f}",
+          declared=int(out.declared.sum()),
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")), card=repr(card))
+    for name, ms in prof["top"]:
+        phase("loop_top", ms_per_frame=f"{ms / LOOP_PROFILE_FRAMES:.4f}",
+              kernel=repr(name))
+
+    # The first frames, then one query against the warm DB: card vs CPU.
+    cpu_model = VSS(VSSConfig(), LOOP_HW).to("cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    for t in range(LOOP_CHECK_FRAMES):
+        same_descriptors(str(t), model, cpu_model, images[t])
+    K = model.num_kp
+    draws = torch.rand(LOOP_CHECK_FRAMES, B, lcfg.top_k,
+                       lcfg.ransac_hypotheses, K,
+                       generator=torch.Generator().manual_seed(5))
+    _, _, _, o_card = loop_runner.run_online(
+        model, images[:LOOP_CHECK_FRAMES], x0, P0, lcfg, draws, device=dev)
+    _, _, _, o_cpu = loop_runner.run_online(
+        cpu_model, images[:LOOP_CHECK_FRAMES].cpu(), x0.cpu(), P0.cpu(),
+        lcfg, draws, device="cpu")
+    for f in ("declared", "match_id"):
+        if not torch.equal(getattr(o_card, f).cpu(), getattr(o_cpu, f)):
+            raise AssertionError(f"loop: {f} of the first frames differs "
+                                 f"card vs CPU")
+    phase("loop_check", frame=f"0-{LOOP_CHECK_FRAMES - 1}", declared="equal",
+          match_id="equal")
+    with torch.no_grad():
+        q = model(images[-1], descriptor_only=True)
+    kp = keypoints.kp_descriptor(q["c5"])
+    qd = draws[0]
+    r_card = lc.query(db, q["descriptor"], kp, lcfg, qd.to(dev))
+    db_cpu = db.to("cpu")
+    r_cpu = lc.query(db_cpu, q["descriptor"].cpu(),
+                     keypoints.Keypoints(*(f.cpu() for f in kp)), lcfg, qd)
+    same_query(f"{T - 1}_warm_db", r_card, r_cpu)
+    del db_cpu
+
+    # K4 and K6 on the pose constraint's operands (all instances enabled,
+    # against the stored pose of frame 0).
+    sp, sr = loop_fusion.loop_noise_sigmas(r_card.best_inliers)
+    with kernels.capture_operands() as inputs:
+        loop_fusion.apply_loop_constraint_pose(
+            x, P, db.pose[:, 0].to(x.dtype), sp, sr,
+            torch.ones(B, dtype=torch.bool, device=dev))
+    for name, site in (("corr_apply_cols", "loop_pose"),
+                       ("f32_matmul_big", "loop_PHt")):
+        e = check_kernel(name, inputs[name][0], site)
+        report[name]["loop"] = {k: e[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "scaled_err")}
+        report[name]["loop"]["launches"] = launches[name]
+    del db, images
+
+    # bench.py's loop gate through the port's harness.
+    t0 = time.perf_counter()
+    s = run_loop_closure.main(LOOP_GATE_ARGS + [
+        "--out", "build/loop_gate", "--json", "build/loop_gate/summary.json"])
+    gates = {"loops_declared": s["n_loops_total"] > 0,
+             "ate_on_le_1.05x_off": s["ate_on_p50"] <= 1.05 * s["ate_off_p50"],
+             "final_on_le_0.5x_off":
+                 s["final_on_p50"] <= 0.5 * s["final_off_p50"]}
+    rescue = s["final_off_p50"] / max(s["final_on_p50"], 1e-9)
+    phase("loop_gate", seconds=f"{time.perf_counter() - t0:.1f}",
+          ate_off_p50=f"{s['ate_off_p50']:.4f}",
+          ate_on_p50=f"{s['ate_on_p50']:.4f}",
+          final_off_p50=f"{s['final_off_p50']:.4f}",
+          final_on_p50=f"{s['final_on_p50']:.4f}",
+          n_loops_total=s["n_loops_total"],
+          improvement=f"{rescue:.2f}",
+          gates=json.dumps(gates, separators=(",", ":")))
+    if not all(gates.values()):
+        raise AssertionError(f"loop gate failed: {gates}")
 
 
 if __name__ == "__main__":

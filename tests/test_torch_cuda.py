@@ -862,3 +862,68 @@ def test_cuda_update_tail_pht_takes_any_width(card, R, M2):
     ref = kernels.update_tail_pht_plain(*dops)
     scale = k3_scale(*dops[:4])
     assert within(got, ref, (scale, scale @ dops[4].abs()), CHAIN_TOL)
+
+
+# --- the loop-closure path (models/, filter/loop_fusion.py) ------------------
+
+def _loop_inputs(B=2, T=3, H=48, W=64):
+    from ekf_slam_tpu_torch.models import vss
+    gen = torch.Generator().manual_seed(11)
+    imgs = torch.rand(T, B, H, W, 3, generator=gen)
+    model = vss.VSS(vss.VSSConfig(width=8), (H, W),
+                    torch.Generator().manual_seed(0))
+    cfg = EngineConfig.from_dict(CFG)
+    st = init_state(cfg, B, "cpu")
+    return model, imgs, st.x, st.P
+
+
+@pytest.mark.cuda
+def test_cuda_vss_matches_cpu(card):
+    """The VSS forward (every output) on the card against the CPU, f32:
+    within 1e-4 of each output's largest magnitude (cuDNN's summation
+    order; TF32 off), keypoints equal."""
+    from ekf_slam_tpu_torch.models import keypoints
+    torch.backends.cudnn.allow_tf32 = False
+    model, imgs, _, _ = _loop_inputs()
+    eps = torch.randn(2, 3, 4, 56, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = model(imgs[0], eps=eps)
+        got = model.to(card)(imgs[0].to(card), eps=eps.to(card))
+    for k, r in ref.items():
+        err = float((got[k].cpu() - r).abs().max())
+        assert err <= 1e-4 * float(r.abs().max()), (k, err)
+    assert torch.equal(keypoints.kp_descriptor(got["c5"]).yx.cpu(),
+                       keypoints.kp_descriptor(ref["c5"]).yx)
+
+
+@pytest.mark.cuda
+def test_cuda_run_online_matches_cpu_and_counts_k4(card):
+    """Three frames of run_online on the card against the CPU with the same
+    draws: equal declared / match_id, similarity within 1e-5, x and P
+    within 1e-5 of their scale; K4 and K6 launch once a frame (the masked
+    pose constraint) and nothing else."""
+    from ekf_slam_tpu_torch.models import loop_runner
+    from ekf_slam_tpu_torch.models import loopclosure as lc
+    model, imgs, x0, P0 = _loop_inputs()
+    cfg = lc.LoopConfig(capacity=8, top_k=3, exclude_recent=1, min_db=1,
+                        ransac_hypotheses=16, consistency_count=1)
+    draws = torch.rand(3, 2, 3, 16, model.num_kp,
+                       generator=torch.Generator().manual_seed(2))
+    ref = loop_runner.run_online(model, imgs, x0, P0, cfg, draws,
+                                 device="cpu")
+    kernels.reset_launches()
+    got = loop_runner.run_online(model, imgs, x0, P0, cfg, draws,
+                                 device=card)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(corr_apply_cols=3, f32_matmul_big=3)
+    assert kernels.LAUNCHES == want
+    for f in ("declared", "match_id"):
+        assert torch.equal(getattr(got[3], f).cpu(), getattr(ref[3], f))
+    s_got, s_ref = got[3].similarity.cpu(), ref[3].similarity
+    fin = torch.isfinite(s_ref)
+    assert torch.equal(torch.isfinite(s_got), fin)
+    assert float((s_got - s_ref)[fin].abs().max()) <= 1e-5
+    for a, b in ((got[1], ref[1]), (got[2], ref[2])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())

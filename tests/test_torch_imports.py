@@ -45,3 +45,32 @@ def test_scan_catches_a_jax_import(tmp_path):
     f.write_text("import os\nfrom ekf_slam_tpu.filter import engine\n"
                  "import jax.numpy as jnp\n")
     assert {"ekf_slam_tpu", "jax"} <= set(_imported_roots(f))
+
+
+# The loop-closure slice's modules: each is scanned above, and imports in a
+# fresh interpreter in which JAX, its libraries and the JAX package cannot
+# be imported at all.
+LOOP_MODULES = (
+    "ekf_slam_tpu_torch.utils.trajectory", "ekf_slam_tpu_torch.utils.metrics",
+    "ekf_slam_tpu_torch.utils.checkpoint",
+    "ekf_slam_tpu_torch.filter.loop_fusion",
+    "ekf_slam_tpu_torch.models.keypoints", "ekf_slam_tpu_torch.models.vss",
+    "ekf_slam_tpu_torch.models.flax_init",
+    "ekf_slam_tpu_torch.models.loopclosure",
+    "ekf_slam_tpu_torch.models.loop_runner",
+    "ekf_slam_tpu_torch.run_loop_closure")
+
+
+def test_loop_modules_import_without_jax():
+    import subprocess
+    import sys
+    paths = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in LOOP_MODULES:
+        assert mod.replace(".", "/") + ".py" in paths, mod
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "".join(f"import {m}\n" for m in LOOP_MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
