@@ -16,8 +16,10 @@ Phases, one line each, any failure raises (exit code != 0):
                frame); from
                the bf16-P fast mode, K8 from a fast_rows frame in its three
                modes with P as stored (bf16) and upcast, and K4 and K6 on
-               a fast frame's bf16 P. Each entry's error is scaled to its
-               own bound (a bf16 output may also stray one bf16 ulp); K4's
+               a fast frame's bf16 P, and K6 and K4 from an IEKF frame
+               (sites iekf_PHt, the last iterate's P·Hᵀ, and iekf_tail,
+               the iterated update's covariance tail). Each entry's error
+               is scaled to its own bound (a bf16 output may also stray one bf16 ulp); K4's
                and K8 "full"'s outputs must be bitwise symmetric, K8
                "expr"'s and K3's on a symmetric P. Then planted faults (K1
                without process noise, K2 with its P·Hᵀ taken from the P
@@ -42,6 +44,8 @@ Phases, one line each, any failure raises (exit code != 0):
                  fused  (step_fused)                 K1-K3 once a frame
                  (i)    unfused, pallas_update off   K4 2x, K6 3x a frame
                  (ii)   unfused, pallas_update on    K5 2x, K6 3x a frame
+                 iekf   unfused, the iterated LI update (3 iterations),
+                        pallas_update off            K4 2x, K6 6x a frame
                and in bench.py's production fast mode (P stored in bf16,
                max_update_obs 24; scene FAST_SCENE, see profile_slice):
                  fast       column-form update       K4 2x, K6 3x a frame
@@ -56,8 +60,9 @@ Phases, one line each, any failure raises (exit code != 0):
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
                kernel launched 0 times; steps/s of the median of three
-               timed runs (fused, (i), image NCC) or of one
-  5. crosscheck one frame of each path with CUDA tensors vs the same frame
+               timed runs (fused, (i), iekf, image NCC) or of one
+  5. crosscheck one frame of each path (the IEKF's too) with CUDA tensors
+               vs the same frame
                on the CPU (plain path), and the same frame through the
                fused and the unfused step, and through the fast mode's row
                and column forms, on the card: equal gate counts, x and P
@@ -83,6 +88,20 @@ Phases, one line each, any failure raises (exit code != 0):
                sim_threshold 0.9, min_inliers 10) and its three gates:
                loops declared, ATE with fusion <= 1.05x without, final
                position error with fusion <= 0.5x without.
+  7. drivers   a 32-frame KITTI-layout sequence rendered by the port (the
+               pan of run_loop_closure, %06d.pgm frames and poses.txt)
+               into a temporary directory, then, each a process of its
+               own on the card: python -m ekf_slam_tpu_torch.run_slam
+               --mode sequence and --mode sim at --batch 128 --capacity
+               100, and python -m ekf_slam_tpu_torch.close_loops on it.
+               Exit 0, the artifacts present and finite, the native
+               loader in use, and the sequence run's trajectory equal
+               (within phase 5's x tolerance) to frontend.run_images run
+               here on the same decoded frames with the driver's draws;
+               run_slam's kernel launches (it prints ops/kernels.LAUNCHES)
+               those of its path: the descriptor image step (K4 2x, K6
+               3x a frame) and the fused step (K1-K3 once a frame) at
+               this config; steps/s (frames/s) and seconds of each.
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line {"ok": true, "device": {...}}. Without a
 CUDA device it fails.
@@ -92,16 +111,23 @@ from __future__ import annotations
 
 import collections
 import json
+import pathlib
+import re
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
+import numpy
 import torch
 import torch.nn.functional as F
 
-from ekf_slam_tpu_torch import run_loop_closure
+from ekf_slam_tpu_torch import run_loop_closure, run_slam
 from ekf_slam_tpu_torch.filter import engine, loop_fusion
 from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.io import ImageSequence, write_pgm
+from ekf_slam_tpu_torch.io.poses import save_trajectory_kitti
 from ekf_slam_tpu_torch.models import keypoints, loop_runner
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig
@@ -114,6 +140,7 @@ from ekf_slam_tpu_torch.profile_slice import (BATCH, FAST_PATHS, FAST_SCENE,
                                               update_form)
 from ekf_slam_tpu_torch.vision import frontend, ncc
 
+ROOT = pathlib.Path(__file__).resolve().parent
 FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
 UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
 NCC_SRC = "ekf_slam_tpu_torch/csrc/ncc.cu"
@@ -137,13 +164,15 @@ PER_FRAME = {
               "fused_update_tail_add": 1},
     "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
+    # RANSAC's P·G, the IEKF's 3 + 1 P·Hᵀ, the HI update's; two tails.
+    "iekf": {"corr_apply_cols": 2, "f32_matmul_big": 6},
     "image": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
               "f32_matmul_big": 3},
     "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast_rows": {"corr_apply": 2},
 }
-SIM_PATHS = ("fused", "unfused", "unfused_pallas")
+SIM_PATHS = ("fused", "unfused", "unfused_pallas", "iekf")
 # The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS = 67e12
@@ -500,6 +529,7 @@ def main() -> None:
 
     report = check_paths(dev, card)
     check_loop(dev, card, {k["name"]: k for k in report})
+    check_drivers(dev, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -571,6 +601,22 @@ def check_paths(dev, card: str) -> list:
         "K5_with_Jq4_eq_I", kernels.fused_update_tail(*args[:3], eye4),
         kernels.update_tail_plain(*(a.double() for a in args)),
         kernels.scaled_error)
+
+    # The IEKF frame: K6 for RANSAC's P·G, then for each of the 3 + 1
+    # iterates' P·Hᵀ, then for the HI update's; K4 for the iterated
+    # update's tail, then the HI one's.
+    inputs = capture_frame(cfgs["iekf"], st0, obs, u)
+    calls = {k: len(v) for k, v in inputs.items()}
+    if calls != PER_FRAME["iekf"]:
+        raise AssertionError(f"iekf frame: kernel calls {calls}, expected "
+                             f"{PER_FRAME['iekf']}")
+    for name, site, args in (
+            ("f32_matmul_big", "iekf_PHt", inputs["f32_matmul_big"][4]),
+            ("corr_apply_cols", "iekf_tail", inputs["corr_apply_cols"][0])):
+        e = check_kernel(name, args, site)
+        report[name]["iekf"] = {k: e[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "scaled_err")}
 
     # The image frame's numerator and norms: all B·CAP windows and
     # templates at once, through both forms of K7.
@@ -650,8 +696,8 @@ def check_paths(dev, card: str) -> list:
 
     launches, image_counts = {}, {}
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
-                       ("fast", 3), ("fast_rows", 3), ("image", 3),
-                       ("image_descriptor", 1)):
+                       ("iekf", 3), ("fast", 3), ("fast_rows", 3),
+                       ("image", 3), ("image_descriptor", 1)):
         if path in SIM_PATHS:
             counts = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
                                runs, 0.2, card)
@@ -666,6 +712,8 @@ def check_paths(dev, card: str) -> list:
                 image_counts = counts
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
+            if path == "iekf":
+                report[name]["iekf"]["launches"] = counts[name]
     for name, k in report.items():
         # ncc_corr, on no path since the matcher takes the norms form: its
         # count in the image run, which run_slice held to 0
@@ -935,6 +983,148 @@ def check_loop(dev, card: str, report: dict) -> None:
           gates=json.dumps(gates, separators=(",", ":")))
     if not all(gates.values()):
         raise AssertionError(f"loop gate failed: {gates}")
+
+
+# The drivers phase: a rendered KITTI-layout sequence, and the drivers'
+# arguments besides --pattern / --poses / --out.
+DRIVER_FRAMES = 32
+SEQUENCE_ARGS = ["--mode", "sequence", "--batch", "128", "--capacity",
+                 "100"]
+SIM_ARGS = ["--mode", "sim", "--batch", "128", "--capacity", "100"]
+
+
+def write_kitti_sequence(d: pathlib.Path, frames: int, dev) -> None:
+    """A 400° pan over run_loop_closure's surround scene in KITTI layout:
+    %06d.pgm frames (8-bit) and poses.txt, rendered on `dev`."""
+    cfg = run_loop_closure.harness_config()
+    scn = run_loop_closure.make_surround_scene(
+        torch.Generator().manual_seed(0), cfg)
+    scn = Scene(scn.landmarks.to(dev))
+    xs = run_loop_closure.pan_trajectory(cfg, frames, total_deg=400.0)
+    for t in range(frames):
+        img = frontend.render_scene_image(scn, xs[t].to(dev), cfg, dev)
+        write_pgm(str(d / f"{t:06d}.pgm"),
+                  (img.cpu().numpy() * 255).astype("uint8"))
+    save_trajectory_kitti(str(d / "poses.txt"), xs[:, :7].double().numpy())
+
+
+def run_driver(module: str, args: list) -> tuple:
+    """python -m ekf_slam_tpu_torch.<module> args in a process of its own
+    from the repository root; raises unless it exits 0. Returns (stdout,
+    seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"ekf_slam_tpu_torch.{module}"]
+                       + args, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)}: exit "
+                             f"{r.returncode}\n{r.stderr[-3000:]}")
+    return r.stdout, seconds
+
+
+def driver_launches(stdout: str, path: str) -> dict:
+    """The kernel launches run_slam printed; raises unless they are the
+    path's per-frame counts (PER_FRAME) over DRIVER_FRAMES frames."""
+    got = json.loads(re.findall(r"kernel launches (\{.*\})", stdout)[-1])
+    want = {k: v * DRIVER_FRAMES for k, v in PER_FRAME[path].items()}
+    if got != want:
+        raise AssertionError(f"run_slam ({path}): kernel launches {got}, "
+                             f"expected {want}")
+    return got
+
+
+def rate(stdout: str, unit: str) -> float:
+    """The driver's last '-> N <unit>' figure."""
+    return float(re.findall(rf"-> ([0-9.]+) {unit}", stdout)[-1])
+
+
+def check_drivers(dev, card: str) -> None:
+    """Phase 7: the drivers as a user starts them, on a rendered sequence
+    in KITTI layout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        write_kitti_sequence(d, DRIVER_FRAMES, dev)
+        pattern = str(d / "%06d.pgm")
+        seq_args = SEQUENCE_ARGS + ["--pattern", pattern, "--frames",
+                                    str(DRIVER_FRAMES), "--out",
+                                    str(d / "sequence")]
+        out, secs = run_driver("run_slam", seq_args)
+        if "by the native loader" not in out:
+            raise AssertionError(f"run_slam --mode sequence did not load by "
+                                 f"the native loader:\n{out[-2000:]}")
+        traj = numpy.load(d / "sequence" / "trajectory.npz")["trajectory"]
+        metrics = (d / "sequence" / "metrics.jsonl").read_text().splitlines()
+        if not (traj.shape == (DRIVER_FRAMES, 13)
+                and numpy.isfinite(traj).all()
+                and len(metrics) == DRIVER_FRAMES):
+            raise AssertionError(f"run_slam --mode sequence: trajectory "
+                                 f"{traj.shape}, {len(metrics)} metrics rows")
+        # The same frames decoded here, the driver's draws: frontend
+        # .run_images in this process.
+        args = run_slam.parse_args(seq_args)
+        cfg = run_slam.slam_config(args)
+        seq = ImageSequence(pattern, 0, DRIVER_FRAMES)
+        imgs = torch.from_numpy(seq.load(0, DRIVER_FRAMES))
+        seq.close()
+        u = torch.stack([run_slam.frame_draws(cfg, args.batch, t, dev)
+                         for t in range(DRIVER_FRAMES)])
+        _, _, ref, _ = frontend.run_images(
+            init_state(cfg, args.batch, dev),
+            frontend.init_appearance(cfg, args.batch, dev), imgs, u, cfg, dev)
+        ref = ref[0].double().cpu().numpy()
+        dx = float(numpy.abs(traj - ref).max())
+        scale = float(numpy.abs(ref).max())
+        if not dx <= X_RTOL * scale:
+            raise AssertionError(f"run_slam --mode sequence vs run_images: "
+                                 f"x differs by {dx:.3e} > {X_RTOL} * "
+                                 f"{scale:.3e}")
+        launches = driver_launches(out, "image_descriptor")
+        phase("drivers", driver="run_slam", mode="sequence",
+              batch=args.batch, frames=DRIVER_FRAMES, loader="native",
+              seconds=f"{secs:.2f}", steps_per_s=rate(out, "steps/s"),
+              max_dx_vs_run_images=f"{dx:.3e}", max_abs_x=f"{scale:.3e}",
+              route="unfused (step_image)", launches=json.dumps(
+                  launches, separators=(",", ":")), card=repr(card))
+
+        sim_args = SIM_ARGS + ["--frames", str(DRIVER_FRAMES), "--out",
+                               str(d / "sim")]
+        out, secs = run_driver("run_slam", sim_args)
+        dat = numpy.load(d / "sim" / "trajectory.npz")
+        if not (dat["trajectory"].shape == (DRIVER_FRAMES, 13)
+                and numpy.isfinite(dat["trajectory"]).all()
+                and (d / "sim" / "metrics.jsonl").exists()):
+            raise AssertionError("run_slam --mode sim: artifacts")
+        fused = engine._use_fused(run_slam.slam_config(
+            run_slam.parse_args(sim_args)), dev)
+        launches = driver_launches(out, "fused" if fused else "unfused")
+        ate = re.findall(r"ATE \(SE3-aligned\) ([0-9.]+)", out)
+        phase("drivers", driver="run_slam", mode="sim",
+              batch=run_slam.parse_args(sim_args).batch,
+              frames=DRIVER_FRAMES, seconds=f"{secs:.2f}",
+              steps_per_s=rate(out, "steps/s"), ate=ate[-1],
+              route="fused (K1-K3)" if fused else "unfused (K4, K6)",
+              launches=json.dumps(launches, separators=(",", ":")),
+              card=repr(card))
+
+        out, secs = run_driver("close_loops", [
+            "--poses", str(d / "poses.txt"), "--pattern", pattern,
+            "--out", str(d / "loops")])
+        if "by the native loader" not in out:
+            raise AssertionError("close_loops did not load by the native "
+                                 "loader")
+        poses = numpy.loadtxt(d / "loops" / "kitti_traj.txt")
+        q_times = numpy.loadtxt(d / "loops" / "kitti_q_times.txt")
+        loops = (d / "loops" / "kitti_loops.txt").read_text().splitlines()
+        if not (poses.shape == (DRIVER_FRAMES, 12)
+                and q_times.shape == (DRIVER_FRAMES, 3)
+                and numpy.isfinite(poses).all()
+                and numpy.isfinite(q_times).all()
+                and all(len(r.split()) == 16 for r in loops)):
+            raise AssertionError("close_loops: artifacts")
+        phase("drivers", driver="close_loops", frames=DRIVER_FRAMES,
+              seconds=f"{secs:.2f}", frames_per_s=rate(out, "frames/s"),
+              loops=len(loops), loader="native", card=repr(card))
 
 
 if __name__ == "__main__":

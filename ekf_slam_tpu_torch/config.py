@@ -56,9 +56,9 @@ class FilterConfig:
     The port runs both steps (``fused_step``, ``pallas_update``), P stored
     in the state's dtype or, with ``p_storage="bf16"`` at float32, in
     bfloat16 (the unfused step; the fused one takes f32 storage only), and
-    the non-iterated update: the unfused step raises for
-    ``use_iterated_update`` and ``share_pht``, which are kept so both
-    configuration trees stay field-for-field equal."""
+    the iterated update (``use_iterated_update``, on the unfused step, as
+    in JAX). The unfused step raises for ``share_pht``, which is kept so
+    both configuration trees stay field-for-field equal."""
 
     sigma_a: float = 0.007
     sigma_alpha: float = 0.007

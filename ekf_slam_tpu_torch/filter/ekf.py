@@ -13,6 +13,8 @@ Port of ``ekf_slam_tpu/filter/ekf.py`` in its default forms:
   ``kernels.fused_update_tail`` when ``use_pallas`` is set and P is f32,
   else as the folded rank-(2M'+8) correction applied by K4
   ``kernels.corr_apply_cols``;
+* ``update_iterated``: the iterated (Gauss-Newton) update, each of its
+  P·Hᵀ in K6 and its covariance tail the one ``update`` uses;
 * ``update_rows``: the same update in row form (the engine's
   ``EKF_UPDATE=rows`` layout): the caller's H·P rows feed S, the state
   move and the folded rank-(2M'+8) row factors, whose correction K8
@@ -155,12 +157,58 @@ def update(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
     and in P's storage dtype. Returns (x_new, P_new)."""
     x_new, K, PHt = update_gain(x, P, H, z, h, row_mask, r_diag,
                                 gain_solver)
-    if use_pallas and x.dtype == torch.float32 and P.dtype == torch.float32:
+    return _update_tail(x_new, P, K, PHt, use_pallas)
+
+
+def _update_tail(x_new: torch.Tensor, P: torch.Tensor, K: torch.Tensor,
+                 PHt: torch.Tensor, use_pallas: bool):
+    """The covariance tail of an update with gain K and gain columns PHt
+    (B,D,M'), at the un-renormalized x_new: T·sym(P − K·PHtᵀ)·Tᵀ, T the
+    quaternion-renorm Jacobian at x_new (update.m:13-24). In K5 when
+    use_pallas is set and x and P are float32, else as the folded
+    correction in K4. Returns (x_new renormalized, P_new in P's dtype)."""
+    if (use_pallas and x_new.dtype == torch.float32
+            and P.dtype == torch.float32):
         Jq = quat.norm_jac(x_new[:, 3:7])
         return _renormalized(x_new), kernels.fused_update_tail(P, K, PHt, Jq)
     x_new, A_f, B_f = _folded_tail_factors(x_new, p_compute(P[:, 3:7, :]),
                                            K, PHt)
     return x_new, kernels.corr_apply_cols(P, A_f, B_f)
+
+
+def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
+                    h_fn, row_mask: torch.Tensor, r_diag: torch.Tensor,
+                    num_iters: int = 3, use_pallas: bool = False):
+    """Iterated EKF (Gauss-Newton) measurement update, the intent of the
+    reference's ekf_update_iterated.m (ekf.py:691-731 of the JAX package).
+    From the prior x̂ = x, num_iters re-linearizations of h about the
+    iterate x_i with the innovation ν_i = (z − h(x_i))·mask − H_i·(x̂ − x_i)
+    and x_{i+1} = x̂ + K_i·ν_i; the covariance is formed once, at the last
+    iterate, by ``_update_tail`` (K4, or K5 with use_pallas).
+
+    h_fn: x (B,D) -> (h (B,M), H (B,M,D)) at x; rows of inactive
+    measurements are masked here. z, row_mask, r_diag (B,M). Each P·Hᵀ
+    (num_iters + 1 of them) is a K6 product on P as stored. S is always
+    inverted by Cholesky, whatever the config's gain_solver, as in JAX.
+    Returns (x_new, P_new in P's dtype)."""
+    mask = row_mask.to(x.dtype)
+    R = torch.diag_embed(torch.where(row_mask, r_diag,
+                                     torch.ones_like(r_diag)))
+
+    def gain(xi):
+        h, H = h_fn(xi)
+        H = H * mask[..., None]
+        PHt = kernels.f32_matmul_big(P, H.transpose(1, 2).contiguous())
+        K = PHt @ _spd_inverse(H @ PHt + R)
+        return h, H, PHt, K
+
+    xi = x
+    for _ in range(num_iters):
+        h, H, _, K = gain(xi)
+        nu = (z - h) * mask - (H @ (x - xi)[..., None])[..., 0]
+        xi = x + (K @ nu[..., None])[..., 0]
+    _, _, PHt, K = gain(xi)
+    return _update_tail(xi, P, K, PHt, use_pallas)
 
 
 def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,

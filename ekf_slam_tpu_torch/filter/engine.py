@@ -18,7 +18,9 @@ the JAX engine does (``_use_fused``):
   bf16-P fast mode included). Its dense products on P run in K6
   (``f32_matmul_big``) and its two update tails in K4
   (``corr_apply_cols``) or, with ``pallas_update``, K5
-  (``fused_update_tail``). Under ``ekf._UPDATE == "rows"``
+  (``fused_update_tail``). With ``use_iterated_update`` its LI update
+  is the IEKF (``ekf.update_iterated``: K6 for each P·Hᵀ, the same
+  tail). Under ``ekf._UPDATE == "rows"``
   (EKF_UPDATE=rows) it takes the row form instead: one H·P row read a
   phase (``measurement.pht_rows_split``) feeds the S gates, RANSAC and
   ``ekf.update_rows``, whose tails run in K8 (``corr_apply``); no K6.
@@ -175,12 +177,9 @@ def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
 
 
 def check_ported(cfg: EngineConfig) -> None:
-    """Raise ValueError for filter settings the unfused step (and the image
-    step built on it) does not port: the IEKF and share_pht."""
-    f = cfg.filter
-    if f.use_iterated_update:
-        raise ValueError("the iterated update (IEKF) is not ported")
-    if f.share_pht:
+    """Raise ValueError for the filter setting the unfused step (and the
+    image step built on it) does not port: share_pht."""
+    if cfg.filter.share_pht:
         raise ValueError("share_pht is not ported")
 
 
@@ -200,7 +199,9 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
     update. Column form: S from P's blocks, RANSAC's moves in K6, the
     updates by _masked_update. Row form: each phase reads P once into the
     H·P rows of every visible slot, which give S, RANSAC's moves and
-    _masked_update_rows' operand. Returns (state, visible, ic, StepInfo)."""
+    _masked_update_rows' operand. With use_iterated_update the LI update
+    is the IEKF (_masked_update_iterated, column form only).
+    Returns (state, visible, ic, StepInfo)."""
     f = cfg.filter
     rows = _rows_mode(cfg, x_prior.device)
     h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
@@ -209,8 +210,12 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
     vm = visible.to(H_xv.dtype)[..., None, None]
     li, support = ransac.run(x_prior, z, h, S, ic, state.cartesian, u, cfg,
                              P=P_prior, H_xv=H_xv * vm, H_y=H_y * vm, hp=hp)
-    x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y, z, h, li,
-                                   cfg)
+    if f.use_iterated_update:
+        x_post, P_post = _masked_update_iterated(x_prior, P_prior, z, li,
+                                                 state, cfg)
+    else:
+        x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y, z, h,
+                                       li, cfg)
     h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
     S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, rows)
     hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
@@ -314,6 +319,37 @@ def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
         torch.cat([hs[..., 0], hs[..., 1]], dim=1), sel_mask.repeat(1, 2),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
         cfg.filter.gain_solver)
+
+
+def _masked_update_iterated(x, P, z, slot_mask, state: FilterState,
+                            cfg: EngineConfig):
+    """The Gauss-Newton iterated LI update (engine.py:612-633): the M most
+    relevant slots as in _masked_update when 0 < M < CAP, every slot in
+    slot order otherwise, their rows u,v interleaved; h_fn re-linearizes
+    at each iterate through _linearize. Returns (x_new, P_new)."""
+    B, cap = slot_mask.shape
+    M = cfg.map.max_update_obs
+    if 0 < M < cap:
+        sel, sel_mask, take = _gather_slots(slot_mask, M)
+    else:
+        M = cap
+        sel = torch.arange(cap, device=slot_mask.device).expand(B, cap)
+        sel_mask = slot_mask
+
+        def take(a):
+            return a
+
+    def h_fn(xi):
+        h_i, _, H_xv_i, H_y_i = _linearize(xi, state, cfg)
+        H = measurement.compact_dense_H(take(H_xv_i), take(H_y_i), sel,
+                                        sel_mask, cap)
+        return take(h_i).reshape(B, 2 * M), H
+
+    return ekf.update_iterated(
+        x, P, take(z).reshape(B, 2 * M), h_fn,
+        sel_mask.repeat_interleave(2, dim=1),
+        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
+        cfg.filter.iekf_iterations, _use_pallas(cfg, x.device))
 
 
 def _linearize(x, state: FilterState, cfg: EngineConfig):

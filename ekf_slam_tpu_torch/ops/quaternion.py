@@ -44,6 +44,30 @@ def q2r(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def r2q(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion [w x y z], w >= 0
+    (the reference's missing tr2q): the branchless Shepperd-style choice
+    of the largest of the four squared components, as the JAX module."""
+    r00, r11, r22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    mags = torch.stack([1.0 + r00 + r11 + r22, 1.0 + r00 - r11 - r22,
+                        1.0 - r00 + r11 - r22, 1.0 - r00 - r11 + r22], -1)
+    s = 2.0 * torch.sqrt(torch.clamp(mags, min=1e-12))        # (..., 4)
+    d21, d02, d10 = (R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1])
+    a01, a02, a12 = (R[..., 0, 1] + R[..., 1, 0], R[..., 0, 2] + R[..., 2, 0],
+                     R[..., 1, 2] + R[..., 2, 1])
+    sw, sx, sy, sz = s.unbind(-1)
+    cands = torch.stack([
+        torch.stack([sw / 4.0, d21 / sw, d02 / sw, d10 / sw], -1),
+        torch.stack([d21 / sx, sx / 4.0, a01 / sx, a02 / sx], -1),
+        torch.stack([d02 / sy, a01 / sy, sy / 4.0, a12 / sy], -1),
+        torch.stack([d10 / sz, a02 / sz, a12 / sz, sz / 4.0], -1)], -2)
+    best = torch.argmax(mags, dim=-1)
+    q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def v2q(v: torch.Tensor) -> torch.Tensor:
     """Rotation vector -> quaternion [cos(θ/2), sin(θ/2) v/θ], θ = |v|;
     the identity quaternion for θ < eps (v2q.m:1-16)."""

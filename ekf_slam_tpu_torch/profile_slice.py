@@ -11,6 +11,9 @@ B = 128 instances, 16 frames, through one of the engine's paths (default
   unfused         step_core: K6 for the products on P, K4 for the tails
   unfused_pallas  step_core with pallas_update="on": K6, and K5 for the
                   tails
+  iekf            step_core with the iterated LI update (3 iterations):
+                  K6 for RANSAC's P·G and each P·Hᵀ (6 a frame), K4 for
+                  the tails
 
 and in bench.py's production fast mode (P stored in bf16,
 max_update_obs 24):
@@ -78,7 +81,8 @@ PROFILE_FRAMES = 4
 
 PATHS = {"fused": ("on", "off"), "unfused": ("off", "off"),
          "unfused_pallas": ("off", "on"), "fast": ("off", "off"),
-         "fast_rows": ("off", "off")}    # (fused_step, pallas_update)
+         "fast_rows": ("off", "off"),
+         "iekf": ("off", "off")}         # (fused_step, pallas_update)
 # The fast mode's paths and their update form (ekf._UPDATE).
 FAST_PATHS = {"fast": "cols", "fast_rows": "rows"}
 # The fast mode's scene seed (the f32 paths take scene 0). The bf16 P goes
@@ -96,13 +100,17 @@ def slice_config(path: str = "fused") -> EngineConfig:
     landmarks, min_features 25, max_new_per_step 10, NHYP 64, Newton gain;
     the engine path one of PATHS. The f32 parity settings (max_update_obs
     64, f32 P), or on FAST_PATHS bench.py's default production fast mode
-    (bench.py:282-306: max_update_obs 24, P stored in bf16)."""
+    (bench.py:282-306: max_update_obs 24, P stored in bf16); "iekf" is
+    the unfused path with the iterated LI update (3 iterations; the HI
+    update keeps the Newton gain, the IEKF inverts by Cholesky)."""
     fused_step, pallas_update = PATHS[path]
     fast = path in FAST_PATHS
     return EngineConfig(
         filter=FilterConfig(gain_solver="newton", fused_step=fused_step,
                             pallas_update=pallas_update,
-                            p_storage="bf16" if fast else "f32"),
+                            p_storage="bf16" if fast else "f32",
+                            use_iterated_update=path == "iekf",
+                            iekf_iterations=3),
         map=MapConfig(capacity=100, min_features_in_image=25,
                       max_new_per_step=10,
                       max_update_obs=24 if fast else 64),

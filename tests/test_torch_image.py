@@ -317,8 +317,27 @@ def test_step_image_makes_the_frame_planes_once(small_sequence, monkeypatch):
     {"share_pht": True},
 ], ids=["iekf", "share_pht"])
 def test_step_image_raises_for_what_is_not_ported(small_sequence, change):
+    """share_pht stays unported: step_image raises. The IEKF, once unported
+    too, is now ported: 3 frames of step_image with it (frame 0 initializes
+    from FAST, frames 1-2 update) match JAX's at (a)'s tolerances."""
     tc, _, imgs, u = small_sequence
     cfg = tc.replace(filter=dataclasses.replace(tc.filter, **change))
+    if change.get("use_iterated_update"):
+        d = {**PIXELS, "filter": {"use_iterated_update": True}}
+        frames = _run_both(d, 3, torch.float64)
+        for i, (jst, _, jinfo, st, _, info) in enumerate(frames):
+            for f in COUNTS:
+                np.testing.assert_array_equal(
+                    n(getattr(info, f)), np.asarray(getattr(jinfo, f)),
+                    err_msg=f"{f} frame {i}")
+            xj = np.asarray(jst.x)
+            np.testing.assert_allclose(n(st.x), xj, rtol=0,
+                                       atol=1e-9 * np.abs(xj).max())
+            for f in MASKS:
+                np.testing.assert_array_equal(n(getattr(st, f)),
+                                              np.asarray(getattr(jst, f)))
+        assert int(n(frames[-1][5].n_li).min()) > 0
+        return
     with pytest.raises(ValueError, match="not ported"):
         frontend.step_image(init_state(cfg, B, "cpu"),
                             frontend.init_appearance(cfg, B, "cpu"),

@@ -74,3 +74,23 @@ def test_loop_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# The IO and driver modules: each imports in a fresh interpreter in which
+# JAX, its libraries and the JAX package cannot be imported at all.
+DRIVER_MODULES = (
+    "ekf_slam_tpu_torch.io", "ekf_slam_tpu_torch.io.sequence",
+    "ekf_slam_tpu_torch.io.poses", "ekf_slam_tpu_torch.run_slam",
+    "ekf_slam_tpu_torch.close_loops")
+
+
+def test_driver_modules_import_without_jax():
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "".join(f"import {m}\n" for m in DRIVER_MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

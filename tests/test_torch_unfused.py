@@ -273,11 +273,21 @@ def test_pallas_update_dispatch():
     {"share_pht": True},
 ], ids=["iekf", "share_pht"])
 def test_step_core_raises_for_what_is_not_ported(change):
-    """(g) the IEKF and share_pht stay unported: the unfused step raises
-    rather than take another path."""
-    _, tc = configs(_with(UNFUSED, filter=change))
+    """(g) share_pht stays unported: the unfused step raises rather than
+    take another path. The IEKF, once unported too, is now ported: step_core
+    runs it, and 3 frames of the step match JAX's at (a)'s tolerances
+    (tests/test_torch_iekf.py holds it in full)."""
+    d = _with(UNFUSED, filter=change)
+    _, tc = configs(d)
     st, obs, u = _tiny(tc)
     z, zv = engine.gather_measurements(st, obs)
+    if change.get("use_iterated_update"):
+        engine.step_core(st, z, zv, u, tc)
+        for t, (jst, jinfo, st, info) in enumerate(_run_both(d, 4, B),
+                                                   start=1):
+            _assert_states(st, jst)
+            _assert_counts(info, jinfo, t)
+        return
     with pytest.raises(ValueError, match="not ported"):
         engine.step_core(st, z, zv, u, tc)
     with pytest.raises(ValueError, match="not ported"):
