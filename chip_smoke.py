@@ -66,7 +66,10 @@ Phases, one line each, any failure raises (exit code != 0):
                on the CPU (plain path), and the same frame through the
                fused and the unfused step, and through the fast mode's row
                and column forms, on the card: equal gate counts, x and P
-               within tolerance
+               within tolerance; then ekf._spd_inverse on batches mixing
+               SPD and indefinite S (2 x 2 and 128 x 128): all NaN
+               exactly on the indefinite entries, the CPU's inverse on
+               the others (SPD_RTOL)
   6. loop      the CALC2 loop-closure path (models/loop_runner.run_online)
                at full width: VSS(VSSConfig()), width 32 at 192x256, with
                the port's own seeded weights, over a 128-frame rendered pan
@@ -102,6 +105,28 @@ Phases, one line each, any failure raises (exit code != 0):
                those of its path: the descriptor image step (K4 2x, K6
                3x a frame) and the fused step (K1-K3 once a frame) at
                this config; steps/s (frames/s) and seconds of each.
+  8. train     CALC2 training at full width: VSS(VSSConfig()) (width 32)
+               and TrainConfig()'s defaults (batch 12, 192x256, triplet)
+               on synthetic_batch scenes drawn on the card at 320x320
+               (every step crops): 3 warm-up steps, then three timed
+               windows of 7 steps (steps/s and images/s, median and
+               spread), one profiled step (device ms of augment, forward,
+               optimizer, the backward the rest; busy), the peak of
+               max_memory_allocated; every metric finite, the last five
+               steps' mean loss below the first five's, every weight and
+               running statistic moved. One step at width 8, 48x64,
+               batch 4 on the card vs the CPU with the same weights and
+               draws (metrics to TRAIN_METRIC_RTOL, Adam's first moment
+               to TRAIN_MU_TOL). evaluate_pairs on 32 eval_view pairs at
+               severity 0 and 1 before and after training, a G-CALC2
+               re-rank (top 5) on 16: PR-AUCs in [0, 1]. Then, as
+               processes, train_calc2 --steps 20 (width 8, 48x64) into a
+               temporary directory, its ckpt_final restored here (the
+               same descriptors by both loaders, the PR-AUC it printed),
+               and run_loop_closure --ckpt at phase 6's gate protocol with
+               --lc-severity 0.5: exit 0, finite artifacts, K4 and K6
+               launched (their counts go into the JSON line as
+               "ckpt_loop").
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line {"ok": true, "device": {...}}. Without a
 CUDA device it fails.
@@ -110,6 +135,7 @@ CUDA device it fails.
 from __future__ import annotations
 
 import collections
+import copy
 import json
 import pathlib
 import re
@@ -123,12 +149,14 @@ import numpy
 import torch
 import torch.nn.functional as F
 
-from ekf_slam_tpu_torch import run_loop_closure, run_slam
-from ekf_slam_tpu_torch.filter import engine, loop_fusion
+from ekf_slam_tpu_torch import run_loop_closure, run_slam, train_calc2
+from ekf_slam_tpu_torch.data import synthetic
+from ekf_slam_tpu_torch.filter import ekf, engine, loop_fusion
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.io import ImageSequence, write_pgm
 from ekf_slam_tpu_torch.io.poses import save_trajectory_kitti
-from ekf_slam_tpu_torch.models import keypoints, loop_runner
+from ekf_slam_tpu_torch.models import (augment, evaluate, keypoints,
+                                       loop_runner, train)
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig
 from ekf_slam_tpu_torch.ops import _build, kernels
@@ -258,6 +286,8 @@ LIBRARY = {
 # their last bits land one bf16 ulp apart, up to 2^-7 of an entry).
 X_RTOL = 1e-3
 P_TOL = 1e-2
+# _spd_inverse card vs CPU on SPD S (f32, condition number < ~10)
+SPD_RTOL = 1e-4
 # K7's norms form, f32 against its f64 plain version: each window's Σwc²
 # (a sum of W2² squares) within this share.
 ENERGY_RTOL = 1e-5
@@ -528,8 +558,10 @@ def main() -> None:
             print("  ptxas:", line.strip(), flush=True)
 
     report = check_paths(dev, card)
-    check_loop(dev, card, {k["name"]: k for k in report})
+    by_name = {k["name"]: k for k in report}
+    check_loop(dev, card, by_name)
     check_drivers(dev, card)
+    check_training(dev, card, by_name)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -748,7 +780,42 @@ def check_paths(dev, card: str) -> list:
                                    imgs[8].cpu(), iu[8].cpu(), icfgs["image"])
     same_frame("image:cuda_vs_cpu", (card_step[0], card_step[2]),
                (cpu_step[0], cpu_step[2]))
+    check_spd_inverse(dev)
     return list(report.values())
+
+
+def check_spd_inverse(dev) -> None:
+    """ekf._spd_inverse on the card of batches mixing SPD and indefinite S
+    (a negative pivot at the first, a middle and the last position), 2 x 2
+    and 128 x 128, f32: all NaN exactly on the indefinite entries (the
+    factor's failure masked, whatever partial factor cuSOLVER leaves), the
+    CPU's inverse elsewhere to SPD_RTOL of its largest entry."""
+    gen = torch.Generator().manual_seed(8)
+    for n in (2, 128):
+        A = torch.randn(6, n, n, generator=gen)
+        S = A @ A.transpose(1, 2) / n + torch.eye(n)
+        bad = {1: 0, 3: n // 2, 5: n - 1}
+        for b, k in bad.items():
+            S[b, k, k] = -1.0
+        on_card = ekf._spd_inverse(S.to(dev)).cpu()
+        on_cpu = ekf._spd_inverse(S)
+        nan = torch.isnan(on_card).flatten(1).all(1)
+        finite = torch.isfinite(on_card).flatten(1).all(1)
+        want = torch.zeros(6, dtype=torch.bool)
+        want[list(bad)] = True
+        if not (torch.equal(nan, want) and torch.equal(finite, ~want)
+                and torch.equal(torch.isnan(on_cpu), torch.isnan(on_card))):
+            raise AssertionError(f"spd_inverse n={n}: NaN entries "
+                                 f"{nan.tolist()}, expected {want.tolist()}")
+        good = ~want
+        err = float((on_card[good] - on_cpu[good]).abs().max())
+        scale = float(on_cpu[good].abs().max())
+        if not err <= SPD_RTOL * scale:
+            raise AssertionError(f"spd_inverse n={n}: card vs CPU "
+                                 f"{err:.3e} > {SPD_RTOL} * {scale:.3e}")
+        phase("crosscheck", pair=f"spd_inverse:n={n}",
+              nan_entries=",".join(map(str, bad)), max_abs_diff=f"{err:.3e}",
+              max_abs=f"{scale:.3e}")
 
 
 # The loop phase: the reference's input size, full width, B instances,
@@ -790,9 +857,9 @@ def loop_inputs(dev):
     return torch.stack(frames), st.x, st.P, model.to(dev), lcfg
 
 
-def range_device_ms(fn) -> dict:
+def range_device_ms(fn, ranges=LOOP_RANGES) -> dict:
     """fn() once unprofiled for its wall ms, once under torch.profiler:
-    device ms of each LOOP_RANGES range (the kernels of the ops inside
+    device ms of each range in `ranges` (the kernels of the ops inside
     it) and of all kernels (the ranges' own device annotations left out,
     which span their kernels)."""
     torch.cuda.synchronize()
@@ -805,7 +872,7 @@ def range_device_ms(fn) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {r: 0.0 for r in LOOP_RANGES}
+    out = {r: 0.0 for r in ranges}
     by_kernel = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1125,6 +1192,254 @@ def check_drivers(dev, card: str) -> None:
         phase("drivers", driver="close_loops", frames=DRIVER_FRAMES,
               seconds=f"{secs:.2f}", frames_per_s=rate(out, "frames/s"),
               loops=len(loops), loader="native", card=repr(card))
+
+
+
+# The training phase: TrainConfig's defaults (batch 12, 192x256, triplet)
+# on VSS(VSSConfig()) (width 32), fed synthetic scenes drawn on the card
+# at the reference's 320x320 shard size, so that every step crops.
+TRAIN_DATA_HW = (320, 320)
+TRAIN_POOL = 4                  # batches drawn before the timed steps
+TRAIN_WARMUP = 3
+TRAIN_WINDOWS = 3
+TRAIN_WINDOW_STEPS = 7
+TRAIN_RANGES = ("train.augment", "train.forward", "train.backward",
+                "train.optimizer")
+TRAIN_METRIC_RTOL = 1e-4        # card vs CPU step, width 8
+TRAIN_MU_TOL = 2e-3             # Adam's first moment, of each tensor's max
+EVAL_PAIRS = 32
+RERANK_PAIRS = 16
+
+
+def check_training(dev, card: str, report: dict) -> None:
+    """Phase 8: CALC2 training and evaluation at full width, a train step
+    card vs CPU, then train_calc2 and run_loop_closure --ckpt as
+    processes."""
+    tcfg = train.TrainConfig()
+    model = VSS(VSSConfig(), tcfg.image_hw,
+                torch.Generator().manual_seed(0)).to(dev)
+    untrained = copy.deepcopy(model).eval()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = [synthetic.synthetic_batch(tcfg.batch_size, TRAIN_DATA_HW,
+                                      generator=gen)
+            for _ in range(TRAIN_POOL)]
+    state = train.init_state(model, tcfg)
+    draws = torch.Generator(device=dev).manual_seed(2)
+    history = []
+
+    def step():
+        nonlocal state
+        imgs, labels = pool[len(history) % TRAIN_POOL]
+        state, m = train.train_step(tcfg, state, imgs, labels,
+                                    synthetic.class_weights(labels),
+                                    generator=draws)
+        history.append(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        step()
+    seconds = []
+    for _ in range(TRAIN_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_WINDOW_STEPS):
+            step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    prof = range_device_ms(step, TRAIN_RANGES)
+    if not all(prof[r] > 0 for r in ("device", "train.forward",
+                                     "train.optimizer")):
+        raise AssertionError(f"train: the profiler shows no device time: "
+                             f"{prof}")
+    keys = sorted(history[0])
+    table = torch.stack([torch.stack([m[k] for k in keys])
+                         for m in history]).cpu()
+    if not bool(torch.isfinite(table).all()):
+        raise AssertionError("train: a non-finite metric")
+    loss = table[:, keys.index("loss")]
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"train: the loss did not fall: first five "
+                             f"{first:.4f}, last five {last:.4f}")
+    sd = model.state_dict()
+    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    params = [n for n, _ in model.named_parameters()]
+    moved_stats = sum(not torch.equal(sd[k], init[k]) for k in stats)
+    moved_params = sum(not torch.equal(sd[k], init[k]) for k in params)
+    if moved_stats != len(stats) or moved_params != len(params):
+        raise AssertionError(f"train: {moved_stats} of {len(stats)} running "
+                             f"statistics and {moved_params} of "
+                             f"{len(params)} parameters moved")
+    rates = [TRAIN_WINDOW_STEPS / s for s in seconds]
+    med = statistics.median(rates)
+    # the backward's kernels lie outside every range (autograd's thread)
+    backward = prof["device"] - sum(prof[r] for r in TRAIN_RANGES
+                                    if r != "train.backward")
+    phase("train", width=model.cfg.width, batch=tcfg.batch_size,
+          data_hw="x".join(map(str, TRAIN_DATA_HW)),
+          hw="x".join(map(str, tcfg.image_hw)),
+          objective=tcfg.sim_objective, steps=len(history),
+          timed_steps=TRAIN_WINDOWS * TRAIN_WINDOW_STEPS,
+          seconds=",".join(f"{x:.4f}" for x in seconds),
+          median_steps_per_s=f"{med:.3f}",
+          spread_steps_per_s=f"{min(rates):.3f}-{max(rates):.3f}",
+          median_images_per_s=f"{med * tcfg.batch_size:.2f}",
+          device_ms_per_step=f"{prof['device']:.2f}",
+          augment_ms=f"{prof['train.augment']:.2f}",
+          forward_ms=f"{prof['train.forward']:.2f}",
+          backward_ms=f"{backward:.2f} (the rest: autograd's thread)",
+          optimizer_ms=f"{prof['train.optimizer']:.2f}",
+          wall_ms=f"{prof['wall']:.2f}",
+          busy=f"{prof['device'] / prof['wall']:.3f}",
+          peak_gb=f"{peak / 1e9:.3f}",
+          loss_first5=f"{first:.4f}", loss_last5=f"{last:.4f}",
+          moved=f"{moved_params} params, {moved_stats} statistics",
+          card=repr(card))
+    for name, ms in prof["top"]:
+        phase("train_top", ms_per_step=f"{ms:.4f}", kernel=repr(name))
+
+    check_train_step_card_vs_cpu(dev)
+    model.eval()
+    mem, _ = synthetic.synthetic_batch(
+        EVAL_PAIRS, tcfg.image_hw,
+        generator=torch.Generator(device=dev).manual_seed(1234))
+    for severity in (0.0, 1.0):
+        live = augment.eval_view(
+            mem, severity=severity,
+            generator=torch.Generator(device=dev).manual_seed(5))
+        aucs = [evaluate.evaluate_pairs(m, live, mem)["auc"]
+                for m in (untrained, model)]
+        if not all(0.0 <= a <= 1.0 for a in aucs):
+            raise AssertionError(f"train_eval: PR-AUC {aucs}")
+        phase("train_eval", pairs=EVAL_PAIRS, severity=severity,
+              pr_auc_untrained=f"{aucs[0]:.4f}",
+              pr_auc_trained=f"{aucs[1]:.4f}",
+              trained_steps=len(history), trapezoid=evaluate.TRAPEZOID)
+    live = augment.eval_view(
+        mem[:RERANK_PAIRS], generator=torch.Generator(device=dev).manual_seed(5))
+    d_l, kp_l = evaluate.embed(model, live, 8, with_keypoints=True)
+    d_m, kp_m = evaluate.embed(model, mem[:RERANK_PAIRS], 8,
+                               with_keypoints=True)
+    labels, scores = evaluate.geometric_rerank(
+        d_l, kp_l, d_m, kp_m, lc.LoopConfig(min_inliers=10,
+                                            ransac_hypotheses=16),
+        top_k=5, generator=torch.Generator(device=dev).manual_seed(9))
+    g_auc = evaluate.pr_auc(labels, scores)
+    if not 0.0 <= g_auc <= 1.0:
+        raise AssertionError(f"train_eval: G-CALC2 PR-AUC {g_auc}")
+    phase("train_eval", pairs=RERANK_PAIRS, rerank="top_k=5",
+          pr_auc_gcalc2=f"{g_auc:.4f}", verified=int((scores > 0).sum()))
+    del pool, state, model, untrained
+    check_training_drivers(dev, card, report)
+
+
+def check_train_step_card_vs_cpu(dev) -> None:
+    """One train step at width 8, 48x64, batch 4 (crops from 56x72), the
+    same weights and draws on both devices: the metrics equal to
+    TRAIN_METRIC_RTOL relative, Adam's first moment (0.1 x the clipped
+    gradient) to TRAIN_MU_TOL of each tensor's largest entry (f32 on
+    both, TF32 off; cuDNN sums in another order)."""
+    hw = (48, 64)
+    tcfg = train.TrainConfig(batch_size=4, image_hw=hw, aug_severity=1.0)
+    base = VSS(VSSConfig(width=8), hw, torch.Generator().manual_seed(3))
+    imgs, labels = synthetic.synthetic_batch(
+        4, (56, 72), generator=torch.Generator().manual_seed(4))
+    w = synthetic.class_weights(labels)
+    d = train.train_draws(tcfg, base, imgs.shape,
+                          torch.Generator().manual_seed(5), "cpu")
+    states, metrics = [], []
+    for device, draws in (("cpu", d), (dev, d.to(dev))):
+        st = train.init_state(copy.deepcopy(base).to(device), tcfg)
+        st, m = train.train_step(tcfg, st, imgs.to(device),
+                                 labels.to(device), w.to(device), draws)
+        states.append(st)
+        metrics.append({k: float(v) for k, v in m.items()})
+    rel = max(abs(metrics[1][k] - v) / max(abs(v), 1e-30)
+              for k, v in metrics[0].items())
+    if not rel <= TRAIN_METRIC_RTOL:
+        raise AssertionError(f"train step card vs CPU: metrics {metrics}")
+    worst, worst_name = 0.0, ""
+    cpu_params = dict(states[0].model.named_parameters())
+    for name, p in states[1].model.named_parameters():
+        a = states[1].optimizer.state[p]["exp_avg"].cpu()
+        b = states[0].optimizer.state[cpu_params[name]]["exp_avg"]
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if e > worst:
+            worst, worst_name = e, name
+    if not worst <= TRAIN_MU_TOL:
+        raise AssertionError(f"train step card vs CPU: exp_avg of "
+                             f"{worst_name} differs by {worst:.3e} of its "
+                             f"max > {TRAIN_MU_TOL}")
+    phase("crosscheck", pair="train_step:cuda_vs_cpu", width=8,
+          hw="48x64", batch=4, max_metric_rel=f"{rel:.3e}",
+          exp_avg_max_rel=f"{worst:.3e} ({worst_name})",
+          loss=f"{metrics[1]['loss']:.6f}")
+
+
+def check_training_drivers(dev, card: str, report: dict) -> None:
+    """train_calc2 (20 steps, width 8 at 48x64) into a temporary
+    directory, its ckpt_final restored here to the trained model (the PR
+    evaluation of the trainer's pairs equal to the PR-AUC it printed),
+    then run_loop_closure --ckpt on it at the phase-6 gate protocol's
+    size with --lc-severity 0.5: exit 0, finite artifacts, K4 and K6
+    launched."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        out, secs = run_driver("train_calc2", [
+            "--steps", "20", "--width", "8", "--hw", "48", "64",
+            "--out", str(d / "calc2")])
+        ckpt = d / "calc2" / "ckpt_final"
+        rows = [json.loads(r) for r in (d / "calc2" / "train_metrics.jsonl")
+                .read_text().splitlines()]
+        if not (ckpt.is_file() and len(rows) == 20 and all(
+                numpy.isfinite(list(r.values())).all() for r in rows)):
+            raise AssertionError("train_calc2: artifacts")
+        printed = re.findall(r"retrieval PR-AUC: ([0-9.]+)", out)[-1]
+        hw = (48, 64)
+        model = run_loop_closure.load_vss(VSSConfig(width=8), hw,
+                                          str(ckpt)).to(dev)
+        st = train.restore_checkpoint(str(ckpt), train.init_state(
+            VSS(VSSConfig(width=8), hw).to(dev),
+            train.TrainConfig(image_hw=hw)))
+        live, mem = train_calc2.eval_pairs(hw, dev)
+        da = evaluate.embed(model, live)
+        db = evaluate.embed(st.model, live)
+        auc = evaluate.evaluate_pairs(model, live, mem, batch=4)["auc"]
+        if not (torch.equal(da, db) and f"{auc:.4f}" == printed
+                and st.step == 20):
+            raise AssertionError(f"train_calc2: ckpt_final restores to PR-AUC "
+                                 f"{auc:.4f}, the trainer printed {printed}")
+        phase("train_drivers", driver="train_calc2", steps=20, width=8,
+              hw="48x64", batch=8, seconds=f"{secs:.2f}",
+              steps_per_s=rate(out, "steps/s"), pr_auc=printed,
+              restored="equal descriptors and PR-AUC", card=repr(card))
+        out, secs = run_driver("run_loop_closure", LOOP_GATE_ARGS + [
+            "--ckpt", str(ckpt), "--lc-severity", "0.5",
+            "--out", str(d / "lc"), "--json", str(d / "lc.json")])
+        s = json.loads((d / "lc.json").read_text())
+        traj = numpy.load(d / "lc" / "trajectory.npz")["trajectory"]
+        nums = [s[k] for k in ("ate_off_p50", "ate_on_p50",
+                               "final_off_p50", "final_on_p50")]
+        launches = json.loads(re.findall(r"kernel launches (\{.*\})",
+                                         out)[-1])
+        if not (numpy.isfinite(nums).all() and numpy.isfinite(traj).all()
+                and launches.get("corr_apply_cols", 0) > 0
+                and launches.get("f32_matmul_big", 0) > 0):
+            raise AssertionError(f"run_loop_closure --ckpt: {nums}, "
+                                 f"launches {launches}")
+        for name in ("corr_apply_cols", "f32_matmul_big"):
+            report[name]["ckpt_loop"] = {"launches": launches[name]}
+        phase("train_drivers", driver="run_loop_closure", ckpt="ckpt_final",
+              lc_severity=0.5, frames=s["frames"], seeds=s["ensemble"],
+              seconds=f"{secs:.2f}", frames_per_s=rate(out, "frames/s"),
+              ate_off_p50=f"{nums[0]:.4f}", ate_on_p50=f"{nums[1]:.4f}",
+              final_off_p50=f"{nums[2]:.4f}", final_on_p50=f"{nums[3]:.4f}",
+              n_loops_total=s["n_loops_total"],
+              launches=json.dumps(launches, separators=(",", ":")),
+              card=repr(card))
 
 
 if __name__ == "__main__":

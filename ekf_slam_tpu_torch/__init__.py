@@ -5,8 +5,10 @@ unfused step under run_sequence) over a leading axis of independent
 filter instances, with the full-covariance work in hand-written CUDA
 kernels for Hopper (ops/kernels.py, csrc/) and their plain PyTorch
 versions on CPU tensors; the image front-end (vision/); the CALC2
-loop-closure path (models/, filter/loop_fusion.py, run_loop_closure.py)
-and the trajectory metrics (utils/). Imports torch, never jax; the JAX
+loop-closure path (models/, filter/loop_fusion.py, run_loop_closure.py),
+CALC2 training and evaluation (models/train.py, models/evaluate.py,
+data/, train_calc2.py, calc2_bundled_run.py) and the trajectory metrics
+(utils/). Imports torch, never jax; the JAX
 package ekf_slam_tpu is the reference the port is tested against.
 """
 

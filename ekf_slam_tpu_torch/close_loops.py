@@ -10,7 +10,8 @@ and a printf image pattern (io.ImageSequence: the native loader built
 from native/imageio.cpp, else the NumPy reader), embeds each frame with
 the CALC2 VSS (descriptor and keypoints; the JAX script's network, Flax's
 initial draw from key 2 at --vss-width and --vss-hw, drawn without JAX by
-models/flax_init.py), queries the ring database with geometric
+models/flax_init.py, or with --ckpt a checkpoint of the port's trainer),
+queries the ring database with geometric
 verification and the temporal filter (models/loopclosure.query and
 step_temporal), pushes the frame, and writes the reference's three
 artifacts ("CALC 2.0"/close_kitti_loops.py:141-158):
@@ -23,8 +24,9 @@ artifacts ("CALC 2.0"/close_kitti_loops.py:141-158):
 
 RANSAC's draws at frame t come from a generator seeded 200 + t (the JAX
 script's key(200 + t)), or from ``main``'s ``draws_fn`` hook. Runs on the
-card unless --cpu. Not ported: --ckpt (an orbax checkpoint of the JAX
-trainer) and --plot (the viz package).
+card unless --cpu. --ckpt reads the port's own checkpoints
+(models/train.save_checkpoint), not the JAX trainer's orbax ones. Not
+ported: --plot (the viz package).
 """
 
 from __future__ import annotations
@@ -42,10 +44,9 @@ from ekf_slam_tpu_torch.io.poses import (load_kitti_poses, poses_to_rq,
                                          save_trajectory_kitti)
 from ekf_slam_tpu_torch.models import keypoints as kp_mod
 from ekf_slam_tpu_torch.models import loopclosure as lc
-from ekf_slam_tpu_torch.models.flax_init import flax_variables
-from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig, from_flax
+from ekf_slam_tpu_torch.models.vss import VSSConfig
 from ekf_slam_tpu_torch.ops import device as devices
-from ekf_slam_tpu_torch.run_loop_closure import to_vss
+from ekf_slam_tpu_torch.run_loop_closure import check_ckpt, load_vss, to_vss
 
 
 def parse_args(argv=None):
@@ -60,7 +61,9 @@ def parse_args(argv=None):
     ap.add_argument("--vss-width", type=int, default=8)
     ap.add_argument("--vss-hw", type=int, nargs=2, default=(48, 64))
     ap.add_argument("--ckpt", default="",
-                    help="an orbax checkpoint: not ported (raises)")
+                    help="a checkpoint of the port's trainer (train_calc2's "
+                         "ckpt_final) at --vss-width / --vss-hw; the JAX "
+                         "trainer's orbax checkpoints cannot be read")
     ap.add_argument("--sim-threshold", type=float, default=0.85)
     ap.add_argument("--min-inliers", type=int, default=8)
     ap.add_argument("--consistency", type=int, nargs=2, default=(2, 3),
@@ -92,11 +95,10 @@ def main(argv=None, draws_fn=None) -> dict:
     JAX's). Returns {frames, loops [(i, j)], loop_inliers, native,
     seconds, frames_per_s}."""
     args = parse_args(argv)
-    if args.ckpt:
-        raise ValueError("--ckpt (an orbax checkpoint of the JAX trainer) "
-                         "is not ported")
     if args.plot:
         raise ValueError("--plot (the viz package) is not ported")
+    if args.ckpt:
+        check_ckpt(args.ckpt)
     # The cosine gate and the DB's top-k must see true-f32 descriptors.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -110,10 +112,8 @@ def main(argv=None, draws_fn=None) -> dict:
     poses_rq = poses_to_rq(poses[:T])
     seq = ImageSequence(args.pattern, args.start, T)
 
-    vcfg, hw = VSSConfig(width=args.vss_width), tuple(args.vss_hw)
-    model = VSS(vcfg, hw)
-    model.load_state_dict(from_flax(flax_variables(vcfg, hw, 2)))
-    model = model.to(dev)
+    hw = tuple(args.vss_hw)
+    model = load_vss(VSSConfig(width=args.vss_width), hw, args.ckpt).to(dev)
     lcfg = loop_config(args, T)
 
     @torch.no_grad()

@@ -257,11 +257,21 @@ def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
     return _renormalized(x_new), kernels.corr_apply(P, At, Bt, _TAIL_SYM)
 
 
+def cholesky(S: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ½(S + Sᵀ), which is what JAX's cholesky
+    factors (symmetrize_input). A batch entry whose factor fails
+    (cholesky_ex's info != 0; LAPACK and cuSOLVER leave different partial
+    factors) is all NaN, as JAX's is. The mask is a torch.where, so
+    nothing syncs the host."""
+    L, info = torch.linalg.cholesky_ex(0.5 * (S + S.transpose(-1, -2)))
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
 def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
-    """SPD inverse via Cholesky: S⁻¹ = L⁻ᵀ L⁻¹. cholesky_ex does not check
-    for failure (no host sync); a non-SPD S yields non-finite values, as
-    in JAX."""
-    L = torch.linalg.cholesky_ex(S).L
+    """SPD inverse via Cholesky: S⁻¹ = L⁻ᵀ L⁻¹, L = cholesky(S); all NaN
+    where S is not positive definite."""
+    L = cholesky(S)
     eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     Linv = torch.linalg.solve_triangular(L, eye.expand_as(S), upper=False)
     return Linv.transpose(-1, -2) @ Linv

@@ -210,6 +210,14 @@ def _normalize_pts(pts: torch.Tensor, w: torch.Tensor):
     return xyh @ T.transpose(-1, -2), T
 
 
+def smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
+    """The eigenvector (..., n) of the smallest eigenvalue of ½(M + Mᵀ),
+    M (..., n, n): JAX's eigh symmetrizes its input, torch's reads the
+    lower triangle only."""
+    M = 0.5 * (M + M.transpose(-1, -2))
+    return torch.linalg.eigh(M).eigenvectors[..., :, 0]
+
+
 def _eight_point(p1h: torch.Tensor, p2h: torch.Tensor, sel: torch.Tensor,
                  w8: torch.Tensor) -> torch.Tensor:
     """Weighted 8-point solve of each hypothesis: F = argmin ‖A f‖ as the
@@ -227,8 +235,7 @@ def _eight_point(p1h: torch.Tensor, p2h: torch.Tensor, sel: torch.Tensor,
         *A.shape[:-2], nh, *A.shape[-2:]), -2,
         sel[..., None].expand(*sel.shape, 9))               # (..., NH, 8, 9)
     M = (rows * w8[..., None]).transpose(-1, -2) @ rows
-    F = torch.linalg.eigh(M).eigenvectors[..., :, 0].reshape(
-        *M.shape[:-2], 3, 3)
+    F = smallest_eigvec(M).reshape(*M.shape[:-2], 3, 3)
     U, S, Vh = torch.linalg.svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
     return (U * S[..., None, :]) @ Vh

@@ -1,13 +1,12 @@
-"""VSS — the Variational Semantic Segmentator (the CALC2 network), forward
-pass in eval mode.
+"""VSS — the Variational Semantic Segmentator (the CALC2 network).
 
 Port of ``ekf_slam_tpu/models/vss.py`` (calc2.py:125-243):
 
 * ``Encoder`` — a 3x3 conv, two bottleneck residual pairs (1x1 to w/2,
   3x3 back to w), then conv pairs at 2w / 4w / 8w / 16w with a 2x2 max
-  pool before each; every conv is ``ConvBNElu`` (no bias, BatchNorm on its
-  running statistics, ELU). Returns d5 (H/16), c5 (the full-resolution
-  residual output, the keypoint source) and d4 (H/8).
+  pool before each; every conv is ``ConvBNElu`` (no bias, BatchNorm,
+  ELU). Returns d5 (H/16), c5 (the full-resolution residual output, the
+  keypoint source) and d4 (H/8).
 * Latent heads ``mu`` and ``log_sig_sq`` (3x3 convs with bias, 4·heads
   channels); z = mu + sqrt(exp(log_sig_sq))·eps.
 * The NetVLAD-style descriptor: the residual of a latent grid against the
@@ -26,21 +25,30 @@ returns every output NHWC, as the JAX module does (c5 (B, H, W, width)
 feeds ``keypoints.kp_descriptor``). Max pooling is 2x2 / 2 with Flax's
 "SAME" padding, which is ``ceil_mode=True`` on odd sizes.
 
+Train mode (``VSS.train()``) is Flax's: BatchNorm normalizes by the
+batch's mean and biased variance, E[x²] − E[x]² clipped at 0 (Flax's
+fast variance), and updates its running statistics as
+running = m·running + (1 − m)·batch with Flax's momentum m
+(``bn_momentum``, torch's 1 − momentum) and the biased variance.
+``remat`` checkpoints each conv block (``torch.utils.checkpoint``); the
+running statistics are updated outside the checkpointed function, so the
+recompute in backward does not update them again. A forward with
+descriptor_only runs no decoder, so it moves only the encoder's
+statistics; inside ``frozen_statistics`` a forward moves none.
+
 Weights: ``VSS(cfg, image_hw, generator)`` draws its own from Flax's
 distributions (``lecun_normal`` convs, zero biases, BatchNorm scale 1,
 bias 0, mean 0, var 1, ``offset`` normal(1)) without matching Flax's
 draws; ``from_flax`` carries a Flax VSS's params and batch statistics
 across, so that both compute the same function.
 
-Not ported: training (the module raises in train mode; BatchNorm's batch
-statistics and momentum are the training side), ``compute_dtype``
-"bfloat16" (raises), the "convt" lowering of depth_to_space (bit-identical
-to the reshape form). ``remat`` is accepted and has no effect at
-inference.
+Not ported: ``compute_dtype`` "bfloat16" (raises), the "convt" lowering
+of depth_to_space (bit-identical to the reshape form).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ekf_slam_tpu_torch.models.keypoints import GRID
 
@@ -72,7 +81,7 @@ class VSSConfig:
     compute_dtype: str = "float32"  # "bfloat16" is not ported
     bn_momentum: float = 0.9997     # calc2.py:133 decay
     bn_epsilon: float = 1e-5
-    remat: bool = False             # no effect at inference
+    remat: bool = False             # checkpoint each conv block
     descr_source: str = "d5"        # "d5" | "d4" | "multi"
     descr_intra_norm: bool = True
 
@@ -103,7 +112,8 @@ def pooled(n: int, times: int) -> int:
 
 class ConvBNElu(nn.Module):
     """Conv (no bias, SAME padding) + BatchNorm + ELU (calc2.py:139-146);
-    `groups` > 1 is the decoder's grouped form."""
+    `groups` > 1 is the decoder's grouped form. In train mode BatchNorm
+    is Flax's (the module docstring)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  cfg: VSSConfig = VSSConfig(), groups: int = 1):
@@ -112,9 +122,53 @@ class ConvBNElu(nn.Module):
                               bias=False, groups=groups)
         self.bn = nn.BatchNorm2d(cout, eps=cfg.bn_epsilon,
                                  momentum=1.0 - cfg.bn_momentum)
+        self.flax_momentum = cfg.bn_momentum
+        self.remat = cfg.remat
+        self.update_running = True      # frozen_statistics turns it off
+
+    def _block(self, x):
+        """(output, batch mean, batch variance); the statistics are None
+        in eval mode."""
+        y = self.conv(x)
+        if not self.training:
+            return F.elu(self.bn(y)), None, None
+        mean = torch.mean(y, dim=(0, 2, 3))
+        var = torch.clamp(torch.mean(y * y, dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.bn.eps) * self.bn.weight
+        y = ((y - mean[:, None, None]) * mul[:, None, None]
+             + self.bn.bias[:, None, None])
+        return F.elu(y), mean, var
 
     def forward(self, x):
-        return F.elu(self.bn(self.conv(x)))
+        if self.remat and torch.is_grad_enabled():
+            out, mean, var = torch.utils.checkpoint.checkpoint(
+                self._block, x, use_reentrant=False)
+        else:
+            out, mean, var = self._block(x)
+        if mean is not None and self.update_running:
+            m = self.flax_momentum
+            with torch.no_grad():
+                self.bn.running_mean.copy_(m * self.bn.running_mean
+                                           + (1 - m) * mean)
+                self.bn.running_var.copy_(m * self.bn.running_var
+                                          + (1 - m) * var)
+        return out
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module):
+    """Train-mode forwards of `model` inside the block normalize by their
+    batch statistics but leave the running statistics as they are (the
+    JAX train step keeps the statistics of its first apply only)."""
+    blocks = [m for m in model.modules() if isinstance(m, ConvBNElu)]
+    for b in blocks:
+        b.update_running = False
+    try:
+        yield
+    finally:
+        for b in blocks:
+            b.update_running = True
 
 
 class GroupedConvBNElu(ConvBNElu):
@@ -197,7 +251,7 @@ class Decoder(nn.Module):
 
 
 class VSS(nn.Module):
-    """The full VSS in eval mode. forward(images (B, H, W, 3)) -> dict with
+    """The full VSS. forward(images (B, H, W, 3)) -> dict with
     descriptor (B, Dd), c5 (B, H, W, width) and, unless descriptor_only,
     mu, log_sig_sq, z (B, H/16, W/16, latent), rec (B, H, W, 3) and
     seg (B, H, W, num_classes)."""
@@ -275,9 +329,6 @@ class VSS(nn.Module):
         """images (B, H, W, 3) at self.image_hw. eps (B, H/16, W/16,
         latent), the reparameterization noise, or None to draw it from
         `generator` (on its device)."""
-        if self.training:
-            raise RuntimeError("VSS runs in eval mode only: training is "
-                               "not ported")
         dt = self.mu.weight.dtype
         d5, c5, d4 = self.encoder(images.to(dt).permute(0, 3, 1, 2))
         mu = self.mu(d5)

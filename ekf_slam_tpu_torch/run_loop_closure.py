@@ -31,13 +31,17 @@ reference, not corrected here).
 
 The VSS is the JAX example's network: Flax's initial weights from key 2
 at the --vss-width / --vss-hw given, drawn without JAX by
-models/flax_init.py. The filter's and the retrieval's
+models/flax_init.py, or with --ckpt a checkpoint of the port's trainer
+(models/train.save_checkpoint, e.g. train_calc2's ckpt_final; the JAX
+trainer's orbax checkpoints cannot be read). --lc-severity corrupts each
+CALC2 input frame by ``augment.seasonal_change`` with draws of its own
+(a generator seeded 9000 + seed, drawn frame after frame on the CPU); the
+filter's input stays clean. The filter's and the retrieval's
 randomness comes from torch generators seeded as the JAX example seeds
 its keys (observations 1000 + seed, RANSAC 100 + seed, image noise
 7000 + seed, retrieval 200 + t), so a run matches the JAX one in
-distribution, not draw for draw. Runs on the card unless --cpu. Not
-ported: --ckpt (orbax checkpoints) and --lc-severity (the training
-side's ``augment.seasonal_change``).
+distribution, not draw for draw. Runs on the card unless --cpu; prints
+the card's kernel launches (ops/kernels.LAUNCHES) and frames/s.
 """
 
 from __future__ import annotations
@@ -57,11 +61,13 @@ import torch.nn.functional as F
 from ekf_slam_tpu_torch.config import EngineConfig, MapConfig, SimConfig
 from ekf_slam_tpu_torch.filter import engine, loop_fusion, motion
 from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.models import augment, train
 from ekf_slam_tpu_torch.models import keypoints as kp_mod
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.flax_init import flax_variables
 from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig, from_flax
 from ekf_slam_tpu_torch.ops import device as devices
+from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops.quaternion import q2r
 from ekf_slam_tpu_torch.sim import scene as sim_scene
 from ekf_slam_tpu_torch.utils import trajectory as traj_mod
@@ -129,15 +135,11 @@ def make_surround_scene(gen: torch.Generator, cfg: EngineConfig,
 
 def build_lc_stack(args, T: int):
     """The CALC2 model and LoopConfig. The VSS's weights are the JAX
-    example's: Flax's initial draw from key 2 at the VSS input size
-    (models/flax_init.py). Untrained descriptors are still deterministic
-    functions of the image, so revisits retrieve."""
-    if args.ckpt:
-        raise ValueError("--ckpt (an orbax checkpoint of the JAX trainer) "
-                         "is not ported")
+    example's, Flax's initial draw from key 2 at the VSS input size
+    (models/flax_init.py; untrained descriptors are still deterministic
+    functions of the image, so revisits retrieve), or --ckpt's."""
     vcfg, hw = VSSConfig(width=args.vss_width), tuple(args.vss_hw)
-    model = VSS(vcfg, hw)
-    model.load_state_dict(from_flax(flax_variables(vcfg, hw, 2)))
+    model = load_vss(vcfg, hw, args.ckpt)
     lcfg = lc.LoopConfig(capacity=max(256, T), top_k=3,
                          exclude_recent=T // 4, min_db=T // 4,
                          sim_threshold=args.sim_threshold,
@@ -145,6 +147,44 @@ def build_lc_stack(args, T: int):
                          ransac_hypotheses=16, consistency_count=3,
                          consistency_window=3)
     return model, lcfg
+
+
+def check_ckpt(path: str) -> None:
+    """Raise unless `path` is a file, as the port's trainer writes them:
+    the JAX trainer's orbax checkpoints are directories and cannot be
+    read."""
+    if os.path.isdir(path):
+        raise ValueError(f"--ckpt {path} is a directory, as the JAX "
+                         f"trainer's orbax checkpoints are: reading them is "
+                         f"not ported (models/train.save_checkpoint writes "
+                         f"the port's)")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"--ckpt {path}: no such file")
+
+
+def load_vss(vcfg: VSSConfig, hw, ckpt: str = "") -> VSS:
+    """The VSS in eval mode: the weights of `ckpt`, a checkpoint of the
+    port's trainer (models/train.save_checkpoint), or Flax's initial draw
+    from key 2. Raises if the checkpoint's shapes are not vcfg's at hw."""
+    model = VSS(vcfg, hw)
+    if ckpt:
+        check_ckpt(ckpt)
+        state = train.init_state(model, train.TrainConfig(image_hw=hw))
+        train.restore_checkpoint(ckpt, state)
+    else:
+        model.load_state_dict(from_flax(flax_variables(vcfg, hw, 2)))
+    return model.eval()
+
+
+def corrupt(img: torch.Tensor, severity: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """augment.seasonal_change of a grey frame (H, W), its draws from
+    `generator` on the CPU (the same on every device)."""
+    x = img[None, :, :, None]
+    d = augment.seasonal_draws(torch.empty(x.shape, dtype=x.dtype),
+                               severity, generator=generator)
+    d = augment.SeasonalDraws(*(f.to(x.device) for f in d))
+    return augment.seasonal_change(x, severity, draws=d)[0, :, :, 0]
 
 
 def to_vss(img: torch.Tensor, hw) -> torch.Tensor:
@@ -202,7 +242,9 @@ def parse_args(argv=None):
     ap.add_argument("--vss-width", type=int, default=8)
     ap.add_argument("--vss-hw", type=int, nargs=2, default=(48, 64))
     ap.add_argument("--ckpt", default="",
-                    help="an orbax checkpoint: not ported (raises)")
+                    help="a checkpoint of the port's trainer (train_calc2's "
+                         "ckpt_final) at --vss-width / --vss-hw; the JAX "
+                         "trainer's orbax checkpoints cannot be read")
     ap.add_argument("--min-inliers", type=int, default=10,
                     help="geometric-verification inlier gate; the keypoint "
                          "budget grows with the input resolution")
@@ -210,8 +252,9 @@ def parse_args(argv=None):
                     help="retrieval cosine gate; 0 = calibrate per run "
                          "(AutoThreshold)")
     ap.add_argument("--lc-severity", type=float, default=0.0,
-                    help="cross-season corruption of the retrieval input: "
-                         "not ported (raises unless 0)")
+                    help="augment.seasonal_change severity applied to "
+                         "the CALC2 input of every frame with its own "
+                         "draws; the filter's input stays clean")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "loop_demo"))
     ap.add_argument("--json", default="")
@@ -223,9 +266,8 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run the experiment; returns the JSON summary."""
     args = parse_args(argv)
-    if args.lc_severity > 0.0:
-        raise ValueError("--lc-severity (augment.seasonal_change, the "
-                         "training side) is not ported")
+    if args.ckpt:
+        check_ckpt(args.ckpt)
     # The cosine gate and the DB's top-k must see true-f32 descriptors.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -279,6 +321,7 @@ def main(argv=None) -> dict:
             g_noise = torch.Generator().manual_seed(7000 + seed)
             st = init_state(cfg, 1, dev)
             app = frontend.init_appearance(cfg, 1, dev)
+        g_sev = torch.Generator().manual_seed(9000 + seed)
         for t in range(T):
             u = torch.rand(1, nhyp, generator=g_u,
                            dtype=cfg.torch_dtype).to(dev)
@@ -297,8 +340,10 @@ def main(argv=None) -> dict:
                 t0 = time.time()
                 # CALC2's input: the camera frame in pixels mode, a
                 # ground-truth render in sim mode (no pixels exist there).
-                descr, kps = embed(img_t if img_t is not None
-                                   else render(t))
+                src = img_t if img_t is not None else render(t)
+                if args.lc_severity > 0.0:
+                    src = corrupt(src, args.lc_severity, g_sev)
+                descr, kps = embed(src)
                 if db is None:
                     db = lc.init_db(lcfg, 1, descr.shape[1],
                                     kps.yx.shape[1], kps.descr.shape[2],
@@ -331,6 +376,8 @@ def main(argv=None) -> dict:
     xs_np = xs.double().numpy()
     gt = torch.from_numpy(xs_np[:, 0:3])
     rows = []
+    launches0 = dict(kernels.LAUNCHES)
+    t_run = time.perf_counter()
     for seed in range(args.ensemble):
         t0 = time.time()
         traj_off, _, _ = run(seed, with_lc=False)
@@ -357,6 +404,7 @@ def main(argv=None) -> dict:
             dump_trajectory(os.path.join(args.out, "trajectory_nolc.npz"),
                             traj_off, truth=xs_np)
 
+    seconds = time.perf_counter() - t_run
     summary = {
         "frontend": args.frontend, "traj": args.traj, "frames": T,
         "ensemble": args.ensemble, "ckpt": args.ckpt,
@@ -370,9 +418,15 @@ def main(argv=None) -> dict:
         "n_loops_total": int(sum(r["n_loops"] for r in rows)),
         "rows": rows,
     }
+    launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()
+                if v > launches0[k]}
     print(f"ATE p50: {summary['ate_off_p50']:.4f} without fusion -> "
           f"{summary['ate_on_p50']:.4f} with fusion "
           f"({summary['n_loops_total']} loops over {args.ensemble} seeds)")
+    # both runs of every seed, fusion off and on
+    print(f"{2 * args.ensemble} runs of {T} frames in {seconds:.2f} s -> "
+          f"{2 * T * args.ensemble / seconds:.2f} frames/s")
+    print(f"kernel launches {json.dumps(launches)}")
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:

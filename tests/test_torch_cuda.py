@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels K1-K8 on the card, against their plain
 versions, and one frame of each engine path and of the image path on the
-card against the same frame on the CPU. Every test needs a CUDA device and
-skips without one.
+card against the same frame on the CPU; also the Cholesky inverse on
+indefinite S and one CALC2 train step, card vs CPU. Every test needs a
+CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package (the machine with the
 card has no JAX); run it there without the suite's conftest:
@@ -927,3 +928,68 @@ def test_cuda_run_online_matches_cpu_and_counts_k4(card):
     for a, b in ((got[1], ref[1]), (got[2], ref[2])):
         assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
             b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 128])
+def test_cuda_spd_inverse_is_nan_where_indefinite(card, n):
+    """ekf._spd_inverse of a batch mixing SPD and indefinite S on the
+    card: all NaN exactly on the indefinite entries, whatever partial
+    factor cuSOLVER leaves; the CPU's inverse elsewhere (1e-4 of its
+    largest entry, f32)."""
+    A = torch.randn(4, n, n, generator=torch.Generator().manual_seed(n))
+    S = A @ A.transpose(1, 2) / n + torch.eye(n)
+    S[1, 0, 0] = -1.0
+    S[3, n - 1, n - 1] = -1.0
+    got = ekf._spd_inverse(S.to(card)).cpu()
+    ref = ekf._spd_inverse(S)
+    nan = torch.isnan(got).flatten(1).all(1)
+    assert nan.tolist() == [False, True, False, True]
+    assert torch.isfinite(got[[0, 2]]).all()
+    assert torch.equal(torch.isnan(ref), torch.isnan(got))
+    assert float((got[[0, 2]] - ref[[0, 2]]).abs().max()) <= 1e-4 * float(
+        ref[[0, 2]].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("severity", [0.0, 1.0])
+def test_cuda_train_step_matches_cpu(card, severity):
+    """One CALC2 train step (width 8, 48x64, batch 4, cropped from 56x72)
+    with the same weights and draws on the card and on the CPU, f32, TF32
+    off: the metrics within 1e-4 relative, Adam's first moment within
+    2e-3 of each tensor's largest entry, the running statistics within
+    1e-4 of their scale."""
+    import copy
+
+    from ekf_slam_tpu_torch.data import synthetic
+    from ekf_slam_tpu_torch.models import train
+    from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig
+    torch.backends.cudnn.allow_tf32 = False
+    tcfg = train.TrainConfig(batch_size=4, image_hw=(48, 64),
+                             aug_severity=severity)
+    base = VSS(VSSConfig(width=8), (48, 64), torch.Generator().manual_seed(3))
+    imgs, labels = synthetic.synthetic_batch(
+        4, (56, 72), generator=torch.Generator().manual_seed(4))
+    w = synthetic.class_weights(labels)
+    d = train.train_draws(tcfg, base, imgs.shape,
+                          torch.Generator().manual_seed(5), "cpu")
+    out = []
+    for dev, draws in (("cpu", d), (card, d.to(card))):
+        st = train.init_state(copy.deepcopy(base).to(dev), tcfg)
+        st, m = train.train_step(tcfg, st, imgs.to(dev), labels.to(dev),
+                                 w.to(dev), draws)
+        out.append((st, m))
+    (s_cpu, m_cpu), (s_card, m_card) = out
+    for k, v in m_cpu.items():
+        assert abs(float(m_card[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    cpu_p = dict(s_cpu.model.named_parameters())
+    for name, p in s_card.model.named_parameters():
+        a = s_card.optimizer.state[p]["exp_avg"].cpu()
+        b = s_cpu.optimizer.state[cpu_p[name]]["exp_avg"]
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max()), \
+            name
+    cpu_sd = s_cpu.model.state_dict()
+    for k, v in s_card.model.state_dict().items():
+        if "running" in k:
+            assert float((v.cpu() - cpu_sd[k]).abs().max()) <= 1e-4 * max(
+                float(cpu_sd[k].abs().max()), 1.0), k

@@ -221,9 +221,34 @@ def test_drivers_default_to_the_card(kitti_seq, tmp_path):
 @pytest.mark.parametrize("main,argv", [
     (run_slam.main, ["--cpu", "--plots"]),
     (close_loops.main, ["--cpu", "--poses", "p", "--pattern", "q",
-                        "--ckpt", "x"]),
+                        "--ckpt", "ORBAX"]),
     (close_loops.main, ["--cpu", "--poses", "p", "--pattern", "q",
                         "--plot"])], ids=["plots", "ckpt", "plot"])
 def test_unported_flags_raise(main, argv, tmp_path):
+    """--ckpt reads the port's own checkpoints: an orbax checkpoint of the
+    JAX trainer (a directory) raises."""
+    (tmp_path / "orbax").mkdir()
+    argv = [str(tmp_path / "orbax") if a == "ORBAX" else a for a in argv]
     with pytest.raises(ValueError, match="not ported"):
         main(argv + ["--out", str(tmp_path)])
+
+
+def test_close_loops_reads_a_port_checkpoint(kitti_seq, tmp_path):
+    """--ckpt with a checkpoint of the port's trainer holding the default
+    network's weights (Flax's key-2 draw) gives the run without it."""
+    from ekf_slam_tpu_torch.models import train
+    from ekf_slam_tpu_torch.models.vss import VSSConfig
+    model = run_loop_closure.load_vss(VSSConfig(width=8), (48, 64))
+    ckpt = tmp_path / "ckpt_final"
+    train.save_checkpoint(str(ckpt), train.init_state(
+        model, train.TrainConfig(image_hw=(48, 64))))
+    args = ["--poses", str(kitti_seq / "poses.txt"),
+            "--pattern", str(kitti_seq / "%06d.pgm"), "--frames", "12",
+            "--cpu"]
+    a = close_loops.main(args + ["--out", str(tmp_path / "a")])
+    b = close_loops.main(args + ["--out", str(tmp_path / "b"), "--ckpt",
+                                 str(ckpt)])
+    assert a["loops"] == b["loops"]
+    for name in ("kitti_traj.txt", "kitti_loops.txt"):
+        assert (tmp_path / "a" / name).read_text() == \
+            (tmp_path / "b" / name).read_text()

@@ -94,3 +94,32 @@ def test_driver_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# The training and evaluation slice's modules: each imports in a fresh
+# interpreter in which JAX, its libraries and the JAX package cannot be
+# imported at all (PIL is imported only when coco.py reads a file).
+TRAIN_MODULES = (
+    "ekf_slam_tpu_torch.models.augment", "ekf_slam_tpu_torch.models.evaluate",
+    "ekf_slam_tpu_torch.models.losses", "ekf_slam_tpu_torch.models.train",
+    "ekf_slam_tpu_torch.data", "ekf_slam_tpu_torch.data.synthetic",
+    "ekf_slam_tpu_torch.data.classes", "ekf_slam_tpu_torch.data.records",
+    "ekf_slam_tpu_torch.data.coco", "ekf_slam_tpu_torch.data.coco_min",
+    "ekf_slam_tpu_torch.train_calc2", "ekf_slam_tpu_torch.calc2_bundled_run")
+
+
+def test_training_modules_import_without_jax():
+    import subprocess
+    import sys
+    paths = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in TRAIN_MODULES:
+        stem = mod.replace(".", "/")
+        assert stem + ".py" in paths or stem + "/__init__.py" in paths, mod
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n"
+                      for m in FORBIDDEN + ("PIL",))
+            + "".join(f"import {m}\n" for m in TRAIN_MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -523,8 +523,11 @@ def test_pan_descriptors_match_jax_on_the_ports_world():
 
 
 def test_unported_flags_raise(tmp_path):
+    """An orbax checkpoint of the JAX trainer (a directory) cannot be read
+    (--ckpt reads the port's own, and --lc-severity is ported:
+    tests/test_torch_train.py runs both)."""
+    orbax = tmp_path / "ckpt_orbax"
+    orbax.mkdir()
     with pytest.raises(ValueError, match="not ported"):
-        harness.main(["--cpu", "--ckpt", "x", "--out", str(tmp_path)])
-    with pytest.raises(ValueError, match="not ported"):
-        harness.main(["--cpu", "--lc-severity", "0.5", "--out",
+        harness.main(["--cpu", "--ckpt", str(orbax), "--out",
                       str(tmp_path)])

@@ -237,10 +237,102 @@ def test_generator_draws_from_flax_distributions():
 
 
 def test_unported_settings_raise():
+    """bf16 activations and an unknown descriptor source raise; train mode
+    runs (it raised before training was ported)."""
     with pytest.raises(ValueError, match="not ported"):
         vss.VSS(vss.VSSConfig(width=8, compute_dtype="bfloat16"), (48, 64))
     with pytest.raises(ValueError, match="descr_source"):
         vss.VSS(vss.VSSConfig(width=8, descr_source="d3"), (48, 64))
     m = vss.VSS(vss.VSSConfig(width=8, remat=True), (48, 64)).train()
-    with pytest.raises(RuntimeError, match="eval mode"):
-        m(torch.zeros(1, 48, 64, 3))
+    assert torch.isfinite(m(torch.rand(2, 48, 64, 3))["seg"]).all()
+
+
+# --- train mode ---------------------------------------------------------------
+
+def _stats(sd):
+    """{name: tensor} of the running means and variances of a state
+    dict."""
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+@pytest.mark.parametrize("momentum", [0.9997, 0.5])
+def test_train_mode_matches_flax(flax_variables, momentum, hw=(48, 64)):
+    """Two train-mode applies, as JAX's train step makes them: the images
+    (every output), then a second batch with descriptor_only from the
+    first apply's batch statistics. After each, the outputs and every
+    running mean and variance equal Flax's to its f32 rounding (2e-5 of
+    scale), and so does each update's increment (new − old) to 1e-3
+    relative: at the d5 level (n = 2·3·4 = 24 values a channel) the
+    unbiased variance would move the increment by 4%. Momentum 0.9997 is
+    the reference's, 0.5 makes the update dominate the statistics."""
+    v = _subset(flax_variables[hw], "d5")
+    jcfg = jvss.VSSConfig(width=8, bn_momentum=momentum)
+    imgs, imgs2 = _images(hw, seed=4), _images(hw, seed=5)
+    key = jax.random.key(6)
+    apply = jax.jit(lambda v, x, only: jvss.VSS(jcfg).apply(
+        v, x, train=True, rng=key, mutable=["batch_stats"],
+        descriptor_only=only), static_argnums=2)
+    ref1, mut1 = apply(v, jnp.asarray(imgs), False)
+    ref2, mut2 = apply({"params": v["params"],
+                        "batch_stats": mut1["batch_stats"]},
+                       jnp.asarray(imgs2), True)
+    eps = np.asarray(jax.random.normal(key, ref1["mu"].shape, jnp.float32))
+    model = _port(vss.VSSConfig(width=8, bn_momentum=momentum), hw, v)
+    model.train()
+    old = {k: t.clone() for k, t in _stats(model.state_dict()).items()}
+    got1 = model(torch.tensor(imgs), eps=torch.tensor(eps))
+    st1 = {k: t.clone() for k, t in _stats(model.state_dict()).items()}
+    got2 = model(torch.tensor(imgs2), descriptor_only=True)
+    st2 = _stats(model.state_dict())
+    for k in ref1:
+        _close(got1[k], ref1[k], k)
+    for k in ref2:
+        _close(got2[k], ref2[k], k)
+    moved_twice = 0
+    flax = [_stats(vss.from_flax({"params": v["params"],
+                                  "batch_stats": b})) for b in (
+        v["batch_stats"], mut1["batch_stats"], mut2["batch_stats"])]
+    for i, (prev, now) in enumerate(((old, st1), (st1, st2))):
+        for k, ref in flax[i + 1].items():
+            ref = ref.double()
+            _close(now[k], ref, k)
+            inc, ref_inc = now[k] - prev[k], ref - flax[i][k].double()
+            assert float((inc - ref_inc).abs().max()) <= (
+                1e-3 * float(ref_inc.abs().max())
+                + 2e-7 * float(ref.abs().max())), k
+    for k in st2:
+        if not torch.equal(st2[k], st1[k]):
+            moved_twice += 1
+            assert k.startswith("encoder."), k
+    assert moved_twice == 2 * 13        # every encoder mean and variance
+
+
+def test_remat_is_bit_equivalent(hw=(48, 64)):
+    """remat on and off (torch.utils.checkpoint per conv block): equal
+    outputs, gradients and running statistics after a forward and
+    backward; the recompute in backward does not update the statistics a
+    second time."""
+    out = []
+    for remat in (False, True):
+        m = vss.VSS(vss.VSSConfig(width=8, remat=remat), hw,
+                    torch.Generator().manual_seed(1)).train()
+        x = torch.tensor(_images(hw, seed=7))
+        eps = torch.randn(2, 3, 4, m.cfg.latent_ch,
+                          generator=torch.Generator().manual_seed(2))
+        o = m(x, eps=eps)
+        loss = o["seg"].square().mean() + o["descriptor"].sum() \
+            + o["rec"].mean()
+        loss.backward()
+        out.append((o, {n: p.grad for n, p in m.named_parameters()},
+                    _stats(m.state_dict())))
+    (o0, g0, s0), (o1, g1, s1) = out
+    for k in o0:
+        assert torch.equal(o0[k], o1[k]), k
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
+    m = vss.VSS(vss.VSSConfig(width=8), hw, torch.Generator().manual_seed(1))
+    base = _stats(m.state_dict())["encoder.blocks.0.bn.running_mean"]
+    assert not torch.equal(s1["encoder.blocks.0.bn.running_mean"], base)
