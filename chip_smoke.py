@@ -126,7 +126,26 @@ Phases, one line each, any failure raises (exit code != 0):
                and run_loop_closure --ckpt at phase 6's gate protocol with
                --lc-severity 0.5: exit 0, finite artifacts, K4 and K6
                launched (their counts go into the JSON line as
-               "ckpt_loop").
+               "ckpt_loop"). Then the bf16 VSS (`[train_bf16]`): the
+               full-width train step at compute_dtype "bfloat16" beside
+               f32 from the same weights and batches (steps/s, images/s,
+               device ms a step, peak memory), and the f32-vs-bf16
+               descriptor cosine on phase 6's first 16 pan frames.
+  9. parallel  the multi-process layer (ekf_slam_tpu_torch.parallel): two
+               gloo ranks sharing the card (one spawn; gloo's collectives
+               on CUDA tensors probed first), each leg against its
+               single-process run here: (a) run_ensemble of the fused
+               slice, data 2; (b) the row-sharded step (K6 on the slab,
+               K8's row-slab form for the tails), data 1 x model 2, with
+               frames/s beside the unfused (i) run and the largest
+               collective against its bound; (c) run_online on the
+               capacity-sharded loop DB (phase 6's run, data 2); (d) the
+               data-parallel train step at full width, batch 12 as 2 x 6.
+               Then leg (a) on one NCCL rank. (K8's row-slab form and K6
+               at the slab shape are checked in phase 3 on the unfused
+               (i) frame's operands split as leg (b) holds them, with a
+               planted fault; their launches in the JSON line are leg
+               (b)'s rank 0's.)
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line {"ok": true, "device": {...}}. Without a
 CUDA device it fails.
@@ -136,6 +155,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import functools
 import json
 import pathlib
 import re
@@ -184,6 +204,7 @@ KERNELS = {
     "ncc_corr": (NCC_SRC, f"{PK}:802"),
     "ncc_corr_norms": (NCC_SRC, f"{PK}:802"),
     "corr_apply": (UNFUSED_SRC, f"{PK}:741"),
+    "corr_apply_rows": (UNFUSED_SRC, f"{PK}:741"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
 # is branchless: frame 0, with no features yet, launches as many.
@@ -260,6 +281,9 @@ FLOPS = {
     "corr_apply": lambda P, At, Bt, mode:
         P.shape[0] * (2 * P.shape[1] ** 2 * At.shape[1] if mode == "none"
                       else 4 * _sym(P.shape[1]) * At.shape[1]),
+    # K8's row-slab form: "none" on the slab's Dl x Dc entries
+    "corr_apply_rows": lambda P, At, Bt, r0:
+        2 * P.shape[0] * P.shape[1] * P.shape[2] * At.shape[1],
 }
 # One PyTorch call that computes the kernel's function, where there is
 # one: timed beside the kernel, never called by the port. Its bf16
@@ -278,6 +302,8 @@ LIBRARY = {
     "corr_apply": lambda P, At, Bt, mode: torch.baddbmm(
         P, torch.cat([At, Bt], 1).transpose(1, 2), torch.cat([Bt, At], 1),
         alpha=0.5),
+    "corr_apply_rows": lambda P, At, Bt, r0: torch.baddbmm(
+        P, At[:, :, r0:r0 + P.shape[1]].transpose(1, 2), Bt),
 }
 # One frame, CUDA vs CPU, both f32: the same math in another summation
 # order; the gain solve and the two updates amplify rounding. x within this
@@ -334,18 +360,21 @@ def kernel_error(name, out, ref, args) -> float:
     return kernels.scaled_error(out, ref, Ht)
 
 
-def check_kernel(name, args, site="") -> dict:
+def check_kernel(name, args, site="", err_fn=None) -> dict:
     """One kernel against its plain version on the card: errors (kernel
     vs f64 plain on the same inputs, limit kernels.SCALED_TOL; K7's norms
     form also its variance stray, limit ncc.FLAT_EPS, and its energies'
     error, limit ENERGY_RTOL), CUDA-event times of kernel, plain and
-    library call, max|P−Pᵀ| of the P output."""
+    library call, max|P−Pᵀ| of the P output. err_fn(out, ref) replaces
+    kernel_error where the bounds need more than the operands (a slab
+    of P)."""
     wrapper, plain = getattr(kernels, name), kernels.PLAIN[name]
     out = wrapper(*args)
     torch.cuda.synchronize()
     ref = plain(*(a.double() if isinstance(a, torch.Tensor) else a
                   for a in args))
-    err = kernel_error(name, out, ref, args)
+    err = (kernel_error(name, out, ref, args) if err_fn is None
+           else err_fn(out, ref))
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     abs_err = max(float((o.double() - r).abs().max())
@@ -379,7 +408,8 @@ def check_kernel(name, args, site="") -> dict:
         gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}")
     if library_ms is not None:
         fields["library_abs_err"] = f"{lib_err:.3e}"
-    if name not in ("f32_matmul_big", "ncc_corr", "ncc_corr_norms"):
+    if name not in ("f32_matmul_big", "ncc_corr", "ncc_corr_norms",
+                    "corr_apply_rows"):
         fields["asym"] = f"{max_asym(outs[0]):.3e}"
     norms = {}
     if name == "ncc_corr_norms":
@@ -431,6 +461,66 @@ def flat_stray(win, t) -> None:
     if not stray < ncc.FLAT_EPS:
         raise AssertionError(f"f32 patch variance strays {stray:.4f} units "
                              f">= FLAT_EPS {ncc.FLAT_EPS}")
+
+
+# The row-sharded step's split in phase 3 and leg (b) of phase 9.
+TP_MODEL = 2
+
+
+def check_slab_kernels(inputs, report) -> None:
+    """Phase 3, the row-sharded step's kernels on the unfused (i) frame's
+    operands split as the step holds them at model = TP_MODEL (P padded to
+    Dp, slabs of Dp / TP_MODEL rows): K8's row-slab form on the LI tail's
+    folded factors (At = Āᵀ, Bt = B̄ᵀ, R = 264) for each slab — bit for bit
+    the slab's rows of K8 "none" on the whole P, each entry in units of
+    sqrt(P⁺_ii·P⁺_jj) of the whole updated P — and K6 on the first slab
+    with the update's Hᵀ (its entries in units of sqrt(P_ii·(HᵀPH)_kk) of
+    the whole P), beside torch.bmm; then K8's slab form without the
+    renorm rows must fail the check."""
+    P, A, Bf = inputs["corr_apply_cols"][0]
+    Ht = inputs["f32_matmul_big"][1][1]
+    D = P.shape[1]
+    Dp = -(-D // TP_MODEL) * TP_MODEL
+    Dl, ext = Dp // TP_MODEL, Dp - D
+    Pp = F.pad(P, (0, ext, 0, ext))
+    At = F.pad(A, (0, 0, 0, ext)).transpose(1, 2).contiguous()
+    Bt = F.pad(Bf, (0, 0, 0, ext)).transpose(1, 2).contiguous()
+    Htp = F.pad(Ht, (0, 0, 0, ext)).contiguous()
+    whole = kernels.corr_apply(Pp, At, Bt, "none")
+    diag = (torch.diagonal(Pp.double(), dim1=1, dim2=2)
+            + (At.double() * Bt.double()).sum(dim=1)).clamp_min(0)
+    for part in range(TP_MODEL):
+        r0 = part * Dl
+        slab = Pp[:, r0:r0 + Dl].contiguous()
+        rows = slice(r0, r0 + Dl)
+        e = check_kernel("corr_apply_rows", (slab, At, Bt, r0),
+                         f"tp_slab{part}", err_fn=lambda g, r: kernels
+                         .entry_error(g.double() - r, diag[:, rows], diag))
+        if part == 0:
+            report["corr_apply_rows"] = e
+        if not torch.equal(kernels.corr_apply_rows(slab, At, Bt, r0),
+                           whole[:, rows]):
+            raise AssertionError(f"corr_apply_rows slab {part}: not the "
+                                 f"rows of K8 none on the whole P")
+    slab = Pp[:, :Dl].contiguous()
+    Pd = Pp.double()
+    hph = (Htp.double() * (Pd @ Htp.double())).sum(dim=1).clamp_min(0)
+    pdiag = torch.diagonal(Pd, dim1=1, dim2=2).clamp_min(0)
+    e = check_kernel("f32_matmul_big", (slab, Htp), "tp_slab_PHt",
+                     err_fn=lambda g, r: kernels.entry_error(
+                         g.double() - r, pdiag[:, :Dl], hph))
+    report["f32_matmul_big"]["tp_slab"] = {k: e[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "scaled_err")}
+    no_renorm = At.clone()
+    no_renorm[:, -8:] = 0
+    planted_fault(
+        "K8_slab_without_renorm_rows",
+        kernels.corr_apply_rows(slab, no_renorm, Bt, 0),
+        kernels.corr_apply_rows_plain(slab.double(), At.double(),
+                                      Bt.double(), 0),
+        lambda g, r: kernels.entry_error(g.double() - r, diag[:, :Dl],
+                                          diag))
 
 
 def capture_frame(cfg, st0, obs, u, t=2):
@@ -559,9 +649,12 @@ def main() -> None:
 
     report = check_paths(dev, card)
     by_name = {k["name"]: k for k in report}
-    check_loop(dev, card, by_name)
+    loop = check_loop(dev, card, by_name)
     check_drivers(dev, card)
     check_training(dev, card, by_name)
+    check_bf16_training(dev, card, loop["frames"])
+    check_parallel(dev, card, by_name, loop)
+    print(card, flush=True)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -624,6 +717,7 @@ def check_paths(dev, card: str) -> list:
     check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0], "ransac_PG")
     report["f32_matmul_big"] = check_kernel(
         "f32_matmul_big", inputs["f32_matmul_big"][1], "update_PHt")
+    check_slab_kernels(inputs, report)
     inputs = capture_frame(cfgs["unfused_pallas"], st0, obs, u)
     args = inputs["fused_update_tail"][0]
     report["fused_update_tail"] = check_kernel("fused_update_tail", args,
@@ -825,6 +919,7 @@ LOOP_FRAMES = 128
 LOOP_HW = (192, 256)
 LOOP_CHECK_FRAMES = 3
 LOOP_PROFILE_FRAMES = 8
+LOOP_COSINE_FRAMES = 16         # phase 8's f32-vs-bf16 descriptor cosine
 DESCR_COS = 1 - 1e-5
 LOOP_RANGES = ("loop.vss", "loop.query", "loop.fusion")
 # bench.py's BENCH_MODE=loop run (bench.py:245-271) and its gates.
@@ -920,9 +1015,12 @@ def same_query(tag, r_card, r_cpu) -> None:
           inliers_cpu=r_cpu.best_inliers.tolist())
 
 
-def check_loop(dev, card: str, report: dict) -> None:
+def check_loop(dev, card: str, report: dict) -> dict:
     """Phase 6: the loop-closure path at full width, its card-vs-CPU
-    checks, K4 and K6 on its operands, and bench.py's loop gates."""
+    checks, K4 and K6 on its operands, and bench.py's loop gates. Returns
+    the first LOOP_COSINE_FRAMES frames of the pan and the outputs of the
+    last timed run (its LoopStepOut, x and P on the CPU), which phases 8
+    and 9 reuse."""
     images, x0, P0, model, lcfg = loop_inputs(dev)
     T, B = images.shape[:2]
     gen = torch.Generator(device=dev)
@@ -1029,6 +1127,9 @@ def check_loop(dev, card: str, report: dict) -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "scaled_err")}
         report[name]["loop"]["launches"] = launches[name]
+    kept = {"frames": images[:LOOP_COSINE_FRAMES].clone(),
+            "out": loop_runner.LoopStepOut(*(f.cpu() for f in out)),
+            "x": x.cpu(), "P": P.cpu()}
     del db, images
 
     # bench.py's loop gate through the port's harness.
@@ -1050,6 +1151,7 @@ def check_loop(dev, card: str, report: dict) -> None:
           gates=json.dumps(gates, separators=(",", ":")))
     if not all(gates.values()):
         raise AssertionError(f"loop gate failed: {gates}")
+    return kept
 
 
 # The drivers phase: a rendered KITTI-layout sequence, and the drivers'
@@ -1440,6 +1542,518 @@ def check_training_drivers(dev, card: str, report: dict) -> None:
               n_loops_total=s["n_loops_total"],
               launches=json.dumps(launches, separators=(",", ":")),
               card=repr(card))
+
+
+# -- 8b. the VSS at bf16 beside f32 -------------------------------------------
+
+def check_bf16_training(dev, card: str, frames) -> None:
+    """Phase 8, the bf16 VSS: the full-width train step
+    (VSS(VSSConfig(compute_dtype="bfloat16")), TrainConfig()'s defaults)
+    beside the f32 one in this call, both from the same seeded weights on
+    the same synthetic batches: steps/s and images/s (TRAIN_WARMUP steps,
+    then TRAIN_WINDOWS windows of TRAIN_WINDOW_STEPS), device ms a step
+    (one profiled step), the peak of max_memory_allocated; every metric
+    finite. Then the f32 and bf16 models' descriptors of phase 6's first
+    LOOP_COSINE_FRAMES pan frames (all instances): their cosine, which
+    must be finite and above 0.9 (printed; the CPU tests hold bf16 to JAX
+    at >= 0.999)."""
+    tcfg = train.TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = [synthetic.synthetic_batch(tcfg.batch_size, TRAIN_DATA_HW,
+                                      generator=gen)
+            for _ in range(TRAIN_POOL)]
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        model = VSS(VSSConfig(compute_dtype=dtype), tcfg.image_hw,
+                    torch.Generator().manual_seed(0)).to(dev)
+        state = train.init_state(model, tcfg)
+        draws = torch.Generator(device=dev).manual_seed(2)
+        history = []
+
+        def step():
+            nonlocal state
+            imgs, labels = pool[len(history) % TRAIN_POOL]
+            state, m = train.train_step(tcfg, state, imgs, labels,
+                                        synthetic.class_weights(labels),
+                                        generator=draws)
+            history.append(m)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_WARMUP):
+            step()
+        seconds = []
+        for _ in range(TRAIN_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_WINDOW_STEPS):
+                step()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        prof = range_device_ms(step, TRAIN_RANGES)
+        table = torch.stack([torch.stack([m[k] for k in sorted(m)])
+                             for m in history])
+        if not bool(torch.isfinite(table).all()):
+            raise AssertionError(f"bf16 train ({dtype}): a non-finite "
+                                 f"metric")
+        rates = [TRAIN_WINDOW_STEPS / x for x in seconds]
+        med = statistics.median(rates)
+        rows[dtype] = med
+        phase("train_bf16", compute_dtype=dtype, width=model.cfg.width,
+              batch=tcfg.batch_size, hw="x".join(map(str, tcfg.image_hw)),
+              seconds=",".join(f"{x:.4f}" for x in seconds),
+              median_steps_per_s=f"{med:.3f}",
+              spread_steps_per_s=f"{min(rates):.3f}-{max(rates):.3f}",
+              median_images_per_s=f"{med * tcfg.batch_size:.2f}",
+              device_ms_per_step=f"{prof['device']:.2f}",
+              busy=f"{prof['device'] / prof['wall']:.3f}",
+              peak_gb=f"{peak / 1e9:.3f}",
+              loss_last=f"{float(history[-1]['loss']):.4f}",
+              card=repr(card))
+        for name, ms in prof["top"][:3]:
+            phase("train_bf16_top", compute_dtype=dtype,
+                  ms_per_step=f"{ms:.4f}", kernel=repr(name))
+        del state, model
+    models = {d: VSS(VSSConfig(compute_dtype=d), LOOP_HW,
+                     torch.Generator().manual_seed(0)).to(dev).eval()
+              for d in ("float32", "bfloat16")}
+    with torch.no_grad():
+        d = {k: torch.cat([m(f, descriptor_only=True)["descriptor"]
+                           for f in frames]) for k, m in models.items()}
+    cos = F.cosine_similarity(d["float32"].double(), d["bfloat16"].double())
+    phase("train_bf16", descriptor_cosine_min=f"{float(cos.min()):.9f}",
+          descriptor_cosine_mean=f"{float(cos.mean()):.9f}",
+          images=cos.shape[0], hw="x".join(map(str, LOOP_HW)),
+          bf16_over_f32_steps=f"{rows['bfloat16'] / rows['float32']:.3f}")
+    if not (bool(torch.isfinite(cos).all()) and float(cos.min()) > 0.9):
+        raise AssertionError(f"bf16 descriptors: cosine to f32 "
+                             f"{float(cos.min())}")
+    del models, pool
+
+
+# -- 9. the multi-process layer -----------------------------------------------
+
+PAR_WORLD = 2
+PAR_TRAIN_SEEDS = (0, 1, 5)     # weights, batch, draws of leg (d)
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy()
+
+
+def parallel_rank() -> dict:
+    """One rank of phase 9 (a gloo rank sharing the card): a probe of
+    gloo's collectives on CUDA tensors, then legs (a)-(d), each from the
+    same seeded inputs as the parent's single-process references. Returns
+    what the parent holds against them (rank 0: the gathered state of
+    leg (b) too)."""
+    from ekf_slam_tpu_torch.parallel import mesh as pmesh
+    from ekf_slam_tpu_torch.parallel import sharded_filter as sf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    out = {"rank": rank}
+    mesh = pmesh.make_mesh(PAR_WORLD)
+    dev = mesh.device
+
+    # the probe: gloo's tensor collectives on CUDA tensors
+    t = torch.full((3,), float(rank + 1), device=dev)
+    g = pmesh.all_gather(t, mesh, "data")
+    r = pmesh.all_reduce(t, mesh, "data")
+    out["probe"] = {"all_gather_into_tensor": g.tolist(),
+                    "all_reduce": r.tolist(), "device": str(g.device)}
+
+    # (a) run_ensemble, data = PAR_WORLD, the fused step
+    cfg = slice_config("fused")
+    st0, _, obs, u = slice_inputs(cfg, dev)
+    kernels.reset_launches()
+    final, traj, mean, cov = pmesh.run_ensemble(st0, obs, u, cfg, mesh)
+    torch.cuda.synchronize()
+    out["a"] = {"traj": _numpy(traj), "mean": _numpy(mean),
+                "cov": _numpy(cov), "x": _numpy(final.x),
+                "P": _numpy(final.P), "launches": dict(kernels.LAUNCHES)}
+    del final
+
+    # (b) the row-sharded step, data 1 x model PAR_WORLD, unfused
+    cfg = slice_config("unfused")
+    tp = pmesh.make_mesh(1, PAR_WORLD)
+    step = sf.make_sharded_step(cfg, tp)
+    _, Dp = sf.padded_dim(cfg, PAR_WORLD)
+    counts, traj, payload = [], [], 0
+
+    def run_tp():
+        nonlocal payload
+        sp = sf.shard_state_batch(st0, tp, cfg)
+        for f in range(u.shape[0]):
+            pmesh.reset_collectives()
+            sp, info = step(sp, obs.frame(f), u[f])
+            payload = max([payload] + [n for _, _, n in pmesh.COLLECTIVES])
+            counts.append({k: _numpy(getattr(info, k)) for k in
+                           ("n_visible", "n_ic", "n_li", "n_hi")})
+            traj.append(sp.x[:, 0:3])
+        return sp
+
+    run_tp()                                            # warm-up
+    counts.clear()
+    traj.clear()
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sp = run_tp()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    full = sf.gather_state(sp, tp, cfg)
+    out["b"] = {"counts": counts, "payload": payload, "seconds": seconds,
+                "bound": sf.payload_bound(cfg, st0.batch, Dp),
+                "slab": list(sp.P.shape), "launches": launches,
+                "full_P": st0.batch * Dp * cfg.map.state_dim,
+                "traj": _numpy(torch.stack(traj, dim=1))}
+    if rank == 0:
+        out["b"].update(x=_numpy(full.x), P=_numpy(full.P))
+    del sp, full
+    # every frame from the same state: the sharded frame from the state the
+    # sharded run reached, against the single-device unfused frame from the
+    # same state (rank 0; phase 5's tolerances)
+    frames, sp = [], sf.shard_state_batch(st0, tp, cfg)
+    for f in range(u.shape[0]):
+        prev = sf.gather_state(sp, tp, cfg)
+        sp, info = step(sp, obs.frame(f), u[f])
+        got = sf.gather_state(sp, tp, cfg)
+        if rank == 0:
+            ref, rinfo = engine.step(prev, obs.frame(f), u[f], cfg)
+            frames.append({
+                "counts": all(torch.equal(getattr(info, k), getattr(
+                    rinfo, k)) for k in ("n_visible", "n_ic", "n_li",
+                                         "n_hi")),
+                "dx": float((got.x - ref.x).abs().max()),
+                "max_x": float(ref.x.abs().max()),
+                "P_err": kernels.scaled_error(got.P.double(),
+                                              ref.P.double())})
+        del prev, got
+    out["b"]["frames"] = frames
+    del sp
+
+    # (c) run_online on the sharded DB, data = PAR_WORLD
+    images, x0, P0, model, lcfg = loop_inputs(dev)
+    kernels.reset_launches()
+    db, x, P, lo = loop_runner.run_online(
+        model, images, x0, P0, lcfg,
+        generator=torch.Generator(device=dev).manual_seed(3), mesh=mesh)
+    torch.cuda.synchronize()
+    out["c"] = {**{f: _numpy(getattr(lo, f)) for f in lo._fields},
+                "x": _numpy(x), "P": _numpy(P),
+                "db_gb": sum(getattr(db, f).numel()
+                             * getattr(db, f).element_size()
+                             for f in lc.DB_FIELDS) / 1e9,
+                "launches": dict(kernels.LAUNCHES)}
+    del db, images, model
+
+    # (d) the data-parallel train step, full width, the global batch
+    legs = train_leg(dev, lambda model, tcfg: train.make_sharded_train_step(
+        model, tcfg, mesh))
+    out["d"] = {k: (m, {n: _numpy(t) for n, t in mu.items()}
+                    if rank == 0 else None) for k, (m, mu) in legs.items()}
+    return out
+
+
+def _cast_draws(d: "train.TrainDraws", dtype) -> "train.TrainDraws":
+    """The draws with their floating tensors in `dtype` (f32 → f64 is
+    exact)."""
+    def cast(t):
+        if t is None:
+            return None
+        items = [x.to(dtype) if x.is_floating_point() else x for x in t]
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+    return train.TrainDraws(cast(d.crop), cast(d.positive),
+                            cast(d.seasonal), d.eps.to(dtype))
+
+
+def train_leg(dev, step_of) -> dict:
+    """Leg (d)'s step at full width on the global batch, f32 and its f64
+    twin (the same weights, batch and draws, upcast exactly): {dtype name:
+    (metrics, Adam's first moments on the CPU)}. step_of(model, tcfg)
+    gives the step: train_step, or the data-parallel one."""
+    tcfg = train.TrainConfig()
+    w0, b0, d0 = PAR_TRAIN_SEEDS
+    imgs, labels = synthetic.synthetic_batch(
+        tcfg.batch_size, TRAIN_DATA_HW,
+        generator=torch.Generator(device=dev).manual_seed(b0))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = VSS(VSSConfig(), tcfg.image_hw,
+                    torch.Generator().manual_seed(w0)).to(dev, dtype)
+        draws = _cast_draws(train.train_draws(
+            tcfg, model, imgs.shape,
+            torch.Generator(device=dev).manual_seed(d0), dev), dtype)
+        state, m = step_of(model, tcfg)(
+            train.init_state(model, tcfg), imgs.to(dtype),
+            labels.to(dtype), synthetic.class_weights(labels).to(dtype),
+            draws)
+        out[str(dtype).removeprefix("torch.")] = (
+            {k: float(v) for k, v in m.items()},
+            {n: state.optimizer.state[p]["exp_avg"].cpu()
+             for n, p in model.named_parameters()})
+        del state, model, draws
+        torch.cuda.empty_cache()
+    return out
+
+
+def ensemble_rank_nccl() -> dict:
+    """Leg (a) on one NCCL rank (data = 1): run_ensemble's trajectories and
+    its mean and covariance."""
+    from ekf_slam_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(1)
+    cfg = slice_config("fused")
+    st0, _, obs, u = slice_inputs(cfg, mesh.device)
+    _, traj, mean, cov = pmesh.run_ensemble(st0, obs, u, cfg, mesh)
+    return {"traj": _numpy(traj), "mean": _numpy(mean), "cov": _numpy(cov),
+            "backend": mesh.backend}
+
+
+def _rel(a, b) -> float:
+    a, b = numpy.asarray(a, numpy.float64), numpy.asarray(b, numpy.float64)
+    return float(numpy.abs(a - b).max() / max(numpy.abs(b).max(), 1e-30))
+
+
+def check_parallel(dev, card: str, report: dict, loop: dict) -> None:
+    """Phase 9: the multi-process layer with PAR_WORLD gloo ranks sharing
+    the card (parallel_rank, one spawn for the four legs), each leg held
+    against its single-process run here in this call:
+      (a) run_ensemble, the sim f32 parity config (CAP 100, B = 128, 16
+          frames, scene 0; the fused step), data = PAR_WORLD: each
+          instance's trajectory and final x bitwise or the difference
+          printed, within phase 5's tolerances; the ensemble mean and
+          position covariance to 1e-6 relative of those of the gathered
+          trajectories, and of the single-process run's when the
+          instances are bitwise its;
+      (b) make_sharded_step, the same config unfused, data 1 x model
+          PAR_WORLD: every frame from the state the sharded run reached,
+          the sharded frame against the single-device unfused frame from
+          that state (phase 5's crosscheck: gate counts equal, x within
+          X_RTOL of max|x|, P within P_TOL of its bounds); the 16-frame
+          runs side by side (the instances whose counts part, the last
+          frame's differences: printed; the tail P + Ā·B̄ᵀ is not
+          symmetrized, K4's is, so near-threshold gates may part), and
+          the sharded run's tracking error < 0.2 (phase 4's gate);
+          frames/s beside the unfused (i) run_sequence's here; the
+          largest collective against its bound; K6 3 and K8's slab form
+          2 launches a frame;
+      (c) run_online on the sharded DB (LoopConfig's defaults as phase 6
+          runs them, capacity 4096, B = 4, the 128-frame pan), data =
+          PAR_WORLD, against phase 6's last timed run: declared, match
+          ids and inliers equal, similarities to 1e-5, x and P to 1e-4;
+      (d) the data-parallel train step at full width, batch 12 as
+          PAR_WORLD x 6, against train_step on the whole batch here, in
+          f32 and in an f64 twin (the same weights, batch and draws
+          upcast): metrics to TRAIN_METRIC_RTOL; in f64 Adam's first
+          moment to 1e-9 of each tensor's largest entry (the arithmetic);
+          in f32 each tensor's to twice the f32 step's own error against
+          its f64 twin, and at least TRAIN_MU_TOL (f32 rounding: the
+          deep convolutions' weight gradients cancel heavily).
+    Then leg (a) again on one NCCL rank (data = 1), within (a)'s
+    tolerances of the single-process run (bitwise printed)."""
+    from ekf_slam_tpu_torch.parallel import mesh as pmesh
+    from ekf_slam_tpu_torch.parallel import sharded_filter as sf
+
+    # single-process references
+    cfgs = {p: slice_config(p) for p in ("fused", "unfused")}
+    st0, xs, obs, u = slice_inputs(cfgs["fused"], dev)
+    fin_f, traj_f, _ = engine.run_sequence(st0, obs, u, cfgs["fused"])
+    mean_f = traj_f.mean(dim=0)
+    dv = traj_f[..., 0:3] - mean_f[None, :, 0:3]
+    cov_f = torch.einsum("bti,btj->tij", dv, dv) / traj_f.shape[0]
+    engine.run_sequence(st0, obs, u, cfgs["unfused"])          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin_u, _, info_u = engine.run_sequence(st0, obs, u, cfgs["unfused"])
+    torch.cuda.synchronize()
+    unfused_s = time.perf_counter() - t0
+    ref = {"traj": traj_f.cpu(), "x_f": fin_f.x.cpu(), "P_f": fin_f.P.cpu(),
+           "mean": mean_f.cpu(), "cov": cov_f.cpu(), "x_u": fin_u.x.cpu(),
+           "P_u": fin_u.P.cpu(),
+           "counts_u": {k: getattr(info_u, k).cpu() for k in
+                        ("n_visible", "n_ic", "n_li", "n_hi")},
+           "xs": xs[:, 0:3].cpu().numpy()}
+    ref["train"] = train_leg(dev, lambda model, tcfg: functools.partial(
+        train.train_step, tcfg))
+    del fin_f, traj_f, fin_u, st0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(parallel_rank, PAR_WORLD, "gloo")
+    phase("parallel", world=PAR_WORLD, backend="gloo",
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          probe=json.dumps(ranks[0]["probe"], separators=(",", ":")),
+          card=repr(card))
+    want = [float(PAR_WORLD * (PAR_WORLD + 1) // 2)] * 3
+    for rk in ranks:
+        pr = rk["probe"]
+        if not (pr["all_reduce"] == want
+                and pr["device"].startswith(dev.type)
+                and pr["all_gather_into_tensor"] == [
+                    float(r + 1) for r in range(PAR_WORLD) for _ in
+                    range(3)]):
+            raise AssertionError(f"gloo on CUDA tensors: {pr}")
+
+    # (a)
+    traj = numpy.concatenate([rk["a"]["traj"] for rk in ranks])
+    x = numpy.concatenate([rk["a"]["x"] for rk in ranks])
+    P = torch.tensor(numpy.concatenate([rk["a"]["P"] for rk in ranks]))
+    dtraj = float(numpy.abs(traj - ref["traj"].numpy()).max())
+    dx = float(numpy.abs(x - ref["x_f"].numpy()).max())
+    p_err = kernels.scaled_error(P.double(), ref["P_f"].double())
+    mean_rel = max(_rel(rk["a"]["mean"], ref["mean"]) for rk in ranks)
+    cov_rel = max(_rel(rk["a"]["cov"], ref["cov"]) for rk in ranks)
+    # the ranks' reduced statistics against those of their own gathered
+    # trajectories, formed in one place
+    t64 = torch.tensor(traj, dtype=torch.float64)
+    m64 = t64.mean(dim=0)
+    d64 = t64[..., 0:3] - m64[None, :, 0:3]
+    c64 = torch.einsum("bti,btj->tij", d64, d64) / t64.shape[0]
+    own = max(max(_rel(rk["a"]["mean"], m64), _rel(rk["a"]["cov"], c64))
+              for rk in ranks)
+    bitwise = dtraj == 0 and dx == 0
+    max_x = float(ref["x_f"].abs().max())
+    phase("parallel_ensemble", leg="a", data=PAR_WORLD, batch=traj.shape[0],
+          frames=traj.shape[1], bitwise=bitwise, max_dtraj=f"{dtraj:.3e}",
+          max_dx=f"{dx:.3e}", max_abs_x=f"{max_x:.3e}",
+          P_scaled_err=f"{p_err:.3e}", mean_rel=f"{mean_rel:.3e}",
+          cov_rel=f"{cov_rel:.3e}", stats_vs_gathered_rel=f"{own:.3e}",
+          launches_rank0=json.dumps(
+              {k: v for k, v in ranks[0]["a"]["launches"].items() if v}))
+    # per instance within phase 5's tolerances; the statistics to 1e-6 of
+    # the gathered trajectories', and of the single process's when the
+    # instances are bitwise its
+    if not (dx <= X_RTOL * max_x and p_err <= P_TOL and own <= 1e-6
+            and (not bitwise or max(mean_rel, cov_rel) <= 1e-6)):
+        raise AssertionError("leg (a): run_ensemble differs from the "
+                             "single-process run")
+    for rk in ranks:
+        got = {k: v for k, v in rk["a"]["launches"].items() if v}
+        if got != {k: n * FRAMES for k, n in PER_FRAME["fused"].items()}:
+            raise AssertionError(f"leg (a): launches {got}")
+
+    # (b)
+    b0r = ranks[0]["b"]
+    frames = len(b0r["counts"])
+    per = b0r["frames"]
+    f_dx = max(r["dx"] / r["max_x"] for r in per)
+    f_p = max(r["P_err"] for r in per)
+    # the 16-frame runs side by side: the instances whose gate counts
+    # differ in some frame, the first such frame, where the runs end
+    diff = numpy.zeros(ref["counts_u"]["n_li"].shape, dtype=bool)
+    for f in range(frames):
+        for k, v in b0r["counts"][f].items():
+            diff[:, f] |= v != ref["counts_u"][k][:, f].numpy()
+    differ = int(diff.any(axis=1).sum())
+    first = int(numpy.argmax(diff.any(axis=0))) if diff.any() else -1
+    dx = float(numpy.abs(b0r["x"] - ref["x_u"].numpy()).max())
+    p_err = kernels.scaled_error(torch.tensor(b0r["P"]).double(),
+                                 ref["P_u"].double())
+    track = float(numpy.linalg.norm(b0r["traj"] - ref["xs"][None],
+                                    axis=-1).mean())
+    tp_rate = frames / max(rk["b"]["seconds"] for rk in ranks)
+    phase("parallel_tp", leg="b", mesh=f"1x{PAR_WORLD}",
+          slab="x".join(map(str, b0r["slab"])), frames=frames,
+          per_frame_counts="equal" if all(r["counts"] for r in per)
+          else "DIFFER", per_frame_dx_rel=f"{f_dx:.3e}",
+          per_frame_P_scaled_err=f"{f_p:.3e}",
+          run_instances_differing=differ, run_first_frame_differing=first,
+          run_max_dx=f"{dx:.3e}",
+          max_abs_x=f"{float(ref['x_u'].abs().max()):.3e}",
+          run_P_scaled_err=f"{p_err:.3e}", track_err=f"{track:.4f}",
+          largest_payload=b0r["payload"], payload_bound=b0r["bound"],
+          full_P=b0r["full_P"],
+          steps_per_s=f"{tp_rate * BATCH:.1f}",
+          unfused_steps_per_s=f"{frames * BATCH / unfused_s:.1f}",
+          seconds=f"{max(rk['b']['seconds'] for rk in ranks):.4f}",
+          unfused_seconds=f"{unfused_s:.4f}",
+          launches_rank0=json.dumps({k: v for k, v in
+                                     b0r["launches"].items() if v}),
+          card=repr(card))
+    if not (all(r["counts"] for r in per) and f_dx <= X_RTOL
+            and f_p <= P_TOL and numpy.isfinite(b0r["P"]).all()
+            and track < 0.2
+            and 0 < b0r["payload"] <= b0r["bound"] < b0r["full_P"]):
+        raise AssertionError("leg (b): the sharded step differs or moves "
+                             "too much")
+    for rk in ranks:
+        got = {k: v for k, v in rk["b"]["launches"].items() if v}
+        if got != {"f32_matmul_big": 3 * frames,
+                   "corr_apply_rows": 2 * frames}:
+            raise AssertionError(f"leg (b): launches {got}")
+    report["corr_apply_rows"]["launches"] = b0r["launches"]["corr_apply_rows"]
+    report["f32_matmul_big"]["tp_slab"]["launches"] = \
+        b0r["launches"]["f32_matmul_big"]
+
+    # (c)
+    lo = loop["out"]
+    for rk in ranks:
+        c = rk["c"]
+        for f in ("declared", "match_id", "inliers"):
+            if not numpy.array_equal(c[f], getattr(lo, f).numpy()):
+                raise AssertionError(f"leg (c): {f} differs from the "
+                                     f"unsharded run")
+        sim = getattr(lo, "similarity").numpy()
+        fin = numpy.isfinite(sim)
+        if not (numpy.array_equal(numpy.isfinite(c["similarity"]), fin)
+                and numpy.abs(c["similarity"][fin] - sim[fin]).max()
+                <= 1e-5 and _rel(c["x"], loop["x"]) <= 1e-4
+                and _rel(c["P"], loop["P"]) <= 1e-4):
+            raise AssertionError("leg (c): similarities, x or P differ")
+    c = ranks[0]["c"]
+    phase("parallel_loop", leg="c", data=PAR_WORLD, batch=c["x"].shape[0],
+          frames=c["declared"].shape[0], declared=int(c["declared"].sum()),
+          gates="equal", db_gb_a_rank=f"{c['db_gb']:.3f}",
+          max_dsim=f"{float(numpy.abs(c['similarity'][fin] - sim[fin]).max()):.3e}",
+          launches_rank0=json.dumps({k: v for k, v in
+                                     c["launches"].items() if v}))
+
+    # (d): f64 shows the data-parallel step's arithmetic; in f32 each
+    # tensor's difference is held against the f32 step's own error (its
+    # distance from the f64 step), at least TRAIN_MU_TOL
+    m32, mu32 = ref["train"]["float32"]
+    m64, mu64 = ref["train"]["float64"]
+    rel = max(abs(rk["d"][d][0][k] - v) / max(abs(v), 1e-30)
+              for rk in ranks for d, mm in (("float32", m32),
+                                           ("float64", m64))
+              for k, v in mm.items())
+    e64, worst, worst_name, floor = 0.0, 0.0, "", {}
+    for n, b in mu32.items():
+        own = _rel(b, mu64[n])
+        e = _rel(ranks[0]["d"]["float32"][1][n], b)
+        e64 = max(e64, _rel(ranks[0]["d"]["float64"][1][n], mu64[n]))
+        floor[n] = own
+        if e / max(2 * own, TRAIN_MU_TOL) > worst:
+            worst, worst_name = e / max(2 * own, TRAIN_MU_TOL), n
+    phase("parallel_train", leg="d", width=VSSConfig().width,
+          batch=f"{PAR_WORLD}x"
+          f"{train.TrainConfig().batch_size // PAR_WORLD}",
+          max_metric_rel=f"{rel:.3e}", f64_exp_avg_max_rel=f"{e64:.3e}",
+          f32_exp_avg_rel_of_limit=f"{worst:.3f} ({worst_name}: "
+          f"{_rel(ranks[0]['d']['float32'][1][worst_name], mu32[worst_name]):.3e}"
+          f" against the f32 step's own {floor[worst_name]:.3e})",
+          f32_step_own_max=f"{max(floor.values()):.3e}",
+          loss=f"{ranks[0]['d']['float32'][0]['loss']:.6f}")
+    if not (rel <= TRAIN_METRIC_RTOL and e64 <= 1e-9 and worst <= 1.0):
+        raise AssertionError("leg (d): the data-parallel step differs from "
+                             "the global batch's")
+
+    # leg (a) on one NCCL rank
+    one = pmesh.spawn(ensemble_rank_nccl, 1, "nccl")[0]
+    d1 = float(numpy.abs(one["traj"] - ref["traj"].numpy()).max())
+    phase("parallel_ensemble", leg="a", data=1, backend=one["backend"],
+          bitwise=d1 == 0, max_dtraj=f"{d1:.3e}",
+          mean_rel=f"{_rel(one['mean'], ref['mean']):.3e}",
+          cov_rel=f"{_rel(one['cov'], ref['cov']):.3e}")
+    if not (d1 <= X_RTOL * max_x and _rel(one["cov"], ref["cov"]) <= 1e-6):
+        raise AssertionError("leg (a) on one NCCL rank differs from the "
+                             "single-process run")
 
 
 if __name__ == "__main__":

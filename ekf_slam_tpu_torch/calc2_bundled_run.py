@@ -25,8 +25,14 @@ protocol runs on the synthetic Voronoi generator (data/synthetic.py):
 Randomness comes from torch generators seeded as the JAX script seeds its
 keys (shards 7, places 1234, views 5, re-rank 9, loop RANSAC 11, aliased
 batches 99), so a run matches the JAX one in distribution, not draw for
-draw. Runs on the card unless --cpu. --dtype bfloat16 raises (the VSS's
-bf16 activations are not ported); the data-parallel branch is absent.
+draw. Runs on the card unless --cpu. --dtype bfloat16 runs the VSS's
+activations in bf16 (VSSConfig.compute_dtype). ``--world k`` trains
+data-parallel on k ranks (processes, parallel/mesh.spawn; the JAX
+script's branch for more than one device): rank 0 writes the shards and
+runs every evaluation, all ranks train on the same global batches, each
+keeping its block of --batch / k. ``--backend gloo`` lets several ranks
+share one card (NCCL refuses two ranks on one GPU); the default is nccl
+when every rank has a card of its own, else gloo.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.vss import VSSConfig
 from ekf_slam_tpu_torch.ops import device as devices
 from ekf_slam_tpu_torch.ops import kernels
+from ekf_slam_tpu_torch.parallel import mesh as pmesh
 from ekf_slam_tpu_torch.utils.metrics import MetricsLogger
 
 ALIAS_KEYS = ("true_revisit_p50", "aliased_impostor_p50",
@@ -165,20 +172,38 @@ def parse_args(argv=None):
                     help="checkpoint each conv block (VSSConfig.remat)")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="activation dtype: bfloat16 is not ported (raises)")
+                    help="the VSS's activation dtype (compute_dtype)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--world", type=int, default=1,
+                    help="data-parallel ranks (processes)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="the ranks' backend (gloo: ranks may share a "
+                         "card)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    """Run the protocol; returns the calc2_metrics.json dict."""
+    """Run the protocol; returns the calc2_metrics.json dict (rank 0's
+    with --world > 1)."""
     args = parse_args(argv)
-    if args.dtype != "float32":
-        raise ValueError("--dtype bfloat16 (the VSS's bf16 activations) is "
-                         "not ported")
+    if args.world == 1:
+        return run(args)
+    backend = args.backend or pmesh.default_backend(
+        args.world, "cpu" if args.cpu else None)
+    return pmesh.spawn(run, args.world, backend, args)[0]
+
+
+def run(args) -> dict:
+    """main's work on one rank (data-parallel training when --world > 1;
+    the other ranks return {} after it)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = devices.resolve("cpu" if args.cpu else None)
+    mesh = None
+    if args.world > 1:
+        mesh = pmesh.make_mesh(device=dev)
+        dev = mesh.device
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
     os.makedirs(args.out, exist_ok=True)
     hw = tuple(args.hw)
     data_hw = tuple(args.data_hw) if args.data_hw else hw
@@ -187,11 +212,13 @@ def main(argv=None) -> dict:
                          "down, not up)")
     data_dir = os.path.join(args.out, "shards")
     t0 = time.time()
-    if not args.train_aliasing and not os.path.exists(
+    if main_rank and not args.train_aliasing and not os.path.exists(
             os.path.join(data_dir, "loss_weights.txt")):
         n_shards = build_shards(data_dir, args.images, data_hw, dev)
         print(f"wrote {n_shards} shards ({args.images} images at "
               f"{data_hw[0]}x{data_hw[1]}) in {time.time() - t0:.0f}s")
+    if mesh is not None:
+        torch.distributed.barrier()         # the shards are written
 
     tcfg = train.TrainConfig(batch_size=args.batch, image_hw=hw,
                              ckpt_every=max(args.steps // 2, 1),
@@ -199,14 +226,16 @@ def main(argv=None) -> dict:
                              sim_tau=args.sim_tau,
                              aug_severity=args.train_severity)
     model = train.create_model(
-        VSSConfig(width=args.width, remat=args.remat), hw,
+        VSSConfig(width=args.width, remat=args.remat,
+                  compute_dtype=args.dtype), hw,
         torch.Generator().manual_seed(tcfg.seed)).to(dev)
     untrained = copy.deepcopy(model)
-    base_eval, live, mem = eval_places(untrained, args.places, hw, dev,
-                                       args.eval_severity, args.aliasing)
-    print(f"UNTRAINED PR-AUC: {base_eval['auc']:.4f}")
+    if main_rank:
+        base_eval, live, mem = eval_places(untrained, args.places, hw, dev,
+                                           args.eval_severity, args.aliasing)
+        print(f"UNTRAINED PR-AUC: {base_eval['auc']:.4f}")
 
-    logger = MetricsLogger()
+    logger = MetricsLogger() if main_rank else None
     if args.train_aliasing:
         batches = synthetic.aliased_batches(args.batch, args.train_aliasing,
                                             hw, generator=_gen(dev, 99))
@@ -216,10 +245,12 @@ def main(argv=None) -> dict:
         fit_data_dir = data_dir
     t0 = time.perf_counter()
     state, _ = train.fit(model, tcfg, batches, args.steps, ckpt_dir=args.out,
-                         logger=logger, data_dir=fit_data_dir)
+                         logger=logger, data_dir=fit_data_dir, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    if not main_rank:
+        return {}
     logger.dump_jsonl(os.path.join(args.out, "train_metrics.jsonl"))
     print(logger.table(last_n=3))
     print(f"trained {args.steps} steps in {train_s:.2f} s -> "
@@ -305,7 +336,7 @@ def main(argv=None) -> dict:
         "class_weights": (records.load_weights(data_dir).tolist()
                           if not args.train_aliasing else None),
         "loop_launches": launches, "trapezoid": evaluate.TRAPEZOID,
-        "device": str(dev),
+        "device": str(dev), "dtype": args.dtype, "world": args.world,
     }
     for k in ALIAS_KEYS:
         if k in trained_eval:

@@ -1,6 +1,7 @@
 // Covariance kernels of the unfused SLAM step for Hopper (sm_90a): K4, the
 // folded update tail's apply for column factors, K8, the same apply for the
-// row-form update's row factors, and K6, the dense products on P. (K5, the
+// row-form update's row factors (and its row-slab form, the tail of the
+// row-sharded step), and K6, the dense products on P. (K5, the
 // update tail of the pallas_update route, is a mode of K3 in fused_cov.cu.)
 //
 // P (B, D, D) row-major, D = 13 + 6·CAP (613 at CAP 100); the ragged edge (D
@@ -173,6 +174,54 @@ __global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
             mode == 0 ? tiles : 2 * tiles, lx, ly);
 }
 
+// K8's row-slab form — the tail of the row-sharded step
+// (parallel/sharded_filter.py), which holds P's rows r0 .. r0+Dl−1 on one
+// rank: out = P_s + At[:, r0:r0+Dl]ᵀ·Bt, mode "none" on the slab P_s
+// (Dl, Dc) of a P whose columns are Dc; At, Bt (R, Dc) are the whole
+// factors (Bt gathered from every rank), and the slab reads At's columns
+// r0 .. r0+Dl−1 where they lie. Each entry is K8 "none"'s fmaf chain over
+// the same R rows in the same order, added to P once, so the slab equals
+// rows r0 .. of K8 "none" bit for bit. Bound at the sim config split two
+// ways (B = 128, Dl = 307, Dc = 614, R = 264, f32): 2·R flops an entry,
+// 12.7 GFLOP (0.19 ms at 67 TFLOP/s) against 317 MB of slab read and
+// written and factors read (0.09 ms at 3.35 TB/s): the operations bind. Design, simple on purpose:
+// one block of 64 threads a 64 x 64 output tile, panel_product over R
+// with both factors staged as they lie (RowPanel), then each thread adds
+// its 8 x 8 micro-tile to P read from global memory and stores it; no
+// tile pairs, no mirror, no bulk copies (PTile assumes a square P).
+template <typename PT>
+__global__ void __launch_bounds__(G8::THREADS, G8::MIN_BLOCKS)
+    k8s_kernel(const PT* __restrict__ P, const float* __restrict__ At,
+               const float* __restrict__ Bt, PT* __restrict__ Pout, int Dl,
+               int Dc, int R, int r0) {
+  extern __shared__ __align__(16) float sm[];
+  const int ntc = (Dc + PT_TILE - 1) / PT_TILE, b = blockIdx.y;
+  const int i0 = (blockIdx.x / ntc) * PT_TILE;
+  const int j0 = (blockIdx.x % ntc) * PT_TILE;
+  const size_t slab = static_cast<size_t>(Dl) * Dc;
+  P += b * slab;
+  Pout += b * slab;
+  At += static_cast<size_t>(b) * R * Dc;
+  Bt += static_cast<size_t>(b) * R * Dc;
+  const int tiles = (R + BK - 1) / BK;
+  Panel8 lx(At, At, tiles, R, Dc, r0 + i0, r0 + Dl);
+  Panel8 ly(Bt, Bt, tiles, R, Dc, j0, Dc);
+  float acc[G8::TM][G8::TN];
+  panel_product<G8>(acc, sm, tiles, lx, ly);
+#pragma unroll
+  for (int q = 0; q < G8::TM; ++q) {
+    const int gi = i0 + G8::row(q);
+    if (gi >= Dl) continue;
+#pragma unroll
+    for (int p = 0; p < G8::TN; ++p) {
+      const int gj = j0 + G8::col(p);
+      if (gj >= Dc) continue;
+      const size_t n = static_cast<size_t>(gi) * Dc + gj;
+      store(Pout + n, to_f32(P[n]) + acc[q][p]);
+    }
+  }
+}
+
 // K6 — replaces ekf_slam_tpu/ops/pallas_kernels.py f32_matmul_big
 // (_mm_kernel): C = A·B in full f32 for a large A (M x K, the covariance
 // P, f32 or bf16) and a narrow B (K x N): update_gain's P·Hᵀ (N = 2M =
@@ -312,6 +361,26 @@ cudaError_t ekf_k8_corr_apply(const void* P, const float* At,
   return launch(fn, dim3(mode == 0 ? nt * nt : nt * (nt + 1) / 2, Bn),
                 p_bf16 ? corr_smem<__nv_bfloat16>() : corr_smem<float>(),
                 args, static_cast<cudaStream_t>(stream), G8::THREADS);
+}
+
+// K8's row-slab form. P, Pout (B,Dl,Dc), f32 or (p_bf16) bf16; At, Bt
+// (B,R,Dc) f32, any R >= 1; the slab's rows are r0 .. r0+Dl−1 of a P with
+// Dc columns (r0 + Dl <= Dc). Contiguous row-major.
+cudaError_t ekf_k8_corr_apply_rows(const void* P, const float* At,
+                                   const float* Bt, void* Pout, int Bn,
+                                   int Dl, int Dc, int R, int r0, int p_bf16,
+                                   void* stream) {
+  if (R < 1 || Dl < 1 || r0 < 0 || r0 + Dl > Dc || Bn > 65535)
+    return cudaErrorInvalidValue;
+  void* args[] = {&P, &At, &Bt, &Pout, &Dl, &Dc, &R, &r0};
+  const int ntr = (Dl + PT_TILE - 1) / PT_TILE;
+  const int ntc = (Dc + PT_TILE - 1) / PT_TILE;
+  const void* fn = p_bf16
+      ? reinterpret_cast<const void*>(k8s_kernel<__nv_bfloat16>)
+      : reinterpret_cast<const void*>(k8s_kernel<float>);
+  return launch(fn, dim3(ntr * ntc, Bn),
+                sizeof(float) * ring_floats<Panel8, Panel8>(), args,
+                static_cast<cudaStream_t>(stream), G8::THREADS);
 }
 
 }  // extern "C"

@@ -272,18 +272,22 @@ def _gather_slots(slot_mask: torch.Tensor, M: int):
     return sel, sel_mask, take
 
 
-def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
+def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
+                   update=None):
     """EKF update over the masked slots (engine.py:482-517). With
     0 < max_update_obs = M < CAP the M most relevant slots are gathered
     into a compact (2M, D) Jacobian; otherwise every slot's rows enter the
-    dense (2·CAP, D) one. Returns (x_new, P_new)."""
+    dense (2·CAP, D) one. `update` takes ekf.update's arguments and
+    applies them (ekf.update by default; the row-sharded step's applies
+    them to its slab). Returns (x_new, P_new)."""
+    update = ekf.update if update is None else update
     B, cap = slot_mask.shape
     M = cfg.map.max_update_obs
     use_pallas = _use_pallas(cfg, x.device)
     solver = cfg.filter.gain_solver
     if M <= 0 or M >= cap:
         H = measurement.dense_H(H_xv, H_y, slot_mask)
-        return ekf.update(
+        return update(
             x, P, H, z.reshape(B, 2 * cap), h.reshape(B, 2 * cap),
             slot_mask.repeat_interleave(2, dim=1),
             torch.ones(B, 2 * cap, dtype=x.dtype, device=x.device),
@@ -291,7 +295,7 @@ def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
     sel, sel_mask, take = _gather_slots(slot_mask, M)
     H = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
                                     cap)
-    return ekf.update(
+    return update(
         x, P, H, take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
         sel_mask.repeat_interleave(2, dim=1),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),

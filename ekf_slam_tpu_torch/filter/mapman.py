@@ -17,7 +17,11 @@ P' = M∘P + EᵀU + UᵀE + EᵀCE, M∘ a keep-mask outer product:
 * ``update_counters`` (update_features_info.m:4-10).
 
 P is read through ``ekf.p_compute`` and a new full P written through
-``ekf.p_store``, so a bf16-stored P stays bf16.
+``ekf.p_store``, so a bf16-stored P stays bf16. ``manage_params`` reads
+P's diagonal and a slot's rows through a reader (``DenseRead`` of the
+whole P by default; the row-sharded step passes its slab's, which
+gathers them from the ranks), and ``_stacked_apply`` can form a block of
+rows only, so the row-sharded step applies both transforms to its slab.
 """
 
 from __future__ import annotations
@@ -51,6 +55,21 @@ class ManageParams(NamedTuple):
     slot: torch.Tensor     # (B,) int64 — converted slot (0 when do=False)
     do: torch.Tensor       # (B,) bool — a conversion happened
     state: FilterState     # x / masks / counters managed; P untouched
+
+
+class DenseRead(NamedTuple):
+    """The reads of P that map management makes, on the whole P."""
+    P: torch.Tensor
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows idx (B, n) of P (B, n, D), in the compute dtype."""
+        B, n = idx.shape
+        return p_compute(torch.gather(
+            self.P, 1, idx[..., None].expand(B, n, self.P.shape[2])))
+
+    def diag_at(self, dims: torch.Tensor) -> torch.Tensor:
+        """P's diagonal at dims (n,): (B, n), in the compute dtype."""
+        return p_compute(self.P[:, dims, dims])
 
 
 def _dim_mask(slot_mask: torch.Tensor) -> torch.Tensor:
@@ -183,17 +202,19 @@ def add_features_batch(state: FilterState, uvd: torch.Tensor,
                                             p.C)), assigned
 
 
-def _stacked_apply(P, keep_f, E, U, C):
+def _stacked_apply(P, keep_f, E, U, C, rows=slice(None)):
     """keep∘P + EᵀU + UᵀE + EᵀCE as one stacked product Gᵀ·(Mid·G),
     G = [E; U], Mid = [[C, I], [I, 0]], in P's storage dtype. keep_f
-    (B,D); E, U (B,k,D); C (B,k,k)."""
+    (B,D); E, U (B,k,D); C (B,k,k). With `rows` a slice of the D rows, P
+    holds those rows only (B, rows, D), and so does the result."""
     B, k, _ = E.shape
     eye = torch.eye(k, dtype=U.dtype, device=U.device).expand(B, k, k)
     mid = torch.cat([torch.cat([C, eye], dim=2),
                      torch.cat([eye, torch.zeros_like(C)], dim=2)], dim=1)
     G = torch.cat([E, U], dim=1)                            # (B, 2k, D)
-    return p_store(p_compute(P) * (keep_f[:, :, None] * keep_f[:, None, :])
-                   + G.transpose(1, 2) @ (mid @ G), P)
+    return p_store(p_compute(P) * (keep_f[:, rows, None]
+                                   * keep_f[:, None, :])
+                   + G[:, :, rows].transpose(1, 2) @ (mid @ G), P)
 
 
 def manage(state: FilterState, cfg: EngineConfig) -> FilterState:
@@ -209,10 +230,12 @@ def apply_manage_P(P: torch.Tensor, p: ManageParams) -> torch.Tensor:
     return _stacked_apply(P, p.keep_f, p.E6, p.U6, p.C66)
 
 
-def manage_params(state: FilterState, cfg: EngineConfig) -> ManageParams:
+def manage_params(state: FilterState, cfg: EngineConfig,
+                  read=None) -> ManageParams:
     """Closed-form map-management P transform (delete policy + at most one
     inverse-depth → cartesian conversion). The returned state carries the
-    managed x / masks / counters; P is applied by K1."""
+    managed x / masks / counters; P is applied by K1. `read` reads P's
+    diagonal and rows (DenseRead(state.P) by default)."""
     m = cfg.map
     dtype = state.x.dtype
     tp = state.times_predicted.to(dtype)
@@ -227,11 +250,12 @@ def manage_params(state: FilterState, cfg: EngineConfig) -> ManageParams:
         times_predicted=torch.where(drop, z32, state.times_predicted),
         times_measured=torch.where(drop, z32, state.times_measured),
         landmark_id=torch.where(drop, -1, state.landmark_id))
-    return _convert_params(st, cfg, ~_dim_mask(drop))
+    return _convert_params(st, cfg, ~_dim_mask(drop),
+                           DenseRead(state.P) if read is None else read)
 
 
 def _convert_params(state: FilterState, cfg: EngineConfig,
-                    dim_keep: torch.Tensor) -> ManageParams:
+                    dim_keep: torch.Tensor, read) -> ManageParams:
     """The conversion of the first eligible slot (linearity index
     L = 4σ_d cosα / d < threshold, inversedepth_2_cartesian.m:32-49),
     mapping P through J = [I₃ (1/ρ)∂m/∂θ (1/ρ)∂m/∂φ −m/ρ²]; deleted dims
@@ -246,7 +270,7 @@ def _convert_params(state: FilterState, cfg: EngineConfig,
     y3, theta, phi, rho = (slots[..., 0:3], slots[..., 3], slots[..., 4],
                            slots[..., 5])
     rho_dims = CAM_DIM + 6 * torch.arange(cap, device=device) + 5
-    rho_var = p_compute(state.P[:, rho_dims, rho_dims]) * ks[:, rho_dims]
+    rho_var = read.diag_at(rho_dims) * ks[:, rho_dims]
     safe_rho = torch.where(rho == 0, torch.ones_like(rho), rho)
     std_d = torch.sqrt(torch.clamp(rho_var, min=0.0)) / safe_rho ** 2
     mi = quat.azel_to_ray(theta, phi)
@@ -279,9 +303,8 @@ def _convert_params(state: FilterState, cfg: EngineConfig,
     # equal to the JAX one-hot contraction over the slot axis.
     six = torch.arange(6, device=device)
     row_idx = CAM_DIM + 6 * slot[:, None] + six             # (B, 6)
-    slot_rows = (p_compute(torch.gather(state.P, 1,
-                                        row_idx[..., None].expand(B, 6, D)))
-                 * do[:, None, None].to(dtype) * ks[:, None, :])
+    slot_rows = (read.rows(row_idx) * do[:, None, None].to(dtype)
+                 * ks[:, None, :])
     new_rows = torch.cat([J @ slot_rows,
                           torch.zeros(B, 3, D, dtype=dtype, device=device)],
                          dim=1)                             # (B, 6, D)

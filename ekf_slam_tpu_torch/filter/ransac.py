@@ -90,14 +90,15 @@ def run(x: torch.Tensor, z: torch.Tensor, h: torch.Tensor, S: torch.Tensor,
         ic_mask: torch.Tensor, cartesian: torch.Tensor, u: torch.Tensor,
         cfg: EngineConfig, pht: torch.Tensor | None = None,
         P: torch.Tensor | None = None, H_xv: torch.Tensor | None = None,
-        H_y: torch.Tensor | None = None, hp=None):
+        H_y: torch.Tensor | None = None, hp=None, pg=None):
     """Full 1-point RANSAC: hypothesis n moves the state by P·Hₙᵀ·Sₙ⁻¹νₙ.
     Given the prior's visibility-masked gain columns pht (B,D,2·CAP) the
     move is read off pht's column pair of its slot; given its split H·P
     rows hp = (hp_u, hp_v), each (B,CAP,D), it is hp_uᵀ·A_u + hp_vᵀ·A_v
     with A the picks' weights at their slots; without either it is
     P·G with G = Hᵀ·A from the visibility-masked Jacobian blocks H_xv
-    (B,CAP,2,13), H_y (B,CAP,2,6) of the picks, and P (B,D,D). x (B,D);
+    (B,CAP,2,13), H_y (B,CAP,2,6) of the picks, and P (B,D,D), or pg(G)
+    when the caller forms the product (the row-sharded step). x (B,D);
     z, h (B,CAP,2); S (B,CAP,2,2); ic_mask, cartesian (B,CAP);
     u (B,NHYP). Returns (li_mask (B,CAP), best support (B,))."""
     B, cap = ic_mask.shape
@@ -126,7 +127,8 @@ def run(x: torch.Tensor, z: torch.Tensor, h: torch.Tensor, S: torch.Tensor,
         map_g = torch.einsum("bnc,bnj->bcjn", oh, slot_g).reshape(
             B, 6 * cap, N)
         G = torch.cat([cam_g, map_g], dim=1)              # (B, D, N)
-        x_hyps = x[:, :, None] + kernels.f32_matmul_big(P, G)
+        x_hyps = x[:, :, None] + (kernels.f32_matmul_big(P, G) if pg is None
+                                  else pg(G))
 
     res2 = support_residuals_soa(x_hyps, z, cartesian, cfg)
     inliers = ic_mask[..., None] & (res2 < thr * thr)     # (B, CAP, N)

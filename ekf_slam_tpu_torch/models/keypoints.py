@@ -7,7 +7,10 @@ channel, the argmax location (its first maximum, as in JAX), its
 response, the arctan of the activation gradient and the 8-neighbour
 difference stack over all channels. Keypoints are kept 1 px off the
 border (the clip to 1..H−2 / 1..W−2). ``ratio_test_matches`` is the
-nearest-neighbour match with Lowe's ratio test on squared distances.
+nearest-neighbour match with Lowe's ratio test on squared distances. The
+bf16 c5 of a bf16 VSS gives its keypoints in float32 (the bf16 values,
+widened): the ratio test, the loop DB and the 8-point RANSAC's eigh run
+in f32 at least (torch has no bf16 eigh on the CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
 
 class Keypoints(NamedTuple):
     yx: torch.Tensor           # (B, K, 2) keypoint positions, c5's dtype
+                               # (f32 for a bf16 c5), as every field
     response: torch.Tensor     # (B, K) activation at the keypoint
     orientation: torch.Tensor  # (B, K) gradient angle
     descr: torch.Tensor        # (B, K, 8·C) neighbour-difference descriptor
@@ -58,9 +62,11 @@ def kp_descriptor(c5: torch.Tensor) -> Keypoints:
     nb = c5[b[:, :, None], ky[:, :, None] + offs[:, 0],
             kx[:, :, None] + offs[:, 1]]                     # (B, K, 8, C)
     d = nb - c5[b, ky, kx][:, :, None, :]
-    yx = torch.stack([ky, kx], dim=-1).to(c5.dtype)
-    return Keypoints(yx=yx, response=resp, orientation=torch.atan2(gy, gx),
-                     descr=d.reshape(B, ky.shape[1], 8 * C))
+    dt = torch.promote_types(c5.dtype, torch.float32)
+    return Keypoints(yx=torch.stack([ky, kx], dim=-1).to(dt),
+                     response=resp.to(dt),
+                     orientation=torch.atan2(gy, gx).to(dt),
+                     descr=d.reshape(B, ky.shape[1], 8 * C).to(dt))
 
 
 def ratio_test_matches(d1: torch.Tensor, d2: torch.Tensor,

@@ -10,7 +10,10 @@ constraint (filter/loop_fusion.py) -> push the frame. As in the JAX
 package the constraint is applied every frame, masked by ``declared``:
 a masked update still renormalizes q and transforms P, so it is not
 skipped. ``run_online`` drives a sequence with a Python loop over frames
-(the JAX package's lax.scan). The sharded DB (``mesh``) is not ported.
+(the JAX package's lax.scan). With a ``mesh`` the database is
+capacity-sharded over its "data" ranks (parallel/sharded_loopdb.py):
+every rank runs the network and the fusion on all B instances and holds
+N/k slots of the ring.
 """
 
 from __future__ import annotations
@@ -34,15 +37,18 @@ class LoopStepOut(NamedTuple):
 
 
 def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
-                  relative_pose: bool = True):
+                  relative_pose: bool = True, mesh=None):
     """fn(db, x, P, images, draws=None, generator=None) ->
     (db, x, P, LoopStepOut) for images (B, H, W, 3), x (B, D),
     P (B, D, D), draws (B, top_k, NH, K) or None (then from `generator`).
 
     relative_pose=True fuses the 6-DoF pose constraint with noise scaled
     by the inlier count; False the 3-DoF position snap with the fixed
-    `loop_sigma`. The frame's phases are profiler ranges ``loop.vss``,
-    ``loop.query`` and ``loop.fusion``."""
+    `loop_sigma`. With a `mesh` db is this rank's block of a ring sharded
+    over its "data" axis (sharded_loopdb). The frame's phases are profiler
+    ranges ``loop.vss``, ``loop.query`` and ``loop.fusion``."""
+    if mesh is not None:
+        from ekf_slam_tpu_torch.parallel import sharded_loopdb as sdb
 
     @torch.no_grad()
     def frame(db: lc.LoopDatabase, x, P, images, draws=None,
@@ -53,15 +59,23 @@ def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
             kps = kp_mod.kp_descriptor(outs["c5"])
         pose = torch.cat([x[:, 0:3], x[:, 3:7]], dim=1)
         with trace_annotation("loop.query"):
-            res = lc.query(db, descr, kps, lcfg, draws, generator)
+            res = (lc.query(db, descr, kps, lcfg, draws, generator)
+                   if mesh is None else
+                   sdb.query(db, descr, kps, lcfg, mesh, draws=draws,
+                             generator=generator))
             res = res._replace(
                 is_hypothesis=res.is_hypothesis & (db.count >= lcfg.min_db))
             db, declared, match_slot, match_frame = lc.step_temporal(
                 db, res, lcfg)
         with trace_annotation("loop.fusion"):
-            slot = torch.clamp(match_slot, 0, db.pose.shape[1] - 1)
-            pose_j = torch.gather(db.pose, 1, slot[:, None, None].expand(
-                -1, 1, 7).long())[:, 0].to(x.dtype)
+            if mesh is None:
+                slot = torch.clamp(match_slot, 0, db.pose.shape[1] - 1)
+                pose_j = torch.gather(db.pose, 1, slot[:, None, None].expand(
+                    -1, 1, 7).long())[:, 0].to(x.dtype)
+            else:
+                cap = db.pose.shape[1] * mesh.size("data")
+                pose_j = sdb.best_pose(db, torch.clamp(match_slot, 0, cap - 1),
+                                       mesh).to(x.dtype)
             if relative_pose:
                 sp, sr = loop_fusion.loop_noise_sigmas(res.best_inliers)
                 x, P = loop_fusion.apply_loop_constraint_pose(
@@ -69,7 +83,8 @@ def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
             else:
                 x, P = loop_fusion.apply_loop_constraint(
                     x, P, pose_j[:, 0:3], loop_sigma, declared)
-        db = lc.push(db, descr, kps, pose)
+        db = (lc.push(db, descr, kps, pose) if mesh is None
+              else sdb.push(db, descr, kps, pose, mesh))
         return db, x, P, LoopStepOut(
             declared=declared, match_id=match_frame,
             inliers=res.best_inliers, similarity=res.similarities[:, 0])
@@ -81,20 +96,27 @@ def run_online(model, images: torch.Tensor, x0: torch.Tensor,
                P0: torch.Tensor, lcfg: lc.LoopConfig,
                draws: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               loop_sigma: float = 0.05, device=None):
+               loop_sigma: float = 0.05, device=None, mesh=None):
     """The loop-closure pipeline over images (T, B, H, W, 3) from a static
     filter state x0 (B, D), P0 (B, D, D): pose updates come only from loop
     constraints (odometry lives in the SLAM engine; see run_loop_closure).
     draws (T, B, top_k, NH, K) RANSAC's uniforms, or None to draw them from
     `generator`. On the card unless `device` names another: the model and
-    inputs are moved there. Returns (db, x, P, LoopStepOut with (T, B)
-    fields)."""
-    device = devices.resolve(device)
+    inputs are moved there. With a `mesh` (parallel/mesh.make_mesh) the
+    ring is capacity-sharded over its "data" ranks, the mesh's device is
+    taken and the returned db is this rank's block; every rank must pass
+    the same inputs (and draws, or a generator in the same state).
+    Returns (db, x, P, LoopStepOut with (T, B) fields)."""
+    device = devices.resolve(device) if mesh is None else mesh.device
     model = model.to(device)
     x, P = x0.to(device), P0.to(device)
-    frame = make_frame_fn(model, lcfg, loop_sigma)
-    db = lc.init_db(lcfg, x.shape[0], model.descr_dim, model.num_kp,
-                    model.kp_dim, model.mu.weight.dtype, device)
+    frame = make_frame_fn(model, lcfg, loop_sigma, mesh=mesh)
+    dims = (x.shape[0], model.descr_dim, model.num_kp, model.kp_dim)
+    if mesh is None:
+        db = lc.init_db(lcfg, *dims, model.mu.weight.dtype, device)
+    else:
+        from ekf_slam_tpu_torch.parallel import sharded_loopdb as sdb
+        db = sdb.init_db(lcfg, *dims, mesh, dtype=model.mu.weight.dtype)
     outs = []
     for t in range(images.shape[0]):
         d_t = None if draws is None else draws[t].to(device)

@@ -138,7 +138,7 @@ def query(db: LoopDatabase, descr: torch.Tensor, kp: Keypoints,
     """Retrieve and geometrically verify loop candidates. descr (B, Dd),
     kp with (B, K, ...) fields; draws (B, top_k, NH, K) RANSAC's uniforms
     (from `generator` when None)."""
-    B, K = kp.yx.shape[0], kp.yx.shape[1]
+    B = kp.yx.shape[0]
     age = db.count[:, None] - 1 - db.frame_id
     valid = (db.frame_id >= 0) & (age >= cfg.exclude_recent)
     sims = (db.descr @ descr[..., None].to(db.descr.dtype))[..., 0]
@@ -146,11 +146,23 @@ def query(db: LoopDatabase, descr: torch.Tensor, kp: Keypoints,
     top_sims, top_ids = torch.sort(sims, dim=1, descending=True,
                                    stable=True)
     top_sims, top_ids = top_sims[:, :cfg.top_k], top_ids[:, :cfg.top_k]
-
     b = torch.arange(B, device=top_ids.device)[:, None]
-    idx2, ok = ratio_test_matches(kp.descr[:, None], db.kp_descr[b, top_ids],
+    return verify(kp, top_sims, top_ids, db.frame_id[b, top_ids],
+                  db.kp_yx[b, top_ids], db.kp_descr[b, top_ids], cfg, draws,
+                  generator)
+
+
+def verify(kp: Keypoints, top_sims, top_ids, cand_fid, cand_yx,
+           cand_kdescr, cfg: LoopConfig,
+           draws: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None) -> QueryResult:
+    """Geometric verification of the retrieved candidates and the gates:
+    top_sims, top_ids, cand_fid (B, top_k) their similarities, slots and
+    frame ids, cand_yx (B, top_k, K, 2) and cand_kdescr (B, top_k, K, Dk)
+    their keypoints; draws as ``query`` takes them."""
+    B, K = kp.yx.shape[0], kp.yx.shape[1]
+    idx2, ok = ratio_test_matches(kp.descr[:, None], cand_kdescr,
                                   cfg.ratio)                # (B, top_k, K)
-    cand_yx = db.kp_yx[b, top_ids]                          # (B, top_k, K, 2)
     pts2 = torch.gather(cand_yx, 2, idx2[..., None].expand(-1, -1, -1, 2))
     pts1 = kp.yx[:, None].expand_as(pts2)
     if draws is None:
@@ -158,10 +170,10 @@ def query(db: LoopDatabase, descr: torch.Tensor, kp: Keypoints,
     inliers = fundamental_ransac(pts1, pts2, ok, cfg, draws)  # (B, top_k)
     gate = (top_sims > cfg.sim_threshold) & (inliers >= cfg.min_inliers)
     best = torch.argmax(torch.where(gate, inliers, -1), dim=1)[:, None]
-    best_slot = torch.gather(top_ids, 1, best)[:, 0]
     return QueryResult(
-        candidate_ids=top_ids, similarities=top_sims, best_slot=best_slot,
-        best_id=torch.gather(db.frame_id, 1, best_slot[:, None])[:, 0],
+        candidate_ids=top_ids, similarities=top_sims,
+        best_slot=torch.gather(top_ids, 1, best)[:, 0],
+        best_id=torch.gather(cand_fid, 1, best)[:, 0],
         best_inliers=torch.gather(inliers, 1, best)[:, 0],
         is_hypothesis=gate.any(dim=1))
 

@@ -29,14 +29,22 @@ tf.estimator: Adam(1e-3), global-norm gradient clip 5, a checkpoint every
   checkpoints of the JAX trainer cannot be read).
 * ``from_flax_state`` — a JAX TrainState (params, batch_stats, optax's
   Adam state, step) as numpy arrays, carried across.
-
-Not ported: the data-parallel ``make_sharded_train_step`` (fit takes no
-mesh) and ``compute_dtype="bfloat16"``.
+* ``make_sharded_train_step`` and ``fit(mesh=)`` — the data-parallel
+  step over the "data" ranks of a mesh (parallel/mesh.py), equal to the
+  step on the global batch as JAX's jit over a sharded batch is: every
+  rank takes the global batch and its draws and keeps its block of them;
+  BatchNorm normalizes by the global batch's moments
+  (vss.synced_statistics) and the losses see its descriptors (the
+  differentiable collectives of torch.distributed.nn); the gradients are
+  averaged over the ranks before the clip, so Adam's state stays
+  replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import glob
 import itertools
 import os
@@ -45,10 +53,12 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ekf_slam_tpu_torch.models import augment, losses
 from ekf_slam_tpu_torch.models.vss import (VSS, VSSConfig, from_flax,
-                                          frozen_statistics, pooled)
+                                          frozen_statistics, pooled,
+                                          synced_statistics)
 from ekf_slam_tpu_torch.utils.checkpoint import restore_pytree, save_pytree
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
@@ -152,7 +162,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 def train_step(tcfg: TrainConfig, state: TrainState, images: torch.Tensor,
                labels_onehot: torch.Tensor, class_weights: torch.Tensor,
                draws: Optional[TrainDraws] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, group=None):
     """One optimization step on images (B, H, W, 3) in [0, 1],
     labels_onehot (B, H, W, 13), class_weights (13,); draws from
     `generator` when not given. A batch larger than image_hw is randomly
@@ -161,7 +171,10 @@ def train_step(tcfg: TrainConfig, state: TrainState, images: torch.Tensor,
     norm before the clip. Its phases are profiler ranges train.augment,
     train.forward, train.backward (the autograd engine launches the
     backward's kernels from its own thread, outside the range) and
-    train.optimizer."""
+    train.optimizer. With a process `group` (make_sharded_train_step) the
+    batch is this rank's block of the global one: the statistics and the
+    losses are the global batch's, the gradients are averaged over the
+    group before the clip, and the metrics are the global batch's."""
     model, opt = state.model, state.optimizer
     p0 = next(model.parameters())
     images = images.to(device=p0.device, dtype=p0.dtype)
@@ -180,14 +193,16 @@ def train_step(tcfg: TrainConfig, state: TrainState, images: torch.Tensor,
                                               draws=draws.seasonal)
     model.train()
     opt.zero_grad(set_to_none=True)
-    with trace_annotation("train.forward"):
+    with trace_annotation("train.forward"), (
+            synced_statistics(model, group) if group is not None
+            else contextlib.nullcontext()):
         outs = model(images, eps=draws.eps)
         with frozen_statistics(model):
             outs_p = model(im_warp, descriptor_only=True)
         loss, metrics = losses.total_loss(
             outs, outs_p["descriptor"], images, labels_onehot,
             class_weights, tcfg.margin, sim_objective=tcfg.sim_objective,
-            sim_tau=tcfg.sim_tau)
+            sim_tau=tcfg.sim_tau, group=group)
     with trace_annotation("train.backward"):
         loss.backward()
     with trace_annotation("train.optimizer"):
@@ -195,6 +210,9 @@ def train_step(tcfg: TrainConfig, state: TrainState, images: torch.Tensor,
         for p in params:         # optax updates every leaf, zeros included
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            metrics = _group_mean(metrics, group)
+            _group_mean_([p.grad for p in params], group)
         metrics["grad_norm"] = clip_by_global_norm_(
             [p.grad for p in params], tcfg.grad_clip)
         opt.step()
@@ -202,15 +220,70 @@ def train_step(tcfg: TrainConfig, state: TrainState, images: torch.Tensor,
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
+def _group_mean_(tensors, group) -> None:
+    """Each tensor replaced by its mean over the group's ranks (one
+    all_reduce of them flattened)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    torch._foreach_copy_(tensors, [
+        f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]),
+                                     tensors)])
+
+
+def _group_mean(metrics: dict, group) -> dict:
+    """The 0-dim metrics detached and averaged over the group's ranks."""
+    keys = sorted(metrics)
+    vals = [metrics[k].detach().clone() for k in keys]
+    _group_mean_(vals, group)
+    return dict(zip(keys, vals))
+
+
+def make_sharded_train_step(model: VSS, tcfg: TrainConfig, mesh,
+                            axis: str = "data"):
+    """The data-parallel train step over `axis` of `mesh`:
+    ``step(state, images, labels_onehot, class_weights, draws=None,
+    generator=None) -> (state, metrics)`` takes the GLOBAL batch (B, ...)
+    and the global batch's draws (or a generator in the same state on
+    every rank), keeps this rank's block of B/k, and returns what
+    train_step on the global batch returns: the same update of the
+    replicated weights, statistics and Adam state, the global metrics.
+    B must divide by the axis size."""
+    from ekf_slam_tpu_torch.parallel import mesh as pmesh
+
+    k = mesh.size(axis)
+    if tcfg.batch_size % k:
+        raise ValueError(f"batch_size {tcfg.batch_size} does not split over "
+                         f"{k} ranks of {axis!r}")
+    group = mesh.group(axis)
+
+    def step(state: TrainState, images, labels_onehot, class_weights,
+             draws: Optional[TrainDraws] = None,
+             generator: Optional[torch.Generator] = None):
+        p0 = next(state.model.parameters())
+        if draws is None:
+            draws = train_draws(tcfg, model, images.shape, generator,
+                                p0.device, p0.dtype)
+        mine = pmesh.block(images.shape[0], mesh, axis)
+        draws = pmesh.tree_map(lambda t: t[mine].to(p0.device), draws)
+        return train_step(tcfg, state, images[mine], labels_onehot[mine],
+                          class_weights, draws, group=group)
+
+    return step
+
+
 def fit(model: VSS, tcfg: TrainConfig, batches, num_steps: int,
         eval_fn=None, ckpt_dir: Optional[str] = None, logger=None,
         generator: Optional[torch.Generator] = None, class_weights=None,
-        data_dir: Optional[str] = None):
+        data_dir: Optional[str] = None, mesh=None):
     """The training loop (utils.train_and_eval, utils.py:526-588): trains
     `model` as it is for num_steps steps, a checkpoint ckpt_{step:07d}
     every ckpt_every steps (all kept) and eval_fn(state, step_i) at the
     same steps, each step's metrics to `logger` (utils/metrics
-    .MetricsLogger).
+    .MetricsLogger). With a `mesh` the steps are data-parallel over its
+    "data" ranks (make_sharded_train_step): every rank passes the same
+    global batches, rank 0's weights are broadcast first, and rank 0
+    alone writes the checkpoints.
 
     batches: an iterator of (images, labels_onehot), or a re-iterable
     (a list, a records.ShardReader) cycled epoch by epoch. class_weights
@@ -221,6 +294,14 @@ def fit(model: VSS, tcfg: TrainConfig, batches, num_steps: int,
 
     state = init_state(model, tcfg)
     p0 = next(model.parameters())
+    step_fn = functools.partial(train_step, tcfg)
+    main = True
+    if mesh is not None:
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                dist.broadcast(t, src=0)
+        step_fn = make_sharded_train_step(model, tcfg, mesh)
+        main = dist.get_rank() == 0
     if generator is None:
         generator = torch.Generator(device=p0.device).manual_seed(tcfg.seed)
     if class_weights is None and data_dir is not None:
@@ -238,8 +319,8 @@ def fit(model: VSS, tcfg: TrainConfig, batches, num_steps: int,
         labels = torch.as_tensor(labels).to(p0.device, p0.dtype)
         w = class_weights if class_weights is not None else \
             1.0 / torch.clamp(torch.mean(labels, dim=(0, 1, 2)), min=1e-3)
-        state, metrics = train_step(tcfg, state, images, labels, w,
-                                    generator=generator)
+        state, metrics = step_fn(state, images, labels, w,
+                                 generator=generator)
         if logger is not None:
             logger.log(step_i, **{k: float(v) for k, v in metrics.items()})
             if step_i == 0 or (step_i + 1) % 50 == 0 \
@@ -247,7 +328,7 @@ def fit(model: VSS, tcfg: TrainConfig, batches, num_steps: int,
                 print(f"[fit] step {step_i + 1}/{num_steps} "
                       f"loss={float(metrics['loss']):.4f} "
                       f"{time.time() - t_fit:.0f}s elapsed", flush=True)
-        if ckpt_dir and (step_i + 1) % tcfg.ckpt_every == 0:
+        if main and ckpt_dir and (step_i + 1) % tcfg.ckpt_every == 0:
             save_checkpoint(os.path.join(ckpt_dir,
                                          f"ckpt_{step_i + 1:07d}"), state)
         if eval_fn is not None and (step_i + 1) % tcfg.ckpt_every == 0:
@@ -301,12 +382,14 @@ def _adam_state(opt_state) -> Any:
 
 def from_flax_state(params, batch_stats, opt_state, step, image_hw,
                     tcfg: TrainConfig = TrainConfig(),
-                    vss_cfg: Optional[VSSConfig] = None) -> TrainState:
+                    vss_cfg: Optional[VSSConfig] = None,
+                    compute_dtype: str = "float32") -> TrainState:
     """The port's TrainState from a JAX TrainState's parts as numpy trees:
     the weights and statistics through vss.from_flax, optax's Adam mu / nu
     / count into torch's exp_avg / exp_avg_sq / step, each moment in its
     parameter's layout (HWIO kernels to OIHW). vss_cfg defaults to the
-    width, classes and descriptor source the params imply."""
+    width, classes and descriptor source the params imply and
+    `compute_dtype` (the JAX model's: its variables do not say it)."""
     sd = from_flax({"params": params, "batch_stats": batch_stats})
     if vss_cfg is None:
         source = {(True, False): "d5", (False, True): "d4",
@@ -315,7 +398,7 @@ def from_flax_state(params, batch_stats, opt_state, step, image_hw,
         heads = sd["decoder.head.bias"].shape[0] // 4
         vss_cfg = VSSConfig(width=sd["encoder.blocks.0.conv.weight"]
                             .shape[0], num_classes=heads - 1,
-                            descr_source=source)
+                            descr_source=source, compute_dtype=compute_dtype)
     model = VSS(vss_cfg, image_hw)
     model.load_state_dict(sd)
     state = init_state(model, tcfg)

@@ -36,14 +36,32 @@ recompute in backward does not update them again. A forward with
 descriptor_only runs no decoder, so it moves only the encoder's
 statistics; inside ``frozen_statistics`` a forward moves none.
 
+``compute_dtype="bfloat16"`` follows the JAX dtype policy with explicit
+casts at JAX's cast points (vss.py:97-104, 156-164, 254, 272-331 of the
+JAX package), not ``torch.autocast``: the parameters stay in their own
+dtype (f32) and every conv block casts its input and kernel to bf16;
+BatchNorm's statistics and normalization and the ELU run in the
+parameters' dtype and the block's output is cast back to bf16 (so the
+residual sums, pools and c5 are bf16); the heads ``mu``, ``mu_d4`` and
+``log_sig_sq`` and the decoder's 1x1 head take their input in the
+parameters' dtype; the decoder gets z in bf16. Gradients land on the f32
+parameters through the casts.
+
+With the data-parallel train step (``train.make_sharded_train_step``) a
+block's BatchNorm normalizes by the global batch's moments: inside
+``synced_statistics(model, group)`` E[x] and E[x²] are averaged over
+`group` by a differentiable all-reduce, as SyncBatchNorm does, so the
+backward sees it too.
+
 Weights: ``VSS(cfg, image_hw, generator)`` draws its own from Flax's
 distributions (``lecun_normal`` convs, zero biases, BatchNorm scale 1,
 bias 0, mean 0, var 1, ``offset`` normal(1)) without matching Flax's
 draws; ``from_flax`` carries a Flax VSS's params and batch statistics
-across, so that both compute the same function.
+across, so that both compute the same function (a bf16 Flax model as
+well: its variables are f32 whatever its compute_dtype).
 
-Not ported: ``compute_dtype`` "bfloat16" (raises), the "convt" lowering
-of depth_to_space (bit-identical to the reshape form).
+Not ported: the "convt" lowering of depth_to_space (bit-identical to the
+reshape form).
 """
 
 from __future__ import annotations
@@ -65,6 +83,7 @@ N_CLASSES = 13                # the CALC class table size
 N_HEADS = 1 + N_CLASSES       # RGB reconstruction + per-class seg
 LATENT_PER_HEAD = 4           # calc2.py:176 — 4·(1 + 13) latent channels
 DESCR_SOURCES = ("d5", "d4", "multi")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 # Flax names the encoder's ConvBNElu_i in construction order: in
 # conv(w)(conv(w // 2, (1, 1))(r1)) the outer 3x3 is built first. The
 # torch encoder's block at position p (data-flow order) is Flax's
@@ -78,7 +97,7 @@ _TRUNC_STD = 0.87962566103423978
 class VSSConfig:
     num_classes: int = N_CLASSES
     width: int = 32                 # encoder base width
-    compute_dtype: str = "float32"  # "bfloat16" is not ported
+    compute_dtype: str = "float32"  # or "bfloat16" (activations)
     bn_momentum: float = 0.9997     # calc2.py:133 decay
     bn_epsilon: float = 1e-5
     remat: bool = False             # checkpoint each conv block
@@ -96,9 +115,8 @@ class VSSConfig:
 
 def check_config(cfg: VSSConfig) -> None:
     """Raise ValueError for the settings the port does not run."""
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"VSSConfig.compute_dtype={cfg.compute_dtype!r} "
-                         f"is not ported (float32 only)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.descr_source not in DESCR_SOURCES:
         raise ValueError(f"unknown descr_source {cfg.descr_source!r}")
 
@@ -110,10 +128,19 @@ def pooled(n: int, times: int) -> int:
     return n
 
 
+def compute_dtype(cfg: VSSConfig, param_dtype: torch.dtype) -> torch.dtype:
+    """The activations' dtype: bf16 for compute_dtype "bfloat16", else
+    the parameters' own (f32, or f64 in the parity tests)."""
+    return (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+            else param_dtype)
+
+
 class ConvBNElu(nn.Module):
     """Conv (no bias, SAME padding) + BatchNorm + ELU (calc2.py:139-146);
     `groups` > 1 is the decoder's grouped form. In train mode BatchNorm
-    is Flax's (the module docstring)."""
+    is Flax's (the module docstring). The conv runs in the compute dtype,
+    BatchNorm and the ELU in the parameters' dtype, and the output is cast
+    to the compute dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  cfg: VSSConfig = VSSConfig(), groups: int = 1):
@@ -124,28 +151,48 @@ class ConvBNElu(nn.Module):
                                  momentum=1.0 - cfg.bn_momentum)
         self.flax_momentum = cfg.bn_momentum
         self.remat = cfg.remat
+        self.vss_cfg = cfg
         self.update_running = True      # frozen_statistics turns it off
+        self.group = None               # synced_statistics sets it
 
-    def _block(self, x):
+    @staticmethod
+    def _moments(y, group):
+        """(E[y], E[y²]) per channel over the batch and the pixels; over
+        the global batch when a process group is given (equal shares a
+        rank: the mean of the ranks' moments)."""
+        m = torch.stack([torch.mean(y, dim=(0, 2, 3)),
+                         torch.mean(y * y, dim=(0, 2, 3))])
+        if group is not None:
+            from torch.distributed.nn import functional as dist_fn
+            m = dist_fn.all_reduce(m, group=group) / \
+                torch.distributed.get_world_size(group)
+        return m[0], m[1]
+
+    def _block(self, x, group=None):
         """(output, batch mean, batch variance); the statistics are None
-        in eval mode."""
-        y = self.conv(x)
+        in eval mode. The group is an argument, so that the recompute of
+        a checkpointed block (remat), which runs in the backward, outside
+        synced_statistics, reduces over the same group: every rank reruns
+        the block's all-reduce at the same point of its backward."""
+        pd = self.conv.weight.dtype
+        cd = compute_dtype(self.vss_cfg, pd)
+        y = self.conv._conv_forward(x.to(cd), self.conv.weight.to(cd),
+                                    None).to(pd)
         if not self.training:
-            return F.elu(self.bn(y)), None, None
-        mean = torch.mean(y, dim=(0, 2, 3))
-        var = torch.clamp(torch.mean(y * y, dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+            return F.elu(self.bn(y)).to(cd), None, None
+        mean, mean_sq = self._moments(y, group)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.bn.eps) * self.bn.weight
         y = ((y - mean[:, None, None]) * mul[:, None, None]
              + self.bn.bias[:, None, None])
-        return F.elu(y), mean, var
+        return F.elu(y).to(cd), mean, var
 
     def forward(self, x):
         if self.remat and torch.is_grad_enabled():
             out, mean, var = torch.utils.checkpoint.checkpoint(
-                self._block, x, use_reentrant=False)
+                self._block, x, self.group, use_reentrant=False)
         else:
-            out, mean, var = self._block(x)
+            out, mean, var = self._block(x, self.group)
         if mean is not None and self.update_running:
             m = self.flax_momentum
             with torch.no_grad():
@@ -169,6 +216,21 @@ def frozen_statistics(model: nn.Module):
     finally:
         for b in blocks:
             b.update_running = True
+
+
+@contextlib.contextmanager
+def synced_statistics(model: nn.Module, group):
+    """Train-mode forwards of `model` inside the block normalize by the
+    moments of the global batch split over the process group `group` (the
+    data-parallel train step; every rank runs the same forwards)."""
+    blocks = [m for m in model.modules() if isinstance(m, ConvBNElu)]
+    for b in blocks:
+        b.group = group
+    try:
+        yield
+    finally:
+        for b in blocks:
+            b.group = None
 
 
 class GroupedConvBNElu(ConvBNElu):
@@ -244,7 +306,7 @@ class Decoder(nn.Module):
             x = grouped_depth_to_space(x, self.heads)
             for blk in self.blocks[lo:hi]:
                 x = blk(x)
-        x = self.head(x)
+        x = self.head(x.to(self.head.weight.dtype))
         rec = torch.sigmoid(x[:, 0:3])
         seg = x[:, LATENT_PER_HEAD::LATENT_PER_HEAD]    # (B, 13, H, W)
         return rec.permute(0, 2, 3, 1), seg.permute(0, 2, 3, 1)
@@ -330,13 +392,15 @@ class VSS(nn.Module):
         latent), the reparameterization noise, or None to draw it from
         `generator` (on its device)."""
         dt = self.mu.weight.dtype
-        d5, c5, d4 = self.encoder(images.to(dt).permute(0, 3, 1, 2))
+        cd = compute_dtype(self.cfg, dt)
+        d5, c5, d4 = self.encoder(images.to(cd).permute(0, 3, 1, 2))
+        d5 = d5.to(dt)
         mu = self.mu(d5)
         parts = []
         if hasattr(self, "offset"):
             parts.append(self._residual_descr(mu, self.offset))
         if hasattr(self, "offset_d4"):
-            parts.append(self._residual_descr(self.mu_d4(d4),
+            parts.append(self._residual_descr(self.mu_d4(d4.to(dt)),
                                               self.offset_d4))
         descr = (parts[0] if len(parts) == 1
                  else torch.cat(parts, dim=-1) / math.sqrt(len(parts)))
@@ -350,7 +414,7 @@ class VSS(nn.Module):
                               device=None if generator is None
                               else generator.device).to(mu.device)
         z = mu + torch.sqrt(torch.exp(log_sig_sq)) * eps.to(dt)
-        rec, seg = self.decoder(z.permute(0, 3, 1, 2))
+        rec, seg = self.decoder(z.permute(0, 3, 1, 2).to(cd))
         return {"descriptor": descr, "mu": mu, "log_sig_sq": log_sig_sq,
                 "rec": rec, "seg": seg, "z": z, "c5": c5}
 

@@ -15,6 +15,8 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
   K8 corr_apply               — the row-form update's folded tail apply,
                                 P + ½(AtᵀBt + BtᵀAt) and its "none" /
                                 "full" modes (unfused_cov.cu)
+     corr_apply_rows          — K8 "none" on a row slab of P, the tail of
+                                the row-sharded step (unfused_cov.cu)
   image path (ncc.cu, one kernel template in two forms):
   K7 ncc_corr                 — the NCC matcher's correlation numerator
                                 over N (window, template) pairs
@@ -52,7 +54,7 @@ from ekf_slam_tpu_torch.ops import _build
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0, "corr_apply_cols": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
-            "ncc_corr_norms": 0, "corr_apply": 0}
+            "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0}
 
 
 def reset_launches() -> None:
@@ -145,6 +147,15 @@ def corr_apply_plain(P, At, Bt, symmetrize="expr"):
     return out.to(P.dtype)
 
 
+def corr_apply_rows_plain(P_slab, At, Bt, r0: int):
+    """P_slab + At[:, :, r0:r0+Dl]ᵀ·Bt: K8 "none" on rows r0 .. r0+Dl−1 of
+    a P with Dc columns. P_slab (B,Dl,Dc), computed in At's dtype and
+    returned in its own; At, Bt (B,R,Dc)."""
+    Dl = P_slab.shape[1]
+    C = At[:, :, r0:r0 + Dl].transpose(1, 2) @ Bt
+    return (P_slab.to(At.dtype) + C).to(P_slab.dtype)
+
+
 def update_tail_plain(P, K, PHt, Jq4):
     """T·(P − ½(K·PHtᵀ + PHt·Kᵀ))·Tᵀ, T = I ⊕ Jq4 on dims 3:7."""
     return _tail(P, K, PHt, Jq4)
@@ -207,7 +218,8 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "f32_matmul_big": matmul_big_plain,
          "ncc_corr": ncc_corr_plain,
          "ncc_corr_norms": ncc_corr_norms_plain,
-         "corr_apply": corr_apply_plain}
+         "corr_apply": corr_apply_plain,
+         "corr_apply_rows": corr_apply_rows_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -219,7 +231,7 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
 # stripe transform applied to one side only — reads 0.1 or more.
 SCALED_TOL = 1e-4
 
-def _entry_error(diff, a, b, slack=None):
+def entry_error(diff, a, b, slack=None):
     """max |diff_ij| / sqrt(a_i·b_j); an entry whose bound is 0 must be 0.
     slack: a per-entry allowance taken off |diff| first."""
     diff = diff.abs()
@@ -254,7 +266,7 @@ def scaled_error(out, ref, Ht=None) -> float:
     ref = ref if isinstance(ref, tuple) else (ref,)
     d = torch.diagonal(ref[0], dim1=1, dim2=2).clamp_min(0)
     slack = bf16_ulp(ref[0]) if out[0].dtype == torch.bfloat16 else None
-    errs = [_entry_error(out[0].to(ref[0].dtype) - ref[0], d, d, slack)]
+    errs = [entry_error(out[0].to(ref[0].dtype) - ref[0], d, d, slack)]
     if len(ref) == 2:
         errs.append(product_error(out[1], ref[1], d, Ht))
     return max(errs)
@@ -265,7 +277,7 @@ def product_error(out, ref, P_diag, Ht) -> float:
     its reference ref = P·Ht, each entry in units of its bound
     sqrt(P_ii·(Htᵀ·P·Ht)_kk); P_diag (B,D) is P's diagonal."""
     hph = (Ht.to(ref.dtype) * ref).sum(dim=1).clamp_min(0)
-    return _entry_error(out.to(ref.dtype) - ref,
+    return entry_error(out.to(ref.dtype) - ref,
                         P_diag.to(ref.dtype).clamp_min(0), hph)
 
 
@@ -483,6 +495,31 @@ def corr_apply(P, At, Bt, symmetrize="expr"):
     _run(name, lib.ekf_k8_corr_apply, P.data_ptr(), At.data_ptr(),
          Bt.data_ptr(), out.data_ptr(), Bn, D, R, mode,
          int(P.dtype == torch.bfloat16))
+    return out
+
+
+def corr_apply_rows(P_slab, At, Bt, r0: int):
+    """K8's row-slab form: P_slab (B,Dl,Dc), f32 or bf16, rows r0 ..
+    r0+Dl−1 of a P with Dc columns (r0 + Dl <= Dc); At, Bt (B,R,Dc), any
+    R, the whole factors. Returns P_slab + At[:, :, r0:r0+Dl]ᵀ·Bt (B,Dl,Dc)
+    in P_slab's dtype: rows r0 .. of corr_apply(P, At, Bt, "none"), which
+    the kernel reproduces bit for bit."""
+    name = "corr_apply_rows"
+    Bn, Dl, Dc = P_slab.shape
+    R = At.shape[1]
+    if not 0 <= r0 <= Dc - Dl:
+        raise ValueError(f"{name}: rows {r0} .. {r0 + Dl - 1} outside "
+                         f"a P with {Dc} columns")
+    on_card = _check(name, {"P_slab": (Bn, Dl, Dc), "At": (Bn, R, Dc),
+                            "Bt": (Bn, R, Dc)},
+                     dict(P_slab=P_slab, At=At, Bt=Bt), ("P_slab",))
+    if not on_card:
+        return corr_apply_rows_plain(P_slab, At, Bt, r0)
+    out = torch.empty_like(P_slab)
+    lib = _build.load()
+    _run(name, lib.ekf_k8_corr_apply_rows, P_slab.data_ptr(), At.data_ptr(),
+         Bt.data_ptr(), out.data_ptr(), Bn, Dl, Dc, R, r0,
+         int(P_slab.dtype == torch.bfloat16))
     return out
 
 

@@ -11,8 +11,13 @@ with --data) through ``models/train.fit``, a checkpoint every
 writes train_metrics.jsonl, the checkpoints and ckpt_final into --out and
 prints the retrieval PR-AUC. The weights are drawn from a generator
 seeded TrainConfig.seed, the batches from one seeded 1 on the device.
-Runs on the card unless --cpu. The JAX script's data-parallel branch (more
-than one device) is not ported.
+Runs on the card unless --cpu. ``--world k`` trains data-parallel on k
+ranks (processes, parallel/mesh.spawn; the JAX script's branch for more
+than one device): each rank draws the same global batches and keeps its
+block of --batch / k; rank 0 writes the outputs and evaluates.
+``--backend gloo`` lets several ranks share one card (NCCL refuses two
+ranks on one GPU); the default is nccl when every rank has a card of its
+own, else gloo.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ekf_slam_tpu_torch.data import records, synthetic
 from ekf_slam_tpu_torch.models import evaluate, train
 from ekf_slam_tpu_torch.models.vss import VSSConfig
 from ekf_slam_tpu_torch.ops import device as devices
+from ekf_slam_tpu_torch.parallel import mesh as pmesh
 from ekf_slam_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -44,6 +50,11 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU")
+    ap.add_argument("--world", type=int, default=1,
+                    help="data-parallel ranks (processes)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="the ranks' backend (gloo: ranks may share a "
+                         "card)")
     return ap.parse_args(argv)
 
 
@@ -68,11 +79,26 @@ def eval_pairs(hw, device):
 
 def main(argv=None) -> dict:
     """Train and evaluate; returns {steps, seconds, steps_per_s, auc,
-    loss_first, loss_last, out}."""
+    loss_first, loss_last, out, world} (rank 0's with --world > 1)."""
     args = parse_args(argv)
+    if args.world == 1:
+        return run(args)
+    backend = args.backend or pmesh.default_backend(
+        args.world, "cpu" if args.cpu else None)
+    return pmesh.spawn(run, args.world, backend, args)[0]
+
+
+def run(args) -> dict:
+    """main's work on one rank: on a data-parallel mesh when --world > 1
+    (rank 0 returns the report, the others {})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = devices.resolve("cpu" if args.cpu else None)
+    mesh = None
+    if args.world > 1:
+        mesh = pmesh.make_mesh(device=dev)
+        dev = mesh.device
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
     os.makedirs(args.out, exist_ok=True)
     hw = tuple(args.hw)
     tcfg = train.TrainConfig(batch_size=args.batch, image_hw=hw,
@@ -82,13 +108,15 @@ def main(argv=None) -> dict:
     model = model.to(dev)
     batches = (iter(records.ShardReader(args.data, args.batch))
                if args.data else synthetic_batches(args.batch, hw, dev))
-    logger = MetricsLogger()
+    logger = MetricsLogger() if main_rank else None
     t0 = time.perf_counter()
     state, _ = train.fit(model, tcfg, batches, args.steps, ckpt_dir=args.out,
-                         logger=logger, data_dir=args.data)
+                         logger=logger, data_dir=args.data, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    if not main_rank:
+        return {}
     logger.dump_jsonl(os.path.join(args.out, "train_metrics.jsonl"))
     print(logger.table(last_n=3))
     print(f"trained {args.steps} steps in {seconds:.2f} s -> "
@@ -103,7 +131,8 @@ def main(argv=None) -> dict:
     loss = logger.series("loss")
     return {"steps": args.steps, "seconds": seconds,
             "steps_per_s": args.steps / seconds, "auc": out["auc"],
-            "loss_first": loss[0], "loss_last": loss[-1], "out": args.out}
+            "loss_first": loss[0], "loss_last": loss[-1], "out": args.out,
+            "world": args.world}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // Runs K1 (fused_manage_predict_pht), K2 (fused_update_tail_pht) or K3/K5
 // (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, K4
 // (corr_apply_cols), K6 (f32_matmul_big) or K8 (corr_apply) of
-// csrc/unfused_cov.cu, or K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu on
+// csrc/unfused_cov.cu (and K8's row-slab form), or K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu on
 // the CPU through the stand-in headers beside this file, on random
 // operands, and holds the result against a plain f64 loop.
 //
@@ -14,6 +14,7 @@
 //   ./emulate k4 f32|bf16 B D R
 //   ./emulate k6 f32|bf16 B M K N misalign     (misalign: C off 16 bytes)
 //   ./emulate k8 f32|bf16 B D R mode symP      (mode 0 none, 1 expr, 2 full)
+//   ./emulate k8s f32|bf16 B Dl Dc R r0         (the row-slab form)
 //   ./emulate k7 f32 N W2 t norms              (norms 1: ncc_corr_norms)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
@@ -57,6 +58,15 @@ void register_k8() {
     k8_kernel<PT>(*(const PT**)a[0], *(const float**)a[1],
                   *(const float**)a[2], *(PT**)a[3], *(int*)a[4],
                   *(int*)a[5], *(int*)a[6]);
+  };
+}
+
+template <typename PT>
+void register_k8s() {
+  g_kernels[reinterpret_cast<const void*>(k8s_kernel<PT>)] = [](void** a) {
+    k8s_kernel<PT>(*(const PT**)a[0], *(const float**)a[1],
+                   *(const float**)a[2], *(PT**)a[3], *(int*)a[4],
+                   *(int*)a[5], *(int*)a[6], *(int*)a[7]);
   };
 }
 
@@ -201,6 +211,43 @@ bool run_k8(int Bn, int D, int R, int mode, bool sym_p) {
       }
   return report("k8", rc, out, ref, scale, Bn, D,
                 mode == 2 || (mode == 1 && sym_p));
+}
+
+// K8's row-slab form: rows r0 .. r0+Dl−1 of a P with Dc columns, as one
+// rank of the row-sharded step holds them, at an odd offset like random_p's.
+template <typename PT>
+bool run_k8s(int Bn, int Dl, int Dc, int R, int r0) {
+  register_k8s<PT>();
+  const size_t slab = static_cast<size_t>(Dl) * Dc;
+  std::vector<PT> buf(Bn * slab + 32), out(Bn * slab);
+  PT* P = buf.data() + 8 + Dc % 3;
+  for (size_t n = 0; n < Bn * slab; ++n) put(&P[n], rnd());
+  std::vector<float> At(static_cast<size_t>(Bn) * R * Dc), Bt(At.size());
+  for (auto& a : At) a = rnd();
+  for (auto& b : Bt) b = rnd();
+  for (auto& o : out) put(&o, NAN);
+  const int rc = ekf_k8_corr_apply_rows(P, At.data(), Bt.data(), out.data(),
+                                        Bn, Dl, Dc, R, r0, sizeof(PT) == 2,
+                                        nullptr);
+  double worst = 0;
+  for (int b = 0; b < Bn; ++b)
+    for (int i = 0; i < Dl; ++i)
+      for (int j = 0; j < Dc; ++j) {
+        const size_t n = b * slab + static_cast<size_t>(i) * Dc + j;
+        double s = value(P[n]), sc = std::abs(s);
+        for (int k = 0; k < R; ++k) {
+          const size_t row = (static_cast<size_t>(b) * R + k) * Dc;
+          const double p = static_cast<double>(At[row + r0 + i]) * Bt[row + j];
+          s += p, sc += std::abs(p);
+        }
+        double limit = 1e-5 * sc + 1e-30;
+        if (sizeof(PT) == 2) limit += std::abs(s) / 128;    // >= 1 ulp
+        const double got = value(out[n]);
+        worst = std::isnan(got) ? 1e9 : std::max(worst, std::abs(got - s) / limit);
+      }
+  printf("k8s rc=%d blocks=%ld worst=%.3f of the limit\n", rc, g_blocks,
+         worst);
+  return rc == 0 && worst <= 1;
 }
 
 template <typename PT>
@@ -583,6 +630,9 @@ int main(int argc, char** argv) {
               : run_k6<float>(n[0], n[1], n[2], n[3], n[4]);
   else if (kernel == "k7")
     ok = !bf16 && run_k7(n[0], n[1], n[2], n[3]);
+  else if (kernel == "k8s")
+    ok = bf16 ? run_k8s<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
+              : run_k8s<float>(n[0], n[1], n[2], n[3], n[4]);
   else if (kernel == "k8")
     ok = bf16 ? run_k8<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k8<float>(n[0], n[1], n[2], n[3], n[4]);

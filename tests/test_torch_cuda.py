@@ -993,3 +993,74 @@ def test_cuda_train_step_matches_cpu(card, severity):
         if "running" in k:
             assert float((v.cpu() - cpu_sd[k]).abs().max()) <= 1e-4 * max(
                 float(cpu_sd[k].abs().max()), 1.0), k
+
+
+@pytest.mark.cuda
+@F32_BF16
+@pytest.mark.parametrize("r0", [0, 307])
+def test_cuda_corr_apply_rows_is_the_slab_of_k8_none(card, r0, store):
+    """K8's row-slab form at the sim config's slab (B = 2 instances,
+    D = 613 padded to 614 and split two ways: rows r0 .. r0+306, R = 264,
+    the folded tail's factor rows): bit for bit the rows of K8 "none" on
+    the whole P (the same fmaf chains), and each entry within CHAIN_TOL
+    of its scale |P| + |At|ᵀ|Bt| against the f64 plain version (one bf16
+    ulp more on a bf16 slab); one launch a call."""
+    Dp, Dl, R = 614, 307, 264
+    P = _randn(card, 3, 2, Dp, Dp).to(store)
+    At, Bt = _randn(card, 4, 2, R, Dp), _randn(card, 5, 2, R, Dp)
+    slab = P[:, r0:r0 + Dl].contiguous()
+    before = kernels.LAUNCHES["corr_apply_rows"]
+    got = kernels.corr_apply_rows(slab, At, Bt, r0)
+    whole = kernels.corr_apply(P, At, Bt, "none")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_apply_rows"] == before + 1
+    assert got.dtype == store and torch.equal(got, whole[:, r0:r0 + Dl])
+    ref = kernels.corr_apply_rows_plain(slab.double(), At.double(),
+                                        Bt.double(), r0)
+    limit = CHAIN_TOL * (slab.double().abs() + At.double().abs()[
+        :, :, r0:r0 + Dl].transpose(1, 2) @ Bt.double().abs())
+    if store == torch.bfloat16:
+        limit = limit + kernels.bf16_ulp(ref)
+    assert bool(((got.double() - ref).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_step_frame_on_two_gloo_ranks(card):
+    """Two frames of the row-sharded step on 2 gloo ranks sharing the
+    card (data 1 x model 2, CUDA tensors through gloo) at this file's
+    config with the unfused step, against the single-device unfused step
+    on the card: gate counts equal, x within 1e-3 of max|x|, P entrywise
+    within 1e-2 of its Cauchy-Schwarz bounds (phase 5's tolerances); K6
+    three and K8's slab form two launches a frame on each rank."""
+    import numpy as np
+
+    from ekf_slam_tpu_torch.filter.state import state_to_numpy
+    from ekf_slam_tpu_torch.parallel import mesh as pmesh
+    from torch_parallel_ranks import tp_rank
+
+    d = {**CFG, "filter": {"fused_step": "off"}, "dtype": "float32"}
+    cfg = EngineConfig.from_dict(d)
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, 3, "cpu")
+    st = engine.bootstrap(init_state(cfg, B, "cpu"), obs.frame(0), cfg)
+    u = torch.rand(3, B, cfg.ransac.num_hypotheses,
+                   generator=torch.Generator().manual_seed(1))
+    ranks = pmesh.spawn(tp_rank, 2, "gloo", d, state_to_numpy(st),
+                        obs.pixels.numpy(), obs.visible.numpy(), u.numpy(),
+                        1, 2, "cuda")
+    ref, infos = st.to(card), []
+    for t in (1, 2):
+        ref, info = engine.step(ref, obs.frame(t).to(card), u[t].to(card),
+                                cfg)
+        infos.append(info)
+    x, P = ref.x.cpu().numpy(), ref.P.cpu().double()
+    for r in ranks:
+        for t, info in enumerate(infos):
+            for f in ("n_visible", "n_ic", "n_li", "n_hi"):
+                np.testing.assert_array_equal(r["counts"][t][f],
+                                              getattr(info, f).cpu().numpy())
+        assert np.abs(r["state"]["x"] - x).max() <= 1e-3 * np.abs(x).max()
+        assert kernels.scaled_error(torch.tensor(r["state"]["P"]).double(),
+                                    P) <= 1e-2
+        assert r["launches"]["f32_matmul_big"] == 3 * 2
+        assert r["launches"]["corr_apply_rows"] == 2 * 2
+        assert sum(r["launches"].values()) == 10

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 / K5 of csrc/fused_cov.cu, K4, K6 and K8 of
-csrc/unfused_cov.cu and K7 of csrc/ncc.cu (both forms) — the CUDA source
+"""K1, K2 and K3 / K5 of csrc/fused_cov.cu, K4, K6 and K8 (and K8's
+row-slab form) of csrc/unfused_cov.cu and K7 of csrc/ncc.cu (both forms) — the CUDA source
 itself — run on the CPU: compiled by g++ against the
 stand-in headers of tests/cuda_emulation (one std::thread a CUDA thread,
 __syncthreads a barrier, shared memory poisoned with NaN, the asynchronous
@@ -43,6 +43,15 @@ K8_CASES = [(t, b, d, r, mode, sym)
             for t in ("f32", "bf16")
             for b, d, r in ((2, 70, 56), (2, 19, 1), (1, 157, 20))
             for mode, sym in ((0, 0), (1, 0), (1, 1), (2, 0))]
+# P type, then B Dl Dc R r0 (K8's row-slab form): the sharded step's slabs
+# at D = 85 split two and four ways (Dp = 86, 88) and a slab of three
+# row tiles past one of Dc's column tiles, R below and past one
+# contraction tile, the first and the last slab
+K8S_CASES = [(t, b, dl, dc, r, r0)
+             for t in ("f32", "bf16")
+             for b, dl, dc, r, r0 in ((2, 43, 86, 32, 0), (2, 43, 86, 32, 43),
+                                      (1, 22, 88, 1, 66),
+                                      (1, 157, 200, 20, 43))]
 # P type, then B D R
 K4_CASES = [(t, b, d, r) for t in ("f32", "bf16")
             for b, d, r in ((2, 70, 56), (2, 19, 1), (1, 157, 20))]
@@ -114,6 +123,16 @@ def test_emulated_corr_apply(emulate, case):
     tiles, R below and past one contraction tile; "full" and "expr" on a
     symmetric P bitwise symmetric."""
     done = emulate("k8", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", K8S_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_emulated_corr_apply_rows(emulate, case):
+    """K8's row-slab form (mode "none") on slabs of an f32 and a bf16 P at
+    odd 2-byte offsets: the first and the last slab of a split, ragged
+    row and column tiles, R below and past one contraction tile."""
+    done = emulate("k8s", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]
 
 

@@ -252,3 +252,23 @@ def test_close_loops_reads_a_port_checkpoint(kitti_seq, tmp_path):
     for name in ("kitti_traj.txt", "kitti_loops.txt"):
         assert (tmp_path / "a" / name).read_text() == \
             (tmp_path / "b" / name).read_text()
+
+
+def test_run_tp_filter_matches_the_single_device_step():
+    """run_tp_filter on 2 gloo ranks on the CPU (CAP 24, 3 frames, f32):
+    the slab shape, the largest collective within its bound and below
+    the full P, the state within 1e-4 of the single-device step's
+    (f32 in another summation order: measured ~1e-5)."""
+    from ekf_slam_tpu_torch import run_tp_filter
+    r = run_tp_filter.main(["--cpu", "--frames", "4", "--cap", "24",
+                            "--model", "2", "--backend", "gloo"])
+    assert r["slab"] == [2, 79, 158] and r["finite"]
+    assert 0 < r["largest_payload"] <= r["payload_bound"] < r["full_P"]
+    assert r["max_dx"] <= 1e-4 and r["max_dP"] <= 1e-4 * r["max_P"]
+
+
+def test_dryrun_multichip_runs_its_four_legs():
+    from ekf_slam_tpu_torch import dryrun_multichip
+    out = dryrun_multichip.main(["--cpu", "--world", "2"])
+    assert set(out) == {"ekf", "tp", "train", "loopdb"}
+    assert all("OK on 2 ranks" in line for line in out.values())

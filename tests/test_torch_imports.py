@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ekf_slam_tpu_torch, and not
-chip_smoke.py or the card's tests (tests/test_torch_cuda.py and its
-helper), imports JAX, its libraries or the JAX package — the machine with
-the card has no JAX."""
+chip_smoke.py, the card's tests (tests/test_torch_cuda.py and its
+helper) or the ranks of the multi-process tests
+(tests/torch_parallel_ranks.py), imports JAX, its libraries or the JAX
+package — the machine with the card has no JAX."""
 
 import ast
 import pathlib
@@ -15,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ekf_slam_tpu")
 FILES = sorted((ROOT / "ekf_slam_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "tests" / "torch_scales.py"]
+    ROOT / "tests" / "torch_scales.py",
+    ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -119,6 +121,34 @@ def test_training_modules_import_without_jax():
             + "".join(f"sys.modules[{m!r}] = None\n"
                       for m in FORBIDDEN + ("PIL",))
             + "".join(f"import {m}\n" for m in TRAIN_MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# The multi-process layer and its drivers: each imports in a fresh
+# interpreter in which JAX, its libraries and the JAX package cannot be
+# imported at all (the ranks of its tests import them so, too).
+PARALLEL_MODULES = (
+    "ekf_slam_tpu_torch.parallel", "ekf_slam_tpu_torch.parallel.mesh",
+    "ekf_slam_tpu_torch.parallel.sharded_filter",
+    "ekf_slam_tpu_torch.parallel.sharded_loopdb",
+    "ekf_slam_tpu_torch.run_tp_filter", "ekf_slam_tpu_torch.dryrun_multichip")
+
+
+def test_parallel_modules_import_without_jax():
+    import subprocess
+    import sys
+    paths = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in PARALLEL_MODULES:
+        stem = mod.replace(".", "/")
+        assert stem + ".py" in paths or stem + "/__init__.py" in paths, mod
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "sys.path.insert(0, 'tests')\n"
+            + "".join(f"import {m}\n" for m in PARALLEL_MODULES)
+            + "import torch_parallel_ranks\n"
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -539,6 +539,26 @@ def test_library_call_of_k8_is_expr():
     assert bool(((got - want).abs() <= F64_TOL * _scale(P, At, Bt)).all())
 
 
+def test_library_call_of_k8_slab_is_its_function():
+    """baddbmm(P_slab, At[:, :, r0:r0+Dl]ᵀ, Bt) is K8's row-slab form."""
+    g = torch.Generator().manual_seed(3)
+    P = torch.randn(2, 22, 88, generator=g, dtype=torch.float64)
+    At = torch.randn(2, 40, 88, generator=g, dtype=torch.float64)
+    Bt = torch.randn(2, 40, 88, generator=g, dtype=torch.float64)
+    got = chip_smoke.LIBRARY["corr_apply_rows"](P, At, Bt, 44)
+    want = kernels.corr_apply_rows_plain(P, At, Bt, 44)
+    scale = P.abs() + At[:, :, 44:66].abs().transpose(1, 2) @ Bt.abs()
+    assert bool(((got - want).abs() <= F64_TOL * scale).all())
+
+
+def test_operation_count_of_k8_slab():
+    """K8's row-slab form: 2R an entry of the slab's Dl x Dc (12.74 GFLOP
+    at the sim config split two ways)."""
+    args = (_meta(128, 307, 614), _meta(128, 264, 614), _meta(128, 264, 614))
+    assert chip_smoke.FLOPS["corr_apply_rows"](*args, 307) == \
+        2 * 128 * 307 * 614 * 264
+
+
 def test_library_call_of_k4_is_k4_on_a_symmetric_p():
     """baddbmm(P, [A B], [B A]ᵀ, alpha=½) is K4's function where P is
     symmetric (the path's P), and not where it is not."""

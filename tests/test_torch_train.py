@@ -313,9 +313,11 @@ def test_calc2_bundled_run(tmp_path):
     assert (tmp_path / "calc2_metrics.json").exists()
     assert (tmp_path / "ckpt_final").is_file()
     assert len(list((tmp_path / "shards").glob("shard_*.npz"))) == 1
-    with pytest.raises(ValueError, match="not ported"):
-        calc2_bundled_run.main(["--cpu", "--dtype", "bfloat16", "--out",
-                                str(tmp_path / "bf16")])
+    bf16 = calc2_bundled_run.main([
+        "--cpu", "--dtype", "bfloat16", "--steps", "1", "--batch", "4",
+        "--width", "4", "--hw", "32", "32", "--images", "16", "--places",
+        "8", "--out", str(tmp_path / "bf16")])
+    assert bf16["dtype"] == "bfloat16" and np.isfinite(bf16["loss_last"])
 
 
 @pytest.mark.parametrize("name", ["train_calc2", "calc2_bundled_run"])
@@ -326,7 +328,8 @@ def test_training_drivers_take_the_examples_flags(name):
     mod = importlib.import_module(f"ekf_slam_tpu_torch.{name}")
     got = {f"--{k.replace('_', '-')}": v
            for k, v in vars(mod.parse_args([])).items()}
-    assert set(got) == set(want)
+    # and the data-parallel ranks (the JAX scripts count JAX's devices)
+    assert set(got) == set(want) | {"--world", "--backend"}
     for flag, default in want.items():
         if flag != "--out" and default is not None:
             assert np.all(np.asarray(got[flag]) == np.asarray(default)), flag

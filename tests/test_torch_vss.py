@@ -237,10 +237,12 @@ def test_generator_draws_from_flax_distributions():
 
 
 def test_unported_settings_raise():
-    """bf16 activations and an unknown descriptor source raise; train mode
-    runs (it raised before training was ported)."""
-    with pytest.raises(ValueError, match="not ported"):
-        vss.VSS(vss.VSSConfig(width=8, compute_dtype="bfloat16"), (48, 64))
+    """An unknown compute dtype and an unknown descriptor source raise;
+    bf16 activations and train mode run (each raised before it was
+    ported; tests/test_torch_vss_bf16.py holds bf16 to JAX)."""
+    with pytest.raises(ValueError, match="compute_dtype"):
+        vss.VSS(vss.VSSConfig(width=8, compute_dtype="float16"), (48, 64))
+    vss.VSS(vss.VSSConfig(width=8, compute_dtype="bfloat16"), (48, 64))
     with pytest.raises(ValueError, match="descr_source"):
         vss.VSS(vss.VSSConfig(width=8, descr_source="d3"), (48, 64))
     m = vss.VSS(vss.VSSConfig(width=8, remat=True), (48, 64)).train()
