@@ -56,13 +56,17 @@ Phases, one line each, any failure raises (exit code != 0):
                rendered frames, R = 12) at B = 32 for 16 frames through
                frontend.run_images:
                  image  NCC matcher          K7 norms 1x, K4 2x, K6 3x
+                 image_exact, image_none     the same, with the template
+                        warp's per-pixel distortion round trip and with
+                        none (VisionConfig.warp_distortion; "affine" above)
                  image  descriptor matcher   K4 2x, K6 3x a frame
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
                kernel launched 0 times; steps/s of the median of three
-               timed runs (fused, (i), iekf, image NCC) or of one
-  5. crosscheck one frame of each path (the IEKF's too) with CUDA tensors
-               vs the same frame
+               timed runs (fused, (i), iekf, image NCC in its three warp
+               forms, each form's beside "affine"'s: `[warp]`) or of one
+  5. crosscheck one frame of each path (the IEKF's and the image path's
+               with the "exact" warp too) with CUDA tensors vs the same frame
                on the CPU (plain path), and the same frame through the
                fused and the unfused step, and through the fast mode's row
                and column forms, on the card: equal gate counts, x and P
@@ -146,9 +150,22 @@ Phases, one line each, any failure raises (exit code != 0):
                (i) frame's operands split as leg (b) holds them, with a
                planted fault; their launches in the JSON line are leg
                (b)'s rank 0's.)
+ 10. golden    the port's unfused step at f32 on the card against the
+               float64 oracle on the host (oracle/golden.py: the golden
+               config of tests/test_golden_pipeline.py, CAP 20, full-width
+               updates, NHYP 16; the port's own scene, B = 4, 10 frames,
+               one forced conversion at frame 5; seeds 0-3), both sides on
+               the same observations and RANSAC draws: K4 2x and K6 3x a
+               frame; n_ic, n_li, n_hi and support equal to the oracle's
+               and the RMSE over the camera and the live features within
+               golden.GOLDEN_F32_TOL, on the frames before the same seed's
+               f32 run on the CPU parts from the oracle (seeds 2, 3: frame
+               6, ROADMAP §3); K6 and K4 on a golden frame's operands
+               against their plain versions.
 Then the card's name and power limit, one JSON line with the kernels'
-numbers, and as the last line {"ok": true, "device": {...}}. Without a
-CUDA device it fails.
+numbers (K4, K6 and K7's norms form also carry their launches on the
+image_exact, image_none and golden runs), and as the last line
+{"ok": true, "device": {...}}. Without a CUDA device it fails.
 """
 
 from __future__ import annotations
@@ -180,6 +197,7 @@ from ekf_slam_tpu_torch.models import (augment, evaluate, keypoints,
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig
 from ekf_slam_tpu_torch.ops import _build, kernels
+from ekf_slam_tpu_torch.oracle import golden
 from ekf_slam_tpu_torch.sim.scene import Scene
 from ekf_slam_tpu_torch.profile_slice import (BATCH, FAST_PATHS, FAST_SCENE,
                                               FRAMES, IMAGE_BATCH,
@@ -217,11 +235,18 @@ PER_FRAME = {
     "iekf": {"corr_apply_cols": 2, "f32_matmul_big": 6},
     "image": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
               "f32_matmul_big": 3},
+    "image_exact": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
+                    "f32_matmul_big": 3},
+    "image_none": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
+                   "f32_matmul_big": 3},
     "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast_rows": {"corr_apply": 2},
 }
 SIM_PATHS = ("fused", "unfused", "unfused_pallas", "iekf")
+# The image path's three template-warp forms (VisionConfig.warp_distortion)
+WARP_PATHS = {"image": "affine", "image_exact": "exact",
+              "image_none": "none"}
 # The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS = 67e12
@@ -543,7 +568,7 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
     """Phase 4 for one path: a warm-up, then `runs` timed runs of the
     path's driver `run()` -> (final state, traj, infos), each with the
     counts set to 0 just before and read just after; the gates. Returns
-    the launch counts of the last run."""
+    the launch counts of the last run and the median steps/s."""
     run()                                                # warm-up
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
     seconds = []
@@ -587,7 +612,7 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
     phase("slice", **fields, launches=json.dumps(
         {k: v for k, v in launches.items() if v}, separators=(",", ":")),
         card=repr(card))
-    return launches
+    return launches, rate
 
 
 def same_frame(tag, a, b) -> None:
@@ -654,6 +679,7 @@ def main() -> None:
     check_training(dev, card, by_name)
     check_bf16_training(dev, card, loop["frames"])
     check_parallel(dev, card, by_name, loop)
+    check_golden(dev, card, by_name)
     print(card, flush=True)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
@@ -666,8 +692,9 @@ def check_paths(dev, card: str) -> list:
     # -- 3. kernels vs plain on one real frame of each path -------------------
     cfgs = {p: slice_config(p) for p in SIM_PATHS}
     st0, xs, obs, u = slice_inputs(cfgs["fused"], dev)
-    icfgs = {"image": image_config("ncc"),
-             "image_descriptor": image_config("descriptor")}
+    icfgs = {path: image_config("ncc", form)
+             for path, form in WARP_PATHS.items()}
+    icfgs["image_descriptor"] = image_config("descriptor")
     ist0, iapp0, ixs, imgs, iu = image_inputs(icfgs["image"], dev)
     report = {}
     inputs = capture_frame(cfgs["fused"], st0, obs, u)
@@ -820,26 +847,36 @@ def check_paths(dev, card: str) -> list:
             return final, traj, infos
         return run
 
-    launches, image_counts = {}, {}
+    launches, image_counts, warp_rates = {}, {}, {}
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
                        ("iekf", 3), ("fast", 3), ("fast_rows", 3),
-                       ("image", 3), ("image_descriptor", 1)):
+                       ("image", 3), ("image_exact", 3), ("image_none", 3),
+                       ("image_descriptor", 1)):
         if path in SIM_PATHS:
-            counts = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
-                               runs, 0.2, card)
+            counts, _ = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
+                                  runs, 0.2, card)
         elif path in FAST_PATHS:
             with update_form(path):
-                counts = run_slice(path, fcfgs[path], sim_run(path), BATCH,
-                                   fxs, runs, 0.2, card)
+                counts, _ = run_slice(path, fcfgs[path], sim_run(path),
+                                      BATCH, fxs, runs, 0.2, card)
         else:
-            counts = run_slice(path, icfgs[path], image_run(path),
-                               IMAGE_BATCH, ixs, runs, 0.5, card)
+            counts, rate = run_slice(path, icfgs[path], image_run(path),
+                                     IMAGE_BATCH, ixs, runs, 0.5, card)
             if path == "image":
                 image_counts = counts
+            if path in WARP_PATHS:
+                warp_rates[WARP_PATHS[path]] = rate
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
             if path == "iekf":
                 report[name]["iekf"]["launches"] = counts[name]
+            elif path in ("image_exact", "image_none"):
+                report[name][path] = {"launches": counts[name]}
+    affine = warp_rates["affine"]
+    phase("warp", **{f"{form}_steps_per_s": f"{r:.1f}"
+                     for form, r in warp_rates.items()},
+          **{f"{form}_vs_affine": f"{warp_rates[form] / affine:.3f}"
+             for form in ("exact", "none")}, card=repr(card))
     for name, k in report.items():
         # ncc_corr, on no path since the matcher takes the norms form: its
         # count in the image run, which run_slice held to 0
@@ -873,6 +910,13 @@ def check_paths(dev, card: str) -> list:
     cpu_step = frontend.step_image(ist8.to("cpu"), iapp8.to("cpu"),
                                    imgs[8].cpu(), iu[8].cpu(), icfgs["image"])
     same_frame("image:cuda_vs_cpu", (card_step[0], card_step[2]),
+               (cpu_step[0], cpu_step[2]))
+    card_step = frontend.step_image(ist8, iapp8, imgs[8], iu[8],
+                                    icfgs["image_exact"])
+    cpu_step = frontend.step_image(ist8.to("cpu"), iapp8.to("cpu"),
+                                   imgs[8].cpu(), iu[8].cpu(),
+                                   icfgs["image_exact"])
+    same_frame("image_exact:cuda_vs_cpu", (card_step[0], card_step[2]),
                (cpu_step[0], cpu_step[2]))
     check_spd_inverse(dev)
     return list(report.values())
@@ -2054,6 +2098,72 @@ def check_parallel(dev, card: str, report: dict, loop: dict) -> None:
     if not (d1 <= X_RTOL * max_x and _rel(one["cov"], ref["cov"]) <= 1e-6):
         raise AssertionError("leg (a) on one NCCL rank differs from the "
                              "single-process run")
+
+
+# Phase 10: the unfused step at f32 on the card against the f64 oracle on
+# the host (oracle/golden.py: the golden config, B = 4, T = 10, one forced
+# conversion at T // 2). Each seed runs first at f32 on the CPU; the card
+# is held to the frames before that run's counts part from the oracle's
+# (seeds 2 and 3 part at frame 6: the f32 step goes non-finite after the
+# forced conversion, in the JAX package as in the port; ROADMAP §3).
+GOLDEN_SEEDS = (0, 1, 2, 3)
+GOLDEN_FRAMES = 10
+GOLDEN_BATCH = 4
+
+
+def check_golden(dev, card: str, report: dict) -> None:
+    t_start = time.perf_counter()
+    want = {k: PER_FRAME["unfused"].get(k, 0) * (GOLDEN_FRAMES - 1)
+            for k in kernels.LAUNCHES}
+    for seed in GOLDEN_SEEDS:
+        cpu = golden.run("float32", GOLDEN_FRAMES, GOLDEN_BATCH, seed, "cpu")
+        part = cpu.first_parting()
+        held = part or GOLDEN_FRAMES
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with kernels.capture_operands() as ops:
+            run = golden.run("float32", GOLDEN_FRAMES, GOLDEN_BATCH, seed,
+                             dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"golden seed {seed}: kernel launches "
+                                 f"{launches}, expected {want}")
+        for k in golden.COUNTS:
+            got, ref = run.port[k][:held - 1], run.oracle[k][:held - 1]
+            if not numpy.array_equal(got, ref):
+                raise AssertionError(f"golden seed {seed}: {k} differs from "
+                                     f"the oracle's: {got.T} vs {ref.T}")
+        err = run.rmse[:held]
+        if not (numpy.isfinite(err).all()
+                and err.max() <= golden.GOLDEN_F32_TOL):
+            raise AssertionError(f"golden seed {seed}: RMSE {err.max()} > "
+                                 f"{golden.GOLDEN_F32_TOL}")
+        phase("golden", seed=seed, batch=GOLDEN_BATCH, frames=GOLDEN_FRAMES,
+              frames_held=held - 1, cpu_parting=part,
+              card_parting=run.first_parting(),
+              rmse_max=f"{err.max():.3e}", rmse_last=f"{err[-1].max():.3e}",
+              cpu_rmse_max=f"{cpu.rmse[:held].max():.3e}",
+              tol=golden.GOLDEN_F32_TOL,
+              converted=int(run.converted.sum()), launches=json.dumps(
+                  {k: v for k, v in launches.items() if v},
+                  separators=(",", ":")), card=repr(card))
+        if seed == GOLDEN_SEEDS[0]:
+            frame_ops = ops
+            for name in want:
+                if want[name]:
+                    report[name]["golden"] = {"launches": launches[name]}
+    # K6 (the update's P·Hᵀ) and K4 (the LI tail) at the golden shapes, on
+    # frame 2's operands (K6: RANSAC's P·G, then each update's P·Hᵀ)
+    per_frame = PER_FRAME["unfused"]
+    for name, site, i in (("f32_matmul_big", "golden_PHt", 1),
+                          ("corr_apply_cols", "golden_tail", 0)):
+        args = frame_ops[name][per_frame[name] + i]
+        e = check_kernel(name, args, site)
+        report[name]["golden"].update({k: e[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "scaled_err")})
+    phase("golden_done", seconds=f"{time.perf_counter() - t_start:.1f}")
 
 
 if __name__ == "__main__":

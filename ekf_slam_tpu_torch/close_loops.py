@@ -25,8 +25,9 @@ artifacts ("CALC 2.0"/close_kitti_loops.py:141-158):
 RANSAC's draws at frame t come from a generator seeded 200 + t (the JAX
 script's key(200 + t)), or from ``main``'s ``draws_fn`` hook. Runs on the
 card unless --cpu. --ckpt reads the port's own checkpoints
-(models/train.save_checkpoint), not the JAX trainer's orbax ones. Not
-ported: --plot (the viz package).
+(models/train.save_checkpoint), not the JAX trainer's orbax ones. --plot
+writes loops.png from the artifacts (viz.plot_loops, the plot_loops.m
+analog); it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def parse_args(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (no kernels on this path)")
     ap.add_argument("--plot", action="store_true",
-                    help="not ported (the viz package; raises)")
+                    help="write loops.png from the artifacts (needs "
+                         "matplotlib)")
     return ap.parse_args(argv)
 
 
@@ -95,8 +97,6 @@ def main(argv=None, draws_fn=None) -> dict:
     JAX's). Returns {frames, loops [(i, j)], loop_inliers, native,
     seconds, frames_per_s}."""
     args = parse_args(argv)
-    if args.plot:
-        raise ValueError("--plot (the viz package) is not ported")
     if args.ckpt:
         check_ckpt(args.ckpt)
     # The cosine gate and the DB's top-k must see true-f32 descriptors.
@@ -172,6 +172,12 @@ def main(argv=None, draws_fn=None) -> dict:
           f"{'native loader' if native else 'NumPy reader'}")
     print(f"{T} frames in {seconds:.2f}s -> {T / seconds:.1f} frames/s")
     print(f"{len(loops)} loops over {T} frames; artifacts in {args.out}")
+    if args.plot:
+        from ekf_slam_tpu_torch.viz import plot_loops
+        plot_loops(os.path.join(args.out, "loops.png"),
+                   os.path.join(args.out, "kitti_traj.txt"),
+                   os.path.join(args.out, "kitti_loops.txt"))
+        print(f"wrote {os.path.join(args.out, 'loops.png')}")
     return {"frames": T, "loops": [(i, j) for i, j, _, _, _ in loops],
             "loop_inliers": [n for _, _, _, _, n in loops],
             "native": native, "seconds": seconds,

@@ -11,7 +11,8 @@ row-form H·P rows of every slot (``pht_rows_split``), and the per-slot
 innovation covariances (search_IC_matches.m:8) — read off the fused
 kernels' P·Hᵀ columns, the H·P rows, or in the unfused step from P's
 camera rows and slot diagonal blocks. A cartesian landmark occupies the
-first 3 dims of its 6-wide slot. What is read of P goes through
+first 3 dims of its 6-wide slot. ``predict_and_linearize`` gives
+prediction, Jacobians and S in one call. What is read of P goes through
 ``ekf.p_compute`` (a bf16-stored P upcasts).
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, CameraConfig, EngineConfig
 from ekf_slam_tpu_torch.filter.ekf import p_compute
+from ekf_slam_tpu_torch.filter.state import FilterState
 from ekf_slam_tpu_torch.ops import camera as cam_ops
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.ops.consts import constant
@@ -231,6 +233,18 @@ def innovation_covariances(P: torch.Tensor, H_xv: torch.Tensor,
     return innovation_covariances_from_blocks(
         p_compute(P[:, :CAM_DIM, :]), _slot_diag_blocks(P, cap), H_xv, H_y,
         sigma_z)
+
+
+def predict_and_linearize(x: torch.Tensor, P: torch.Tensor,
+                          state: FilterState, cfg: EngineConfig):
+    """h, visible, H_xv, H_y and the per-slot S at (x (B,D), P (B,D,D)) in
+    one call (predict_camera_measurements + calculate_derivatives + the S
+    loop of search_IC_matches.m:4-9)."""
+    h, visible, hc = predict_measurements(x, state.active, state.cartesian,
+                                          cfg)
+    H_xv, H_y = jacobians(x, h, hc, state.cartesian, cfg.camera)
+    S = innovation_covariances(P, H_xv, H_y, cfg.filter.sigma_z)
+    return h, visible, H_xv, H_y, S
 
 
 def innovation_covariances_from_blocks(top13: torch.Tensor,

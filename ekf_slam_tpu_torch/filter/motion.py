@@ -1,7 +1,7 @@
 """Camera motion models, their analytic Jacobians and process noise (L2).
 
 Port of ``ekf_slam_tpu/filter/motion.py`` (fv.m, dfv_by_dxv.m,
-func_Q.m:12-27) for all four motion models, on camera blocks xv with any
+func_Q.m) for all four motion models, on camera blocks xv with any
 leading batch axes and the 13-vector on the last axis.
 """
 
@@ -85,6 +85,21 @@ def process_noise(xv: torch.Tensor, cfg: FilterConfig) -> torch.Tensor:
                         @ quat.dqomegadt_by_domega(w, dt))
     G[..., 7:10, 0:3] = eye3
     G[..., 10:13, 3:6] = eye3
+    pn = constant((((cfg.sigma_a * dt) ** 2,) * 3
+                   + ((cfg.sigma_alpha * dt) ** 2,) * 3), xv.dtype, xv.device)
+    return (G * pn) @ G.transpose(-1, -2)
+
+
+def process_noise_euler(xv: torch.Tensor, cfg: FilterConfig) -> torch.Tensor:
+    """Q = G Pn Gᵀ with the Euler-angle noise G of the
+    constant_position_and_orientation_location_noise model
+    (func_Q.m:3-11): IΔt into r, ∂q/∂(rpy) at the current attitude into q.
+    Returns (..., 13, 13)."""
+    dt = cfg.delta_t
+    rpy = quat.r2rpy(quat.q2r(xv[..., 3:7]))
+    G = torch.zeros(xv.shape[:-1] + (13, 6), dtype=xv.dtype, device=xv.device)
+    G[..., 0:3, 0:3] = torch.eye(3, dtype=xv.dtype, device=xv.device) * dt
+    G[..., 3:7, 3:6] = quat.dq_by_deuler(rpy)
     pn = constant((((cfg.sigma_a * dt) ** 2,) * 3
                    + ((cfg.sigma_alpha * dt) ** 2,) * 3), xv.dtype, xv.device)
     return (G * pn) @ G.transpose(-1, -2)

@@ -10,6 +10,8 @@ picked slots' Jacobian blocks, one product in K6
 instances are scored at once by reprojecting every slot
 (compute_hypothesis_support_fast.m, no gating, residual threshold σ_z),
 and the argmax-support hypothesis gives the low-innovation inliers.
+``support_projection`` is the same reprojection in the measurement
+model's per-slot form, for one hypothesis an instance.
 
 The uniform draws are an input, u (B, NHYP): production draws them from
 a ``torch.Generator``; the parity tests hand in JAX's own draws.
@@ -20,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
-from ekf_slam_tpu_torch.filter import association
+from ekf_slam_tpu_torch.filter import association, measurement
 from ekf_slam_tpu_torch.filter.measurement import one_hot
+from ekf_slam_tpu_torch.ops import camera as cam_ops
 from ekf_slam_tpu_torch.ops import kernels
 
 
@@ -37,6 +40,21 @@ def sample_ic_indices(u: torch.Tensor, ic_mask: torch.Tensor) -> torch.Tensor:
     ranks = torch.floor(u * n_ic.to(u.dtype)).to(torch.int64)
     slots = torch.searchsorted(csum, ranks + 1)
     return slots.clamp(0, cap - 1)
+
+
+def support_projection(x_hyp: torch.Tensor, cartesian: torch.Tensor,
+                       cfg: EngineConfig) -> torch.Tensor:
+    """Every slot reprojected under hypothesis states x_hyp (B, D), the
+    batched reprojection of compute_hypothesis_support_fast.m (no gating):
+    -> (B, CAP, 2) distorted pixels. A dead slot's zero depth is set to 1
+    (no 0/0)."""
+    B, cap = cartesian.shape
+    hc = measurement.camera_frame_points(
+        x_hyp, x_hyp[:, CAM_DIM:].reshape(B, cap, 6), cartesian)
+    hz = hc[..., 2:3]
+    hc = torch.cat([hc[..., :2], torch.where(hz == 0, torch.ones_like(hz),
+                                             hz)], dim=-1)
+    return cam_ops.distort(cam_ops.project(hc, cfg.camera), cfg.camera)
 
 
 def support_residuals_soa(x_hyps: torch.Tensor, z: torch.Tensor,

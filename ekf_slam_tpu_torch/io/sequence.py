@@ -1,14 +1,16 @@
 """Image-sequence IO: the native C++ loader with a NumPy fallback.
 
-Port of ``ekf_slam_tpu/io/sequence.py`` (without ``VideoSequence``, which
-needs ffmpeg). The reference reads its monocular sequence with imread in
-takeImage.m ('%s%04d.pgm', first channel). The runtime path is native:
+Port of ``ekf_slam_tpu/io/sequence.py``. The reference reads its
+monocular sequence with imread in takeImage.m ('%s%04d.pgm', first
+channel). The runtime path is native:
 ``native/imageio.cpp`` (a threaded PGM/PPM batch loader with a C ABI,
 bound by ctypes), compiled with g++ into
 ``build/native/<hash>/libimageio.so`` at the repository root (git-ignored;
 the hash is of the source and the command). Where g++ or the build fails,
 the pure-NumPy reader takes over; ``ImageSequence.native`` says which
 loader a sequence uses. Frames come back as numpy float32 in [0, 1].
+``VideoSequence`` reads a video file through ffmpeg / ffprobe on PATH
+(takeImageFromAvi.m) and raises RuntimeError without them.
 """
 
 from __future__ import annotations
@@ -216,3 +218,41 @@ class ImageSequence:
             self.close()
         except Exception:
             pass
+
+
+class VideoSequence:
+    """Video-file frame source (takeImageFromAvi.m:1-5 analog): decodes the
+    file to grayscale [0,1] frames through ffmpeg. The whole clip is
+    decoded once on open and cached (the reference's aviread also loads
+    from a fully-indexed avi; SLAM input clips are short). Requires ffmpeg
+    on PATH — raises RuntimeError otherwise."""
+
+    def __init__(self, path: str):
+        import shutil
+        import subprocess
+        if shutil.which("ffmpeg") is None or shutil.which("ffprobe") is None:
+            raise RuntimeError("VideoSequence requires ffmpeg/ffprobe; "
+                               "use ImageSequence for PGM/PPM frames")
+        probe = subprocess.run(
+            ["ffprobe", "-v", "error", "-select_streams", "v:0",
+             "-show_entries", "stream=width,height", "-of", "csv=p=0",
+             path], check=True, capture_output=True, text=True)
+        w, h = (int(t) for t in probe.stdout.strip().split(",")[:2])
+        raw = subprocess.run(
+            ["ffmpeg", "-v", "error", "-i", path, "-f", "rawvideo",
+             "-pix_fmt", "gray", "-"],
+            check=True, capture_output=True).stdout
+        n = len(raw) // (w * h)
+        self.height, self.width, self.count = h, w, n
+        self._frames = (np.frombuffer(raw, np.uint8, count=n * h * w)
+                        .reshape(n, h, w).astype(np.float32) / 255.0)
+
+    def __len__(self):
+        return self.count
+
+    def load(self, first: int, n: int) -> np.ndarray:
+        """Frames [first, first+n) as (n, H, W) float32 in [0,1]."""
+        if first < 0 or first + n > self.count:
+            raise IndexError(f"frames [{first}, {first + n}) out of "
+                             f"range 0..{self.count}")
+        return self._frames[first:first + n].copy()

@@ -1,10 +1,12 @@
 """Quaternion / rotation algebra with analytic Jacobians (layer L0).
 
-Port of ``ekf_slam_tpu/ops/quaternion.py``: the functions the sim-path
-step calls, on tensors with any leading batch axes and the quaternion or
-vector on the last axis. Quaternion convention q = [w, x, y, z], Hamilton
-product (MonoSLAM's q2r.m / qprod.m / qconj.m / v2q.m). Singularity-safe
-branchless forms as in the JAX module.
+Port of ``ekf_slam_tpu/ops/quaternion.py`` on tensors with any leading
+batch axes and the quaternion or vector on the last axis: the functions
+the step calls, and the Euler-angle helpers (rotx / roty / rotz, rpy2r,
+r2rpy, dq_by_deuler) of the reference's utility layer. Quaternion
+convention q = [w, x, y, z], Hamilton product (MonoSLAM's q2r.m /
+qprod.m / qconj.m / v2q.m). Singularity-safe branchless forms as in the
+JAX module.
 """
 
 from __future__ import annotations
@@ -198,3 +200,60 @@ def dRq_times_a_by_dq(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     cols = [torch.sum(dR * a[..., None, :], dim=-1)
             for dR in (dR0, dRx, dRy, dRz)]
     return torch.stack(cols, dim=-1)
+
+
+# Euler helpers (rot.m, rotx.m, rpy2tr.m, tr2rpy.m, dq_by_deuler.m); only
+# the constant_position_and_orientation_location_noise process noise uses
+# them (func_Q.m:3-11, motion.process_noise_euler).
+
+def _mat3(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rotx(t: torch.Tensor) -> torch.Tensor:
+    """Rotation by t about x (rotx.m). t (...) -> (..., 3, 3)."""
+    c, s = torch.cos(t), torch.sin(t)
+    o, z = torch.ones_like(t), torch.zeros_like(t)
+    return _mat3([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def roty(t: torch.Tensor) -> torch.Tensor:
+    """Rotation by t about y (the reference's missing roty, rpy2tr.m:14)."""
+    c, s = torch.cos(t), torch.sin(t)
+    o, z = torch.ones_like(t), torch.zeros_like(t)
+    return _mat3([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rotz(t: torch.Tensor) -> torch.Tensor:
+    """Rotation by t about z (the reference's missing rotz, rpy2tr.m:15)."""
+    c, s = torch.cos(t), torch.sin(t)
+    o, z = torch.ones_like(t), torch.zeros_like(t)
+    return _mat3([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def rpy2r(roll, pitch, yaw) -> torch.Tensor:
+    """ZYX Euler -> R, rotz(roll)·roty(pitch)·rotx(yaw) (rpy2tr.m:13-15)."""
+    return rotz(roll) @ roty(pitch) @ rotx(yaw)
+
+
+def r2rpy(R: torch.Tensor) -> torch.Tensor:
+    """R (..., 3, 3) -> [roll pitch yaw] (..., 3) (tr2rpy.m convention,
+    non-degenerate branch)."""
+    roll = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    sr, cr = torch.sin(roll), torch.cos(roll)
+    pitch = torch.atan2(-R[..., 2, 0], cr * R[..., 0, 0] + sr * R[..., 1, 0])
+    yaw = torch.atan2(sr * R[..., 0, 2] - cr * R[..., 1, 2],
+                      cr * R[..., 1, 1] - sr * R[..., 0, 1])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def dq_by_deuler(euler: torch.Tensor) -> torch.Tensor:
+    """4x3 ∂q/∂(rpy) (dq_by_deuler.m:1-10). euler (..., 3) -> (..., 4, 3)."""
+    r, p, y = euler[..., 0] / 2, euler[..., 1] / 2, euler[..., 2] / 2
+    cr, sr, cp, sp, cy, sy = (torch.cos(r), torch.sin(r), torch.cos(p),
+                              torch.sin(p), torch.cos(y), torch.sin(y))
+    return _mat3([
+        [-sr * cp * cy, -cr * sp * cy, -cr * cp * sy],
+        [cr * cp * cy, -sr * sp * cy, -sr * cp * sy],
+        [-sr * sp * cy, cr * cp * cy, -cr * sp * sy],
+        [-sr * cp * sy, -cr * sp * sy, cr * cp * cy]]) * 0.5

@@ -1,7 +1,8 @@
 """Time and profile the port's slice on one CUDA card.
 
     python -m ekf_slam_tpu_torch.profile_slice \
-        [fused|unfused|unfused_pallas|fast|fast_rows|image|image_descriptor]
+        [fused|unfused|unfused_pallas|fast|fast_rows|image|image_exact|
+         image_none|image_descriptor]
 
 A sim path is the bench workload at full width (see ``slice_config``),
 B = 128 instances, 16 frames, through one of the engine's paths (default
@@ -25,8 +26,11 @@ max_update_obs 24):
 The image path is the JAX pixels bench's workload with the NCC matcher
 (see ``image_config``), B = 32 instances, 16 rendered 240x320 frames,
 through vision/frontend.run_images: K7's norms form for the NCC
-numerator and patch norms, K6 and K4 as on the unfused path. ``image_descriptor`` is the same workload with the
-binary-descriptor matcher (the JAX default): K6 and K4, no K7.
+numerator and patch norms, K6 and K4 as on the unfused path.
+``image_exact`` and ``image_none`` warp the templates with the per-pixel
+distortion round trip and with none (VisionConfig.warp_distortion; the
+bench's "affine" in ``image``). ``image_descriptor`` is the same workload
+with the binary-descriptor matcher (the JAX default): K6 and K4, no K7.
 
 Two measurements, each of the two routes of the covariance work:
 
@@ -73,6 +77,10 @@ from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.vision import frontend
 
 BATCH = 128
+# image path -> (matcher, warp_distortion) of image_config
+IMAGE_PATHS = {"image": ("ncc", "affine"), "image_exact": ("ncc", "exact"),
+               "image_none": ("ncc", "none"),
+               "image_descriptor": ("descriptor", "affine")}
 IMAGE_BATCH = 32     # bench.py's BENCH_PIXB default for the NCC matcher
 FRAMES = 16
 RUNS = 3
@@ -146,17 +154,19 @@ def slice_inputs(cfg: EngineConfig, dev, batch: int = BATCH,
     return st0, xs, obs, u
 
 
-def image_config(matcher: str = "ncc") -> EngineConfig:
+def image_config(matcher: str = "ncc",
+                 warp_distortion: str = "affine") -> EngineConfig:
     """The JAX pixels bench's workload (bench.py:107-135): CAP 100, 128
     landmarks, min_features 25, max_new_per_step 10, max_update_obs 64,
-    Newton gain, search radius 12, 8 corners a window, the affine warp,
-    240x320 frames, f32."""
+    Newton gain, search radius 12, 8 corners a window, the affine warp
+    (BENCH_WARPDIST's default; bench.py:133), 240x320 frames, f32."""
     return EngineConfig(
         filter=FilterConfig(gain_solver="newton"),
         map=MapConfig(capacity=100, min_features_in_image=25,
                       max_new_per_step=10, max_update_obs=64),
         vision=VisionConfig(matcher=matcher, search_radius=12,
-                            corners_per_window=8, warp_distortion="affine"),
+                            corners_per_window=8,
+                            warp_distortion=warp_distortion),
         sim=SimConfig(num_landmarks=128),
         dtype="float32")
 
@@ -227,17 +237,15 @@ def device_profile(fn, frames: int) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("path", nargs="?", default="fused",
-                        choices=sorted(PATHS) + ["image",
-                                                 "image_descriptor"])
+                        choices=sorted(PATHS) + list(IMAGE_PATHS))
     path = parser.parse_args(argv).path
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    if path.startswith("image"):
-        cfg = image_config("descriptor" if path == "image_descriptor"
-                           else "ncc")
+    if path in IMAGE_PATHS:
+        cfg = image_config(*IMAGE_PATHS[path])
         st0, app0, _, imgs, u = image_inputs(cfg, dev)
         batch = IMAGE_BATCH
 

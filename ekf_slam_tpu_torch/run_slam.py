@@ -31,8 +31,10 @@ min_features_in_image and max_new_per_step --min-features, --landmarks
 landmarks, f32, every other setting its default (engine.step then takes
 the fused step on the card where the config fits it). The iterated update
 is reached from the Python API (FilterConfig.use_iterated_update); the
-JAX script has no flag for it. Runs on the card unless --cpu. Not ported:
---plots (the viz package).
+JAX script has no flag for it. Runs on the card unless --cpu. In sim
+mode --plots writes map.png (viz.plot_map_3d: instance 0's trajectory
+beside the truth and its slots' first three values, as the JAX script
+draws them); it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ import time
 
 import torch
 
-from ekf_slam_tpu_torch.config import EngineConfig, MapConfig, SimConfig
+from ekf_slam_tpu_torch.config import (CAM_DIM, EngineConfig, MapConfig,
+                                       SimConfig)
 from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.io import ImageSequence
@@ -77,7 +80,7 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "ekf_slam_out"))
     ap.add_argument("--plots", action="store_true",
-                    help="not ported (the viz package; raises)")
+                    help="sim mode: write map.png (needs matplotlib)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain versions, no kernels)")
     return ap.parse_args(argv)
@@ -142,8 +145,6 @@ def main(argv=None) -> dict:
     launches, native (sequence mode), and the ATE / RPE report where there
     is a ground truth}."""
     args = parse_args(argv)
-    if args.plots:
-        raise ValueError("--plots (the viz package) is not ported")
     if args.mode == "sequence" and not args.pattern:
         raise ValueError("--pattern is required in sequence mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,7 +165,7 @@ def main(argv=None) -> dict:
         u = torch.rand(T, B, cfg.ransac.num_hypotheses, device=dev,
                        dtype=cfg.torch_dtype,
                        generator=torch.Generator(device=dev).manual_seed(1))
-        _, traj, infos = engine.run_sequence(st, obs, u, cfg)
+        final, traj, infos = engine.run_sequence(st, obs, u, cfg)
         traj0 = traj[0]
         err = torch.linalg.vector_norm(traj0[:, 0:3] - xs[:, 0:3], dim=-1)
         for t in range(T):
@@ -194,6 +195,13 @@ def main(argv=None) -> dict:
                     truth=xs)
     if xs is not None:
         summary.update(traj_report(traj0, xs))
+    if args.plots and args.mode == "sim":
+        from ekf_slam_tpu_torch.viz import plot_map_3d
+        lm = final.x[0, CAM_DIM:].reshape(cfg.map.capacity, 6)[:, 0:3]
+        plot_map_3d(os.path.join(args.out, "map.png"),
+                    traj0[:, 0:3].cpu().numpy(), lm.cpu().numpy(),
+                    active=final.active[0].cpu().numpy(),
+                    truth_traj=xs.cpu().numpy())
     metrics.dump_jsonl(os.path.join(args.out, "metrics.jsonl"))
     print(metrics.table(last_n=3))
     summary.update(seconds=dt, steps_per_s=T * B / dt,

@@ -9,6 +9,9 @@ made by this module's own copy of the JAX package's recipe (numpy
 The JAX package extracts candidate patches with one-hot matmuls (its TPU
 lowering, EKF_REGEXTRACT / EKF_DESCRIBE); they select exactly one value
 each, so here ``describe_regions`` is one plain gather of the same values.
+``hamming_distance`` and ``match`` are the brute-force matcher over two
+descriptor sets (the frame's matcher compares each slot's candidates with
+that slot's stored descriptor instead).
 """
 
 from __future__ import annotations
@@ -96,3 +99,18 @@ def describe_regions(regions: torch.Tensor, ru0: torch.Tensor,
     s = torch.arange(S_, device=regions.device)[:, None, None]
     cy, cx = cy.long()[..., None], cx.long()[..., None]
     return _bits(regions[s, cy + ya, cx + xa], regions[s, cy + yb, cx + xb])
+
+
+def hamming_distance(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """(K1, N) ±1 x (K2, N) ±1 -> (K1, K2) Hamming distances, one product."""
+    return 0.5 * (d1.shape[-1] - d1 @ d2.T)
+
+
+def match(d1: torch.Tensor, d2: torch.Tensor, max_distance: float):
+    """Nearest-neighbour Hamming matching with a distance gate, the
+    matchFeatures equivalent (matching.m:45-47; uniqueness as forward
+    nearest neighbour only; the first minimum wins ties). Returns
+    (idx2 (K1,), valid (K1,))."""
+    dist = hamming_distance(d1, d2)
+    best, idx = dist.min(dim=-1)
+    return idx, best <= max_distance

@@ -9,6 +9,8 @@ BASELINE.json configs[3]) on its default forms:
   binary descriptor (add_feature_to_info_vector.m:7-32), each with a
   leading instance axis B; ``appearance_from_numpy`` / ``_to_numpy``
   carry it across from the JAX package.
+* ``measure`` — predict, then ``measure_at_prior`` (standalone use; the
+  frame predicts once for the matcher and the filter).
 * ``measure_at_prior`` — predicted pixels and S from the prior, then one of
   two matchers: "ncc" (plane-homography-warped templates, NCC search in
   the χ²-gated window; its numerator is kernel K7) or "descriptor" (FAST
@@ -160,6 +162,15 @@ def landmark_world_points(state: FilterState) -> torch.Tensor:
     mi = quat.azel_to_ray(slots[..., 3], slots[..., 4])
     return torch.where(state.cartesian[..., None], y3,
                        y3 + mi / safe_rho[..., None])
+
+
+def measure(state: FilterState, app: Appearance, img: torch.Tensor,
+            cfg: EngineConfig):
+    """Predict from the state, then match in img (H, W) -> (z, z_valid, h,
+    visible), each (B, CAP, ...) as measure_at_prior's."""
+    x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
+    return measure_at_prior(state, app, prepare_frame(img, cfg), x_prior,
+                            P_prior, cfg)[:4]
 
 
 def measure_at_prior(state: FilterState, app: Appearance, frame: Frame,

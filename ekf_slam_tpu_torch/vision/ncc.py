@@ -9,10 +9,13 @@ features of ALL instances are one launch of K7's norms form
 in its plain version). Positions outside the χ² ellipse are masked before
 the argmax.
 
-Not ported: the other numerator lowerings (EKF_NCC), their precision knob
-(EKF_NCC_PREC: the port computes in true f32, or in f64 on f64 inputs),
-the full-image form ncc_scores_plane and the scalar crosscorr /
-crosscorr_svd, which no function of the image path calls.
+Beside the search: ``ncc_scores``, the one-feature scorer of a window
+and its template, and crosscorr.m's scalar ``crosscorr`` and its
+rotation-invariant SVD variant ``crosscorr_svd``, which the frame does not
+call. The JAX package's other numerator lowerings (EKF_NCC), their
+precision knob (EKF_NCC_PREC: the port computes in true f32, or in f64 on
+f64 inputs) and the full-image form ``ncc_scores_plane`` compute the same
+scores (ncc.py:338-346: "Output is identical across forms").
 """
 
 from __future__ import annotations
@@ -100,6 +103,48 @@ def ncc_scores_all(windows: torch.Tensor,
              * energy)[:, None, None]
     scores = corr / (torch.sqrt(var + 1e-12) * tnorm[:, None, None])
     return torch.where(var > floor, scores, torch.zeros_like(scores))
+
+
+def ncc_scores(window: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """Zero-mean NCC of one template (t, t) against every offset of its
+    window (t+2R, t+2R) -> (2R+1, 2R+1) scores in [-1, 1]
+    (crosscorr.m:14-27): ncc_scores_all on a batch of one."""
+    return ncc_scores_all(window[None], template[None])[0]
+
+
+def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den, 0 where den is 0 (the reference's (den ~= 0) guard)."""
+    ok = den > 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(den))
+
+
+def crosscorr(a: torch.Tensor, b: torch.Tensor,
+              svd: bool = False) -> torch.Tensor:
+    """Scalar zero-mean NCC of equal-size patches a, b (..., h, w) -> (...)
+    (crosscorr.m:14-27), population normalization; with svd=True the
+    rotation-invariant variant (crosscorr.m's third-argument mode)."""
+    if svd:
+        return crosscorr_svd(a, b)
+    am = a - a.mean(dim=(-2, -1), keepdim=True)
+    bm = b - b.mean(dim=(-2, -1), keepdim=True)
+    num = (am * bm).sum(dim=(-2, -1))
+    den = torch.sqrt((am * am).sum(dim=(-2, -1))
+                     * (bm * bm).sum(dim=(-2, -1)))
+    return _safe_ratio(num, den)
+
+
+def crosscorr_svd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rotation-invariant patch similarity (crosscorrsvd, crosscorr.m:29-42):
+    the population correlation coefficient of the two patches' singular
+    values, which an in-plane rotation or reflection leaves unchanged.
+    a, b (..., h, w) -> (...); 0 where a spectrum is constant."""
+    d1, d2 = torch.linalg.svdvals(a), torch.linalg.svdvals(b)
+    d1m = d1 - d1.mean(dim=-1, keepdim=True)
+    d2m = d2 - d2.mean(dim=-1, keepdim=True)
+    num = (d1m * d2m).mean(dim=-1)
+    den = torch.sqrt((d1m * d1m).mean(dim=-1) * (d2m * d2m).mean(dim=-1))
+    return _safe_ratio(num, den)
 
 
 def _select_candidate(scores: torch.Tensor, u0: torch.Tensor,

@@ -1,18 +1,24 @@
 """Patch appearance prediction via plane-induced homography, batched.
 
-Port of ``ekf_slam_tpu/vision/patch_warp.py`` on its default form
-(predict_features_appearance.m, pred_patch_fc.m): a feature's stored
-41x41 init patch is warped into the current view by the homography
-H = K (R − t nᵀ / d) K⁻¹ that a fronto-parallel plane at the feature
-induces between the init camera and the current camera, with the lens
-distortion folded in as anchor-exact first-order affine maps
-(distortion="affine"), and sampled bilinearly into the 13x13 matching
-template. Every function takes any leading batch axes.
+Port of ``ekf_slam_tpu/vision/patch_warp.py`` (predict_features_appearance.m,
+pred_patch_fc.m): a feature's stored 41x41 init patch is warped into the
+current view by the homography H = K (R − t nᵀ / d) K⁻¹ that a
+fronto-parallel plane at the feature induces between the init camera and
+the current camera, and sampled bilinearly into the 13x13 matching
+template. Every function takes any leading batch axes. Lens distortion
+takes one of three forms (``predict_appearance``'s ``distortion``):
 
-Not ported: the per-pixel distortion round trip (distortion="exact") and
-the raw-pixel warp ("none"). The JAX package's one-hot matmul sampling
-(EKF_WARP_SAMPLE=dot) is a TPU lowering of the same 4-term bilinear
-algebra, written here once in plain torch (``_bilinear``).
+* "affine" (the default): anchor-exact first-order distortion maps folded
+  into the 3x3 (``distortion_corrected_hinv``), one projective map a slot;
+* "exact": the reference's per-pixel round trip
+  (rotate_with_dist_fc_c1c2.m:12-17, ``warp_patch_distorted``): every
+  template pixel undistorted, mapped through H⁻¹ and re-distorted by the
+  Newton iterations, all B·CAP·169 points at once;
+* "none": H applied to raw pixels (``warp_patch``).
+
+The JAX package's one-hot matmul sampling (EKF_WARP_SAMPLE=dot) and its
+``jnp.linalg.inv`` form (EKF_WARP_INV=linalg) are TPU lowerings of the same
+algebra, written here once in plain torch (``_bilinear``, ``inv3``).
 """
 
 from __future__ import annotations
@@ -85,23 +91,66 @@ def plane_homography(r1, q1, r2, q2, p_w, cam: CameraConfig) -> torch.Tensor:
     return K @ H_metric @ camera_matrix_inv(cam, p_w.dtype, p_w.device)
 
 
+def _grid(center_dst: torch.Tensor, out_size: int):
+    """The destination pixels (u, v) of an (out, out) patch centered at
+    center_dst (..., 2), row-major: two (..., K) tensors."""
+    o = out_size // 2
+    d = torch.arange(-o, o + 1, dtype=center_dst.dtype,
+                     device=center_dst.device)
+    gy, gx = torch.meshgrid(d, d, indexing="ij")
+    return (gx.reshape(-1) + center_dst[..., 0, None],
+            gy.reshape(-1) + center_dst[..., 1, None])
+
+
+def _sample(patch: torch.Tensor, su: torch.Tensor, sv: torch.Tensor,
+            center_src, out_size: int) -> torch.Tensor:
+    """Bilinear samples of patch (..., P, P), centered at pixel center_src
+    (..., 2), at source-image pixels (su, sv) (..., K) -> (..., out, out)."""
+    P = patch.shape[-1]
+    su = su - center_src[..., 0, None] + P // 2
+    sv = sv - center_src[..., 1, None] + P // 2
+    return _bilinear(patch, su, sv).reshape(*su.shape[:-1], out_size,
+                                            out_size)
+
+
+def warp_patch(patch: torch.Tensor, H: torch.Tensor, center_src,
+               center_dst, out_size: int) -> torch.Tensor:
+    """Warp patch (..., P, P), centered at pixel center_src (..., 2) of the
+    source image, through H (..., 3, 3) applied to raw pixels: the
+    (..., out, out) patch centered at center_dst, sampled by the inverse
+    map dst -> src (pred_patch_fc.m's meshgrid + interp2)."""
+    return warp_patch_inv(patch, inv3(H), center_src, center_dst, out_size)
+
+
 def warp_patch_inv(patch: torch.Tensor, Hinv: torch.Tensor, center_src,
                    center_dst, out_size: int) -> torch.Tensor:
     """Sample the (out, out) destination patch centered at pixel
     center_dst (..., 2) = (u, v) from the source patch (..., P, P) centered
     at center_src, through the dst->src homography Hinv (..., 3, 3)."""
-    P = patch.shape[-1]
-    o = out_size // 2
-    d = torch.arange(-o, o + 1, dtype=patch.dtype, device=patch.device)
-    gy, gx = torch.meshgrid(d, d, indexing="ij")
-    lead = center_dst.shape[:-1]
-    du = gx.reshape(-1) + center_dst[..., 0, None]           # (..., K)
-    dv = gy.reshape(-1) + center_dst[..., 1, None]
+    du, dv = _grid(center_dst.to(patch.dtype), out_size)      # (..., K)
     pts = torch.stack([du, dv, torch.ones_like(du)], dim=-2)  # (..., 3, K)
     src = Hinv @ pts
-    su = src[..., 0, :] / src[..., 2, :] - center_src[..., 0, None] + P // 2
-    sv = src[..., 1, :] / src[..., 2, :] - center_src[..., 1, None] + P // 2
-    return _bilinear(patch, su, sv).reshape(*lead, out_size, out_size)
+    return _sample(patch, src[..., 0, :] / src[..., 2, :],
+                   src[..., 1, :] / src[..., 2, :], center_src, out_size)
+
+
+def warp_patch_distorted(patch: torch.Tensor, H: torch.Tensor, center_src,
+                         center_dst, out_size: int,
+                         cam: CameraConfig) -> torch.Tensor:
+    """warp_patch with the reference's per-pixel distortion round trip
+    (rotate_with_dist_fc_c1c2.m:12-17): each destination pixel (distorted
+    image coordinates) is undistorted, mapped through the inverse
+    undistorted-space homography H⁻¹, then re-distorted by the Newton
+    iterations into source image coordinates before the bilinear sample.
+    The (out, out) grid is one axis of every elementwise pass, beside the
+    leading batch axes."""
+    du, dv = _grid(center_dst.to(patch.dtype), out_size)
+    dst_u = cam_ops.undistort(torch.stack([du, dv], dim=-1), cam)  # (...,K,2)
+    pts = torch.cat([dst_u, torch.ones_like(dst_u[..., :1])], dim=-1)
+    src = pts @ inv3(H).transpose(-1, -2)                          # (...,K,3)
+    src_d = cam_ops.distort(src[..., :2] / src[..., 2:3], cam)
+    return _sample(patch, src_d[..., 0], src_d[..., 1], center_src,
+                   out_size)
 
 
 def _bilinear(patch: torch.Tensor, su: torch.Tensor,
@@ -131,6 +180,20 @@ def _affine(J: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     last = torch.zeros_like(top[..., :1, :])
     last[..., 0, 2] = 1.0
     return torch.cat([top, last], dim=-2)
+
+
+def distortion_corrected_homography(H: torch.Tensor, center_src,
+                                    center_dst,
+                                    cam: CameraConfig) -> torch.Tensor:
+    """The undistorted-space homography H (..., 3, 3) composed with the
+    first-order distortion maps so that it applies to distorted pixels:
+    M = A_dst⁻¹ ∘ H ∘ A_src⁻¹ with distort(H · undistort(p)) ≈ M · p near
+    the patch, exact at center_dst (whose anchor goes through the true
+    round trip). center_src is not read: the source anchor is H⁻¹'s image
+    of center_dst, as in the JAX function."""
+    del center_src
+    A_dst, A_src, _ = _distortion_affine_anchors(H, center_dst, cam)
+    return _inv_affine(A_dst) @ H @ _inv_affine(A_src)
 
 
 def distortion_corrected_hinv(H: torch.Tensor, center_dst,
@@ -179,11 +242,20 @@ def predict_appearance(patches: torch.Tensor, init_pose: torch.Tensor,
     patches (B, CAP, P, P) stored init patches; init_pose (B, CAP, 7)
     [r q] at initialization; x_cam (B, 13) current camera states; p_w
     (B, CAP, 3) current landmark estimates; h_init / h_now (B, CAP, 2)
-    pixels at init / predicted now. Returns (B, CAP, out, out)."""
-    if distortion != "affine":
-        raise ValueError(f"distortion={distortion!r} is not ported; the "
-                         "port warps with the affine distortion correction")
+    pixels at init / predicted now. Returns (B, CAP, out, out).
+
+    `distortion`: how rotate_with_dist_fc_c1c2.m's per-pixel round trip is
+    treated — "exact" (per pixel, reference-faithful), "affine" (default:
+    anchor-exact first-order correction folded into the homography, <0.1
+    px from "exact"), "none" (raw pixels, up to ~16 px template shift at
+    frame corners with the reference calibration)."""
+    if distortion not in ("exact", "affine", "none"):
+        raise ValueError(f"unknown distortion {distortion!r}")
     H = plane_homography(init_pose[..., 0:3], init_pose[..., 3:7],
                          x_cam[:, None, 0:3], x_cam[:, None, 3:7], p_w, cam)
-    return warp_patch_inv(patches, distortion_corrected_hinv(H, h_now, cam),
-                          h_init, h_now, out_size)
+    if distortion == "exact":
+        return warp_patch_distorted(patches, H, h_init, h_now, out_size, cam)
+    if distortion == "affine":
+        H = distortion_corrected_hinv(H, h_now, cam)
+        return warp_patch_inv(patches, H, h_init, h_now, out_size)
+    return warp_patch(patches, H, h_init, h_now, out_size)

@@ -19,7 +19,9 @@ tracks the fixture from disk (test_kitti_fixture.py's claim) by the
 native loader and equals frontend.run_images on the decoded frames with
 the driver's draws (what chip_smoke's drivers phase holds on the card).
 (c) Both parsers take the JAX scripts' flags with their defaults; the
-drivers default to the card; the unported flags raise."""
+drivers default to the card; --ckpt with an orbax checkpoint raises;
+--plots and --plot write map.png and loops.png (and raise ImportError
+without matplotlib)."""
 
 import ast
 import importlib.util
@@ -218,19 +220,49 @@ def test_drivers_default_to_the_card(kitti_seq, tmp_path):
                           "--out", str(tmp_path)])
 
 
-@pytest.mark.parametrize("main,argv", [
-    (run_slam.main, ["--cpu", "--plots"]),
+@pytest.mark.parametrize("main,argv,exc,match", [
+    (run_slam.main, ["--cpu", "--plots", "--frames", "2"], ImportError,
+     "matplotlib"),
     (close_loops.main, ["--cpu", "--poses", "p", "--pattern", "q",
-                        "--ckpt", "ORBAX"]),
-    (close_loops.main, ["--cpu", "--poses", "p", "--pattern", "q",
-                        "--plot"])], ids=["plots", "ckpt", "plot"])
-def test_unported_flags_raise(main, argv, tmp_path):
+                        "--ckpt", "ORBAX"], ValueError, "not ported"),
+    (close_loops.main, ["--cpu", "--poses", "POSES", "--pattern", "PATTERN",
+                        "--frames", "2", "--plot"], ImportError,
+     "matplotlib")], ids=["plots", "ckpt", "plot"])
+def test_unported_flags_raise(main, argv, exc, match, kitti_seq, tmp_path,
+                              monkeypatch):
     """--ckpt reads the port's own checkpoints: an orbax checkpoint of the
-    JAX trainer (a directory) raises."""
+    JAX trainer (a directory) raises. --plots and --plot, once unported,
+    draw with matplotlib: where it cannot be imported they raise
+    ImportError after the run, as the JAX scripts do."""
     (tmp_path / "orbax").mkdir()
-    argv = [str(tmp_path / "orbax") if a == "ORBAX" else a for a in argv]
-    with pytest.raises(ValueError, match="not ported"):
+    subst = {"ORBAX": str(tmp_path / "orbax"),
+             "POSES": str(kitti_seq / "poses.txt"),
+             "PATTERN": str(kitti_seq / "%06d.pgm")}
+    argv = [subst.get(a, a) for a in argv]
+    for mod in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(exc, match=match):
         main(argv + ["--out", str(tmp_path)])
+
+
+def test_run_slam_plots_writes_the_map(tmp_path):
+    """--plots in sim mode writes map.png (examples/run_slam.py:106-112)."""
+    s = run_slam.main(["--cpu", "--frames", "4", "--batch", "2", "--plots",
+                       "--out", str(tmp_path)])
+    assert (tmp_path / "map.png").stat().st_size > 0
+    assert np.isfinite(s["ate"])
+
+
+def test_close_loops_plot_writes_loops_png(kitti_seq, tmp_path):
+    """--plot writes loops.png from the artifacts
+    (examples/close_loops.py:142-147)."""
+    got = close_loops.main(["--poses", str(kitti_seq / "poses.txt"),
+                            "--pattern", str(kitti_seq / "%06d.pgm"),
+                            "--frames", "6", "--cpu", "--plot",
+                            "--out", str(tmp_path)])
+    assert got["frames"] == 6
+    assert (tmp_path / "loops.png").stat().st_size > 0
 
 
 def test_close_loops_reads_a_port_checkpoint(kitti_seq, tmp_path):

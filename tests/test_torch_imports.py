@@ -153,3 +153,32 @@ def test_parallel_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# The oracle, viz and video modules: each imports in a fresh interpreter
+# in which JAX, its libraries, the JAX package, matplotlib and PIL cannot
+# be imported at all (the card's machine has neither of the last two; viz
+# imports them where it draws).
+ORACLE_VIZ_MODULES = (
+    "ekf_slam_tpu_torch.oracle", "ekf_slam_tpu_torch.oracle.oracle",
+    "ekf_slam_tpu_torch.oracle.pipeline", "ekf_slam_tpu_torch.oracle.golden",
+    "ekf_slam_tpu_torch.viz", "ekf_slam_tpu_torch.viz.plots",
+    "ekf_slam_tpu_torch.viz.animation", "ekf_slam_tpu_torch.viz.descriptors",
+    "ekf_slam_tpu_torch.io.video")
+
+
+def test_oracle_viz_and_video_modules_import_without_jax():
+    import subprocess
+    import sys
+    paths = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ORACLE_VIZ_MODULES:
+        stem = mod.replace(".", "/")
+        assert stem + ".py" in paths or stem + "/__init__.py" in paths, mod
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n"
+                      for m in FORBIDDEN + ("matplotlib", "PIL"))
+            + "".join(f"import {m}\n" for m in ORACLE_VIZ_MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -12,7 +12,11 @@ loader multiplies by 1/maxval: within one f32 ulp).
 native/; ImageSequence says which loader it took.
 (c) KITTI poses: load, poses_to_rq and save_trajectory_kitti against JAX's
 to 1e-12 (the saved files' values to their 10 printed digits), and
-load_loops on the same file."""
+load_loops on the same file.
+(d) Video input through shell shims of ffmpeg / ffprobe: io.video's
+VideoSequence and load_video_frames, io.sequence's VideoSequence, the
+same frames as JAX's readers; without ffmpeg each raises RuntimeError
+with the JAX package's message."""
 
 import pathlib
 
@@ -195,3 +199,79 @@ def test_load_loops_matches_jax(tmp_path):
     open(empty, "w").close()
     i, j, pi, pj = poses.load_loops(empty)
     assert i.size == j.size == 0 and pi.shape == pj.shape == (0, 7)
+
+
+def _video_shims(tmp_path, monkeypatch):
+    """Fake ffmpeg / ffprobe on PATH (no codec stack is assumed): ffmpeg
+    pipes 3 gray 8x6 frames as rawvideo; ffprobe reports a 16x12 stream,
+    as JSON (io.video) or as csv (io.sequence)."""
+    import os
+    import stat
+    frames = np.stack([np.full((6, 8), v, np.uint8) for v in (0, 128, 255)])
+    raw = tmp_path / "raw.bin"
+    raw.write_bytes(frames.tobytes())
+    ffprobe = tmp_path / "ffprobe"
+    ffprobe.write_text(
+        "#!/bin/sh\n"
+        'case "$*" in\n'
+        "  *csv*) echo '8,6' ;;\n"
+        "  *) echo '{\"streams\": [{\"width\": 16, \"height\": 12, "
+        "\"nb_frames\": 3}]}' ;;\n"
+        "esac\n")
+    ffmpeg = tmp_path / "ffmpeg"
+    ffmpeg.write_text(f"#!/bin/sh\ncat {raw}\n")
+    for f in (ffprobe, ffmpeg):
+        os.chmod(f, os.stat(f).st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+
+
+def test_video_sequence_via_ffmpeg_shims(tmp_path, monkeypatch):
+    """tests/test_io.py:102-132 on the port's io.video: the frames come
+    back half-sized, scaled to [0, 1] and in order, as JAX's do."""
+    from ekf_slam_tpu.io import video as jvideo
+    from ekf_slam_tpu_torch.io import video
+    _video_shims(tmp_path, monkeypatch)
+    assert video.ffmpeg_available()
+    assert video.probe_video("fake.avi") == (16, 12, 3)
+    seq = video.VideoSequence("fake.avi", half_size=True)
+    assert (seq.width, seq.height) == (8, 6)
+    assert len(seq) == 3
+    np.testing.assert_allclose(seq[1], np.full((6, 8), 128 / 255.0),
+                               atol=1e-6)
+    stack = video.load_video_frames("fake.avi", count=2)
+    assert stack.shape == (2, 6, 8) and stack.dtype == np.float32
+    np.testing.assert_array_equal(
+        stack, jvideo.load_video_frames("fake.avi", count=2))
+    assert stack[0].max() == 0.0 and abs(stack[1].max() - 128 / 255) < 1e-6
+
+
+def test_sequence_video_sequence_via_ffmpeg_shims(tmp_path, monkeypatch):
+    """io.sequence.VideoSequence (tests/test_utils_viz.py:140-170's
+    reader): load(first, n) as JAX's, out-of-range windows raise."""
+    _video_shims(tmp_path, monkeypatch)
+    seq = sequence.VideoSequence("fake.mp4")
+    want = jseq.VideoSequence("fake.mp4")
+    assert (seq.height, seq.width, len(seq)) == (6, 8, 3)
+    np.testing.assert_array_equal(seq.load(1, 2), want.load(1, 2))
+    assert seq.load(0, 3).shape == (3, 6, 8)
+    assert abs(float(seq.load(2, 1).max()) - 1.0) < 1e-6
+    with pytest.raises(IndexError):
+        seq.load(2, 2)
+
+
+@pytest.mark.parametrize("which", ["video", "sequence"])
+def test_video_sequence_clear_error_without_ffmpeg(monkeypatch, which):
+    """Without ffmpeg / ffprobe each reader raises RuntimeError with the
+    JAX package's message."""
+    from ekf_slam_tpu.io import video as jvideo
+    from ekf_slam_tpu_torch.io import video
+    monkeypatch.setenv("PATH", "/nonexistent")
+    port, jax_ = {"video": (video.VideoSequence, jvideo.VideoSequence),
+                  "sequence": (sequence.VideoSequence,
+                               jseq.VideoSequence)}[which]
+    with pytest.raises(RuntimeError, match="ffmpeg") as got:
+        port("x.avi")
+    with pytest.raises(RuntimeError) as want:
+        jax_("x.avi")
+    assert str(got.value) == str(want.value)
+    assert not video.ffmpeg_available()

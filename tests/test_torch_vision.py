@@ -259,13 +259,13 @@ def test_warp_helpers_match_jax(world):
                                rtol=1e-12, atol=1e-12)
 
 
-def _templates_jax(world):
+def _templates_jax(world, distortion="affine"):
     jc = world["jc"]
     p_w = jax.vmap(jfront.landmark_world_points)(world["jman"])
     return jax.vmap(lambda a, x, p, hn: jwarp.predict_appearance(
         a.patches, a.init_pose, x[:13], p, a.init_px, hn, jc.camera,
-        out_size=13, distortion="affine"))(world["japp"], world["xp"], p_w,
-                                           world["h"])
+        out_size=13, distortion=distortion))(world["japp"], world["xp"], p_w,
+                                             world["h"])
 
 
 def test_predict_appearance_matches_jax(world):
@@ -278,10 +278,12 @@ def test_predict_appearance_matches_jax(world):
     assert got.shape == (B, 24, 13, 13)
     np.testing.assert_allclose(n(got), want, rtol=0, atol=1e-10)
     assert np.abs(want).max() > 0.2                   # real patches
-    with pytest.raises(ValueError, match="not ported"):
-        patch_warp.predict_appearance(
-            app.patches, app.init_pose, t(world["xp"][:, :13]), p_w,
-            app.init_px, t(world["h"]), world["tc"].camera, 13, "exact")
+    # The per-pixel form ("exact"), once unported, on the same slots.
+    got = patch_warp.predict_appearance(
+        app.patches, app.init_pose, t(world["xp"][:, :13]), p_w,
+        app.init_px, t(world["h"]), world["tc"].camera, 13, "exact")
+    np.testing.assert_allclose(n(got), np.asarray(_templates_jax(
+        world, "exact")), rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-4),
