@@ -64,7 +64,20 @@ Phases, one line each, any failure raises (exit code != 0):
                the search radius the χ² gate needed beside R. Every other
                kernel launched 0 times; steps/s of the median of three
                timed runs (fused, (i), iekf, image NCC in its three warp
-               forms, each form's beside "affine"'s: `[warp]`) or of one
+               forms, each form's beside "affine"'s: `[warp]`) or of one.
+               Each path runs eager (eager=True: `[slice]`) and then
+               replayed from the same inputs (the drivers' default on the
+               card: one frame captured as a CUDA graph, filter/graph.py):
+               capture_s (warm-up frames and capture) apart from the timed
+               runs, the same launch counts, the same gates, the final
+               state, trajectory and every StepInfo field of the last
+               replayed run equal to the last eager run's bit for bit, one
+               replayed frame under torch.profiler with one
+               cudaGraphLaunch, no kernel launched from the host and the
+               path's kernels (k1p_kernel ... k8_kernel) among its device
+               events; one eager frame under
+               torch.cuda.set_sync_debug_mode("error"): `[graph]`, eager
+               and replayed steps/s and their ratio
   5. crosscheck one frame of each path (the IEKF's and the image path's
                with the "exact" warp too) with CUDA tensors vs the same frame
                on the CPU (plain path), and the same frame through the
@@ -185,10 +198,11 @@ import time
 import numpy
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 from ekf_slam_tpu_torch import run_loop_closure, run_slam, train_calc2
 from ekf_slam_tpu_torch.data import synthetic
-from ekf_slam_tpu_torch.filter import ekf, engine, loop_fusion
+from ekf_slam_tpu_torch.filter import ekf, engine, graph, loop_fusion
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.io import ImageSequence, write_pgm
 from ekf_slam_tpu_torch.io.poses import save_trajectory_kitti
@@ -550,7 +564,8 @@ def check_slab_kernels(inputs, report) -> None:
 
 def capture_frame(cfg, st0, obs, u, t=2):
     """{name: [operands of each call]} of frame t of the sequence."""
-    st, _, _ = engine.run_sequence(st0, obs.window(0, t), u[:t], cfg)
+    st, _, _ = engine.run_sequence(st0, obs.window(0, t), u[:t], cfg,
+                                   eager=True)
     with kernels.capture_operands() as inputs:
         engine.step(st, obs.frame(t), u[t], cfg)
     return inputs
@@ -558,31 +573,18 @@ def capture_frame(cfg, st0, obs, u, t=2):
 
 def capture_image_frame(cfg, st0, app0, imgs, u, dev, t=2):
     """{name: [operands of each call]} of image frame t of the sequence."""
-    st, app, _, _ = frontend.run_images(st0, app0, imgs[:t], u[:t], cfg, dev)
+    st, app, _, _ = frontend.run_images(st0, app0, imgs[:t], u[:t], cfg, dev,
+                                        eager=True)
     with kernels.capture_operands() as inputs:
         frontend.step_image(st, app, imgs[t], u[t], cfg)
     return inputs
 
 
-def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
-    """Phase 4 for one path: a warm-up, then `runs` timed runs of the
-    path's driver `run()` -> (final state, traj, infos), each with the
-    counts set to 0 just before and read just after; the gates. Returns
-    the launch counts of the last run and the median steps/s."""
-    run()                                                # warm-up
-    want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
-    seconds = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        final, traj, infos = run()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches = dict(kernels.LAUNCHES)
-        if launches != want:
-            raise AssertionError(f"{path}: kernel launches {launches}, "
-                                 f"expected {want}")
+def slice_gates(path, cfg, result, xs, track_limit) -> tuple:
+    """Phase 4's gates on one run's (final state, traj, infos): finite, P
+    still bf16 in the fast mode, the update cap never hit, the tracking
+    error under its limit. Returns (largest update, tracking error)."""
+    final, traj, infos = result
     if not (torch.isfinite(traj).all()
             and torch.isfinite(final.P.float()).all()):
         raise AssertionError(f"{path}: non-finite trajectory or covariance")
@@ -597,7 +599,128 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
     if not err < track_limit:
         raise AssertionError(f"{path}: tracking error {err:.4f} >= "
                              f"{track_limit}")
+    return max_obs, err
+
+
+def timed_runs(path, run, runs) -> tuple:
+    """`runs` timed runs of run(), each with the counts set to 0 just
+    before and read just after and held to PER_FRAME x FRAMES. Returns
+    (seconds of each, the counts, the last run's result)."""
+    want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
+    seconds = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{path}: kernel launches {launches}, "
+                                 f"expected {want}")
+    return seconds, launches, result
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float64: torch.int64}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def same_bits(path, replayed, eager) -> None:
+    """Replay against eager from the same inputs: every field of the final
+    state, the trajectory and every StepInfo field bit for bit."""
+    (fr, tr, ir), (fe, te, ie) = replayed, eager
+    pairs = [(f"state.{f}", getattr(fr, f), getattr(fe, f)) for f in (
+        "x", "P", "active", "cartesian", "times_predicted", "times_measured",
+        "landmark_id")]
+    pairs.append(("trajectory", tr, te))
+    pairs += [(f"info.{f}", getattr(ir, f), getattr(ie, f))
+              for f in engine.StepInfo.__dataclass_fields__]
+    for what, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"{path}: replay differs from eager in "
+                                 f"{what}")
+
+
+# The symbols of each wrapper's kernels, as the profiler names them.
+KERNEL_SYMBOLS = {
+    "fused_manage_predict_pht": ("k3v_kernel", "k1p_kernel", "k6_kernel"),
+    "fused_update_tail_pht": ("k3_kernel", "k6_kernel"),
+    "fused_update_tail_add": ("k3v_kernel", "k3_kernel"),
+    "corr_apply_cols": ("k4_kernel",),
+    "fused_update_tail": ("k3_kernel",),
+    "f32_matmul_big": ("k6_kernel",),
+    "ncc_corr_norms": ("k7_kernel",),
+    "corr_apply": ("k8_kernel",),
+}
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def replayed_frame_profile(path) -> dict:
+    """One replayed frame (the inputs' copies into the static buffers and
+    the graph's launch) of the last captured frame under torch.profiler:
+    one cudaGraphLaunch, no kernel launched from the host, and the path's
+    kernels among the device events. Raises otherwise."""
+    frame = graph.last_captured()
+    inputs = tuple(x.clone() for x in frame.inputs)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        frame.step(inputs)
+        torch.cuda.synchronize()
+    host = collections.Counter(e.name for e in prof.events()
+                               if e.device_type != DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = {e.name for e in device}
+    want = sorted({s for k in PER_FRAME[path] for s in KERNEL_SYMBOLS[k]})
+    missing = [s for s in want if not any(s + "<" in n or s + "(" in n
+                                          for n in names)]
+    launched = sum(host[c] for c in LAUNCH_CALLS)
+    if host["cudaGraphLaunch"] != 1 or launched or missing:
+        raise AssertionError(
+            f"{path}: a replayed frame made {host['cudaGraphLaunch']} "
+            f"cudaGraphLaunch and {launched} kernel launches from the host; "
+            f"kernels missing from its device events: {missing}")
+    return {"graph_launches": host["cudaGraphLaunch"],
+            "host_kernel_launches": launched,
+            "memcpy": host["cudaMemcpyAsync"],
+            "device_ops": len(device),
+            "device_ms": sum(e.device_time for e in device) / 1e3,
+            "kernels": want}
+
+
+def eager_frame_without_sync(path, one_frame) -> None:
+    """One eager frame under torch.cuda.set_sync_debug_mode("error"): any
+    call that synchronizes the host with the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one_frame()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def run_slice(path, cfg, run, one_frame, batch, xs, runs, track_limit,
+              card) -> dict:
+    """Phase 4 for one path, eager and then replayed from the same inputs.
+    run(eager) -> (final state, traj, infos) is the path's driver.
+    Eager: a warm-up, `runs` timed runs (counts held to PER_FRAME x
+    FRAMES), the gates, `[slice]`; one eager frame (one_frame()) under the
+    sync debug mode. Replay: the first run captures the frame (capture_s:
+    warm-up frames and capture, apart from the runs), then `runs` timed
+    runs with the same counts, the gates, the last run equal to the last
+    eager run bit for bit, one replayed frame under the profiler,
+    `[graph]`. Returns the launch counts and the median eager steps/s."""
+    run(True)                                            # warm-up
+    seconds, launches, eager = timed_runs(path, lambda: run(True), runs)
+    max_obs, err = slice_gates(path, cfg, eager, xs, track_limit)
     rate = batch * FRAMES / statistics.median(seconds)
+    final, _, infos = eager
     fields = dict(path=path, batch=batch, frames=FRAMES,
                   P=str(final.P.dtype).removeprefix("torch."),
                   seconds=",".join(f"{s:.4f}" for s in seconds),
@@ -609,9 +732,32 @@ def run_slice(path, cfg, run, batch, xs, runs, track_limit, card) -> dict:
             search_r_needed=f"{float(infos.search_r_needed.max()):.2f}",
             search_radius=cfg.vision.search_radius,
             n_ic_last=f"{float(infos.n_ic[:, -1].float().mean()):.2f}")
-    phase("slice", **fields, launches=json.dumps(
+    phase("slice", **fields, route="eager", launches=json.dumps(
         {k: v for k, v in launches.items() if v}, separators=(",", ":")),
         card=repr(card))
+    eager_frame_without_sync(path, one_frame)
+
+    run(False)                                           # capture
+    capture_s = graph.last_captured().capture_s
+    r_seconds, r_launches, replayed = timed_runs(path, lambda: run(False),
+                                                 runs)
+    slice_gates(path, cfg, replayed, xs, track_limit)
+    same_bits(path, replayed, eager)
+    prof = replayed_frame_profile(path)
+    r_rate = batch * FRAMES / statistics.median(r_seconds)
+    phase("graph", path=path, batch=batch, frames=FRAMES,
+          eager_steps_per_s=f"{rate:.1f}", replay_steps_per_s=f"{r_rate:.1f}",
+          replay_vs_eager=f"{r_rate / rate:.3f}",
+          capture_s=f"{capture_s:.3f}",
+          replay_seconds=",".join(f"{s:.4f}" for s in r_seconds),
+          bitwise="true", sync_free_eager_frame="true",
+          launches=json.dumps({k: v for k, v in r_launches.items() if v},
+                              separators=(",", ":")),
+          frame_graph_launches=prof["graph_launches"],
+          frame_host_kernel_launches=prof["host_kernel_launches"],
+          frame_memcpy=prof["memcpy"], frame_device_ops=prof["device_ops"],
+          frame_device_ms=f"{prof['device_ms']:.3f}",
+          frame_kernels=",".join(prof["kernels"]), card=repr(card))
     return launches, rate
 
 
@@ -837,15 +983,21 @@ def check_paths(dev, card: str) -> list:
     # -- 4. the slices: 16 frames through each path ---------------------------
     def sim_run(path):
         if path in FAST_PATHS:
-            return lambda: engine.run_sequence(fst0, fobs, fu, fcfgs[path])
-        return lambda: engine.run_sequence(st0, obs, u, cfgs[path])
+            return (lambda eager: engine.run_sequence(
+                        fst0, fobs, fu, fcfgs[path], eager=eager),
+                    lambda: engine.step(fst0, fobs.frame(0), fu[0],
+                                        fcfgs[path]))
+        return (lambda eager: engine.run_sequence(st0, obs, u, cfgs[path],
+                                                  eager=eager),
+                lambda: engine.step(st0, obs.frame(0), u[0], cfgs[path]))
 
     def image_run(path):
-        def run():
+        def run(eager):
             final, _, traj, infos = frontend.run_images(
-                ist0, iapp0, imgs, iu, icfgs[path], dev)
+                ist0, iapp0, imgs, iu, icfgs[path], dev, eager=eager)
             return final, traj, infos
-        return run
+        return run, lambda: frontend.step_image(ist0, iapp0, imgs[0], iu[0],
+                                                icfgs[path])
 
     launches, image_counts, warp_rates = {}, {}, {}
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
@@ -853,14 +1005,14 @@ def check_paths(dev, card: str) -> list:
                        ("image", 3), ("image_exact", 3), ("image_none", 3),
                        ("image_descriptor", 1)):
         if path in SIM_PATHS:
-            counts, _ = run_slice(path, cfgs[path], sim_run(path), BATCH, xs,
-                                  runs, 0.2, card)
+            counts, _ = run_slice(path, cfgs[path], *sim_run(path), BATCH,
+                                  xs, runs, 0.2, card)
         elif path in FAST_PATHS:
             with update_form(path):
-                counts, _ = run_slice(path, fcfgs[path], sim_run(path),
+                counts, _ = run_slice(path, fcfgs[path], *sim_run(path),
                                       BATCH, fxs, runs, 0.2, card)
         else:
-            counts, rate = run_slice(path, icfgs[path], image_run(path),
+            counts, rate = run_slice(path, icfgs[path], *image_run(path),
                                      IMAGE_BATCH, ixs, runs, 0.5, card)
             if path == "image":
                 image_counts = counts
@@ -919,6 +1071,8 @@ def check_paths(dev, card: str) -> list:
     same_frame("image_exact:cuda_vs_cpu", (card_step[0], card_step[2]),
                (cpu_step[0], cpu_step[2]))
     check_spd_inverse(dev)
+    graph.clear()                       # the captured frames' memory pools
+    torch.cuda.empty_cache()
     return list(report.values())
 
 

@@ -1,7 +1,7 @@
 // Device helpers shared by the covariance kernels (fused_cov.cu,
 // unfused_cov.cu): loads and stores of P in its storage type (f32 or bf16:
-// upcast on load, one round-to-nearest-even on store), the launch helper,
-// and the building blocks of every covariance kernel (K1-K6, K8).
+// upcast on load, one round-to-nearest-even on store), the launch helper
+// with its once-per-kernel setup, and the building blocks of every covariance kernel (K1-K6, K8).
 //
 // The register-blocked panel product, designed for the H100's CUDA cores:
 // acc[r][c] += Σ_k X[k][r]·Y[k][c] from a [k][row] panel and a [k][col]
@@ -28,6 +28,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace {
 
@@ -457,11 +462,70 @@ __device__ __forceinline__ void pair_of(int p, int nt, int& i, int& j) {
 // Round a shared-memory offset (in floats) up to a 16-byte boundary.
 __host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
 
+// Launch setup done once, not at every launch: a kernel's dynamic
+// shared-memory limit, set per device and kernel instantiation and raised
+// only when a launch needs more than the largest set so far; K7's resident
+// blocks (its occupancy at a shared-memory size times the device's SMs).
+// None of these is a stream op; done once, a launch captured into a CUDA
+// graph is cudaLaunchKernel alone. cudaGetDevice, which keys them, reads
+// the calling thread's current device and touches no stream.
+struct LaunchSetup {
+  std::mutex mu;
+  std::map<std::pair<int, const void*>, size_t> smem;
+  std::map<std::tuple<int, const void*, size_t>, int> resident;
+};
+
+LaunchSetup& launch_setup() {
+  static LaunchSetup s;
+  return s;
+}
+
+// fn's dynamic shared-memory limit raised to at least smem on the current
+// device (a call only the first time a size above the last is asked).
+cudaError_t smem_limit(const void* fn, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  LaunchSetup& s = launch_setup();
+  std::lock_guard<std::mutex> lock(s.mu);
+  size_t& set = s.smem[{dev, fn}];
+  if (smem <= set) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) set = smem;
+  return err;
+}
+
+// The blocks of fn (threads a block, smem bytes) the current device holds
+// at once: its occupancy a multiprocessor (at least 1) times its SMs,
+// queried the first time per device, kernel and size.
+cudaError_t resident_blocks(const void* fn, int threads, size_t smem,
+                            int& blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  LaunchSetup& s = launch_setup();
+  std::lock_guard<std::mutex> lock(s.mu);
+  const auto key = std::make_tuple(dev, fn, smem);
+  const auto it = s.resident.find(key);
+  if (it != s.resident.end()) {
+    blocks = it->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  blocks = (per_sm < 1 ? 1 : per_sm) * sms;
+  s.resident[key] = blocks;
+  return cudaSuccess;
+}
+
 cudaError_t launch(const void* fn, dim3 grid, size_t smem, void** args,
                    cudaStream_t stream, int threads = NT) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = smem_limit(fn, smem);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernel(fn, grid, dim3(threads), args, smem, stream);
   if (err != cudaSuccess) return err;

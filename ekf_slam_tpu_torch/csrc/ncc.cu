@@ -388,18 +388,12 @@ cudaError_t k7_launch(const float* win, const float* tm, float* corr,
   if (!k7_geometry<NORMS>(G, smem, N, W2, t)) return cudaErrorInvalidValue;
   const void* fn =
       reinterpret_cast<const void*>(k7_kernel<T, K7_TY, K7_TX, NORMS>);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  // The occupancy is asked with the limit in place (common.cuh: both once).
+  cudaError_t err = smem_limit(fn, smem);
+  int resident = 0;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                        K7_THREADS, smem);
+    err = resident_blocks(fn, K7_THREADS, smem, resident);
   if (err != cudaSuccess) return err;
-  const int resident = (per_sm < 1 ? 1 : per_sm) * sms;
   const int grid = G.groups < resident ? G.groups : resident;
   void* args[] = {&win, &tm, &corr, &var, &energy, &G};
   return launch(fn, dim3(grid), smem, args, stream, K7_THREADS);

@@ -32,18 +32,24 @@ randomness is RANSAC's uniform draws, an input ``u`` (B, NHYP).
 
 Measurements come by ground-truth association from a ``FrameObs`` shared
 by all instances (the synthetic scene, sim/scene.py).
+
+``run_sequence`` drives ``step`` over a sequence: on a CUDA device by
+replaying one frame captured as a CUDA graph (filter/graph.py, the
+counterpart of the JAX engine's scan under jit), else, or with
+``eager=True``, by the eager loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
-from ekf_slam_tpu_torch.filter import (association, ekf, mapman,
+from ekf_slam_tpu_torch.filter import (association, ekf, graph, mapman,
                                        measurement, motion, ransac)
-from ekf_slam_tpu_torch.filter.state import FilterState
+from ekf_slam_tpu_torch.filter.state import FIELDS, FilterState
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.sim.scene import FrameObs
@@ -461,11 +467,44 @@ def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
     return ap.state.replace(P=P_fin), info
 
 
+def _sim_frame(carry, inputs, cfg: EngineConfig):
+    """One `step` as graph.py's frame function: carry the FilterState's
+    fields, inputs (pixels, visible, u) of the frame. Outputs: the camera
+    block of the new state and the StepInfo's fields."""
+    pixels, visible, u = inputs
+    state, info = step(FilterState(*carry), FrameObs(pixels, visible), u,
+                       cfg)
+    return (tuple(getattr(state, f) for f in FIELDS),
+            (state.x[:, :CAM_DIM].contiguous(),
+             *(getattr(info, f.name) for f in dataclasses.fields(StepInfo))))
+
+
+def frame_driver(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
+                 cfg: EngineConfig, capture: bool = True):
+    """run_sequence through graph.py's static buffers: the frame captured
+    once (kept by config, route and shapes) and replayed, or with
+    capture=False the same frame callable over the same buffers without a
+    graph (how the CPU tests see what replay runs). Returns what
+    run_sequence returns."""
+    final, (traj, *info) = graph.run(
+        functools.partial(_sim_frame, cfg=cfg),
+        tuple(getattr(state, f) for f in FIELDS),
+        lambda t: (obs_seq.pixels[t], obs_seq.visible[t], u_seq[t]),
+        obs_seq.pixels.shape[0], ("sim", cfg), capture)
+    return FilterState(*final), traj, StepInfo(*info)
+
+
 def run_sequence(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
-                 cfg: EngineConfig):
+                 cfg: EngineConfig, eager: bool | None = None):
     """`step` over a sequence: obs_seq fields carry a leading time axis T,
-    u_seq is (T, B, NHYP). Returns (final_state, camera trajectory
-    (B, T, 13), StepInfo with (B, T) fields)."""
+    u_seq is (T, B, NHYP). On a CUDA device one frame is captured as a
+    CUDA graph and replayed T times (frame_driver; the counterpart of the
+    JAX package's jitted scan); eager=True, or a CPU state, runs the eager
+    loop of `step`, and eager=False without a card raises. Returns
+    (final_state, camera trajectory (B, T, 13), StepInfo with (B, T)
+    fields)."""
+    if graph.replays(state.x.device, eager):
+        return frame_driver(state, obs_seq, u_seq, cfg)
     traj, infos = [], []
     for t in range(obs_seq.pixels.shape[0]):
         state, info = step(state, obs_seq.frame(t), u_seq[t], cfg)

@@ -32,19 +32,25 @@ distortion round trip and with none (VisionConfig.warp_distortion; the
 bench's "affine" in ``image``). ``image_descriptor`` is the same workload
 with the binary-descriptor matcher (the JAX default): K6 and K4, no K7.
 
-Two measurements, each of the two routes of the covariance work:
+Two measurements, each of three routes:
 
-  kernels  the hand-written CUDA kernels (the wrappers in ops/kernels.py)
-  plain    the wrappers swapped for their plain torch versions
+  kernels  the eager loop (eager=True) with the hand-written CUDA kernels
+           (the wrappers in ops/kernels.py)
+  replay   the same kernels, one frame captured as a CUDA graph and
+           replayed (filter/graph.py; the drivers' default on the card)
+  plain    the eager loop with the wrappers swapped for their plain torch
+           versions
 
 A/B       the path's driver over the 16 frames, legs in the order kernels,
-          plain, plain, kernels; each leg RUNS timed runs. Prints
+          replay, plain, plain, replay, kernels; each leg RUNS timed runs
+          (replay's first warm-up run captures the frame). Prints
           every run's seconds and the leg's median steps/s (B·16 / s).
 profile   the first PROFILE_FRAMES frames: their wall time
           unprofiled, then under torch.profiler the device time (sum of
           the CUDA kernel events), the busy share (device time / unprofiled
           wall), the device ops (kernels, copies, fills), the host time in
-          cudaLaunchKernel, the device time and calls of each of the
+          cudaLaunchKernel, the host's launches a frame (kernel launches,
+          cudaGraphLaunch, async copies and sets), the device time and calls of each of the
           port's own kernels (csrc/: k1p_kernel, K1's pass; k3_kernel,
           K2's pass (r = 0) and K3's; k3v_kernel, K1's and K3's prologue;
           k4_kernel … k8_kernel, k4, k6 and k8 by P's type and k6 by
@@ -196,9 +202,16 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+ROUTES = ("kernels", "replay", "plain")
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
 def route(name: str):
-    """Context in which the step takes the named route."""
-    if name == "kernels":
+    """Context in which the step takes the named route's kernels (the
+    plain versions for "plain")."""
+    if name in ("kernels", "replay"):
         return contextlib.nullcontext()
     return mock.patch.multiple(kernels, **kernels.PLAIN)
 
@@ -213,12 +226,16 @@ def device_profile(fn, frames: int) -> dict:
         torch.cuda.synchronize()
     by_name = collections.defaultdict(lambda: [0.0, 0])
     launch_host_us = 0.0
+    host_launches = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += e.device_time
             by_name[e.name][1] += 1
-        elif e.name == "cudaLaunchKernel":
+            continue
+        if e.name == "cudaLaunchKernel":
             launch_host_us += e.cpu_time_total
+        if e.name in HOST_LAUNCHES:
+            host_launches[e.name] += 1
     device_ms = sum(t for t, _ in by_name.values()) / 1e3
     ops = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -229,6 +246,8 @@ def device_profile(fn, frames: int) -> dict:
             "busy": device_ms / (wall * 1e3), "device_ops": ops,
             "device_ops_per_frame": ops / frames,
             "launch_host_ms": launch_host_us / 1e3,
+            "host_launches_per_frame": sum(host_launches.values()) / frames,
+            "host_launches": dict(sorted(host_launches.items())),
             "port_kernels": dict(sorted(own.items())),
             "top": [{"name": n[:90], "ms": t / 1e3, "calls": c}
                     for n, (t, c) in top]}
@@ -249,16 +268,18 @@ def main(argv=None) -> None:
         st0, app0, _, imgs, u = image_inputs(cfg, dev)
         batch = IMAGE_BATCH
 
-        def run(nf):
-            frontend.run_images(st0, app0, imgs[:nf], u[:nf], cfg)
+        def run(nf, eager):
+            frontend.run_images(st0, app0, imgs[:nf], u[:nf], cfg,
+                                eager=eager)
     else:
         cfg = slice_config(path)
         st0, _, obs, u = slice_inputs(
             cfg, dev, scene=FAST_SCENE if path in FAST_PATHS else 0)
         batch = BATCH
 
-        def run(nf):
-            engine.run_sequence(st0, obs.window(0, nf), u[:nf], cfg)
+        def run(nf, eager):
+            engine.run_sequence(st0, obs.window(0, nf), u[:nf], cfg,
+                                eager=eager)
     result = {"card": torch.cuda.get_device_name(0), "path": path,
               "batch": batch, "frames": FRAMES, "ab": [], "profile": {}}
     print(f"[slice] path={path} card={result['card']!r}", flush=True)
@@ -268,16 +289,16 @@ def main(argv=None) -> None:
 
 
 def _measure(run, batch: int, result: dict) -> None:
-    """The A/B and the profile of run(frames) into result."""
-    def run_all():
-        run(FRAMES)
+    """The A/B and the profile of run(frames, eager) into result."""
+    def run_all(name):
+        return lambda: run(FRAMES, name != "replay")
 
-    for name in ("kernels", "plain"):
+    for name in ROUTES:
         with route(name):
-            run_all()                                   # warm-up
-    for name in ("kernels", "plain", "plain", "kernels"):
+            run_all(name)()                             # warm-up
+    for name in ("kernels", "replay", "plain", "plain", "replay", "kernels"):
         with route(name):
-            secs = [timed(run_all) for _ in range(RUNS)]
+            secs = [timed(run_all(name)) for _ in range(RUNS)]
         med = batch * FRAMES / statistics.median(secs)
         print(f"[ab] route={name} seconds="
               f"{','.join(f'{s:.4f}' for s in secs)} "
@@ -286,18 +307,16 @@ def _measure(run, batch: int, result: dict) -> None:
                              "median_steps_per_s": med})
 
     nf = PROFILE_FRAMES
-
-    def run_window():
-        run(nf)
-
-    for name in ("kernels", "plain"):
+    for name in ROUTES:
         with route(name):
-            p = device_profile(run_window, nf)
+            p = device_profile(lambda: run(nf, name != "replay"), nf)
         result["profile"][name] = p
         print(f"[profile] route={name} frames={nf} "
               f"wall_ms={p['wall_ms']:.2f} device_ms={p['device_ms']:.2f} "
               f"busy={p['busy']:.3f} device_ops={p['device_ops']} "
-              f"launch_host_ms={p['launch_host_ms']:.2f} port_kernels="
+              f"launch_host_ms={p['launch_host_ms']:.2f} "
+              f"host_launches_per_frame={p['host_launches_per_frame']:.2f} "
+              f"port_kernels="
               f"{json.dumps(p['port_kernels'], separators=(',', ':'))}",
               flush=True)
         for k in p["top"]:

@@ -22,7 +22,8 @@ BASELINE.json configs[3]) on its default forms:
   (NMS'd FAST response, 3x3-smoothed image), computed once a frame.
 * ``step_image`` — the whole frame: manage → predict → match →
   ``engine.step_core_from_prior`` → feature init and appearance store;
-  ``run_images`` drives it over a sequence of frames.
+  ``run_images`` drives it over a sequence of frames, on a CUDA device
+  by replaying one frame captured as a CUDA graph (filter/graph.py).
 
 One frame (H, W) is shared by every instance: FAST, non-max suppression
 and smoothing run once a frame (``prepare_frame``; the JAX functions each
@@ -36,15 +37,16 @@ and the staggered drivers (step_image_phase1/2, run_images_staggered).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ekf_slam_tpu_torch.config import CAM_DIM, EngineConfig
-from ekf_slam_tpu_torch.filter import ekf, engine, mapman, measurement
+from ekf_slam_tpu_torch.filter import ekf, engine, graph, mapman, measurement
 from ekf_slam_tpu_torch.filter.association import mahalanobis2
-from ekf_slam_tpu_torch.filter.state import FilterState
+from ekf_slam_tpu_torch.filter.state import FIELDS, FilterState
 from ekf_slam_tpu_torch.ops import camera as cam_ops
 from ekf_slam_tpu_torch.ops import device as devices
 from ekf_slam_tpu_torch.ops import quaternion as quat
@@ -348,16 +350,57 @@ def step_image(state: FilterState, app: Appearance, img: torch.Tensor,
     return state, store_appearance(app, state, frame, uv, assigned), info
 
 
+def _image_frame(carry, inputs, cfg: EngineConfig):
+    """One `step_image` as graph.py's frame function: carry the
+    FilterState's fields, then the Appearance's; inputs (img, u) of the
+    frame. Outputs: the camera block of the new state and the StepInfo's
+    fields."""
+    n = len(FIELDS)
+    img, u = inputs
+    state, app, info = step_image(FilterState(*carry[:n]),
+                                  Appearance(*carry[n:]), img, u, cfg)
+    return ((*(getattr(state, f) for f in FIELDS),
+             *(getattr(app, f) for f in APPEARANCE_FIELDS)),
+            (state.x[:, :CAM_DIM].contiguous(),
+             *(getattr(info, f.name)
+               for f in dataclasses.fields(engine.StepInfo))))
+
+
+def frame_driver(states: FilterState, apps: Appearance, imgs: torch.Tensor,
+                 u_seq: torch.Tensor, cfg: EngineConfig,
+                 capture: bool = True):
+    """run_images through graph.py's static buffers on the tensors' own
+    device: the frame captured once and replayed, or with capture=False
+    the same frame callable over the same buffers without a graph (how
+    the CPU tests see what replay runs). Returns what run_images
+    returns."""
+    n = len(FIELDS)
+    final, (traj, *info) = graph.run(
+        functools.partial(_image_frame, cfg=cfg),
+        (*(getattr(states, f) for f in FIELDS),
+         *(getattr(apps, f) for f in APPEARANCE_FIELDS)),
+        lambda t: (imgs[t], u_seq[t]), imgs.shape[0], ("image", cfg),
+        capture)
+    return (FilterState(*final[:n]), Appearance(*final[n:]), traj,
+            engine.StepInfo(*info))
+
+
 def run_images(states: FilterState, apps: Appearance, imgs: torch.Tensor,
-               u_seq: torch.Tensor, cfg: EngineConfig, device=None):
+               u_seq: torch.Tensor, cfg: EngineConfig, device=None,
+               eager: bool | None = None):
     """step_image over T shared frames imgs (T, H, W) with RANSAC draws
     u_seq (T, B, NHYP), on the card unless `device` names another (the
-    inputs are moved there). No bootstrap: frame 0 initializes features
-    from FAST. Returns (final state, final appearance, camera trajectory
-    (B, T, 13), StepInfo with (B, T) fields)."""
+    inputs are moved there). On a CUDA device one frame is captured as a
+    CUDA graph and replayed T times (frame_driver); eager=True, or the
+    CPU, runs the eager loop of step_image, and eager=False without a card
+    raises. No bootstrap: frame 0 initializes features from FAST. Returns
+    (final state, final appearance, camera trajectory (B, T, 13), StepInfo
+    with (B, T) fields)."""
     device = devices.resolve(device)
     state, app = states.to(device), apps.to(device)
     imgs, u_seq = imgs.to(device), u_seq.to(device)
+    if graph.replays(device, eager):
+        return frame_driver(state, app, imgs, u_seq, cfg)
     traj, infos = [], []
     for t in range(imgs.shape[0]):
         state, app, info = step_image(state, app, imgs[t], u_seq[t], cfg)

@@ -1064,3 +1064,89 @@ def test_cuda_sharded_step_frame_on_two_gloo_ranks(card):
         assert r["launches"]["f32_matmul_big"] == 3 * 2
         assert r["launches"]["corr_apply_rows"] == 2 * 2
         assert sum(r["launches"].values()) == 10
+
+
+# --- the captured frame (filter/graph.py) against the eager loop ------------
+
+def _bits(t):
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def _same_bits(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+# route -> (filter settings, ekf._UPDATE); each at f32 on the card
+GRAPH_ROUTES = {
+    "fused": ({"fused_step": "on"}, "cols"),
+    "unfused_i": ({"fused_step": "off", "pallas_update": "off"}, "cols"),
+    "unfused_ii": ({"fused_step": "off", "pallas_update": "on"}, "cols"),
+    "rows": ({"fused_step": "off", "pallas_update": "off"}, "rows"),
+    "iekf": ({"fused_step": "off", "use_iterated_update": True}, "cols"),
+    "bf16": ({"fused_step": "off", "gain_solver": "newton",
+              "p_storage": "bf16"}, "cols"),
+    "bf16_rows": ({"fused_step": "off", "gain_solver": "newton",
+                   "p_storage": "bf16"}, "rows"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_replayed_sequence_equals_eager(card, route):
+    """run_sequence's default on the card (one frame captured and
+    replayed) against eager=True from the same inputs: final state,
+    trajectory and StepInfo bit for bit, the same launch counts; a second
+    call replays without capturing again."""
+    from ekf_slam_tpu_torch.filter import graph
+    filt, update = GRAPH_ROUTES[route]
+    cfg, obs, st, u = _sequence("float32", **filt)
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    with mock.patch.object(ekf, "_UPDATE", update):
+        kernels.reset_launches()
+        want = engine.run_sequence(st, obs, u, cfg, eager=True)
+        eager_counts = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        got = engine.run_sequence(st, obs, u, cfg)
+        frame = graph.last_captured()
+        again = engine.run_sequence(st, obs, u, cfg)
+        assert graph.last_captured() is frame
+    assert {k: 2 * v for k, v in eager_counts.items()} == kernels.LAUNCHES
+    assert sum(eager_counts.values()) > 0
+    for res in (got, again):
+        _same_bits([getattr(res[0], f) for f in ("x", "P", "active",
+                                                  "landmark_id")]
+                   + [res[1]] + [getattr(res[2], f) for f in (
+                       "n_ic", "n_li", "n_hi", "ransac_support")],
+                   [getattr(want[0], f) for f in ("x", "P", "active",
+                                                   "landmark_id")]
+                   + [want[1]] + [getattr(want[2], f) for f in (
+                       "n_ic", "n_li", "n_hi", "ransac_support")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matcher,warp", [("ncc", "affine"),
+                                          ("ncc", "exact"),
+                                          ("ncc", "none"),
+                                          ("descriptor", "affine")])
+def test_replayed_images_equal_eager(card, matcher, warp):
+    """run_images' default on the card against eager=True from the same
+    inputs, bit for bit, at the image tests' config."""
+    cfg = EngineConfig.from_dict({**IMAGE, "vision": {
+        **IMAGE["vision"], "matcher": matcher, "warp_distortion": warp},
+        "dtype": "float32"})
+    scn, xs, _ = simulate(torch.Generator().manual_seed(0), cfg, 3, "cpu")
+    imgs = torch.stack([frontend.render_scene_image(scn, xs[t], cfg, "cpu")
+                        for t in range(3)])
+    u = torch.rand(3, B, cfg.ransac.num_hypotheses,
+                   generator=torch.Generator().manual_seed(1))
+    st = init_state(cfg, B, card)
+    app = frontend.init_appearance(cfg, B, card)
+    want = frontend.run_images(st, app, imgs, u, cfg, card, eager=True)
+    got = frontend.run_images(st, app, imgs, u, cfg, card)
+    _same_bits([got[0].x, got[0].P, got[1].patches, got[1].descr, got[2],
+                got[3].n_ic, got[3].n_li, got[3].search_r_needed],
+               [want[0].x, want[0].P, want[1].patches, want[1].descr,
+                want[2], want[3].n_ic, want[3].n_li,
+                want[3].search_r_needed])
