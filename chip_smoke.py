@@ -37,7 +37,9 @@ Phases, one line each, any failure raises (exit code != 0):
                computes the same function (K6 torch.bmm, K7 a grouped
                F.conv2d with cuDNN's TF32 off, K8 "expr" and K4
                torch.baddbmm, on f32 operands), and the card's bound;
-               x_bound and x_library are the kernel's time over each
+               x_bound and x_library are the kernel's time over each.
+               eight_point_fit, whose operands exist only in phase 6, is
+               checked there (below)
   4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
@@ -93,14 +95,34 @@ Phases, one line each, any failure raises (exit code != 0):
                at B = 4 with LoopConfig's defaults (capacity 4096, top_k 7,
                64 hypotheses, ratio 0.7, consistency 7 / 9) except min_db
                and exclude_recent, cut to T // 4 (printed as `reduced`):
-               x and P finite, the DB holding frames 0..T-1, K4 and K6 once
-               a frame (the pose constraint's masked ekf.update) and no
-               other kernel; frames/s of the median of three runs, device
-               ms a frame of the VSS, the query and the fusion and the
-               card's busy share (torch.profiler, 8 frames). The first 3
+               x and P finite, the DB holding frames 0..T-1, K4 and K6
+               (the pose constraint's masked ekf.update) and
+               eight_point_fit (RANSAC's 8-point solve) once a frame and
+               no other kernel; eager (eager=True, `[loop]`): frames/s of
+               the median of three runs, device ms a frame of the VSS, the
+               query and the fusion and the card's busy share
+               (torch.profiler, 8 frames); one eager frame under
+               torch.cuda.set_sync_debug_mode("error"); then replayed
+               (run_online's default on the card: one frame captured as
+               a CUDA graph, the ring's store used in place; `[loop_graph]`):
+               three runs from the same generator state, the last equal to
+               the last eager run bit for bit (every LoopStepOut field, x,
+               P and every database field), frames/s beside eager's,
+               capture_s (captured for each call: the ring is the
+               caller's), busy over a profiled 128-frame call, the peak
+               device memory each route's run adds. The first 3
                frames and one query against the warm DB on the card vs
                the CPU: descriptor cosine >= 1 - 1e-5, keypoints, candidates
-               and gate decisions equal. K4 and K6 on the constraint's
+               and gate decisions equal (the kernel against LAPACK; inlier
+               counts printed). eight_point_fit on that query's 1,792
+               8-point systems against its f64 plain version: F₂ within
+               kernels.EIGHT_POINT_TOL of each system's eigengap bound
+               (kernels.eight_point_error), its eigenvector's Rayleigh
+               quotient within EIGHT_POINT_RAYLEIGH_TOL of λ₁ (in ε·‖S‖₂),
+               the f32 cuSOLVER pair's (its plain version and library
+               call) errors beside; the eigenvector of the largest
+               eigenvalue (the kernel on −M) must read > 100x both
+               limits. K4 and K6 on the constraint's
                operands against their plain versions. Then bench.py's
                BENCH_MODE=loop protocol through the port's harness
                (python -m ekf_slam_tpu_torch.run_loop_closure: pixels
@@ -224,8 +246,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
 UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
 NCC_SRC = "ekf_slam_tpu_torch/csrc/ncc.cu"
+EIGHT_POINT_SRC = "ekf_slam_tpu_torch/csrc/eight_point.cu"
 PK = "ekf_slam_tpu/ops/pallas_kernels.py"
-# name -> (source, line of the TPU kernel's wrapper it replaces)
+# name -> (source, line of the TPU kernel's wrapper it replaces;
+# eight_point_fit: of XLA's eigh + svd in the JAX 8-point solve)
 KERNELS = {
     "fused_manage_predict_pht": (FUSED_SRC, f"{PK}:374"),
     "fused_update_tail_pht": (FUSED_SRC, f"{PK}:492"),
@@ -237,6 +261,8 @@ KERNELS = {
     "ncc_corr_norms": (NCC_SRC, f"{PK}:802"),
     "corr_apply": (UNFUSED_SRC, f"{PK}:741"),
     "corr_apply_rows": (UNFUSED_SRC, f"{PK}:741"),
+    "eight_point_fit": (EIGHT_POINT_SRC,
+                        "ekf_slam_tpu/models/loopclosure.py:181"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
 # is branchless: frame 0, with no features yet, launches as many.
@@ -323,6 +349,15 @@ FLOPS = {
     # K8's row-slab form: "none" on the slab's Dl x Dc entries
     "corr_apply_rows": lambda P, At, Bt, r0:
         2 * P.shape[0] * P.shape[1] * P.shape[2] * At.shape[1],
+    # eight_point_fit, a matrix: the least its Jacobi needs, one sweep (its
+    # convergence test ends the loop where the data allows): the symmetric
+    # half (135), the off-diagonal sum (72), 36 rotations of 6 flops on
+    # each of 7 (a_kp, a_kq) pairs and 9 rows of the rotations plus 12 for
+    # t, c, s and the diagonal; the 3x3's sweep of 3 column pairs (18 for
+    # the dot products, 36 for rotating G and W, 12 for the rotation) and
+    # the projection (36)
+    "eight_point_fit": lambda M: M.shape[0] * (
+        135 + 72 + 36 * (6 * 7 + 6 * 9 + 12) + 3 * (18 + 36 + 12) + 36),
 }
 # One PyTorch call that computes the kernel's function, where there is
 # one: timed beside the kernel, never called by the port. Its bf16
@@ -343,6 +378,9 @@ LIBRARY = {
         alpha=0.5),
     "corr_apply_rows": lambda P, At, Bt, r0: torch.baddbmm(
         P, At[:, :, r0:r0 + P.shape[1]].transpose(1, 2), Bt),
+    # the batched cuSOLVER pair (torch.linalg.eigh, torch.linalg.svd): the
+    # plain version on the card
+    "eight_point_fit": kernels.eight_point_fit_plain,
 }
 # One frame, CUDA vs CPU, both f32: the same math in another summation
 # order; the gain solve and the two updates amplify rounding. x within this
@@ -390,6 +428,8 @@ def kernel_error(name, out, ref, args) -> float:
         return kernels.ncc_error(out, ref, *args)
     if name == "ncc_corr_norms":
         return kernels.ncc_error(out[0], ref[0], *args)
+    if name == "eight_point_fit":
+        return kernels.eight_point_error(out, ref, args[0])
     if name == "f32_matmul_big":
         A = args[0].double()
         return kernels.product_error(out, ref, torch.diagonal(
@@ -401,19 +441,26 @@ def kernel_error(name, out, ref, args) -> float:
 
 def check_kernel(name, args, site="", err_fn=None) -> dict:
     """One kernel against its plain version on the card: errors (kernel
-    vs f64 plain on the same inputs, limit kernels.SCALED_TOL; K7's norms
-    form also its variance stray, limit ncc.FLAT_EPS, and its energies'
-    error, limit ENERGY_RTOL), CUDA-event times of kernel, plain and
-    library call, max|P−Pᵀ| of the P output. err_fn(out, ref) replaces
-    kernel_error where the bounds need more than the operands (a slab
-    of P)."""
+    vs f64 plain on the same inputs, limit kernels.SCALED_TOL, for
+    eight_point_fit kernels.EIGHT_POINT_TOL; K7's norms form also its
+    variance stray, limit ncc.FLAT_EPS, and its energies' error, limit
+    ENERGY_RTOL; eight_point_fit also its eigenvector's Rayleigh quotient,
+    limit kernels.EIGHT_POINT_RAYLEIGH_TOL, and the f32 plain version's
+    errors),
+    CUDA-event times of kernel, plain and library call, max|P−Pᵀ| of the P
+    output. err_fn(out, ref) replaces kernel_error where the bounds need
+    more than the operands (a slab of P)."""
     wrapper, plain = getattr(kernels, name), kernels.PLAIN[name]
+    limit = (kernels.EIGHT_POINT_TOL if name == "eight_point_fit"
+             else kernels.SCALED_TOL)
     out = wrapper(*args)
     torch.cuda.synchronize()
     ref = plain(*(a.double() if isinstance(a, torch.Tensor) else a
                   for a in args))
     err = (kernel_error(name, out, ref, args) if err_fn is None
            else err_fn(out, ref))
+    if name == "eight_point_fit":       # F₂'s sign is the solver's choice
+        out = kernels.align_sign(out, ref)
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     abs_err = max(float((o.double() - r).abs().max())
@@ -427,7 +474,10 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
     if library is not None:
         lib_args = tuple(a.float() if isinstance(a, torch.Tensor)
                          and a.dtype == torch.bfloat16 else a for a in args)
-        lib_err = float((library(*lib_args).double() - refs[0]).abs().max())
+        lib_out = library(*lib_args)
+        if name == "eight_point_fit":
+            lib_out = kernels.align_sign(lib_out, ref)
+        lib_err = float((lib_out.double() - refs[0]).abs().max())
         library_ms = cuda_ms(lambda: library(*lib_args))
     flops = FLOPS[name](*args)
     nbytes = sum(t.numel() * t.element_size() for t in args + outs
@@ -448,7 +498,7 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
     if library_ms is not None:
         fields["library_abs_err"] = f"{lib_err:.3e}"
     if name not in ("f32_matmul_big", "ncc_corr", "ncc_corr_norms",
-                    "corr_apply_rows"):
+                    "corr_apply_rows", "eight_point_fit"):
         fields["asym"] = f"{max_asym(outs[0]):.3e}"
     norms = {}
     if name == "ncc_corr_norms":
@@ -457,12 +507,29 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
         fields.update(var_stray=f"{norms['var_stray']:.4f}",
                       var_limit=ncc.FLAT_EPS,
                       energy_rel_err=f"{norms['energy_rel_err']:.3e}")
+    if name == "eight_point_fit":       # the f32 cuSOLVER pair's beside
+        M = args[0]
+        norms = {"rayleigh_err": kernels.eight_point_rayleigh(
+                     kernels.eight_point_fit(M, eigvec=True)[1], M),
+                 "plain_f32_scaled_err": kernels.eight_point_error(
+                     lib_out, ref, M),
+                 "plain_f32_rayleigh_err": kernels.eight_point_rayleigh(
+                     kernels.eight_point_fit_plain(M, eigvec=True)[1], M)}
+        fields.update(err_limit=limit, **{k: f"{v:.3e}"
+                                          for k, v in norms.items()},
+                      rayleigh_limit=kernels.EIGHT_POINT_RAYLEIGH_TOL)
     phase("kernel", **fields)
-    if not err <= kernels.SCALED_TOL:
+    if not err <= limit:
         raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
-                             f"{kernels.SCALED_TOL}")
-    if norms and not (norms["var_stray"] < ncc.FLAT_EPS
-                      and norms["energy_rel_err"] <= ENERGY_RTOL):
+                             f"{limit}")
+    if name == "eight_point_fit" and not (
+            norms["rayleigh_err"] <= kernels.EIGHT_POINT_RAYLEIGH_TOL):
+        raise AssertionError(f"{name} {site}: Rayleigh quotient "
+                             f"{norms['rayleigh_err']:.3e} > "
+                             f"{kernels.EIGHT_POINT_RAYLEIGH_TOL}")
+    if name == "ncc_corr_norms" and not (norms["var_stray"] < ncc.FLAT_EPS
+                                         and norms["energy_rel_err"]
+                                         <= ENERGY_RTOL):
         raise AssertionError(f"{name} {site}: norms off their limits: "
                              f"{norms}")
     symmetric = name == "corr_apply_cols" or (name == "corr_apply"
@@ -827,7 +894,7 @@ def main() -> None:
     check_parallel(dev, card, by_name, loop)
     check_golden(dev, card, by_name)
     print(card, flush=True)
-    print(json.dumps({"kernels": report}))
+    print(json.dumps({"kernels": list(by_name.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1213,37 +1280,68 @@ def same_query(tag, r_card, r_cpu) -> None:
           inliers_cpu=r_cpu.best_inliers.tolist())
 
 
+def timed_loop_runs(tag, run, runs, want) -> tuple:
+    """`runs` runs of run() (the 128-frame pan), each with the counts set to
+    0 just before and read just after and held to `want`, each the only
+    loop run in memory. Returns (seconds of each, the counts, the peak
+    device memory a run added (GB, max_memory_allocated over what was
+    allocated before it), the last run's (db, x, P, out))."""
+    seconds = []
+    for _ in range(runs):
+        result = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{tag}: kernel launches {launches}, "
+                                 f"expected {want}")
+    return seconds, launches, peak_gb, result
+
+
+def loop_bits(replayed, eager) -> None:
+    """Replay against eager from the same inputs: every LoopStepOut
+    field, x, P and every database field bit for bit."""
+    (db_r, x_r, P_r, o_r), (db_e, x_e, P_e, o_e) = replayed, eager
+    pairs = [(f"db.{f}", getattr(db_r, f), getattr(db_e, f))
+             for f in lc.DB_FIELDS]
+    pairs += [("x", x_r, x_e), ("P", P_r, P_e)]
+    pairs += [(f"out.{f}", getattr(o_r, f), getattr(o_e, f))
+              for f in loop_runner.LoopStepOut._fields]
+    for what, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"loop: replay differs from eager in {what}")
+
+
 def check_loop(dev, card: str, report: dict) -> dict:
-    """Phase 6: the loop-closure path at full width, its card-vs-CPU
-    checks, K4 and K6 on its operands, and bench.py's loop gates. Returns
-    the first LOOP_COSINE_FRAMES frames of the pan and the outputs of the
-    last timed run (its LoopStepOut, x and P on the CPU), which phases 8
-    and 9 reuse."""
+    """Phase 6: the loop-closure path at full width, eager (`[loop]`) and
+    replayed (`[loop_graph]`), its card-vs-CPU checks, eight_point_fit,
+    K4 and K6 on its operands, and bench.py's loop gates. Returns the
+    first LOOP_COSINE_FRAMES frames of the pan and the outputs of the last
+    replayed run (its LoopStepOut, x and P on the CPU), which phases 8 and
+    9 reuse."""
     images, x0, P0, model, lcfg = loop_inputs(dev)
     T, B = images.shape[:2]
     gen = torch.Generator(device=dev)
 
-    def run(frames=T):
+    def run(frames=T, eager=True):
         return loop_runner.run_online(model, images[:frames], x0, P0, lcfg,
                                       generator=gen.manual_seed(3),
-                                      device=dev)
+                                      device=dev, eager=eager)
 
-    run(LOOP_CHECK_FRAMES)                               # warm-up
+    run(LOOP_CHECK_FRAMES)                               # warm-up, each route
+    run(LOOP_CHECK_FRAMES, eager=None)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(corr_apply_cols=T, f32_matmul_big=T)
-    seconds = []
-    for _ in range(3):
-        db = x = P = out = None
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        db, x, P, out = run()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches = dict(kernels.LAUNCHES)
-        if launches != want:
-            raise AssertionError(f"loop: kernel launches {launches}, "
-                                 f"expected {want}")
+    want.update(corr_apply_cols=T, f32_matmul_big=T, eight_point_fit=T)
+    seconds, launches, peak_e, eager = timed_loop_runs(
+        "loop", run, 3, want)
+    db, x, P, out = eager
     if not (torch.isfinite(x).all() and torch.isfinite(P).all()):
         raise AssertionError("loop: non-finite x or P")
     ids = torch.arange(T, dtype=torch.int32, device=dev)
@@ -1265,7 +1363,7 @@ def check_loop(dev, card: str, report: dict) -> dict:
           hypotheses=lcfg.ransac_hypotheses,
           reduced=f"min_db={lcfg.min_db},exclude_recent={lcfg.exclude_recent}"
                   f" (T//4; LoopConfig 400/200)",
-          db_gb=f"{db_gb:.3f}",
+          db_gb=f"{db_gb:.3f}", route="eager",
           seconds=",".join(f"{s:.4f}" for s in seconds),
           median_frames_per_s=f"{B * T / med:.2f}",
           spread_frames_per_s=f"{B * T / max(seconds):.2f}-"
@@ -1279,6 +1377,41 @@ def check_loop(dev, card: str, report: dict) -> dict:
     for name, ms in prof["top"]:
         phase("loop_top", ms_per_frame=f"{ms / LOOP_PROFILE_FRAMES:.4f}",
               kernel=repr(name))
+
+    # One eager frame without a sync, on an empty database of its own.
+    frame_fn = loop_runner.make_frame_fn(model, lcfg)
+    fresh = lc.init_db(lcfg, B, model.descr_dim, model.num_kp, model.kp_dim,
+                       device=dev)
+    d0 = lc.ransac_draws(lcfg, B, model.num_kp, gen.manual_seed(3),
+                         torch.float32, dev)
+    eager_frame_without_sync("loop", lambda: frame_fn(fresh, x0, P0,
+                                                      images[0], d0))
+    del fresh
+
+    # The replayed route (run_online's default on the card): the same
+    # runs from the same generator state, bit for bit.
+    r_seconds, r_launches, peak_r, replayed = timed_loop_runs(
+        "loop_graph", lambda: run(eager=None), 3, want)
+    capture_s = graph.last_capture_s()
+    loop_bits(replayed, eager)
+    del eager, db
+    r_prof = range_device_ms(lambda: run(eager=None), ranges=())
+    r_med = statistics.median(r_seconds)
+    phase("loop_graph", batch=B, frames=T,
+          eager_frames_per_s=f"{B * T / med:.2f}",
+          replay_frames_per_s=f"{B * T / r_med:.2f}",
+          replay_vs_eager=f"{med / r_med:.3f}",
+          replay_seconds=",".join(f"{s:.4f}" for s in r_seconds),
+          capture_s=f"{capture_s:.3f}",
+          replay_frames_per_s_after_capture=(
+              f"{B * T / (r_med - capture_s):.2f}"),
+          busy=f"{r_prof['device'] / r_prof['wall']:.3f}",
+          device_ms_per_frame=f"{r_prof['device'] / T:.4f}",
+          peak_gb_eager=f"{peak_e:.3f}", peak_gb_replay=f"{peak_r:.3f}",
+          bitwise="true", sync_free_eager_frame="true",
+          launches=json.dumps({k: v for k, v in r_launches.items() if v},
+                              separators=(",", ":")), card=repr(card))
+    db, x, P, out = replayed
 
     # The first frames, then one query against the warm DB: card vs CPU.
     cpu_model = VSS(VSSConfig(), LOOP_HW).to("cpu")
@@ -1304,12 +1437,29 @@ def check_loop(dev, card: str, report: dict) -> dict:
         q = model(images[-1], descriptor_only=True)
     kp = keypoints.kp_descriptor(q["c5"])
     qd = draws[0]
-    r_card = lc.query(db, q["descriptor"], kp, lcfg, qd.to(dev))
+    with kernels.capture_operands() as inputs:
+        r_card = lc.query(db, q["descriptor"], kp, lcfg, qd.to(dev))
     db_cpu = db.to("cpu")
     r_cpu = lc.query(db_cpu, q["descriptor"].cpu(),
                      keypoints.Keypoints(*(f.cpu() for f in kp)), lcfg, qd)
     same_query(f"{T - 1}_warm_db", r_card, r_cpu)
     del db_cpu
+
+    # eight_point_fit on that query's 8-point systems (phase 3's check of
+    # the loop path's kernel: its operands exist only here), then its
+    # planted fault: the eigenvector of the largest eigenvalue (−M).
+    M = inputs["eight_point_fit"][0][0]
+    e = check_kernel("eight_point_fit", (M,), "loop_query")
+    e["launches"] = r_launches["eight_point_fit"]
+    report["eight_point_fit"] = e
+    ref = kernels.eight_point_fit_plain(M.double())
+    largest = kernels.eight_point_fit(-M, eigvec=True)
+    planted_fault("eight_point_largest_eigenvector", largest[0], ref,
+                  lambda g, r: kernels.eight_point_error(g, r, M),
+                  limit=kernels.EIGHT_POINT_TOL)
+    planted_fault("eight_point_largest_eigenvector_rayleigh", largest[1],
+                  None, lambda g, r: kernels.eight_point_rayleigh(g, M),
+                  limit=kernels.EIGHT_POINT_RAYLEIGH_TOL)
 
     # K4 and K6 on the pose constraint's operands (all instances enabled,
     # against the stored pose of frame 0).
@@ -1324,7 +1474,7 @@ def check_loop(dev, card: str, report: dict) -> dict:
         report[name]["loop"] = {k: e[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "scaled_err")}
-        report[name]["loop"]["launches"] = launches[name]
+        report[name]["loop"]["launches"] = r_launches[name]
     kept = {"frames": images[:LOOP_COSINE_FRAMES].clone(),
             "out": loop_runner.LoopStepOut(*(f.cpu() for f in out)),
             "x": x.cpu(), "P": P.cpu()}

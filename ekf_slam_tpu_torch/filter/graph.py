@@ -29,7 +29,12 @@ Captured frames are kept by (kind, config, the update layout, the kernel
 wrappers in place, shapes, dtypes, device), as ``jit`` keeps its
 programs, so a second sequence of the same shapes replays without
 capturing again; MAX_CAPTURED are kept, the least recently used dropped
-first (``clear`` drops them all and frees their pools).
+first (``clear`` drops them all and frees their pools). A frame whose
+carry holds buffers used in place (``in_place``: the loop database's
+ring, 9.36 GB at LoopConfig's capacity, which a copy would double) is
+not kept: those buffers are the caller's and are returned as the final
+carry, so the frame is captured for one sequence (``last_capture_s``
+reads what the capture took).
 
 Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES`` is
 credited at each replay with the counts the captured frame made; the
@@ -52,6 +57,7 @@ WARMUP = 2
 MAX_CAPTURED = 8
 
 _CAPTURED: collections.OrderedDict = collections.OrderedDict()
+_last_capture_s = None
 
 
 def replays(device: torch.device, eager) -> bool:
@@ -81,11 +87,17 @@ def _assign(static, new) -> None:
 
 
 class StaticFrame:
-    """Static buffers of one frame function and the frame over them."""
+    """Static buffers of one frame function and the frame over them.
+    `in_place`: indices of carry tensors that start all zero and are used
+    as static buffers themselves, not copied (the frame writes them in
+    place); the warm-up frames write into them, and capture zeroes them
+    again."""
 
-    def __init__(self, fn, carry, inputs):
+    def __init__(self, fn, carry, inputs, in_place=()):
         self.fn = fn
-        self.carry = tuple(t.clone() for t in carry)
+        self.in_place = frozenset(in_place)
+        self.carry = tuple(t if i in self.in_place else t.clone()
+                           for i, t in enumerate(carry))
         self.inputs = tuple(t.clone() for t in inputs)
         self.outputs = ()
         self.graph = None
@@ -99,7 +111,8 @@ class StaticFrame:
 
     def load(self, carry) -> None:
         for s, c in zip(self.carry, carry):
-            s.copy_(c)
+            if s is not c:
+                s.copy_(c)
 
     def step(self, inputs):
         """The frame's inputs into their buffers, then one frame: the
@@ -118,7 +131,8 @@ class StaticFrame:
     def capture(self, warmup: int = WARMUP) -> None:
         """Warm-up frames on a side stream, then one frame captured there
         into a CUDA graph. Leaves the carry buffers advanced (load resets
-        them) and the launch counts as they were."""
+        them; the in-place ones are zeroed here) and the launch counts as
+        they were."""
         dev = self.carry[0].device
         if dev.type != "cuda":
             raise ValueError(f"CUDA graph capture needs a CUDA device, "
@@ -142,8 +156,11 @@ class StaticFrame:
         finally:
             kernels.LAUNCHES.update(before)
         self.graph = graph
+        for i in self.in_place:
+            self.carry[i].zero_()
         torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
+        global _last_capture_s
+        self.capture_s = _last_capture_s = time.perf_counter() - t0
 
 
 def _route() -> tuple:
@@ -175,24 +192,40 @@ def last_captured() -> StaticFrame:
     return next(reversed(_CAPTURED.values()))
 
 
+def last_capture_s():
+    """Seconds the last capture took (warm-up frames, capture, the
+    in-place buffers' zeroing, synchronize), kept or not; None before
+    the first."""
+    return _last_capture_s
+
+
 def clear() -> None:
     """Drop every captured frame (and with it its graph's memory pool)."""
     _CAPTURED.clear()
 
 
-def run(fn, carry, inputs_at, frames: int, key, capture: bool = True):
-    """`frames` frames of fn from `carry`, frame t's inputs inputs_at(t):
-    replayed from the captured frame for `key` (capture=True), or the same
-    frame callable over fresh static buffers without a graph
-    (capture=False). Returns (the final carry, the outputs), copies of the
-    static buffers; each output stacked over the frames on axis 1, after
-    the batch axis."""
-    if capture:
-        frame = captured(key, fn, carry, inputs_at(0))
+def run(fn, carry, inputs_at, frames: int, key, capture: bool = True,
+        in_place=()):
+    """`frames` frames of fn from `carry`, frame t's inputs inputs_at(t)
+    (called once a frame, in order): replayed from the captured frame for
+    `key` (capture=True), or the same frame callable over fresh static
+    buffers without a graph (capture=False). With `in_place` (indices of
+    carry tensors, all zero, that the frame writes in place) those tensors
+    are the static buffers themselves and the frame is captured for this
+    call, not kept. Returns (the final carry: copies of the static
+    buffers, the in-place ones themselves; the outputs, each stacked over
+    the frames on axis 1, after the batch axis)."""
+    first = inputs_at(0)
+    if capture and not in_place:
+        frame = captured(key, fn, carry, first)
     else:
-        frame = StaticFrame(fn, carry, inputs_at(0))
+        frame = StaticFrame(fn, carry, first, in_place)
+        if capture:
+            frame.capture()
     frame.load(carry)
-    rows = [tuple(o.clone() for o in frame.step(inputs_at(t)))
+    rows = [tuple(o.clone() for o in frame.step(first if t == 0
+                                                 else inputs_at(t)))
             for t in range(frames)]
-    return (tuple(c.clone() for c in frame.carry),
+    return (tuple(c if i in frame.in_place else c.clone()
+                  for i, c in enumerate(frame.carry)),
             tuple(torch.stack(out, dim=1) for out in zip(*rows)))

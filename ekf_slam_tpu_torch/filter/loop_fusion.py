@@ -24,11 +24,16 @@ import torch
 
 from ekf_slam_tpu_torch.filter import ekf
 from ekf_slam_tpu_torch.ops import quaternion as quat
+from ekf_slam_tpu_torch.ops.consts import constant
 
 
 def _per_instance(v, B: int, dtype, device) -> torch.Tensor:
-    """A scalar or (B,) value as a (B,) tensor."""
-    return torch.as_tensor(v, dtype=dtype, device=device).expand(B)
+    """A scalar or (B,) value as a (B,) tensor; a Python scalar from
+    ops/consts.py (a tensor made from host data each frame would be a
+    synchronous copy, which CUDA graph capture refuses)."""
+    if not isinstance(v, torch.Tensor):
+        v = constant(v, dtype, device)
+    return v.to(dtype=dtype, device=device).expand(B)
 
 
 def apply_loop_constraint(x: torch.Tensor, P: torch.Tensor,
@@ -74,8 +79,7 @@ def apply_loop_constraint_pose(x: torch.Tensor, P: torch.Tensor,
     # NaN in the gain that survives the mask. Such a q_j becomes the
     # identity quaternion.
     nj = torch.linalg.vector_norm(q_j, dim=1, keepdim=True)
-    ident = torch.zeros(4, dtype=dtype, device=dev)
-    ident[0] = 1.0
+    ident = constant((1.0, 0.0, 0.0, 0.0), dtype, dev)
     q_j = torch.where(nj > 1e-6, q_j / torch.clamp(nj, min=1e-6), ident)
     q = x[:, 3:7]
     # q and −q are one rotation: measure against the representative

@@ -9,22 +9,32 @@ consistency -> the stored pose of the matched frame fused as an EKF
 constraint (filter/loop_fusion.py) -> push the frame. As in the JAX
 package the constraint is applied every frame, masked by ``declared``:
 a masked update still renormalizes q and transforms P, so it is not
-skipped. ``run_online`` drives a sequence with a Python loop over frames
-(the JAX package's lax.scan). With a ``mesh`` the database is
-capacity-sharded over its "data" ranks (parallel/sharded_loopdb.py):
-every rank runs the network and the fusion on all B instances and holds
-N/k slots of the ring.
+skipped. ``run_online`` drives a sequence (the JAX package's lax.scan):
+on a CUDA device it replays one frame captured as a CUDA graph
+(filter/graph.py; ``frame_driver``), elsewhere, or with eager=True, it
+runs a Python loop over frames. The replayed frame carries the eight
+database fields, x and P; the ring's store (descr, kp_yx, kp_descr,
+pose: 9.36 GB at LoopConfig's capacity and B = 4) is its own static
+buffer, written in place and returned as the database, never copied.
+RANSAC's draws are made outside the graph, a frame at a time in the
+eager loop's order, so replay equals the eager loop bit for bit. With a
+``mesh`` the database is capacity-sharded over its "data" ranks
+(parallel/sharded_loopdb.py): every rank runs the network and the fusion
+on all B instances and holds N/k slots of the ring; its gloo
+collectives cannot be captured, so that frame runs eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
-from ekf_slam_tpu_torch.filter import loop_fusion
+from ekf_slam_tpu_torch.filter import graph, loop_fusion
 from ekf_slam_tpu_torch.models import keypoints as kp_mod
 from ekf_slam_tpu_torch.models import loopclosure as lc
+from ekf_slam_tpu_torch.models import vss
 from ekf_slam_tpu_torch.ops import device as devices
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
@@ -92,22 +102,13 @@ def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
     return frame
 
 
-def run_online(model, images: torch.Tensor, x0: torch.Tensor,
-               P0: torch.Tensor, lcfg: lc.LoopConfig,
-               draws: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None,
-               loop_sigma: float = 0.05, device=None, mesh=None):
-    """The loop-closure pipeline over images (T, B, H, W, 3) from a static
-    filter state x0 (B, D), P0 (B, D, D): pose updates come only from loop
-    constraints (odometry lives in the SLAM engine; see run_loop_closure).
-    draws (T, B, top_k, NH, K) RANSAC's uniforms, or None to draw them from
-    `generator`. On the card unless `device` names another: the model and
-    inputs are moved there. With a `mesh` (parallel/mesh.make_mesh) the
-    ring is capacity-sharded over its "data" ranks, the mesh's device is
-    taken and the returned db is this rank's block; every rank must pass
-    the same inputs (and draws, or a generator in the same state).
-    Returns (db, x, P, LoopStepOut with (T, B) fields)."""
-    device = devices.resolve(device) if mesh is None else mesh.device
+# The ring's store: static buffers used in place by the replayed frame.
+RING = ("descr", "kp_yx", "kp_descr", "pose")
+
+
+def _setup(model, x0, P0, lcfg, loop_sigma, device, mesh):
+    """The model and state on `device`, the frame function and an empty
+    database (this rank's block with a mesh)."""
     model = model.to(device)
     x, P = x0.to(device), P0.to(device)
     frame = make_frame_fn(model, lcfg, loop_sigma, mesh=mesh)
@@ -117,6 +118,86 @@ def run_online(model, images: torch.Tensor, x0: torch.Tensor,
     else:
         from ekf_slam_tpu_torch.parallel import sharded_loopdb as sdb
         db = sdb.init_db(lcfg, *dims, mesh, dtype=model.mu.weight.dtype)
+    return model, x, P, frame, db
+
+
+def _graph_frame(carry, inputs, frame):
+    """`frame` as graph.py's frame function: carry the database's fields,
+    x and P; inputs the frame's images and RANSAC draws; outputs the
+    LoopStepOut's fields."""
+    n = len(lc.DB_FIELDS)
+    db, x, P, out = frame(lc.LoopDatabase(*carry[:n]), *carry[n:], *inputs)
+    return (*(getattr(db, f) for f in lc.DB_FIELDS), x, P), tuple(out)
+
+
+def frame_driver(model, images: torch.Tensor, x0: torch.Tensor,
+                 P0: torch.Tensor, lcfg: lc.LoopConfig,
+                 draws: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 loop_sigma: float = 0.05, device=None,
+                 capture: bool = True):
+    """run_online through graph.py's static buffers: one frame captured as
+    a CUDA graph and replayed, or with capture=False the same frame
+    callable over the same buffers without a graph (how the CPU tests see
+    what replay runs). The ring's store is used in place, so the frame is
+    captured for this call. Each frame's draws are made before its replay
+    from `generator`, as the eager loop makes them. Returns what
+    run_online returns."""
+    device = devices.resolve(device)
+    model, x, P, frame, db = _setup(model, x0, P0, lcfg, loop_sigma, device,
+                                    None)
+    B, K = x.shape[0], model.num_kp
+    dt = torch.promote_types(vss.compute_dtype(model.cfg,
+                                               model.mu.weight.dtype),
+                             torch.float32)        # the keypoints' dtype
+
+    def inputs_at(t):
+        d_t = (draws[t].to(device) if draws is not None
+               else lc.ransac_draws(lcfg, B, K, generator, dt, device))
+        return images[t].to(device), d_t
+
+    (*fields, x, P), outs = graph.run(
+        functools.partial(_graph_frame, frame=frame),
+        (*(getattr(db, f) for f in lc.DB_FIELDS), x, P), inputs_at,
+        images.shape[0], None, capture,
+        in_place=[lc.DB_FIELDS.index(f) for f in RING])
+    return (lc.LoopDatabase(*fields), x, P,
+            LoopStepOut(*(o.transpose(0, 1).contiguous() for o in outs)))
+
+
+def run_online(model, images: torch.Tensor, x0: torch.Tensor,
+               P0: torch.Tensor, lcfg: lc.LoopConfig,
+               draws: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               loop_sigma: float = 0.05, device=None, mesh=None,
+               eager: Optional[bool] = None):
+    """The loop-closure pipeline over images (T, B, H, W, 3) from a static
+    filter state x0 (B, D), P0 (B, D, D): pose updates come only from loop
+    constraints (odometry lives in the SLAM engine; see run_loop_closure).
+    draws (T, B, top_k, NH, K) RANSAC's uniforms, or None to draw them from
+    `generator`. On the card unless `device` names another: the model and
+    inputs are moved there. On a CUDA device one frame is captured as a
+    CUDA graph and replayed T times (frame_driver; the counterpart of the
+    JAX package's scan); eager=True, or a CPU device, runs the eager loop,
+    and eager=False without a card raises. With a `mesh`
+    (parallel/mesh.make_mesh) the ring is capacity-sharded over its "data"
+    ranks, the mesh's device is taken and the returned db is this rank's
+    block; every rank must pass the same inputs (and draws, or a generator
+    in the same state); the frame runs eagerly (eager=False raises).
+    Returns (db, x, P, LoopStepOut with (T, B) fields)."""
+    if mesh is not None:
+        if eager is False:
+            raise ValueError("run_online: a mesh's frame runs gloo "
+                             "collectives, which a CUDA graph cannot "
+                             "capture; pass eager=None or eager=True")
+        device = mesh.device
+    else:
+        device = devices.resolve(device)
+        if graph.replays(device, eager):
+            return frame_driver(model, images, x0, P0, lcfg, draws,
+                                generator, loop_sigma, device)
+    model, x, P, frame, db = _setup(model, x0, P0, lcfg, loop_sigma, device,
+                                    mesh)
     outs = []
     for t in range(images.shape[0]):
         d_t = None if draws is None else draws[t].to(device)

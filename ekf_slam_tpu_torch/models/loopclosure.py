@@ -35,6 +35,7 @@ import torch
 
 from ekf_slam_tpu_torch.models.keypoints import Keypoints, ratio_test_matches
 from ekf_slam_tpu_torch.ops import device as devices
+from ekf_slam_tpu_torch.ops import kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,19 +223,13 @@ def _normalize_pts(pts: torch.Tensor, w: torch.Tensor):
     return xyh @ T.transpose(-1, -2), T
 
 
-def smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
-    """The eigenvector (..., n) of the smallest eigenvalue of ½(M + Mᵀ),
-    M (..., n, n): JAX's eigh symmetrizes its input, torch's reads the
-    lower triangle only."""
-    M = 0.5 * (M + M.transpose(-1, -2))
-    return torch.linalg.eigh(M).eigenvectors[..., :, 0]
-
-
 def _eight_point(p1h: torch.Tensor, p2h: torch.Tensor, sel: torch.Tensor,
                  w8: torch.Tensor) -> torch.Tensor:
     """Weighted 8-point solve of each hypothesis: F = argmin ‖A f‖ as the
     eigenvector of the smallest eigenvalue of AᵀWA (9x9), projected to
-    rank 2. p1h, p2h (..., K, 3); sel (..., NH, 8) the sample's point
+    rank 2 (kernels.eight_point_fit; NaN for a non-finite AᵀWA, as in
+    JAX, whose Sampson gate then counts no inlier). p1h, p2h (..., K, 3);
+    sel (..., NH, 8) the sample's point
     indices, w8 (..., NH, 8) their weights (0 for an invalid point).
     AᵀWA sums only the sampled rows: every other row has weight 0.
     Returns (..., NH, 3, 3)."""
@@ -247,10 +242,8 @@ def _eight_point(p1h: torch.Tensor, p2h: torch.Tensor, sel: torch.Tensor,
         *A.shape[:-2], nh, *A.shape[-2:]), -2,
         sel[..., None].expand(*sel.shape, 9))               # (..., NH, 8, 9)
     M = (rows * w8[..., None]).transpose(-1, -2) @ rows
-    F = smallest_eigvec(M).reshape(*M.shape[:-2], 3, 3)
-    U, S, Vh = torch.linalg.svd(F)
-    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
-    return (U * S[..., None, :]) @ Vh
+    return kernels.eight_point_fit(M.reshape(-1, 9, 9)).reshape(
+        *M.shape[:-2], 3, 3)
 
 
 def _sampson(F: torch.Tensor, p1h: torch.Tensor,

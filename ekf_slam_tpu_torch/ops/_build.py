@@ -44,6 +44,7 @@ SIGNATURES = {
     "ekf_k7_ncc_corr_norms": [_P] * 5 + [_I] * 3 + [_P],
     "ekf_k8_corr_apply": [_P] * 4 + [_I] * 5 + [_P],
     "ekf_k8_corr_apply_rows": [_P] * 4 + [_I] * 6 + [_P],
+    "ekf_eight_point_fit": [_P] * 3 + [_I] + [_P],
 }
 
 

@@ -23,12 +23,18 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
      ncc_corr_norms           — the same, and from the same staging the
                                 windows' patch variances and energies:
                                 the form the image path runs
+  loop closure (eight_point.cu; no Pallas kernel: it stands for XLA's
+  eigh + svd in the 8-point RANSAC, which torch's host-checked
+  torch.linalg.eigh / svd cannot be captured into a CUDA graph for):
+     eight_point_fit          — each 9x9 system's smallest eigenvector,
+                                reshaped 3x3 and projected to rank 2
 
 Each wrapper takes batched tensors (leading instance axis B; K7 the pair
-axis N). A tensor on the CPU goes to the plain version beside the
-wrapper; a CUDA tensor goes to the hand-written kernel or the wrapper
-raises. On the card every operand is float32, except P of K4 and K8 and
-A of K6, which may be the fast mode's bfloat16 P (FilterConfig.p_storage):
+axis N, eight_point_fit the matrix axis N). A tensor on the CPU goes to
+the plain version beside the wrapper; a CUDA tensor goes to the
+hand-written kernel or the wrapper raises. On the card every operand is
+float32, except P of K4 and K8 and A of K6, which may be the fast mode's
+bfloat16 P (FilterConfig.p_storage):
 those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
 ``LAUNCHES[name]`` counts calls of a wrapper that launched its kernel (K1
@@ -54,7 +60,8 @@ from ekf_slam_tpu_torch.ops import _build
 LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail_add": 0, "corr_apply_cols": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
-            "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0}
+            "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0,
+            "eight_point_fit": 0}
 
 
 def reset_launches() -> None:
@@ -210,6 +217,31 @@ def ncc_corr_norms_plain(windows, tm):
             *patch_variance_plain(windows, tm.shape[-1]))
 
 
+def smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
+    """The eigenvector (..., n) of the smallest eigenvalue of ½(M + Mᵀ),
+    M (..., n, n): JAX's eigh symmetrizes its input, torch's reads the
+    lower triangle only."""
+    M = 0.5 * (M + M.transpose(-1, -2))
+    return torch.linalg.eigh(M).eigenvectors[..., :, 0]
+
+
+def eight_point_fit_plain(M, eigvec: bool = False):
+    """F₂ (N,3,3) of M (N,9,9): f = smallest_eigvec(M) reshaped row-major
+    to F, projected to rank 2 as (U·diag(S₁, S₂, 0))·Vh (JAX's
+    _eight_point); with eigvec, (F₂, f (N,9)). A non-finite M gives an
+    all-NaN F₂ (and f), as JAX's eigh does; torch's eigh would raise on
+    it, so such an M is solved as the identity and its result replaced,
+    without a read on the host."""
+    finite = torch.isfinite(M).flatten(1).all(1)[:, None]
+    eye = torch.eye(9, dtype=M.dtype, device=M.device)
+    f = smallest_eigvec(torch.where(finite[:, :, None], M, eye))
+    U, S, Vh = torch.linalg.svd(f.reshape(-1, 3, 3))
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
+    F2 = torch.where(finite[:, :, None], (U * S[..., None, :]) @ Vh,
+                     torch.nan)
+    return (F2, torch.where(finite, f, torch.nan)) if eigvec else F2
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
          "fused_update_tail_add": update_tail_add_plain,
@@ -219,7 +251,8 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "ncc_corr": ncc_corr_plain,
          "ncc_corr_norms": ncc_corr_norms_plain,
          "corr_apply": corr_apply_plain,
-         "corr_apply_rows": corr_apply_rows_plain}
+         "corr_apply_rows": corr_apply_rows_plain,
+         "eight_point_fit": eight_point_fit_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -240,6 +273,90 @@ def entry_error(diff, a, b, slack=None):
     bound = torch.sqrt(a[:, :, None] * b[:, None, :])
     err = torch.where(diff == 0, torch.zeros_like(diff), diff / bound)
     return float(err.max())
+
+
+# Limits of eight_point_fit, f32, against its f64 plain version, with what
+# chip_smoke.py phase 6 read on the 1,792 systems of a warm-DB loop query
+# (NVIDIA H100 80GB HBM3, 700 W). eight_point_error, each F₂ in units of
+# its first-order perturbation bound: the kernel 0.155, the f32 cuSOLVER
+# pair (the plain version on the card) 3.41, the eigenvector of the
+# largest eigenvalue (the kernel on −M, the planted fault) 1.1e5. Many of
+# these 8-point systems are near-degenerate (λ₂ − λ₁ ≪ ‖S‖₂), so any f32
+# solve's F₂ strays by up to O(1) along the near-null directions and an
+# O(1) fault reads only as many bounds as the best-conditioned system
+# allows.
+EIGHT_POINT_TOL = 4.0
+# eight_point_rayleigh, the eigenvector's Rayleigh quotient above λ₁ in
+# units of ε·‖S‖₂ (the eigensolve's backward error, which near-degeneracy
+# does not inflate): the kernel 0.262, the cuSOLVER pair 6.63, the planted
+# fault 8.4e6.
+EIGHT_POINT_RAYLEIGH_TOL = 16.0
+
+
+def align_sign(out, ref):
+    """Each (N,3,3) matrix of out times ±1, the sign that brings it nearest
+    ref: an eigenvector's sign, and with it F₂'s, is the solver's choice."""
+    dot = (out.to(ref.dtype) * ref).sum(dim=(1, 2), keepdim=True)
+    return torch.where(dot < 0, -out, out)
+
+
+def _eight_point_system(M):
+    """S = ½(M + Mᵀ) in f64 (the identity where M is not finite), its
+    eigenvalues and eigenvectors, and whether M is finite."""
+    Md = M.double()
+    finite = torch.isfinite(Md).flatten(1).all(1)
+    eye = torch.eye(9, dtype=Md.dtype, device=Md.device)
+    S = torch.where(finite[:, None, None], 0.5 * (Md + Md.transpose(1, 2)),
+                    eye)
+    lam, vec = torch.linalg.eigh(S)
+    return S, lam, vec, finite
+
+
+def _held(err, out, finite) -> float:
+    """The largest per-matrix error; a non-finite M's output must be all
+    NaN (else inf)."""
+    nan_ok = torch.isnan(out.double()).flatten(1).all(1)
+    err = torch.where(finite, err, torch.where(nan_ok, 0.0, torch.inf))
+    return float(err.max())
+
+
+def eight_point_error(out, ref, M) -> float:
+    """eight_point_fit's error against its f64 reference ref (the plain
+    version on M in f64): each matrix's largest |F₂ − ±F₂_ref| in units of
+    its perturbation bound ε₃₂·κ_M·κ_F, with κ_M = ‖S‖₂/(λ₂ − λ₁) (S =
+    ½(M + Mᵀ), λ₁ ≤ λ₂ its two smallest eigenvalues: the eigengap form of
+    the Cauchy–Schwarz scaling) and κ_F = 1 + (σ₂ + σ₃)/(σ₂ − σ₃) (F =
+    reshape(f)'s two smaller singular values: the rank-2 projection's own
+    amplification; 1 where σ₂ = σ₃ = 0). A matrix with λ₁ = λ₂ (an
+    8-point system with fewer than 8 valid points: its null space has more
+    than one dimension) has no unique F₂ and is not held."""
+    _, lam, vec, finite = _eight_point_system(M)
+    sig = torch.linalg.svdvals(vec[:, :, 0].reshape(-1, 3, 3))
+    gap_f = sig[:, 1] - sig[:, 2]
+    k_f = torch.where(gap_f > 0, 1 + (sig[:, 1] + sig[:, 2])
+                      / gap_f.clamp_min(1e-300),
+                      torch.where(sig[:, 1] == 0, 1.0, torch.inf))
+    gap_m = lam[:, 1] - lam[:, 0]
+    k_m = torch.where(gap_m > 0, lam.abs().amax(1) / gap_m.clamp_min(1e-300),
+                      torch.inf)
+    unit = torch.finfo(torch.float32).eps * k_m * k_f
+    diff = (align_sign(out, ref).double() - ref).abs().flatten(1).amax(1)
+    return _held(torch.where(diff == 0, torch.zeros_like(diff), diff / unit),
+                 out, finite)
+
+
+def eight_point_rayleigh(f, M) -> float:
+    """How far the eigenvector f (N,9) of eight_point_fit(M,
+    eigvec=True) is from S's smallest eigenspace: each matrix's fᵀSf/fᵀf
+    − λ₁ in units of ε₃₂·‖S‖₂ (S = ½(M + Mᵀ) in f64; 0 at or below
+    λ₁)."""
+    S, lam, _, finite = _eight_point_system(M)
+    fd = torch.nan_to_num(f.double())
+    rq = (torch.einsum("ni,nij,nj->n", fd, S, fd)
+          / (fd * fd).sum(1).clamp_min(1e-300))
+    unit = torch.finfo(torch.float32).eps * lam.abs().amax(1)
+    return _held(((rq - lam[:, 0]) / unit.clamp_min(1e-300)).clamp_min(0),
+                 f, finite)
 
 
 def bf16_ulp(ref):
@@ -558,6 +675,25 @@ def f32_matmul_big(A, B):
     _run(name, lib.ekf_k6_matmul_big, A.data_ptr(), B.data_ptr(),
          out.data_ptr(), Bn, M, Kd, N, int(A.dtype == torch.bfloat16))
     return out
+
+
+def eight_point_fit(M, eigvec: bool = False):
+    """M (N,9,9). Returns F₂ (N,3,3): the eigenvector f of the smallest
+    eigenvalue of ½(M + Mᵀ), reshaped row-major to 3x3 and projected to
+    rank 2 (F·(I − v₃v₃ᵀ)); all NaN for a non-finite M. With eigvec, (F₂,
+    f (N,9)), for checking the solve. The kernel reads nothing back to the
+    host, so a frame that calls it can be captured."""
+    name = "eight_point_fit"
+    N = M.shape[0]
+    on_card = _check(name, {"M": (N, 9, 9)}, dict(M=M))
+    if not on_card:
+        return eight_point_fit_plain(M, eigvec)
+    out = torch.empty(N, 3, 3, dtype=M.dtype, device=M.device)
+    f = torch.empty(N, 9, dtype=M.dtype, device=M.device) if eigvec else None
+    lib = _build.load()
+    _run(name, lib.ekf_eight_point_fit, M.data_ptr(), out.data_ptr(),
+         0 if f is None else f.data_ptr(), N)
+    return (out, f) if eigvec else out
 
 
 def _ncc_operands(name, windows, tm):

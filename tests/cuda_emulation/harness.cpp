@@ -16,6 +16,9 @@
 //   ./emulate k8 f32|bf16 B D R mode symP      (mode 0 none, 1 expr, 2 full)
 //   ./emulate k8s f32|bf16 B Dl Dc R r0         (the row-slab form)
 //   ./emulate k7 f32 N W2 t norms              (norms 1: ncc_corr_norms)
+//   ./emulate ep f32 case N                    (eight_point_fit; case 0
+//       8-point systems, 1 repeated eigenvalues, 2 zero-weight rows, 3
+//       non-finite entries, 4 identity)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -28,6 +31,8 @@
 // 16-byte lines stay inside the buffer. K7's correlation is held to 1e-5 of
 // Σ|w||tm| an offset, its patch variance to 1e-5 of the pair's Σwc² and
 // its energy to 1e-5 of itself; its windows start at odd 4-byte offsets.
+// eight_point_fit is held to an f64 Jacobi (run_ep's comment).
+#include "eight_point.cu"
 #include "fused_cov.cu"
 #include "ncc.cu"
 #include "unfused_cov.cu"
@@ -605,6 +610,213 @@ bool run_k7(int N, int W2, int t, bool norms) {
   return rc == 0 && wc_ <= 1 && wv <= 1 && we <= 1;
 }
 
+
+// --- eight_point_fit (csrc/eight_point.cu) ----------------------------------
+
+void register_ep() {
+  g_kernels[reinterpret_cast<const void*>(ep_kernel)] = [](void** a) {
+    ep_kernel(*(const float**)a[0], *(float**)a[1], *(float**)a[2],
+              *(int*)a[3]);
+  };
+}
+
+// Cyclic Jacobi in f64 on the symmetric n x n s (row-major, overwritten by
+// its diagonal form) until its off-diagonal entries vanish; v (n x n) the
+// accumulated rotations.
+void jacobi_f64(std::vector<double>& s, std::vector<double>& v, int n) {
+  v.assign(n * n, 0.0);
+  for (int i = 0; i < n; ++i) v[i * n + i] = 1.0;
+  for (int sweep = 0; sweep < 60; ++sweep) {
+    double off = 0;
+    for (int p = 0; p < n; ++p)
+      for (int q = p + 1; q < n; ++q) off += s[p * n + q] * s[p * n + q];
+    if (off == 0) break;
+    for (int p = 0; p < n; ++p)
+      for (int q = p + 1; q < n; ++q) {
+        const double apq = s[p * n + q];
+        if (apq == 0) continue;
+        const double tau = (s[q * n + q] - s[p * n + p]) / (2 * apq);
+        const double t = std::copysign(1.0, tau) /
+                         (std::abs(tau) + std::sqrt(1 + tau * tau));
+        const double c = 1 / std::sqrt(1 + t * t), sn = t * c;
+        for (int k = 0; k < n; ++k) {  // columns p, q, then rows p, q
+          const double kp = s[k * n + p], kq = s[k * n + q];
+          s[k * n + p] = c * kp - sn * kq;
+          s[k * n + q] = sn * kp + c * kq;
+        }
+        for (int k = 0; k < n; ++k) {
+          const double pk = s[p * n + k], qk = s[q * n + k];
+          s[p * n + k] = c * pk - sn * qk;
+          s[q * n + k] = sn * pk + c * qk;
+        }
+        s[p * n + q] = s[q * n + p] = 0;
+        for (int k = 0; k < n; ++k) {
+          const double kp = v[k * n + p], kq = v[k * n + q];
+          v[k * n + p] = c * kp - sn * kq;
+          v[k * n + q] = sn * kp + c * kq;
+        }
+      }
+  }
+}
+
+// Operands of case `kind` for matrix n: the 8-point system M = Σ_k w_k
+// a_k·a_kᵀ of random normalized correspondences (a_k the design row of
+// _eight_point), 8 to 12 rows, weights in [0.5, 1.5] (kind 0, and the
+// finite matrices of kind 3); Q·diag(λ)·Qᵀ with a repeated eigenvalue
+// above a single smallest one (kind 1, even n) or a repeated smallest one
+// (odd n); 8 rows of which one to three weigh 0 (kind 2: the null space
+// has two to four dimensions); one entry NaN, +inf or −inf on every third
+// matrix (kind 3); I on even n, 4·I on odd n (kind 4).
+void ep_operand(int kind, int n, float* M) {
+  std::uniform_real_distribution<double> u(-1.4, 1.4), w(0.5, 1.5);
+  std::vector<double> S(81, 0.0);
+  if (kind == 1) {
+    std::vector<double> Q(81), v;
+    for (auto& q : Q) q = rnd();
+    for (int j = 0; j < 9; ++j) {      // Gram-Schmidt on Q's columns
+      for (int k = 0; k < j; ++k) {
+        double d = 0;
+        for (int i = 0; i < 9; ++i) d += Q[i * 9 + j] * Q[i * 9 + k];
+        for (int i = 0; i < 9; ++i) Q[i * 9 + j] -= d * Q[i * 9 + k];
+      }
+      double nn = 0;
+      for (int i = 0; i < 9; ++i) nn += Q[i * 9 + j] * Q[i * 9 + j];
+      for (int i = 0; i < 9; ++i) Q[i * 9 + j] /= std::sqrt(nn);
+    }
+    const double lam_a[9] = {1e-3, 0.5, 0.5, 0.5, 1, 2, 2, 3, 4};
+    const double lam_b[9] = {0.1, 0.1, 1, 1.5, 2, 2.5, 3, 3.5, 4};
+    const double* lam = n % 2 == 0 ? lam_a : lam_b;
+    for (int i = 0; i < 9; ++i)
+      for (int j = 0; j < 9; ++j)
+        for (int k = 0; k < 9; ++k)
+          S[i * 9 + j] += Q[i * 9 + k] * lam[k] * Q[j * 9 + k];
+  } else if (kind == 4) {
+    for (int i = 0; i < 9; ++i) S[i * 10] = n % 2 == 0 ? 1.0 : 4.0;
+  } else {
+    const int rows = kind == 2 ? 8 : 8 + n % 5;
+    for (int k = 0; k < rows; ++k) {
+      const double x1 = u(rng), y1 = u(rng), x2 = u(rng), y2 = u(rng);
+      const double a[9] = {x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2,
+                           x1, y1, 1.0};
+      const double wk = kind == 2 && k < 1 + n % 3 ? 0.0 : w(rng);
+      for (int i = 0; i < 9; ++i)
+        for (int j = 0; j < 9; ++j) S[i * 9 + j] += wk * a[i] * a[j];
+    }
+  }
+  for (int i = 0; i < 81; ++i) M[i] = static_cast<float>(S[i]);
+  if (kind == 3 && n % 3 == 0) {
+    const float bad[3] = {NAN, INFINITY, -INFINITY};
+    M[(7 * n) % 81] = bad[n / 3 % 3];
+  }
+}
+
+// eight_point_fit on N matrices of case `kind` (ep_operand) through the
+// launcher (the last block ragged for N not a multiple of 32), against
+// f64: for each matrix, S = ½(M + Mᵀ) in f64 and f, F₂ from ep_fit on the
+// same M (the launch must write that F₂ and f bit for bit: the staging
+// and the indices), then
+//   |‖f‖ − 1| ≤ 1e-5;
+//   fᵀ·S·f − λ₁ ≤ TOL·ε·‖S‖₂ (f lies in the smallest eigenspace; λ₁ and
+//     ‖S‖₂ from an f64 Jacobi);
+//   F₂ against F·(I − v₃v₃ᵀ) of F = f in f64 (v₃ from an f64 Jacobi of FᵀF),
+//     each entry ≤ TOL·ε·κ_F, κ_F = 1 + (σ₂ + σ₃)/(σ₂ − σ₃) (the rank-2
+//     projection's amplification; 1 where σ₂ = σ₃ = 0);
+//   where the smallest eigenvalue is single ((λ₂ − λ₁) ≥ 1e-3·‖S‖₂): f
+//     against the f64 eigenvector up to sign, each entry ≤ TOL·ε·‖S‖₂ /
+//     (λ₂ − λ₁);
+// ε = 2⁻²³ and TOL = 4 (the kernel reads ≤ ~0.7 bounds). A non-finite M must
+// give an all-NaN F₂, and the identity's F₂ is e₀·e₀ᵀ exactly.
+bool run_ep(int kind, int N) {
+  register_ep();
+  constexpr double EPS = 1.1920928955078125e-07, TOL = 4;
+  std::vector<float> M(N * 81), F2(N * 9, 1e30f), fv(N * 9, 1e30f);
+  for (int n = 0; n < N; ++n) ep_operand(kind, n, M.data() + n * 81);
+  const int rc = ekf_eight_point_fit(M.data(), F2.data(), fv.data(), N,
+                                     nullptr);
+  double w_norm = 0, w_ray = 0, w_f2 = 0, w_vec = 0;
+  int bad = 0, nonfinite = 0, unique = 0;
+  for (int n = 0; n < N; ++n) {
+    const float* m = M.data() + n * 81;
+    const float* got = F2.data() + n * 9;
+    float f2[9], f[9];
+    ep_fit(m, f2, f);
+    for (int i = 0; i < 9; ++i)
+      bad += std::memcmp(&f2[i], &got[i], 4) != 0 ||
+             std::memcmp(&f[i], &fv[n * 9 + i], 4) != 0;
+    bool fin = true;
+    for (int i = 0; i < 81; ++i) fin = fin && std::isfinite(m[i]);
+    if (!fin) {
+      ++nonfinite;
+      for (int i = 0; i < 9; ++i) bad += !std::isnan(got[i]);
+      continue;
+    }
+    std::vector<double> S(81), V;
+    for (int i = 0; i < 9; ++i)
+      for (int j = 0; j < 9; ++j)
+        S[i * 9 + j] = 0.5 * (double(m[i * 9 + j]) + double(m[j * 9 + i]));
+    const std::vector<double> S0 = S;
+    jacobi_f64(S, V, 9);
+    std::vector<int> order(9);
+    for (int i = 0; i < 9; ++i) order[i] = i;
+    std::sort(order.begin(), order.end(),
+              [&](int a, int b) { return S[a * 10] < S[b * 10]; });
+    const double l1 = S[order[0] * 10], l2 = S[order[1] * 10];
+    const double snorm = std::max(std::abs(S[order[0] * 10]),
+                                  std::abs(S[order[8] * 10]));
+    double nf = 0, ray = 0;
+    for (int i = 0; i < 9; ++i) {
+      nf += double(f[i]) * f[i];
+      for (int j = 0; j < 9; ++j) ray += double(f[i]) * S0[i * 9 + j] * f[j];
+    }
+    w_norm = std::max(w_norm, std::abs(std::sqrt(nf) - 1) / 1e-5);
+    w_ray = std::max(w_ray, (ray - l1) / (TOL * EPS * snorm + 1e-300));
+    if (l2 - l1 >= 1e-3 * snorm) {
+      ++unique;
+      double dot = 0;
+      for (int i = 0; i < 9; ++i) dot += f[i] * V[i * 9 + order[0]];
+      const double sg = dot < 0 ? -1 : 1;
+      for (int i = 0; i < 9; ++i)
+        w_vec = std::max(w_vec, std::abs(f[i] - sg * V[i * 9 + order[0]]) /
+                                    (TOL * EPS * snorm / (l2 - l1)));
+    }
+    // F·(I − v₃v₃ᵀ) in f64 from the eigensystem of FᵀF (the columns of F
+    // as f64: its squared condition is well inside f64 here)
+    std::vector<double> G(9, 0.0), W;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        for (int r = 0; r < 3; ++r)
+          G[i * 3 + j] += double(f[3 * r + i]) * f[3 * r + j];
+    jacobi_f64(G, W, 3);
+    int k3 = 0;
+    double sig[3];
+    for (int j = 0; j < 3; ++j) {
+      sig[j] = std::sqrt(std::max(G[j * 4], 0.0));
+      if (G[j * 4] < G[k3 * 4]) k3 = j;
+    }
+    std::sort(sig, sig + 3);
+    const double kf = sig[1] > sig[0]
+                          ? 1 + (sig[1] + sig[0]) / (sig[1] - sig[0])
+                      : sig[1] == 0 ? 1
+                                    : 1e300;
+    for (int r = 0; r < 3; ++r) {
+      double uu = 0;
+      for (int c = 0; c < 3; ++c) uu += double(f[3 * r + c]) * W[c * 3 + k3];
+      for (int c = 0; c < 3; ++c) {
+        const double ref = f[3 * r + c] - uu * W[c * 3 + k3];
+        w_f2 = std::max(w_f2,
+                        std::abs(got[3 * r + c] - ref) / (TOL * EPS * kf));
+      }
+    }
+    if (kind == 4)
+      for (int i = 0; i < 9; ++i) bad += got[i] != (i == 0 ? 1.f : 0.f);
+  }
+  printf("ep rc=%d blocks=%ld bad=%d nonfinite=%d unique=%d worst norm=%.3f "
+         "rayleigh=%.3f F2=%.3f eigvec=%.3f of the limit\n", rc, g_blocks,
+         bad, nonfinite, unique, w_norm, w_ray, w_f2, w_vec);
+  return rc == 0 && bad == 0 && w_norm <= 1 && w_ray <= 1 && w_f2 <= 1 &&
+         w_vec <= 1;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -612,7 +824,10 @@ int main(int argc, char** argv) {
   const std::string kernel = argv[1], type = argv[2];
   std::vector<int> n;
   for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
-  const size_t want = kernel == "k4" ? 3 : kernel == "k7" ? 4 : 5;
+  const size_t want = kernel == "ep"   ? 2
+                      : kernel == "k4" ? 3
+                      : kernel == "k7" ? 4
+                                       : 5;
   if (n.size() != want) return 2;
   const bool bf16 = type == "bf16";
   bool ok;
@@ -630,6 +845,8 @@ int main(int argc, char** argv) {
               : run_k6<float>(n[0], n[1], n[2], n[3], n[4]);
   else if (kernel == "k7")
     ok = !bf16 && run_k7(n[0], n[1], n[2], n[3]);
+  else if (kernel == "ep")
+    ok = !bf16 && run_ep(n[0], n[1]);
   else if (kernel == "k8s")
     ok = bf16 ? run_k8s<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k8s<float>(n[0], n[1], n[2], n[3], n[4]);

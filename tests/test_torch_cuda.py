@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels K1-K8 on the card, against their plain
-versions, and one frame of each engine path and of the image path on the
-card against the same frame on the CPU; also the Cholesky inverse on
-indefinite S and one CALC2 train step, card vs CPU. Every test needs a
-CUDA device and skips without one.
+"""The hand-written CUDA kernels K1-K8 and eight_point_fit on the card,
+against their plain versions, and one frame of each engine path and of the
+image path on the card against the same frame on the CPU; also the
+Cholesky inverse on indefinite S, one CALC2 train step, card vs CPU, and
+the replayed frames (engine, image path, run_online) against eager.
+Every test needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package (the machine with the
 card has no JAX); run it there without the suite's conftest:
@@ -899,10 +900,11 @@ def test_cuda_vss_matches_cpu(card):
 
 @pytest.mark.cuda
 def test_cuda_run_online_matches_cpu_and_counts_k4(card):
-    """Three frames of run_online on the card against the CPU with the same
-    draws: equal declared / match_id, similarity within 1e-5, x and P
-    within 1e-5 of their scale; K4 and K6 launch once a frame (the masked
-    pose constraint) and nothing else."""
+    """Three frames of run_online on the card (replayed) against the CPU
+    with the same draws: equal declared / match_id, similarity within
+    1e-5, x and P within 1e-5 of their scale; K4 and K6 (the masked pose
+    constraint) and eight_point_fit (RANSAC's 8-point solve) launch once a
+    frame and nothing else."""
     from ekf_slam_tpu_torch.models import loop_runner
     from ekf_slam_tpu_torch.models import loopclosure as lc
     model, imgs, x0, P0 = _loop_inputs()
@@ -917,7 +919,7 @@ def test_cuda_run_online_matches_cpu_and_counts_k4(card):
                                  device=card)
     torch.cuda.synchronize()
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(corr_apply_cols=3, f32_matmul_big=3)
+    want.update(corr_apply_cols=3, f32_matmul_big=3, eight_point_fit=3)
     assert kernels.LAUNCHES == want
     for f in ("declared", "match_id"):
         assert torch.equal(getattr(got[3], f).cpu(), getattr(ref[3], f))
@@ -928,6 +930,140 @@ def test_cuda_run_online_matches_cpu_and_counts_k4(card):
     for a, b in ((got[1], ref[1]), (got[2], ref[2])):
         assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
             b.abs().max())
+
+
+def _ransac_systems(seed=0):
+    """The 8-point systems of one fundamental_ransac at the loop path's
+    width, formed on the CPU in f32: B·top_k = 28 candidates of 512
+    keypoints, 30% valid, 64 hypotheses (N = 1,792); correspondences a
+    shift plus 0.5 px of noise, near-degenerate as a pan's are."""
+    from ekf_slam_tpu_torch.models import loopclosure as lc
+    g = torch.Generator().manual_seed(seed)
+    pts1 = torch.rand(28, 512, 2, generator=g) * torch.tensor([192.0, 256.0])
+    pts2 = (pts1 + torch.tensor([3.0, 1.0])
+            + 0.5 * torch.randn(28, 512, 2, generator=g))
+    valid = torch.rand(28, 512, generator=g) < 0.3
+    draws = torch.rand(28, 64, 512, generator=g)
+    with kernels.capture_operands() as ops:
+        lc.fundamental_ransac(pts1, pts2, valid, lc.LoopConfig(), draws)
+    return ops["eight_point_fit"][0][0]
+
+
+@pytest.mark.cuda
+def test_cuda_eight_point_fit_matches_plain(card):
+    """eight_point_fit on 1,792 systems against its plain version at f64:
+    within kernels.EIGHT_POINT_TOL of each F₂'s perturbation bound, its
+    eigenvectors within EIGHT_POINT_RAYLEIGH_TOL of λ₁ (and the launch
+    without them writes the same F₂); one launch a call."""
+    M = _ransac_systems()
+    ref = kernels.eight_point_fit_plain(M.double())
+    before = kernels.LAUNCHES["eight_point_fit"]
+    got = kernels.eight_point_fit(M.to(card)).cpu()
+    assert kernels.LAUNCHES["eight_point_fit"] == before + 1
+    assert kernels.eight_point_error(got, ref, M) <= kernels.EIGHT_POINT_TOL
+    F2, f = kernels.eight_point_fit(M.to(card), eigvec=True)
+    assert torch.equal(F2.cpu(), got)
+    assert (kernels.eight_point_rayleigh(f.cpu(), M)
+            <= kernels.EIGHT_POINT_RAYLEIGH_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_eight_point_check_fails_largest_eigenvector(card):
+    """The kernel on −M (the eigenvector of M's largest eigenvalue) must
+    read > 100x the Rayleigh limit, and above the eigengap one (these
+    near-degenerate systems let no O(1) fault read 100 eigengap bounds)."""
+    M = _ransac_systems(1)
+    ref = kernels.eight_point_fit_plain(M.double())
+    F2, f = kernels.eight_point_fit((-M).to(card), eigvec=True)
+    assert (kernels.eight_point_rayleigh(f.cpu(), M)
+            > 100 * kernels.EIGHT_POINT_RAYLEIGH_TOL)
+    assert (kernels.eight_point_error(F2.cpu(), ref, M)
+            > kernels.EIGHT_POINT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 33, 1792])
+def test_cuda_eight_point_fit_is_nan_where_not_finite(card, N):
+    """NaN, +inf and −inf entries on every third system: those F₂ all NaN,
+    the others bit for bit the kernel's on the finite systems alone (the
+    launch's staging and ragged last block)."""
+    M = _ransac_systems(2)[:N].clone()
+    bad = torch.arange(N) % 3 == 0
+    for i in torch.nonzero(bad)[:, 0].tolist():
+        M[i, i % 9, (2 * i) % 9] = (torch.nan, torch.inf, -torch.inf)[i % 3]
+    got = kernels.eight_point_fit(M.to(card)).cpu()
+    assert torch.isnan(got[bad]).all()
+    if bool((~bad).any()):
+        alone = kernels.eight_point_fit(M[~bad].to(card)).cpu()
+        assert torch.equal(got[~bad].view(torch.int32),
+                           alone.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_eight_point_wrapper_rejects(card):
+    M = _ransac_systems()[:40].to(card)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.eight_point_fit(M.double())
+    with pytest.raises(ValueError, match="shape"):
+        kernels.eight_point_fit(M[:, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.eight_point_fit(M.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        kernels.eight_point_fit(M[:0])
+
+
+@pytest.mark.cuda
+def test_replayed_run_online_equals_eager(card):
+    """run_online's default on the card (one loop frame captured and
+    replayed; the ring's store used in place) against eager=True from the
+    same generator state, 6 frames at width 8: every LoopStepOut field, x,
+    P and every database field bit for bit; the same launches."""
+    from ekf_slam_tpu_torch.filter import graph
+    from ekf_slam_tpu_torch.models import loop_runner
+    from ekf_slam_tpu_torch.models import loopclosure as lc
+    torch.backends.cudnn.allow_tf32 = False
+    model, imgs, x0, P0 = _loop_inputs(T=6)
+    cfg = lc.LoopConfig(capacity=8, top_k=3, exclude_recent=1, min_db=1,
+                        ransac_hypotheses=16, consistency_count=1)
+    gen = torch.Generator(device=card)
+    runs = {}
+    for eager in (True, None):
+        kernels.reset_launches()
+        runs[eager] = loop_runner.run_online(
+            model, imgs, x0, P0, cfg, generator=gen.manual_seed(7),
+            device=card, eager=eager)
+        torch.cuda.synchronize()
+        runs[eager, "launches"] = dict(kernels.LAUNCHES)
+    assert runs[True, "launches"] == runs[None, "launches"]
+    assert runs[None, "launches"]["eight_point_fit"] == 6
+    assert graph.last_capture_s() > 0
+    (db_e, x_e, P_e, o_e), (db_r, x_r, P_r, o_r) = runs[True], runs[None]
+    _same_bits([getattr(db_r, f) for f in lc.DB_FIELDS] + [x_r, P_r]
+               + list(o_r), [getattr(db_e, f) for f in lc.DB_FIELDS]
+               + [x_e, P_e] + list(o_e))
+
+
+@pytest.mark.cuda
+def test_cuda_eager_loop_frame_syncs_nothing(card):
+    """One eager loop frame on the card (after a warm frame) under
+    torch.cuda.set_sync_debug_mode("error"): no call waits for the card."""
+    from ekf_slam_tpu_torch.models import loop_runner
+    from ekf_slam_tpu_torch.models import loopclosure as lc
+    model, imgs, x0, P0 = _loop_inputs()
+    cfg = lc.LoopConfig(capacity=8, top_k=3, exclude_recent=1, min_db=1,
+                        ransac_hypotheses=16, consistency_count=1)
+    _, x, P, frame, db = loop_runner._setup(model, x0, P0, cfg, 0.05, card,
+                                            None)
+    imgs = imgs.to(card)
+    draws = torch.rand(2, 2, 3, 16, model.num_kp, device=card)
+    db, x, P, _ = frame(db, x, P, imgs[0], draws[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame(db, x, P, imgs[1], draws[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -8,7 +8,7 @@ drift they were suspected of.
    sets a failed entry's factor to NaN (``ekf.cholesky``).
 2. JAX's ``cholesky`` and ``eigh`` factor ½(A + Aᵀ); torch's read the
    lower triangle. The port now symmetrizes first (``ekf.cholesky``,
-   ``loopclosure.smallest_eigvec``).
+   ``kernels.smallest_eigvec``, the 8-point solve's plain version).
 
 Tolerances: at f64 the port's factor, inverse and eigenvector equal
 JAX's to 1e-10 (rounding ~1e-15); the lower-triangle-only factor of the
@@ -33,6 +33,7 @@ from torch_parity import (FUSED, configs, frame, frame_keys, interpret_mode,
 
 from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.models import loopclosure as lc
+from ekf_slam_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
 
@@ -112,7 +113,7 @@ def test_smallest_eigvec_symmetrizes_like_jax():
     M[np.triu_indices(9, 1)] *= 1 + 1e-3 * rng.uniform(-1, 1, 36)
     ref = _unit_sign(np.asarray(jax.jit(jnp.linalg.eigh)(
         jnp.asarray(M))[1])[:, 0])
-    got = _unit_sign(n(lc.smallest_eigvec(torch.tensor(M))))
+    got = _unit_sign(n(kernels.smallest_eigvec(torch.tensor(M))))
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
     lower_only = _unit_sign(n(torch.linalg.eigh(torch.tensor(M))
                               .eigenvectors[:, 0]))

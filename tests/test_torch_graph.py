@@ -10,8 +10,8 @@ descriptor matcher):
 
 (a) the second frame of the static-buffer driver reads nothing back to
     the host: no .item(), bool(tensor), nonzero, masked_select, unique,
-    boolean-mask index and no tensor from host data (any of them breaks
-    capture);
+    boolean-mask index, no tensor from host data and no Python scalar
+    copied into one element (any of them breaks capture);
 (b) the static-buffer driver equals the eager loop (run_sequence /
     run_images with eager=True) bit for bit, at f64 and at f32: final
     state (and appearance), trajectory and every StepInfo field;
@@ -93,18 +93,22 @@ class NoHostReads(TorchDispatchMode):
     lift_fresh is let through: under a dispatch mode, index assignment of
     a Python scalar (``J[..., 5, 2] = 1.0``) lifts the scalar as a 0-dim
     CPU tensor, which the assignment turns into a fill of the slice, a
-    kernel with the value as its argument, on the card too."""
+    kernel with the value as its argument, on the card too. Assigned to a
+    single element (``q[0] = 1.0``) the lifted scalar is copied instead,
+    a synchronous copy from the host on the card: that copy raises."""
 
     def __enter__(self):
         self._patches = [mock.patch.object(torch, name, _from_host(name))
                          for name in FROM_HOST]
         for p in self._patches:
             p.start()
+        self._lifted = []
         return super().__enter__()
 
     def __exit__(self, *exc):
         for p in self._patches:
             p.stop()
+        self._lifted = []
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -112,9 +116,14 @@ class NoHostReads(TorchDispatchMode):
         if (name in HOST_READS or name.lstrip("_").startswith("unique")
                 or (name == "lift_fresh" and args[0].dim() > 0)
                 or (name in ("index", "index_put", "index_put_")
-                    and _bool_index(args))):
+                    and _bool_index(args))
+                or (name == "copy_"
+                    and any(args[1] is t for t in self._lifted))):
             raise AssertionError(f"host read inside the frame: aten.{name}")
-        return func(*args, **(kwargs or {}))
+        out = func(*args, **(kwargs or {}))
+        if name == "lift_fresh":
+            self._lifted.append(out)
+        return out
 
 
 def _from_host(name):
@@ -213,16 +222,21 @@ def test_image_frame_reads_nothing_back(route):
 
 
 def test_no_host_reads_catches_a_host_read():
-    """The mode itself: .item(), bool(), a mask index and torch.tensor
-    raise inside it."""
+    """The mode itself: .item(), bool(), a mask index, torch.tensor and a
+    Python scalar assigned to one element raise inside it; the same
+    scalar assigned to a slice (a fill) does not."""
     x = torch.arange(4.0)
     for read in (lambda: x.sum().item(), lambda: bool(x[0] > 1),
                  lambda: x[x > 1], lambda: torch.tensor(1.0),
                  lambda: torch.nonzero(x), lambda: torch.unique(x),
-                 lambda: torch.masked_select(x, x > 1)):
+                 lambda: torch.masked_select(x, x > 1),
+                 lambda: x.__setitem__(0, 1.0)):
         with pytest.raises(AssertionError, match="host read"):
             with NoHostReads():
                 read()
+    with NoHostReads():
+        x[1:3] = 5.0
+    assert x.tolist() == [0.0, 5.0, 5.0, 3.0]
 
 
 # --- (b) the static-buffer driver equals the eager loop, bit for bit ----------
