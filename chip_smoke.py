@@ -125,11 +125,16 @@ Phases, one line each, any failure raises (exit code != 0):
                limits. K4 and K6 on the constraint's
                operands against their plain versions. Then bench.py's
                BENCH_MODE=loop protocol through the port's harness
-               (python -m ekf_slam_tpu_torch.run_loop_closure: pixels
-               front-end, pan, 150 frames, 4 seeds, width 8 at 48x64,
-               sim_threshold 0.9, min_inliers 10) and its three gates:
-               loops declared, ATE with fusion <= 1.05x without, final
-               position error with fusion <= 0.5x without.
+               (run_loop_closure.main: pixels front-end, pan, 150 frames,
+               4 seeds, width 8 at 48x64, sim_threshold 0.9, min_inliers
+               10), replayed (its default on the card: each frame the
+               filter's, the embed and the query piece replayed from CUDA
+               graphs, the fusion eager on a declared frame), and its
+               three gates: loops declared, ATE with fusion <= 1.05x
+               without, final position error with fusion <= 0.5x without;
+               then seed 0 again in the eager loop (eager=True), whose
+               loops, ATE and final errors must equal the replayed seed's
+               bit for bit; frames/s of both, the last capture's seconds.
   7. drivers   a 32-frame KITTI-layout sequence rendered by the port (the
                pan of run_loop_closure, %06d.pgm frames and poses.txt)
                into a temporary directory, then, each a process of its
@@ -137,13 +142,19 @@ Phases, one line each, any failure raises (exit code != 0):
                --mode sequence and --mode sim at --batch 128 --capacity
                100, and python -m ekf_slam_tpu_torch.close_loops on it.
                Exit 0, the artifacts present and finite, the native
-               loader in use, and the sequence run's trajectory equal
-               (within phase 5's x tolerance) to frontend.run_images run
-               here on the same decoded frames with the driver's draws;
-               run_slam's kernel launches (it prints ops/kernels.LAUNCHES)
-               those of its path: the descriptor image step (K4 2x, K6
-               3x a frame) and the fused step (K1-K3 once a frame) at
-               this config; steps/s (frames/s) and seconds of each.
+               loader in use, and the sequence run's trajectory equal bit
+               for bit to frontend.run_images run here on the same
+               decoded frames with the driver's draws (both replay one
+               captured frame); run_slam's kernel launches (it prints
+               ops/kernels.LAUNCHES) those of its path: the descriptor
+               image step (K4 2x, K6 3x a frame) and the fused step
+               (K1-K3 once a frame) at this config; steps/s (frames/s)
+               and seconds of each. Then run_slam --mode sequence and
+               close_loops each twice in this process, eager
+               (main(..., eager=True)) and replayed: the same trajectory,
+               metrics.jsonl and launches (run_slam), the same loops and
+               artifacts but the query seconds (close_loops), as the
+               process's; steps/s (frames/s) of each route.
   8. train     CALC2 training at full width: VSS(VSSConfig()) (width 32)
                and TrainConfig()'s defaults (batch 12, 192x256, triplet)
                on synthetic_batch scenes drawn on the card at 320x320
@@ -206,8 +217,10 @@ image_exact, image_none and golden runs), and as the last line
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import functools
+import io
 import json
 import pathlib
 import re
@@ -222,7 +235,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from ekf_slam_tpu_torch import run_loop_closure, run_slam, train_calc2
+from ekf_slam_tpu_torch import (close_loops, run_loop_closure, run_slam,
+                                train_calc2)
 from ekf_slam_tpu_torch.data import synthetic
 from ekf_slam_tpu_torch.filter import ekf, engine, graph, loop_fusion
 from ekf_slam_tpu_torch.filter.state import init_state
@@ -1193,6 +1207,23 @@ LOOP_GATE_ARGS = ["--frontend", "pixels", "--traj", "pan", "--frames", "150",
                   "64", "--sim-threshold", "0.9", "--min-inliers", "10"]
 
 
+def gate_args(ensemble: int) -> list:
+    """LOOP_GATE_ARGS with --ensemble `ensemble`."""
+    args = list(LOOP_GATE_ARGS)
+    args[args.index("--ensemble") + 1] = str(ensemble)
+    return args
+
+
+def harness_run(argv: list, eager=None) -> tuple:
+    """run_loop_closure.main(argv, eager) in this process, its output
+    printed as it ends. Returns (its summary, the frames/s it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s = run_loop_closure.main(argv, eager=eager)
+    print(buf.getvalue(), end="", flush=True)
+    return s, rate(buf.getvalue(), "frames/s")
+
+
 def loop_inputs(dev):
     """A 128-frame rendered pan (T, B, 192, 256, 3), each instance's frames
     with its own pixel noise; the filter state of the image workload (CAP
@@ -1480,23 +1511,35 @@ def check_loop(dev, card: str, report: dict) -> dict:
             "x": x.cpu(), "P": P.cpu()}
     del db, images
 
-    # bench.py's loop gate through the port's harness.
-    t0 = time.perf_counter()
-    s = run_loop_closure.main(LOOP_GATE_ARGS + [
+    # bench.py's loop gate through the port's harness, replayed (its
+    # default on the card), then seed 0 again in the eager loop.
+    s, fps = harness_run(LOOP_GATE_ARGS + [
         "--out", "build/loop_gate", "--json", "build/loop_gate/summary.json"])
+    capture_s = graph.last_capture_s()
     gates = {"loops_declared": s["n_loops_total"] > 0,
              "ate_on_le_1.05x_off": s["ate_on_p50"] <= 1.05 * s["ate_off_p50"],
              "final_on_le_0.5x_off":
                  s["final_on_p50"] <= 0.5 * s["final_off_p50"]}
     rescue = s["final_off_p50"] / max(s["final_on_p50"], 1e-9)
-    phase("loop_gate", seconds=f"{time.perf_counter() - t0:.1f}",
+    e, e_fps = harness_run(gate_args(ensemble=1) + [
+        "--out", "build/loop_gate_eager"], eager=True)
+    twin = {k: s["rows"][0][k] == e["rows"][0][k]
+            for k in ("loops", "ate_off", "ate_on", "final_off", "final_on")}
+    phase("loop_gate", route="replayed", frames_per_s=f"{fps:.2f}",
+          eager_seed0_frames_per_s=f"{e_fps:.2f}",
+          speedup=f"{fps / e_fps:.3f}",
+          last_capture_s=f"{capture_s:.4f}",
           ate_off_p50=f"{s['ate_off_p50']:.4f}",
           ate_on_p50=f"{s['ate_on_p50']:.4f}",
           final_off_p50=f"{s['final_off_p50']:.4f}",
           final_on_p50=f"{s['final_on_p50']:.4f}",
           n_loops_total=s["n_loops_total"],
           improvement=f"{rescue:.2f}",
-          gates=json.dumps(gates, separators=(",", ":")))
+          gates=json.dumps(gates, separators=(",", ":")),
+          eager_seed0_equal=json.dumps(twin, separators=(",", ":")),
+          card=repr(card))
+    if not all(twin.values()):
+        raise AssertionError(f"loop gate: seed 0 eager vs replayed: {twin}")
     if not all(gates.values()):
         raise AssertionError(f"loop gate failed: {gates}")
     return kept
@@ -1578,7 +1621,7 @@ def check_drivers(dev, card: str) -> None:
             raise AssertionError(f"run_slam --mode sequence: trajectory "
                                  f"{traj.shape}, {len(metrics)} metrics rows")
         # The same frames decoded here, the driver's draws: frontend
-        # .run_images in this process.
+        # .run_images in this process (the same captured frame, replayed).
         args = run_slam.parse_args(seq_args)
         cfg = run_slam.slam_config(args)
         seq = ImageSequence(pattern, 0, DRIVER_FRAMES)
@@ -1590,17 +1633,34 @@ def check_drivers(dev, card: str) -> None:
             init_state(cfg, args.batch, dev),
             frontend.init_appearance(cfg, args.batch, dev), imgs, u, cfg, dev)
         ref = ref[0].double().cpu().numpy()
-        dx = float(numpy.abs(traj - ref).max())
-        scale = float(numpy.abs(ref).max())
-        if not dx <= X_RTOL * scale:
+        if not numpy.array_equal(traj, ref):
             raise AssertionError(f"run_slam --mode sequence vs run_images: "
-                                 f"x differs by {dx:.3e} > {X_RTOL} * "
-                                 f"{scale:.3e}")
+                                 f"x differs by "
+                                 f"{float(numpy.abs(traj - ref).max()):.3e}")
         launches = driver_launches(out, "image_descriptor")
+        # The eager loop and the replay in this process, the same files.
+        pair = {}
+        for route, eager in (("eager", True), ("replayed", None)):
+            o = d / f"sequence_{route}"
+            r = run_slam.main(seq_args[:-1] + [str(o)], eager=eager)
+            pair[route] = (r, numpy.load(o / "trajectory.npz")["trajectory"],
+                           (o / "metrics.jsonl").read_bytes())
+            if r["launches"] != launches:
+                raise AssertionError(f"run_slam ({route}): launches "
+                                     f"{r['launches']} != {launches}")
+        (re_, te, me), (rr, tr, mr) = pair["eager"], pair["replayed"]
+        if not (numpy.array_equal(te, tr) and numpy.array_equal(tr, traj)
+                and me == mr):
+            raise AssertionError("run_slam --mode sequence: eager and "
+                                 "replayed differ")
         phase("drivers", driver="run_slam", mode="sequence",
               batch=args.batch, frames=DRIVER_FRAMES, loader="native",
               seconds=f"{secs:.2f}", steps_per_s=rate(out, "steps/s"),
-              max_dx_vs_run_images=f"{dx:.3e}", max_abs_x=f"{scale:.3e}",
+              vs_run_images="bitwise",
+              eager_steps_per_s=f"{re_['steps_per_s']:.1f}",
+              replayed_steps_per_s=f"{rr['steps_per_s']:.1f}",
+              speedup=f"{rr['steps_per_s'] / re_['steps_per_s']:.3f}",
+              eager_vs_replayed="bitwise (trajectory, metrics.jsonl)",
               route="unfused (step_image)", launches=json.dumps(
                   launches, separators=(",", ":")), card=repr(card))
 
@@ -1624,9 +1684,9 @@ def check_drivers(dev, card: str) -> None:
               launches=json.dumps(launches, separators=(",", ":")),
               card=repr(card))
 
-        out, secs = run_driver("close_loops", [
-            "--poses", str(d / "poses.txt"), "--pattern", pattern,
-            "--out", str(d / "loops")])
+        cl_args = ["--poses", str(d / "poses.txt"), "--pattern", pattern]
+        out, secs = run_driver("close_loops", cl_args + ["--out",
+                                                         str(d / "loops")])
         if "by the native loader" not in out:
             raise AssertionError("close_loops did not load by the native "
                                  "loader")
@@ -1639,8 +1699,33 @@ def check_drivers(dev, card: str) -> None:
                 and numpy.isfinite(q_times).all()
                 and all(len(r.split()) == 16 for r in loops)):
             raise AssertionError("close_loops: artifacts")
+        # The eager pieces and the replayed ones in this process: the same
+        # loops and artifacts as the process's (the query seconds apart).
+        pair = {}
+        for route, eager in (("eager", True), ("replayed", None)):
+            o = d / f"loops_{route}"
+            r = close_loops.main(cl_args + ["--out", str(o)], eager=eager)
+            pair[route] = (r, [(o / n).read_bytes() for n in (
+                "kitti_traj.txt", "kitti_loops.txt")], numpy.loadtxt(
+                    o / "kitti_q_times.txt")[:, :2])
+        want = [(d / "loops" / n).read_bytes() for n in (
+            "kitti_traj.txt", "kitti_loops.txt")]
+        for route, (r, files, q) in pair.items():
+            if not (files == want and numpy.array_equal(q, q_times[:, :2])
+                    and r["loops"] == pair["eager"][0]["loops"]):
+                raise AssertionError(f"close_loops ({route}): loops or "
+                                     f"artifacts differ")
+        fe, fr = (pair[k][0]["frames_per_s"] for k in ("eager", "replayed"))
+        cap = pair["replayed"][0]["capture_s"]
         phase("drivers", driver="close_loops", frames=DRIVER_FRAMES,
               seconds=f"{secs:.2f}", frames_per_s=rate(out, "frames/s"),
+              eager_frames_per_s=f"{fe:.2f}",
+              replayed_frames_per_s=f"{fr:.2f}", speedup=f"{fr / fe:.3f}",
+              replayed_capture_s=f"{cap:.4f}",
+              replayed_frames_per_s_after_capture=
+                  f"{DRIVER_FRAMES / (DRIVER_FRAMES / fr - cap):.2f}",
+              eager_vs_replayed="equal loops and artifacts",
+              query_ms_median=f"{1e3 * numpy.median(q_times[:, 2]):.3f}",
               loops=len(loops), loader="native", card=repr(card))
 
 

@@ -24,7 +24,11 @@ artifacts ("CALC 2.0"/close_kitti_loops.py:141-158):
 
 RANSAC's draws at frame t come from a generator seeded 200 + t (the JAX
 script's key(200 + t)), or from ``main``'s ``draws_fn`` hook. Runs on the
-card unless --cpu. --ckpt reads the port's own checkpoints
+card unless --cpu. On the card a frame is two replays of pieces captured
+as CUDA graphs (filter/graph.py; the JAX script jits embed): the embed
+piece, then the query piece (query, temporal filter, push), with the
+declared flag read back between frames; ``main(argv, eager=True)`` runs
+them eagerly (no flag: the JAX script has none). --ckpt reads the port's own checkpoints
 (models/train.save_checkpoint), not the JAX trainer's orbax ones. --plot
 writes loops.png from the artifacts (viz.plot_loops, the plot_loops.m
 analog); it needs matplotlib.
@@ -33,6 +37,7 @@ analog); it needs matplotlib.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import tempfile
 import time
@@ -40,14 +45,15 @@ import time
 import numpy as np
 import torch
 
+from ekf_slam_tpu_torch.filter import graph
 from ekf_slam_tpu_torch.io import ImageSequence
 from ekf_slam_tpu_torch.io.poses import (load_kitti_poses, poses_to_rq,
                                          save_trajectory_kitti)
-from ekf_slam_tpu_torch.models import keypoints as kp_mod
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.vss import VSSConfig
 from ekf_slam_tpu_torch.ops import device as devices
-from ekf_slam_tpu_torch.run_loop_closure import check_ckpt, load_vss, to_vss
+from ekf_slam_tpu_torch.run_loop_closure import (Query, check_ckpt,
+                                                 embed_frame, load_vss)
 
 
 def parse_args(argv=None):
@@ -91,19 +97,33 @@ def loop_config(args, T: int) -> lc.LoopConfig:
                          consistency_window=args.consistency[1])
 
 
-def main(argv=None, draws_fn=None) -> dict:
+def main(argv=None, draws_fn=None, eager: bool | None = None) -> dict:
     """Run the script. draws_fn(t, LoopConfig, K) -> (top_k, NH, K)
     uniforms replaces frame t's generator draws (the parity tests hand in
-    JAX's). Returns {frames, loops [(i, j)], loop_inliers, native,
-    seconds, frames_per_s}."""
+    JAX's). On a CUDA device the embed and query pieces replay from
+    captured CUDA graphs (run); eager=True runs them eagerly, and
+    eager=False without a card raises. Returns {frames, loops [(i, j)],
+    loop_inliers, native, seconds, frames_per_s, capture_s (the seconds
+    of them spent capturing the pieces, 0 unless replayed)}."""
     args = parse_args(argv)
     if args.ckpt:
         check_ckpt(args.ckpt)
+    dev = devices.resolve("cpu" if args.cpu else None)
+    return run(args, dev, True if graph.replays(dev, eager) else None,
+               draws_fn)
+
+
+def run(args, dev, capture=True, draws_fn=None) -> dict:
+    """The script on parsed arguments, on `dev`: each frame the embed
+    piece (run_loop_closure.embed_frame on the loaded frame), then the
+    query piece (run_loop_closure.Query), replayed from CUDA graphs
+    (capture=True), over static buffers without a graph (capture=False,
+    how the CPU tests see what replay runs) or eagerly (capture=None).
+    kitti_q_times.txt's seconds are the query piece's, up to a
+    synchronize. Returns what main returns."""
     # The cosine gate and the DB's top-k must see true-f32 descriptors.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = devices.resolve("cpu" if args.cpu else None)
-
     poses = load_kitti_poses(args.poses)
     T = args.frames or poses.shape[0]
     if poses.shape[0] < T:
@@ -115,47 +135,44 @@ def main(argv=None, draws_fn=None) -> dict:
     hw = tuple(args.vss_hw)
     model = load_vss(VSSConfig(width=args.vss_width), hw, args.ckpt).to(dev)
     lcfg = loop_config(args, T)
-
-    @torch.no_grad()
-    def embed(img):
-        outs = model(to_vss(img, hw), descriptor_only=True)
-        return outs["descriptor"], kp_mod.kp_descriptor(outs["c5"])
+    embed, query = None, Query(lcfg, dev, capture)
 
     os.makedirs(args.out, exist_ok=True)
-    db = None
     loops = []       # (i, j, pose_i(7), pose_j(7), inliers)
     q_times = []     # (frame, db_count, seconds)
     t_start = time.perf_counter()
     for t in range(T):
-        img = torch.from_numpy(seq.load(t, 1)[0]).to(dev)
-        descr, kps = embed(img)
-        if db is None:
-            db = lc.init_db(lcfg, 1, descr.shape[1], kps.yx.shape[1],
-                            kps.descr.shape[2], device=dev)
-        t0 = time.perf_counter()
-        warm = int(db.count[0]) >= lcfg.min_db
+        inputs = (torch.from_numpy(seq.load(t, 1)[0]).to(dev),)
+        if embed is None:
+            embed = graph.piece(functools.partial(embed_frame, model=model,
+                                                  hw=hw),
+                                (), inputs, None, capture)
+        descr, *kp = embed.step(inputs)
         if draws_fn is None:
-            res = lc.query(db, descr, kps, lcfg,
-                           generator=torch.Generator().manual_seed(200 + t))
+            draws = lc.ransac_draws(lcfg, 1, kp[0].shape[1],
+                                    torch.Generator().manual_seed(200 + t),
+                                    kp[0].dtype, dev)
         else:
-            draws = torch.as_tensor(np.asarray(draws_fn(t, lcfg,
-                                                        model.num_kp)))
-            res = lc.query(db, descr, kps, lcfg,
-                           draws[None].to(dev))
-        res = res._replace(is_hypothesis=res.is_hypothesis & warm)
-        db, declared, _, match_frame = lc.step_temporal(db, res, lcfg)
+            draws = torch.as_tensor(np.asarray(draws_fn(
+                t, lcfg, model.num_kp)))[None].to(dev)
+        pose = torch.as_tensor(poses_rq[t][None], dtype=torch.float32,
+                               device=dev)          # lc.init_db's dtype
+        t0 = time.perf_counter()
+        res, declared, _, match_frame, _ = query.step(
+            descr, kp, pose, draws, t >= lcfg.min_db, lcfg.sim_threshold)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        q_times.append((t, int(db.count[0]), time.perf_counter() - t0))
+        q_times.append((t, t, time.perf_counter() - t0))  # t frames pushed
         if bool(declared[0]):
             j = int(match_frame[0])
             loops.append((t, j, poses_rq[t], poses_rq[j],
                           int(res.best_inliers[0])))
             print(f"LOOP frame {t} -> {j} (inliers {loops[-1][4]})",
                   flush=True)
-        db = lc.push(db, descr, kps, torch.as_tensor(
-            poses_rq[t][None], dtype=db.pose.dtype, device=dev))
     seconds = time.perf_counter() - t_start
+    # what capturing the two pieces took (warm-up frames included)
+    capture_s = sum(getattr(p, "capture_s", None) or 0.0
+                    for p in (embed, query.piece))
     native = seq.native
     seq.close()
 
@@ -170,7 +187,9 @@ def main(argv=None, draws_fn=None) -> dict:
             f.write(f"{t} {n} {dt:.6f}\n")
     print(f"{args.pattern}: frames by the "
           f"{'native loader' if native else 'NumPy reader'}")
-    print(f"{T} frames in {seconds:.2f}s -> {T / seconds:.1f} frames/s")
+    print(f"{T} frames in {seconds:.2f}s -> {T / seconds:.1f} frames/s"
+          + (f" ({capture_s:.3f} s of it capturing the embed and query "
+             f"pieces)" if capture_s else ""))
     print(f"{len(loops)} loops over {T} frames; artifacts in {args.out}")
     if args.plot:
         from ekf_slam_tpu_torch.viz import plot_loops
@@ -181,7 +200,7 @@ def main(argv=None, draws_fn=None) -> dict:
     return {"frames": T, "loops": [(i, j) for i, j, _, _, _ in loops],
             "loop_inliers": [n for _, _, _, _, n in loops],
             "native": native, "seconds": seconds,
-            "frames_per_s": T / seconds}
+            "frames_per_s": T / seconds, "capture_s": capture_s}
 
 
 if __name__ == "__main__":

@@ -36,6 +36,13 @@ not kept: those buffers are the caller's and are returned as the final
 carry, so the frame is captured for one sequence (``last_capture_s``
 reads what the capture took).
 
+A driver that runs several functions a frame with host code between them
+(run_loop_closure: the filter's frame, the embed piece, the query piece,
+with `declared` read back and a declared loop fused eagerly) takes each
+as a ``piece`` and steps it itself, ``load``-ing a carry that host code
+changed; ``EagerFrame`` is the same interface without static buffers, so
+one host loop serves the eager route too.
+
 Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES`` is
 credited at each replay with the counts the captured frame made; the
 warm-up frames and the capture are set-up and leave the counts as they
@@ -110,9 +117,10 @@ class StaticFrame:
         _assign(self.carry, new)
 
     def load(self, carry) -> None:
-        for s, c in zip(self.carry, carry):
-            if s is not c:
-                s.copy_(c)
+        """`carry` into the carry buffers (as a frame's new carry is
+        copied: a tensor that aliases a carry buffer other than its own is
+        cloned first)."""
+        _assign(self.carry, carry)
 
     def step(self, inputs):
         """The frame's inputs into their buffers, then one frame: the
@@ -133,7 +141,7 @@ class StaticFrame:
         into a CUDA graph. Leaves the carry buffers advanced (load resets
         them; the in-place ones are zeroed here) and the launch counts as
         they were."""
-        dev = self.carry[0].device
+        dev = (*self.carry, *self.inputs)[0].device
         if dev.type != "cuda":
             raise ValueError(f"CUDA graph capture needs a CUDA device, "
                              f"got {dev}")
@@ -204,25 +212,60 @@ def clear() -> None:
     _CAPTURED.clear()
 
 
+class EagerFrame:
+    """The eager loop's frame: fn called on the carry it returned last, no
+    static buffers and no graph; `step` and `load` as StaticFrame's."""
+
+    def __init__(self, fn, carry):
+        self.fn = fn
+        self.carry = tuple(carry)
+        self.in_place = frozenset()
+
+    def load(self, carry) -> None:
+        self.carry = tuple(carry)
+
+    def step(self, inputs):
+        self.carry, outputs = self.fn(self.carry, tuple(inputs))
+        return outputs
+
+
+def piece(fn, carry, inputs, key=None, capture=True, in_place=()):
+    """The frame of fn ready to step from `carry` (`inputs`: the first
+    frame's, for the static buffers' shapes): capture=True the captured
+    frame for `key` (kept; with `in_place`, or no key, captured for this
+    caller only), False the same frame callable over static buffers
+    without a graph, None an EagerFrame. A driver that advances several
+    pieces a frame, with host code between them, steps each itself and
+    `load`s a carry that host code changed. A kept frame is shared by
+    every caller of its key and shapes: one driver steps it at a time (a
+    frame dropped from the cache stays valid for the caller holding
+    it)."""
+    if capture is None:
+        return EagerFrame(fn, carry)
+    if capture and key is not None and not in_place:
+        frame = captured(key, fn, carry, inputs)
+    else:
+        frame = StaticFrame(fn, carry, inputs, in_place)
+        if capture:
+            frame.capture()
+    frame.load(carry)
+    return frame
+
+
 def run(fn, carry, inputs_at, frames: int, key, capture: bool = True,
         in_place=()):
     """`frames` frames of fn from `carry`, frame t's inputs inputs_at(t)
     (called once a frame, in order): replayed from the captured frame for
-    `key` (capture=True), or the same frame callable over fresh static
-    buffers without a graph (capture=False). With `in_place` (indices of
-    carry tensors, all zero, that the frame writes in place) those tensors
-    are the static buffers themselves and the frame is captured for this
-    call, not kept. Returns (the final carry: copies of the static
-    buffers, the in-place ones themselves; the outputs, each stacked over
-    the frames on axis 1, after the batch axis)."""
+    `key` (capture=True), the same frame callable over fresh static
+    buffers without a graph (capture=False), or the eager loop
+    (capture=None). With `in_place` (indices of carry tensors, all zero,
+    that the frame writes in place) those tensors are the static buffers
+    themselves and the frame is captured for this call, not kept. Returns
+    (the final carry: copies of the static buffers, the in-place ones
+    themselves; the outputs, each stacked over the frames on axis 1,
+    after the batch axis)."""
     first = inputs_at(0)
-    if capture and not in_place:
-        frame = captured(key, fn, carry, first)
-    else:
-        frame = StaticFrame(fn, carry, first, in_place)
-        if capture:
-            frame.capture()
-    frame.load(carry)
+    frame = piece(fn, carry, first, key, capture, in_place)
     rows = [tuple(o.clone() for o in frame.step(first if t == 0
                                                  else inputs_at(t)))
             for t in range(frames)]

@@ -12,15 +12,19 @@ The curve and its area are the JAX package's NumPy functions, copied.
 ``geometric_rerank`` verifies all L·top_k candidates in one batched call
 of the keypoint ratio test and the fundamental-matrix RANSAC, whose
 uniform draws (L, top_k, NH, K) are an input or come from a generator.
+On a CUDA device ``embed`` replays each batch shape's forward from a
+captured CUDA graph (the JAX package jits embed).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ekf_slam_tpu_torch.filter import graph
 from ekf_slam_tpu_torch.models import keypoints as kp_mod
 from ekf_slam_tpu_torch.models import loopclosure as lc
 
@@ -66,27 +70,62 @@ def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float(getattr(np, TRAPEZOID)(p, r))
 
 
-@torch.no_grad()
-def embed(model, images, batch: int = 8, with_keypoints: bool = False):
+def _forward(carry, inputs, model, with_keypoints: bool):
+    """The eval-mode forward as graph.py's frame function: no carry;
+    inputs a batch of images; outputs its descriptors and, with_keypoints,
+    its Keypoints' fields."""
+    outs = model(inputs[0], descriptor_only=True)
+    kps = kp_mod.kp_descriptor(outs["c5"]) if with_keypoints else ()
+    return (), (outs["descriptor"], *kps)
+
+
+def embed(model, images, batch: int = 8, with_keypoints: bool = False,
+          eager: Optional[bool] = None):
     """Descriptors (N, Dd) of images (N, H, W, 3) in batches of `batch`,
     the model in eval mode (restored after), on the model's device and
-    dtype; with_keypoints also returns their Keypoints (N, K, ...)."""
+    dtype; with_keypoints also returns their Keypoints (N, K, ...). On a
+    CUDA device each batch shape's forward is captured as a CUDA graph
+    once and replayed (embed_batches); eager=True runs it eagerly, and
+    eager=False without a card raises."""
+    p = next(model.parameters())
+    capture = True if graph.replays(p.device, eager) else None
+    return embed_batches(model, images, batch, with_keypoints, capture)
+
+
+@torch.no_grad()
+def embed_batches(model, images, batch: int = 8,
+                  with_keypoints: bool = False, capture=True):
+    """What embed returns, each batch's forward replayed from a captured
+    CUDA graph (capture=True: at most two shapes, the full batch and the
+    last one, each kept by the model object, the storage of every
+    parameter and buffer, and the with_keypoints form, so a model whose
+    weights were replaced rather than updated in place is captured
+    again), run over static buffers without a graph (capture=False, how
+    the CPU tests see what replay runs) or eagerly (capture=None)."""
     p = next(model.parameters())
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.array(images))
     images = images.to(device=p.device, dtype=p.dtype)
+    fn = functools.partial(_forward, model=model,
+                           with_keypoints=with_keypoints)
+    key = ("embed", model, with_keypoints,
+           tuple(t.data_ptr() for t in (*model.parameters(),
+                                        *model.buffers())))
     was_training = model.training
     model.eval()
     try:
-        outs = [model(images[i:i + batch], descriptor_only=True)
-                for i in range(0, images.shape[0], batch)]
+        outs = []
+        for i in range(0, images.shape[0], batch):
+            x = (images[i:i + batch],)
+            outs.append(tuple(o.clone() for o in graph.piece(
+                fn, (), x, key, capture).step(x)))
     finally:
         model.train(was_training)
-    descr = torch.cat([o["descriptor"] for o in outs])
+    descr = torch.cat([o[0] for o in outs])
     if not with_keypoints:
         return descr
-    kps = [kp_mod.kp_descriptor(o["c5"]) for o in outs]
-    return descr, kp_mod.Keypoints(*(torch.cat(f) for f in zip(*kps)))
+    return descr, kp_mod.Keypoints(*(torch.cat(f) for f in
+                                     zip(*(o[1:] for o in outs))))
 
 
 def geometric_rerank(d_live, kp_live: kp_mod.Keypoints, d_mem,

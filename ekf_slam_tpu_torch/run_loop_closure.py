@@ -41,28 +41,36 @@ randomness comes from torch generators seeded as the JAX example seeds
 its keys (observations 1000 + seed, RANSAC 100 + seed, image noise
 7000 + seed, retrieval 200 + t), so a run matches the JAX one in
 distribution, not draw for draw. Runs on the card unless --cpu; prints
-the card's kernel launches (ops/kernels.LAUNCHES) and frames/s.
+the card's kernel launches (ops/kernels.LAUNCHES) and frames/s. On the
+card a frame is up to three replays of pieces captured as CUDA graphs
+(``run``; the JAX example jits step_sim / step_pix, render, corrupt,
+to_vss and embed), with the example's host reads between them;
+``main(argv, eager=True)`` runs the pieces eagerly (no flag: the JAX
+example has none).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ekf_slam_tpu_torch.config import EngineConfig, MapConfig, SimConfig
-from ekf_slam_tpu_torch.filter import engine, loop_fusion, motion
-from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.filter import engine, graph, loop_fusion, motion
+from ekf_slam_tpu_torch.filter.state import FIELDS, init_state
 from ekf_slam_tpu_torch.models import augment, train
 from ekf_slam_tpu_torch.models import keypoints as kp_mod
+from ekf_slam_tpu_torch.models import loop_runner
 from ekf_slam_tpu_torch.models import loopclosure as lc
 from ekf_slam_tpu_torch.models.flax_init import flax_variables
 from ekf_slam_tpu_torch.models.vss import VSS, VSSConfig, from_flax
@@ -176,15 +184,26 @@ def load_vss(vcfg: VSSConfig, hw, ckpt: str = "") -> VSS:
     return model.eval()
 
 
-def corrupt(img: torch.Tensor, severity: float,
-            generator: torch.Generator) -> torch.Tensor:
-    """augment.seasonal_change of a grey frame (H, W), its draws from
-    `generator` on the CPU (the same on every device)."""
-    x = img[None, :, :, None]
-    d = augment.seasonal_draws(torch.empty(x.shape, dtype=x.dtype),
+def corrupt_draws(shape, dtype, severity: float,
+                  generator: torch.Generator, device) -> augment.SeasonalDraws:
+    """corrupt's draws for a grey frame of `shape` (H, W): from
+    `generator` on the CPU (the same on every device), moved to
+    `device`."""
+    d = augment.seasonal_draws(torch.empty((1, *shape, 1), dtype=dtype),
                                severity, generator=generator)
-    d = augment.SeasonalDraws(*(f.to(x.device) for f in d))
-    return augment.seasonal_change(x, severity, draws=d)[0, :, :, 0]
+    return augment.SeasonalDraws(*(f.to(device) for f in d))
+
+
+def corrupt(img: torch.Tensor, severity: float,
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[augment.SeasonalDraws] = None) -> torch.Tensor:
+    """augment.seasonal_change of a grey frame (H, W) with `draws`, or
+    with corrupt_draws' from `generator`."""
+    if draws is None:
+        draws = corrupt_draws(img.shape, img.dtype, severity, generator,
+                              img.device)
+    return augment.seasonal_change(img[None, :, :, None], severity,
+                                   draws=draws)[0, :, :, 0]
 
 
 def to_vss(img: torch.Tensor, hw) -> torch.Tensor:
@@ -193,6 +212,78 @@ def to_vss(img: torch.Tensor, hw) -> torch.Tensor:
     g = F.interpolate(img[None, None], size=tuple(hw), mode="bilinear",
                       align_corners=False, antialias=True)[0, 0]
     return g[None, :, :, None].expand(1, *g.shape, 3)
+
+
+@torch.no_grad()
+def embed_frame(carry, inputs, model: VSS, hw, severity: float = 0.0,
+                scene: Optional[sim_scene.Scene] = None,
+                cfg: Optional[EngineConfig] = None):
+    """The embed piece as graph.py's frame function (the JAX example's
+    jitted render, corrupt, to_vss and embed): no carry; inputs the frame
+    (H, W), or with a `scene` the camera state (13,) the frame is rendered
+    from, then at severity > 0 corrupt's five draws. Outputs the VSS's
+    descriptor (1, Dd) and its Keypoints' fields (1, K, ...)."""
+    src, *draws = inputs
+    if scene is not None:
+        src = frontend.render_scene_image(scene, src, cfg, src.device)
+    if severity > 0.0:
+        src = corrupt(src, severity, draws=augment.SeasonalDraws(*draws))
+    outs = model(to_vss(src, hw), descriptor_only=True)
+    return (), (outs["descriptor"], *kp_mod.kp_descriptor(outs["c5"]))
+
+
+def query_frame(carry, inputs, lcfg: lc.LoopConfig):
+    """The query piece as graph.py's frame function (models/loop_runner's
+    frame without the network and the fusion): carry the database's
+    fields; inputs the frame's descriptor (1, Dd), its Keypoints' fields,
+    its pose (1, 7), RANSAC's draws, `warm` (1,) bool (hypotheses masked
+    where False) and the retrieval gate sim_threshold as a 0-d tensor.
+    lc.query, lc.step_temporal, then lc.push. Outputs the QueryResult's
+    fields, then declared, the matched slot and frame, and the matched
+    slot's stored pose (1, 7), gathered before the push."""
+    descr, yx, response, orientation, kdescr, pose, draws, warm, thr = inputs
+    kps = kp_mod.Keypoints(yx, response, orientation, kdescr)
+    cfg = dataclasses.replace(lcfg, sim_threshold=thr)
+    db = lc.LoopDatabase(*carry)
+    res = lc.query(db, descr, kps, cfg, draws)
+    res = res._replace(is_hypothesis=res.is_hypothesis & warm)
+    db, declared, slot, frame = lc.step_temporal(db, res, cfg)
+    pose_j = torch.gather(db.pose, 1, slot[:, None, None].expand(-1, 1, 7))
+    db = lc.push(db, descr, kps, pose)
+    return (tuple(getattr(db, f) for f in lc.DB_FIELDS),
+            (*res, declared, slot, frame, pose_j[:, 0]))
+
+
+class Query:
+    """A run's query piece (query_frame) at B = 1, built at its first
+    step over an empty database whose ring the piece writes in place (so,
+    replayed, it is captured for the run). `capture` as graph.piece takes
+    it; the gate and `warm` go in as tensors."""
+
+    def __init__(self, lcfg: lc.LoopConfig, device, capture):
+        self.lcfg, self.device, self.capture = lcfg, device, capture
+        self.piece = None
+        self.warm = {w: torch.tensor([w], device=device)
+                     for w in (False, True)}
+        self.gate = (None, None)
+
+    def step(self, descr, kp, pose, draws, warm: bool, threshold: float):
+        """One frame: (QueryResult, declared, slot, frame, pose_j), the
+        piece's outputs (a replayed piece's next step overwrites them)."""
+        if self.gate[0] != threshold:
+            self.gate = (threshold, torch.tensor(    # lc.init_db's dtype
+                threshold, dtype=torch.float32, device=self.device))
+        inputs = (descr, *kp, pose, draws, self.warm[warm], self.gate[1])
+        if self.piece is None:
+            db = lc.init_db(self.lcfg, 1, descr.shape[1], kp[0].shape[1],
+                            kp[3].shape[2], device=self.device)
+            self.piece = graph.piece(
+                functools.partial(query_frame, lcfg=self.lcfg),
+                tuple(getattr(db, f) for f in lc.DB_FIELDS), inputs, None,
+                self.capture, [lc.DB_FIELDS.index(f)
+                               for f in loop_runner.RING])
+        out = self.piece.step(inputs)
+        return (lc.QueryResult(*out[:6]), *out[6:])
 
 
 class AutoThreshold:
@@ -222,13 +313,21 @@ class AutoThreshold:
                   f"{self.imp_max:.5f})", flush=True)
         return self.lcfg
 
+    def samples(self, n_db: int) -> bool:
+        """Whether the query at DB size n_db is in the calibration window
+        (its best similarity is then read back and observed)."""
+        return self.base.min_db <= n_db < self.calib_end
+
+    def allows(self, n_db: int) -> bool:
+        """Whether declarations are allowed at DB size n_db."""
+        return n_db >= self.base.min_db and n_db >= self.calib_end
+
     def observe(self, n_db: int, best_sim: float) -> bool:
         """Record a query's best similarity; whether declarations are
         allowed at DB size n_db."""
-        warm = n_db >= self.base.min_db
-        if warm and n_db < self.calib_end and np.isfinite(best_sim):
+        if self.samples(n_db) and np.isfinite(best_sim):
             self.imp_max = max(self.imp_max, best_sim)
-        return warm and n_db >= self.calib_end
+        return self.allows(n_db)
 
 
 def parse_args(argv=None):
@@ -263,19 +362,42 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Run the experiment; returns the JSON summary."""
-    args = parse_args(argv)
-    if args.ckpt:
-        check_ckpt(args.ckpt)
-    # The cosine gate and the DB's top-k must see true-f32 descriptors.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = devices.resolve("cpu" if args.cpu else None)
-    os.makedirs(args.out, exist_ok=True)
+@dataclasses.dataclass
+class Harness:
+    """What every run of one `main` shares: the arguments, the filter's
+    config, the device, the scene (on the CPU, as observe samples it, and
+    on the device), the ground truth xs (T, 13), the pixels front-end's
+    clean frames (T, H, W), the VSS and LoopConfig, and the embed piece of
+    each route (built at its first frame, kept for the runs after)."""
+    args: argparse.Namespace
+    cfg: EngineConfig
+    dev: torch.device
+    scn_cpu: sim_scene.Scene
+    scn: sim_scene.Scene
+    xs: torch.Tensor
+    imgs: Optional[torch.Tensor]
+    model: VSS
+    lcfg: lc.LoopConfig
+    embeds: dict = dataclasses.field(default_factory=dict)
+
+    def embed(self, inputs, capture):
+        """The embed piece of route `capture` (graph.piece's), ready."""
+        if capture not in self.embeds:
+            sim = self.args.frontend == "sim"
+            self.embeds[capture] = graph.piece(functools.partial(
+                embed_frame, model=self.model, hw=tuple(self.args.vss_hw),
+                severity=self.args.lc_severity,
+                scene=self.scn if sim else None, cfg=self.cfg), (), inputs,
+                None, capture)
+        return self.embeds[capture]
+
+
+def build_harness(args, dev) -> Harness:
+    """The harness of parsed arguments on `dev`: the scene and trajectory
+    (--traj), the pixels front-end's frames rendered up front (as the JAX
+    example renders them), the VSS and LoopConfig."""
     cfg = harness_config()
     T = args.frames
-
     if args.traj == "pan":
         scn_cpu = make_surround_scene(torch.Generator().manual_seed(0), cfg)
         xs = pan_trajectory(cfg, T)
@@ -283,105 +405,132 @@ def main(argv=None) -> dict:
         scn_cpu = sim_scene.make_scene(torch.Generator().manual_seed(0), cfg)
         xs = outback_trajectory(cfg, T)
     scn = sim_scene.Scene(scn_cpu.landmarks.to(dev))
-    xs_dev = xs.to(dev)
-
-    model, lcfg = build_lc_stack(args, T)
-    model = model.to(dev)
-    vss_hw = tuple(args.vss_hw)
-
-    @torch.no_grad()
-    def embed(img):
-        outs = model(to_vss(img, vss_hw), descriptor_only=True)
-        return outs["descriptor"], kp_mod.kp_descriptor(outs["c5"])
-
-    def render(t):
-        return frontend.render_scene_image(scn, xs_dev[t], cfg, dev)
-
+    imgs = None
     if args.frontend == "pixels":
-        imgs = torch.stack([render(t) for t in range(T)])
-    nhyp = cfg.ransac.num_hypotheses
+        xs_dev = xs.to(dev)
+        imgs = torch.stack([frontend.render_scene_image(scn, xs_dev[t], cfg,
+                                                        dev)
+                            for t in range(T)])
+    model, lcfg = build_lc_stack(args, T)
+    return Harness(args, cfg, dev, scn_cpu, scn, xs, imgs, model.to(dev),
+                   lcfg)
 
-    def run(seed: int, with_lc: bool):
-        """One tracked sequence: (traj (T, 13), loops, lc seconds)."""
-        db = None
-        loops, traj = [], []
-        lc_time = 0.0
-        auto = (AutoThreshold(lcfg, f"seed {seed}")
-                if args.sim_threshold == 0.0 else None)
-        g_u = torch.Generator().manual_seed(100 + seed)
+
+def run(h: Harness, seed: int, with_lc: bool, capture=None):
+    """One tracked sequence of `seed`: (trajectory (T, 13) f64, loops
+    [(i, j)], seconds of the loop-closure work). A frame runs up to three
+    pieces (graph.piece), with the JAX example's host code between them:
+    the filter's frame (engine._sim_frame or frontend._image_frame, kept
+    under run_sequence's / run_images' key), the embed piece (embed_frame)
+    and the query piece (Query); on a declared frame the pose constraint
+    is fused eagerly and loaded back into the filter's carry. capture=None
+    runs each piece eagerly, True replays each from a CUDA graph, False
+    runs them over static buffers without a graph (how the CPU tests see
+    what replay runs)."""
+    args, cfg, dev, lcfg = h.args, h.cfg, h.dev, h.lcfg
+    T, nhyp = h.xs.shape[0], cfg.ransac.num_hypotheses
+    shape = (cfg.camera.n_rows, cfg.camera.n_cols)
+    auto = (AutoThreshold(lcfg, f"seed {seed}")
+            if args.sim_threshold == 0.0 else None)
+    g_u = torch.Generator().manual_seed(100 + seed)
+    if args.frontend == "sim":
+        g_obs = torch.Generator().manual_seed(1000 + seed)
+        frames = [sim_scene.observe(g_obs, h.scn_cpu, h.xs[t], cfg)
+                  for t in range(T)]
+        obs = sim_scene.FrameObs(
+            torch.stack([o.pixels for o in frames]),
+            torch.stack([o.visible for o in frames])).to(dev)
+        st = engine.bootstrap(init_state(cfg, 1, dev), obs.frame(0), cfg)
+        carry = tuple(getattr(st, f) for f in FIELDS)
+        fn, key = functools.partial(engine._sim_frame, cfg=cfg), ("sim", cfg)
+        xs_dev = h.xs.to(dev)
+    else:
+        g_noise = torch.Generator().manual_seed(7000 + seed)
+        st = init_state(cfg, 1, dev)
+        app = frontend.init_appearance(cfg, 1, dev)
+        carry = (*(getattr(st, f) for f in FIELDS),
+                 *(getattr(app, f) for f in frontend.APPEARANCE_FIELDS))
+        fn, key = (functools.partial(frontend._image_frame, cfg=cfg),
+                   ("image", cfg))
+    g_sev = torch.Generator().manual_seed(9000 + seed)
+    filt, query = None, Query(lcfg, dev, capture)
+    loops, traj = [], []
+    lc_time = 0.0
+    for t in range(T):
+        u = torch.rand(1, nhyp, generator=g_u,
+                       dtype=cfg.torch_dtype).to(dev)
         if args.frontend == "sim":
-            g_obs = torch.Generator().manual_seed(1000 + seed)
-            frames = [sim_scene.observe(g_obs, scn_cpu, xs[t], cfg)
-                      for t in range(T)]
-            obs = sim_scene.FrameObs(
-                torch.stack([o.pixels for o in frames]),
-                torch.stack([o.visible for o in frames])).to(dev)
-            st = engine.bootstrap(init_state(cfg, 1, dev), obs.frame(0), cfg)
+            inputs = (obs.pixels[t], obs.visible[t], u)
+            # CALC2 sees a ground-truth render (no pixels exist here)
+            src = xs_dev[t]
         else:
-            g_noise = torch.Generator().manual_seed(7000 + seed)
-            st = init_state(cfg, 1, dev)
-            app = frontend.init_appearance(cfg, 1, dev)
-        g_sev = torch.Generator().manual_seed(9000 + seed)
-        for t in range(T):
-            u = torch.rand(1, nhyp, generator=g_u,
-                           dtype=cfg.torch_dtype).to(dev)
-            if args.frontend == "sim":
-                st, _ = engine.step(st, obs.frame(t), u, cfg)
-                img_t = None
-            else:
-                img_t = imgs[t]
-                if args.img_noise > 0:
-                    noise = torch.randn(img_t.shape, generator=g_noise,
-                                        dtype=img_t.dtype).to(dev)
-                    img_t = torch.clamp(img_t + args.img_noise * noise,
-                                        0.0, 1.0)
-                st, app, _ = frontend.step_image(st, app, img_t, u, cfg)
-            if with_lc:
-                t0 = time.time()
-                # CALC2's input: the camera frame in pixels mode, a
-                # ground-truth render in sim mode (no pixels exist there).
-                src = img_t if img_t is not None else render(t)
-                if args.lc_severity > 0.0:
-                    src = corrupt(src, args.lc_severity, g_sev)
-                descr, kps = embed(src)
-                if db is None:
-                    db = lc.init_db(lcfg, 1, descr.shape[1],
-                                    kps.yx.shape[1], kps.descr.shape[2],
-                                    device=dev)
-                pose = torch.cat([st.x[:, 0:3], st.x[:, 3:7]], dim=1)
-                n_db = int(db.count[0])
-                lcfg_run = auto.config(n_db) if auto else lcfg
-                res = lc.query(db, descr, kps, lcfg_run,
-                               generator=torch.Generator().manual_seed(
-                                   200 + t))
-                warm = (auto.observe(n_db, float(res.similarities[0, 0]))
-                        if auto else n_db >= lcfg.min_db)
-                res = res._replace(is_hypothesis=res.is_hypothesis & warm)
-                db, declared, match_slot, match_frame = lc.step_temporal(
-                    db, res, lcfg_run)
-                if bool(declared[0]):
-                    # The 6-DoF constraint against the matched frame's
-                    # stored pose, noise scaled by verification quality.
-                    pose_j = db.pose[:, int(match_slot[0])]
-                    sp, sr = loop_fusion.loop_noise_sigmas(res.best_inliers)
-                    x_new, P_new = loop_fusion.apply_loop_constraint_pose(
-                        st.x, st.P, pose_j, sp, sr, True)
-                    st = st.replace(x=x_new, P=P_new)
-                    loops.append((t, int(match_frame[0])))
-                db = lc.push(db, descr, kps, pose)
-                lc_time += time.time() - t0
-            traj.append(st.x[0, :13])
-        return torch.stack(traj).cpu().double().numpy(), loops, lc_time
+            src = h.imgs[t]
+            if args.img_noise > 0:
+                noise = torch.randn(src.shape, generator=g_noise,
+                                    dtype=src.dtype).to(dev)
+                src = torch.clamp(src + args.img_noise * noise, 0.0, 1.0)
+            inputs = (src, u)
+        if filt is None:
+            filt = graph.piece(fn, carry, inputs, key, capture)
+        filt.step(inputs)
+        if with_lc:
+            t0 = time.time()
+            x, P = filt.carry[0], filt.carry[1]
+            inputs = (src,)
+            if args.lc_severity > 0.0:
+                inputs += tuple(corrupt_draws(shape, cfg.torch_dtype,
+                                              args.lc_severity, g_sev, dev))
+            descr, *kp = h.embed(inputs, capture).step(inputs)
+            n_db = t                # one push a frame
+            lcfg_run = auto.config(n_db) if auto else lcfg
+            res, declared, _, match_frame, pose_j = query.step(
+                descr, kp, torch.cat([x[:, 0:3], x[:, 3:7]], dim=1),
+                lc.ransac_draws(lcfg, 1, h.model.num_kp,
+                                torch.Generator().manual_seed(200 + t),
+                                kp[0].dtype, dev),
+                auto.allows(n_db) if auto else n_db >= lcfg.min_db,
+                lcfg_run.sim_threshold)
+            if auto and auto.samples(n_db):
+                auto.observe(n_db, float(res.similarities[0, 0]))
+            if bool(declared[0]):
+                # The 6-DoF constraint against the matched frame's
+                # stored pose, noise scaled by verification quality.
+                sp, sr = loop_fusion.loop_noise_sigmas(res.best_inliers)
+                x_new, P_new = loop_fusion.apply_loop_constraint_pose(
+                    x, P, pose_j, sp, sr, True)
+                filt.load((x_new, P_new, *filt.carry[2:]))
+                loops.append((t, int(match_frame[0])))
+            lc_time += time.time() - t0
+        traj.append(filt.carry[0][0, :13].clone())
+    return torch.stack(traj).cpu().double().numpy(), loops, lc_time
 
-    xs_np = xs.double().numpy()
+
+def main(argv=None, eager: bool | None = None) -> dict:
+    """Run the experiment; returns the JSON summary. On a CUDA device
+    every piece of a frame replays from a captured CUDA graph (run);
+    eager=True runs them eagerly, and eager=False without a card
+    raises."""
+    args = parse_args(argv)
+    if args.ckpt:
+        check_ckpt(args.ckpt)
+    # The cosine gate and the DB's top-k must see true-f32 descriptors.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = devices.resolve("cpu" if args.cpu else None)
+    capture = True if graph.replays(dev, eager) else None
+    os.makedirs(args.out, exist_ok=True)
+    h = build_harness(args, dev)
+    T = args.frames
+
+    xs_np = h.xs.double().numpy()
     gt = torch.from_numpy(xs_np[:, 0:3])
     rows = []
     launches0 = dict(kernels.LAUNCHES)
     t_run = time.perf_counter()
     for seed in range(args.ensemble):
         t0 = time.time()
-        traj_off, _, _ = run(seed, with_lc=False)
-        traj_on, loops, lc_s = run(seed, with_lc=True)
+        traj_off, _, _ = run(h, seed, False, capture)
+        traj_on, loops, lc_s = run(h, seed, True, capture)
         ate_off = float(traj_mod.ate_rmse(
             torch.from_numpy(traj_off[:, 0:3]), gt))
         ate_on = float(traj_mod.ate_rmse(torch.from_numpy(traj_on[:, 0:3]),

@@ -31,7 +31,13 @@ min_features_in_image and max_new_per_step --min-features, --landmarks
 landmarks, f32, every other setting its default (engine.step then takes
 the fused step on the card where the config fits it). The iterated update
 is reached from the Python API (FilterConfig.use_iterated_update); the
-JAX script has no flag for it. Runs on the card unless --cpu. In sim
+JAX script has no flag for it. Runs on the card unless --cpu. On the
+card each frame is one replay of a frame captured as a CUDA graph
+(filter/graph.py; the JAX script jits step_image and run_sequence's
+step), in pixels and sequence mode with the frame and its draws copied
+in as the frame's inputs and metrics.jsonl read from the stacked
+outputs after the run; ``main(argv, eager=True)`` runs the eager loop
+(no flag: the JAX script has none). In sim
 mode --plots writes map.png (viz.plot_map_3d: instance 0's trajectory
 beside the truth and its slots' first three values, as the JAX script
 draws them); it needs matplotlib.
@@ -40,6 +46,7 @@ draws them); it needs matplotlib.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import tempfile
@@ -49,8 +56,8 @@ import torch
 
 from ekf_slam_tpu_torch.config import (CAM_DIM, EngineConfig, MapConfig,
                                        SimConfig)
-from ekf_slam_tpu_torch.filter import engine
-from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.filter import engine, graph
+from ekf_slam_tpu_torch.filter.state import FIELDS, init_state
 from ekf_slam_tpu_torch.io import ImageSequence
 from ekf_slam_tpu_torch.ops import device as devices
 from ekf_slam_tpu_torch.ops import kernels
@@ -119,37 +126,62 @@ def traj_report(traj: torch.Tensor, xs: torch.Tensor) -> dict:
     return out
 
 
-def _run_images(frame, T: int, cfg: EngineConfig, batch: int, dev,
-                metrics, xs=None):
-    """step_image over frames frame(t) -> (H, W), t < T; metrics per
-    frame. Returns instance 0's trajectory (T, 13)."""
+def run_frames(frame, T: int, cfg: EngineConfig, batch: int, dev,
+               capture=True):
+    """step_image over the frames frame(t) -> (H, W), t < T, each loaded
+    at its turn (frontend._image_frame, the frame run_images replays, kept
+    under the same key): replayed from a captured CUDA graph
+    (capture=True), the same frame over static buffers without a graph
+    (capture=False, how the CPU tests see what replay runs) or the eager
+    loop (capture=None). Returns (camera trajectory (B, T, 13), StepInfo
+    with (B, T) fields)."""
     st = init_state(cfg, batch, dev)
     app = frontend.init_appearance(cfg, batch, dev)
-    traj = []
-    for t in range(T):
-        img = frame(t).to(dev, cfg.torch_dtype)
-        st, app, info = frontend.step_image(
-            st, app, img, frame_draws(cfg, batch, t, dev), cfg)
-        traj.append(st.x[0, :13])
-        row = dict(n_ic=float(info.n_ic.float().mean()),
-                   n_li=float(info.n_li.float().mean()))
+    _, (traj, *info) = graph.run(
+        functools.partial(frontend._image_frame, cfg=cfg),
+        (*(getattr(st, f) for f in FIELDS),
+         *(getattr(app, f) for f in frontend.APPEARANCE_FIELDS)),
+        lambda t: (frame(t).to(dev, cfg.torch_dtype),
+                   frame_draws(cfg, batch, t, dev)),
+        T, ("image", cfg), capture)
+    return traj, engine.StepInfo(*info)
+
+
+def log_frames(metrics, traj0: torch.Tensor, infos, xs=None) -> None:
+    """metrics.jsonl's rows of an image run, read from its stacked
+    outputs: the instances' mean n_ic and n_li and, with a ground truth
+    xs, instance 0's position error."""
+    for t in range(traj0.shape[0]):
+        row = dict(n_ic=float(infos.n_ic[:, t].float().mean()),
+                   n_li=float(infos.n_li[:, t].float().mean()))
         if xs is not None:
             row["pos_err"] = float(torch.linalg.vector_norm(
-                st.x[0, 0:3] - xs[t, 0:3]))
+                traj0[t, 0:3] - xs[t, 0:3]))
         metrics.log(t, **row)
-    return torch.stack(traj)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, eager: bool | None = None) -> dict:
     """Run the driver; returns {mode, frames, batch, seconds, steps_per_s,
     launches, native (sequence mode), and the ATE / RPE report where there
-    is a ground truth}."""
+    is a ground truth}. On a CUDA device each mode replays one frame
+    captured as a CUDA graph (run); eager=True runs the eager loop, and
+    eager=False without a card raises."""
     args = parse_args(argv)
     if args.mode == "sequence" and not args.pattern:
         raise ValueError("--pattern is required in sequence mode")
+    dev = devices.resolve("cpu" if args.cpu else None)
+    return run(args, dev, True if graph.replays(dev, eager) else None)
+
+
+def run(args, dev, capture=True) -> dict:
+    """The driver on parsed arguments, on `dev`: each frame replayed from
+    a captured CUDA graph (capture=True; sim mode through
+    engine.frame_driver, the others through run_frames), run over static
+    buffers without a graph (capture=False, how the CPU tests see what
+    replay runs) or the eager loop (capture=None). Returns what main
+    returns."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = devices.resolve("cpu" if args.cpu else None)
     os.makedirs(args.out, exist_ok=True)
     cfg = slam_config(args)
     T, B = args.frames, args.batch
@@ -165,7 +197,10 @@ def main(argv=None) -> dict:
         u = torch.rand(T, B, cfg.ransac.num_hypotheses, device=dev,
                        dtype=cfg.torch_dtype,
                        generator=torch.Generator(device=dev).manual_seed(1))
-        final, traj, infos = engine.run_sequence(st, obs, u, cfg)
+        final, traj, infos = (
+            engine.run_sequence(st, obs, u, cfg, eager=True)
+            if capture is None else
+            engine.frame_driver(st, obs, u, cfg, capture))
         traj0 = traj[0]
         err = torch.linalg.vector_norm(traj0[:, 0:3] - xs[:, 0:3], dim=-1)
         for t in range(T):
@@ -175,18 +210,23 @@ def main(argv=None) -> dict:
     elif args.mode == "pixels":
         scn, xs, _ = sim_scene.simulate(torch.Generator().manual_seed(0),
                                         cfg, T, dev)
-        traj0 = _run_images(
+        traj, infos = run_frames(
             lambda t: frontend.render_scene_image(scn, xs[t], cfg, dev), T,
-            cfg, B, dev, metrics, xs)
+            cfg, B, dev, capture)
+        traj0 = traj[0]
+        log_frames(metrics, traj0, infos, xs)
     else:
         seq = ImageSequence(args.pattern, args.start, T)
         summary["native"] = seq.native
         print(f"{args.pattern}: {seq.height}x{seq.width} frames by the "
               f"{'native loader' if seq.native else 'NumPy reader'}")
         xs = None
-        traj0 = _run_images(lambda t: torch.from_numpy(seq.load(t, 1)[0]),
-                            T, cfg, B, dev, metrics)
+        traj, infos = run_frames(
+            lambda t: torch.from_numpy(seq.load(t, 1)[0]), T, cfg, B, dev,
+            capture)
         seq.close()
+        traj0 = traj[0]
+        log_frames(metrics, traj0, infos)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -1286,3 +1286,49 @@ def test_replayed_images_equal_eager(card, matcher, warp):
                [want[0].x, want[0].P, want[1].patches, want[1].descr,
                 want[2], want[3].n_ic, want[3].n_li,
                 want[3].search_r_needed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv,lcfg", [
+    (["--frontend", "sim", "--traj", "outback", "--sim-threshold", "0.5",
+      "--min-inliers", "8"], {}),
+    (["--frontend", "pixels", "--traj", "pan", "--sim-threshold", "0.5",
+      "--min-inliers", "8", "--lc-severity", "0.3"],
+     {"consistency_count": 1})], ids=["sim", "pixels"])
+def test_replayed_loop_harness_equals_eager(card, argv, lcfg):
+    """run_loop_closure.run with its three pieces replayed against the
+    eager pieces, 8 frames at CAP 48: trajectory and loops bit for bit,
+    a loop declared, the same launches."""
+    import dataclasses
+
+    from ekf_slam_tpu_torch import run_loop_closure
+    h = run_loop_closure.build_harness(run_loop_closure.parse_args(
+        argv + ["--frames", "8"]), card)
+    h = dataclasses.replace(h, lcfg=dataclasses.replace(h.lcfg, **lcfg))
+    runs = {}
+    for capture in (None, True):
+        kernels.reset_launches()
+        runs[capture] = run_loop_closure.run(h, 0, True, capture)
+        torch.cuda.synchronize()
+        runs[capture, "launches"] = dict(kernels.LAUNCHES)
+    assert runs[None, "launches"] == runs[True, "launches"]
+    assert runs[True][1] == runs[None][1] and runs[True][1]
+    assert runs[True][0].tobytes() == runs[None][0].tobytes()
+
+
+@pytest.mark.cuda
+def test_replayed_embed_equals_eager(card):
+    """evaluate.embed's default on the card (one capture a batch shape)
+    against eager=True: 5 images in batches of 2, with keypoints, bit for
+    bit; a second call replays the kept captures."""
+    from ekf_slam_tpu_torch.filter import graph
+    from ekf_slam_tpu_torch.models import evaluate, vss
+    torch.backends.cudnn.allow_tf32 = False
+    model = vss.VSS(vss.VSSConfig(width=8), (48, 64)).to(card)
+    imgs = torch.rand(5, 48, 64, 3, generator=torch.Generator().manual_seed(1))
+    want = evaluate.embed(model, imgs, 2, with_keypoints=True, eager=True)
+    got = evaluate.embed(model, imgs, 2, with_keypoints=True)
+    capture_s = graph.last_capture_s()
+    again = evaluate.embed(model, imgs, 2, with_keypoints=True)
+    assert graph.last_capture_s() == capture_s
+    _same_bits([got[0], *got[1], again[0]], [want[0], *want[1], want[0]])
