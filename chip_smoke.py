@@ -120,9 +120,12 @@ Phases, one line each, any failure raises (exit code != 0):
                (kernels.eight_point_error), its eigenvector's Rayleigh
                quotient within EIGHT_POINT_RAYLEIGH_TOL of λ₁ (in ε·‖S‖₂),
                the f32 cuSOLVER pair's (its plain version and library
-               call) errors beside; the eigenvector of the largest
-               eigenvalue (the kernel on −M) must read > 100x both
-               limits. K4 and K6 on the constraint's
+               call) errors beside, its time also over 20 launches
+               replayed from one CUDA graph (graph_ms: no host cost); the
+               same on instance 0's 448 systems, the loop gate's size
+               (site loop_gate_size); at both sites the eigenvector of
+               the largest eigenvalue (the kernel on −M) must read > 100x
+               both limits. K4 and K6 on the constraint's
                operands against their plain versions. Then bench.py's
                BENCH_MODE=loop protocol through the port's harness
                (run_loop_closure.main: pixels front-end, pan, 150 frames,
@@ -154,7 +157,10 @@ Phases, one line each, any failure raises (exit code != 0):
                (main(..., eager=True)) and replayed: the same trajectory,
                metrics.jsonl and launches (run_slam), the same loops and
                artifacts but the query seconds (close_loops), as the
-               process's; steps/s (frames/s) of each route.
+               process's; steps/s (frames/s) of each route; close_loops'
+               declared loops (query frame, matched frame) and their
+               inlier counts (the 8-point solve decides them on a pure
+               rotation).
   8. train     CALC2 training at full width: VSS(VSSConfig()) (width 32)
                and TrainConfig()'s defaults (batch 12, 192x256, triplet)
                on synthetic_batch scenes drawn on the card at 320x320
@@ -242,6 +248,7 @@ from ekf_slam_tpu_torch.filter import ekf, engine, graph, loop_fusion
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.io import ImageSequence, write_pgm
 from ekf_slam_tpu_torch.io.poses import save_trajectory_kitti
+from ekf_slam_tpu_torch.kernel_variants import graph_ms
 from ekf_slam_tpu_torch.models import (augment, evaluate, keypoints,
                                        loop_runner, train)
 from ekf_slam_tpu_torch.models import loopclosure as lc
@@ -523,7 +530,8 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
                       energy_rel_err=f"{norms['energy_rel_err']:.3e}")
     if name == "eight_point_fit":       # the f32 cuSOLVER pair's beside
         M = args[0]
-        norms = {"rayleigh_err": kernels.eight_point_rayleigh(
+        norms = {"graph_ms": graph_ms(lambda: wrapper(*args)),
+                 "rayleigh_err": kernels.eight_point_rayleigh(
                      kernels.eight_point_fit(M, eigvec=True)[1], M),
                  "plain_f32_scaled_err": kernels.eight_point_error(
                      lib_out, ref, M),
@@ -531,7 +539,9 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
                      kernels.eight_point_fit_plain(M, eigvec=True)[1], M)}
         fields.update(err_limit=limit, **{k: f"{v:.3e}"
                                           for k, v in norms.items()},
-                      rayleigh_limit=kernels.EIGHT_POINT_RAYLEIGH_TOL)
+                      rayleigh_limit=kernels.EIGHT_POINT_RAYLEIGH_TOL,
+                      graph_x_bound=f"{norms['graph_ms'] / bound_ms:.2f}")
+        fields["graph_ms"] = f"{norms['graph_ms']:.4f}"
     phase("kernel", **fields)
     if not err <= limit:
         raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
@@ -1477,20 +1487,31 @@ def check_loop(dev, card: str, report: dict) -> dict:
     del db_cpu
 
     # eight_point_fit on that query's 8-point systems (phase 3's check of
-    # the loop path's kernel: its operands exist only here), then its
-    # planted fault: the eigenvector of the largest eigenvalue (−M).
-    M = inputs["eight_point_fit"][0][0]
-    e = check_kernel("eight_point_fit", (M,), "loop_query")
-    e["launches"] = r_launches["eight_point_fit"]
-    report["eight_point_fit"] = e
-    ref = kernels.eight_point_fit_plain(M.double())
-    largest = kernels.eight_point_fit(-M, eigvec=True)
-    planted_fault("eight_point_largest_eigenvector", largest[0], ref,
-                  lambda g, r: kernels.eight_point_error(g, r, M),
-                  limit=kernels.EIGHT_POINT_TOL)
-    planted_fault("eight_point_largest_eigenvector_rayleigh", largest[1],
-                  None, lambda g, r: kernels.eight_point_rayleigh(g, M),
-                  limit=kernels.EIGHT_POINT_RAYLEIGH_TOL)
+    # the loop path's kernel: its operands exist only here), B·top_k·NH =
+    # 1,792 of them, and on instance 0's top_k·NH = 448, the loop gate's
+    # size (B = 1); at each, its planted fault: the eigenvector of the
+    # largest eigenvalue (−M).
+    M_all = inputs["eight_point_fit"][0][0]
+    gate_n = lcfg.top_k * lcfg.ransac_hypotheses
+    for site, M in (("loop_query", M_all),
+                    ("loop_gate_size", M_all[:gate_n].contiguous())):
+        e = check_kernel("eight_point_fit", (M,), site)
+        ref = kernels.eight_point_fit_plain(M.double())
+        largest = kernels.eight_point_fit(-M, eigvec=True)
+        planted_fault(f"eight_point_largest_eigenvector_{site}", largest[0],
+                      ref, lambda g, r: kernels.eight_point_error(g, r, M),
+                      limit=kernels.EIGHT_POINT_TOL)
+        planted_fault(f"eight_point_largest_eigenvector_rayleigh_{site}",
+                      largest[1], None,
+                      lambda g, r: kernels.eight_point_rayleigh(g, M),
+                      limit=kernels.EIGHT_POINT_RAYLEIGH_TOL)
+        if site == "loop_query":
+            e["launches"] = r_launches["eight_point_fit"]
+            report["eight_point_fit"] = e
+        else:
+            report["eight_point_fit"]["gate_size"] = {k: e[k] for k in (
+                "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "scaled_err", "rayleigh_err")}
 
     # K4 and K6 on the pose constraint's operands (all instances enabled,
     # against the stored pose of frame 0).
@@ -1726,7 +1747,11 @@ def check_drivers(dev, card: str) -> None:
                   f"{DRIVER_FRAMES / (DRIVER_FRAMES / fr - cap):.2f}",
               eager_vs_replayed="equal loops and artifacts",
               query_ms_median=f"{1e3 * numpy.median(q_times[:, 2]):.3f}",
-              loops=len(loops), loader="native", card=repr(card))
+              loops=len(loops), loop_frames=json.dumps(
+                  pair["eager"][0]["loops"], separators=(",", ":")),
+              loop_inliers=json.dumps(pair["eager"][0]["loop_inliers"],
+                                      separators=(",", ":")),
+              loader="native", card=repr(card))
 
 
 

@@ -17,14 +17,19 @@ r = 60) and K5 (M2 = 128); K1 (r = 6) and K2 (M2 = 128) at R = 2·CAP =
 200, and their product alone, K6 on an f32 P at N = 200, beside
 ``torch.bmm``; K7 at the pixels bench (N = 3,200 pairs, W2 = 37, t = 13),
 the correlation beside a grouped ``F.conv2d`` (TF32 off) and the norms
-form. CUDA events, the mean of 20 launches after 3 warm ones.
+form; eight_point_fit (csrc/eight_point.cu) on the 8-point systems of one
+fundamental_ransac at the loop path's width (N = 1,792) and on the first
+448 (the loop gate's B = 1), over 20 launches replayed from one CUDA graph
+(the launcher's host cost would hide the kernel's). CUDA events, the
+mean of 20 launches after 3 warm ones.
 Variants whose name says ``timing_only`` skip part of the work and give
 wrong outputs: they split a kernel's time into its phases. ``--sass`` also
 prints, for every K1 / K3 / K4 / K6 / K7 / K8 kernel of the first
 variant, the instruction mix of its multiply loop from ``cuobjdump -sass``
 (the share of FFMA among the instructions of the loop with the most
 FFMAs; K3's two products and K1's pass run the same loop; K7's loop over
-window rows at t = 13, compiled unrolled). ``--widths`` also times K5 and K4
+window rows at t = 13, compiled unrolled), and of eight_point_fit's sweep
+(its longest loop: nine rounds). ``--widths`` also times K5 and K4
 (f32 P, as built) at contraction widths around the bench's 128 and 264:
 time against width splits a kernel's cost per 8-deep contraction tile
 from its fixed cost a call, and shows whether a power-of-two row stride of
@@ -57,11 +62,14 @@ WIDTHS = (120, 124, 128, 132, 136, 256, 264)
 K6_SITES = (("f32_N128", torch.float32, 128), ("f32_N64", torch.float32, 64),
             ("bf16_N48", torch.bfloat16, 48), ("bf16_N64", torch.bfloat16, 64))
 K7_N, K7_W2, K7_T = 3200, 37, 13      # B 32 · CAP 100 pairs, R = 12
-SOURCES = ("unfused_cov.cu", "fused_cov.cu", "ncc.cu", "common.cuh")
-TIMED = ("k1p_kernel", "k3_kernel", "k3v_kernel", "k4_kernel", "k6_kernel",
-         "k7_kernel", "k8_kernel")
+EP_N = (1792, 448)                     # B·top_k·NH at B = 4 and B = 1
+SOURCES = ("unfused_cov.cu", "fused_cov.cu", "ncc.cu", "eight_point.cu",
+           "common.cuh")
+PANEL = ("k1p_kernel", "k3_kernel", "k3v_kernel", "k4_kernel", "k6_kernel",
+         "k7_kernel", "k8_kernel")            # each with a multiply loop
+TIMED = PANEL + ("ep_kernel",)
 # A kernel's name in a mangled symbol: k3_kernel, k1p_kernel, k8_kernelIf, ...
-NAME = r"(k\d[vp]?_kernel(?:I\w*?(?=EEv))?)"
+NAME = r"(k\d[vp]?_kernel(?:I\w*?(?=EEv))?|ep_kernel)"
 G8 = "using G8 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
 G6 = "using G6 = Blocking<64, BN, 8, 8, BN == 64 ? 255 : 128>;"
 G3 = "using G3 = Blocking<PT_TILE, PT_TILE, 8, 8>;"
@@ -99,6 +107,9 @@ K1_PASS = "  cudaError_t err = v_launch(E, U, C, V, B, D, r, s);"
 K2_PASS = """  const cudaError_t err =
       k3_launch(P, K, PHt, J8, nullptr, nullptr, nullptr, Pout, B, D, M2, 0,"""
 PAIR_BLOCKS = "constexpr int PAIR_BLOCKS = 4;"
+# eight_point_fit (eight_point.cu)
+EP_SWEEPS = "constexpr int EP_SWEEPS = 16;"
+EP_TEST = "    done = done || off2 <= tol2;"
 # K7 (ncc.cu)
 K7_UNROLLED = "constexpr int K7_T = 13;"
 # name -> {source: ((old, new) substitutions)}
@@ -172,6 +183,33 @@ VARIANTS = {
     "k12_timing_only_pass": {"fused_cov.cu": (
         (K1_PRODUCT, "  return cudaSuccess;"),
         (K2_PRODUCT, "  return cudaSuccess;"))},
+    # eight_point_fit split by sweeps: none (the staging, the scaling, the
+    # pick of f and the 3 x 3 solve, the stores, the launch), one, and
+    # exactly six for every matrix (the most these systems need)
+    "ep_timing_only_sweeps_0": {"eight_point.cu": (
+        (EP_SWEEPS, EP_SWEEPS.replace("16", "0")),)},
+    "ep_timing_only_sweeps_1": {"eight_point.cu": (
+        (EP_SWEEPS, EP_SWEEPS.replace("16", "1")),)},
+    "ep_timing_only_sweeps_6": {"eight_point.cu": (
+        (EP_TEST, "    done = done || sweep == 6;"),)},
+    # ... the rotation from IEEE divides and square roots (τ = d/h, then
+    # sym.schur2 as written: four divides and two square roots in a chain)
+    # in place of the special-function unit's approximations
+    "ep_ieee_rotation": {"eight_point.cu": ((
+        """  const int e = (__float_as_int(fmaxf(fabsf(d), fabsf(h))) >> 23) & 0xff;
+  const float sc = __int_as_float((254 - e) << 23);
+  const float d1 = d * sc, h1 = h * sc;
+  const float x = fmaf(d1, d1, h1 * h1);
+  t = copysignf(1.f, d) * h1 * ep_rcp(fmaf(x, ep_rsqrt(x), fabsf(d1)));
+  const float y = fmaf(t, t, 1.f), c0 = ep_rsqrt(y);
+  c = c0 * fmaf(-0.5f * y * c0, c0, 1.5f);""",
+        """  const float tau = d / h;
+  t = copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
+  c = 1.f / sqrtf(1.f + t * t);"""),)},
+    # ... a round without its rotations (J = I): the exchanges and the
+    # rows' update alone
+    "ep_timing_only_no_rotation": {"eight_point.cu": ((
+        "  if (ip == i || apq == 0.f) {", "  if (true) {"),)},
     # ... and the product alone, on the P the timing harness left in Pout
     "k12_timing_only_product": {"fused_cov.cu": (
         (K1_PASS, K1_PRODUCT.replace("return", "if (D > 0) return") + "\n"
@@ -222,7 +260,7 @@ def build(name: str) -> ctypes.CDLL:
                "ekf_k3_update_tail_add", "ekf_k4_corr_apply_cols",
                "ekf_k5_update_tail", "ekf_k6_matmul_big",
                "ekf_k7_ncc_corr", "ekf_k7_ncc_corr_norms",
-               "ekf_k8_corr_apply"):
+               "ekf_k8_corr_apply", "ekf_eight_point_fit"):
         getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -241,6 +279,22 @@ def cuda_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Mean time of fn() over n calls captured in one CUDA graph and
+    replayed, by CUDA events: the kernels' device time without the
+    launches' host cost, which cuda_ms reads too where a call is shorter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay, 5) / n
+
+
 def launcher(fn, *args):
     def run():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -249,7 +303,7 @@ def launcher(fn, *args):
     return run
 
 
-def loop_mix(lib_path, wanted=TIMED) -> dict:
+def loop_mix(lib_path, wanted=PANEL) -> dict:
     """{kernel: (instructions, {opcode: count})} of the multiply loop of
     each wanted kernel: of the loops (a backward branch and its target)
     with at least 256 FFMAs, the one with the largest FFMA share (a longer
@@ -281,6 +335,43 @@ def loop_mix(lib_path, wanted=TIMED) -> dict:
     return mixes
 
 
+def ep_systems(dev, seed: int = 0) -> torch.Tensor:
+    """The 8-point systems (N, 9, 9) of one fundamental_ransac at the loop
+    path's width: B·top_k = 28 candidates of 512 keypoints, 30% valid, 64
+    hypotheses (N = 1,792); correspondences a shift plus 0.5 px of noise,
+    near-degenerate as a pan's are. The card tests use them too."""
+    from ekf_slam_tpu_torch.models import loopclosure as lc
+    g = torch.Generator().manual_seed(seed)
+    pts1 = torch.rand(28, 512, 2, generator=g) * torch.tensor([192.0, 256.0])
+    pts2 = (pts1 + torch.tensor([3.0, 1.0])
+            + 0.5 * torch.randn(28, 512, 2, generator=g))
+    valid = torch.rand(28, 512, generator=g) < 0.3
+    draws = torch.rand(28, 64, 512, generator=g)
+    with kernels.capture_operands() as ops:
+        lc.fundamental_ransac(pts1, pts2, valid, lc.LoopConfig(), draws)
+    return ops["eight_point_fit"][0][0].to(dev)
+
+
+def sweep_mix(lib_path) -> tuple:
+    """(instructions, {opcode: count}) of eight_point_fit's longest loop,
+    its sweep of nine rounds, from cuobjdump -sass."""
+    sass = subprocess.run(["cuobjdump", "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(b for b in sass.split("Function :")[1:] if "ep_kernel" in
+                b.split("\n", 1)[0])
+    ops = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)([^\n]*)",
+        body)]
+    best = []
+    for m in re.finditer(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d\s+)?BRA\s+"
+                         r"(?:\w+,\s*)?0x([0-9a-f]+)", body):
+        addr, target = int(m.group(1), 16), int(m.group(2), 16)
+        loop = [o.split(".")[0] for a, o in ops if target <= a <= addr]
+        if target < addr and len(loop) > len(best):
+            best = loop
+    return len(best), dict(collections.Counter(best).most_common(14))
+
+
 def operands(dev) -> dict:
     """Random operands at the bench shapes, P symmetric."""
     g = torch.Generator(dev).manual_seed(0)
@@ -306,6 +397,7 @@ def operands(dev) -> dict:
     ops["C"] = 0.5 * (C + C.transpose(1, 2))
     C = n(B, K1_r, K1_r)
     ops["C66"] = 0.5 * (C + C.transpose(1, 2))
+    ops["M9"] = ep_systems(dev)
     return ops
 
 
@@ -379,6 +471,11 @@ def time_variant(lib, o, dev) -> dict:
         lib.ekf_k2_update_tail_pht, *map(ptr, (
             P, o["K"], o["PHt"], o["J8"], o["Ht"], out, pht)), B, D, K3_M2,
         K1_R))
+    for n in EP_N:
+        M9 = o["M9"][:n].contiguous()
+        F2 = torch.empty(n, 3, 3, device=dev)
+        times[f"ep_N{n}"] = graph_ms(launcher(
+            lib.ekf_eight_point_fit, ptr(M9), ptr(F2), 0, n))
     return times
 
 
@@ -438,6 +535,9 @@ def main() -> None:
         for kernel, (count, mix) in result["loop_mix"].items():
             print(f"[sass] {kernel} loop={count} ffma_share="
                   f"{mix.get('FFMA', 0) / max(count, 1):.3f} {mix}", flush=True)
+        result["ep_sweep_mix"] = sweep_mix(OUT / args.variants[0] / "lib.so")
+        print(f"[sass] ep_kernel sweep={result['ep_sweep_mix'][0]} "
+              f"{result['ep_sweep_mix'][1]}", flush=True)
     print(json.dumps(result))
 
 

@@ -278,9 +278,10 @@ def entry_error(diff, a, b, slack=None):
 # Limits of eight_point_fit, f32, against its f64 plain version, with what
 # chip_smoke.py phase 6 read on the 1,792 systems of a warm-DB loop query
 # (NVIDIA H100 80GB HBM3, 700 W). eight_point_error, each F₂ in units of
-# its first-order perturbation bound: the kernel 0.155, the f32 cuSOLVER
-# pair (the plain version on the card) 3.41, the eigenvector of the
-# largest eigenvalue (the kernel on −M, the planted fault) 1.1e5. Many of
+# its first-order perturbation bound: the kernel 0.118 (0.115 on the first
+# 448; one thread a system read 0.155), the f32 cuSOLVER pair (the plain
+# version on the card) 3.41, the eigenvector of the largest eigenvalue
+# (the kernel on −M, the planted fault) 1.1e5. Many of
 # these 8-point systems are near-degenerate (λ₂ − λ₁ ≪ ‖S‖₂), so any f32
 # solve's F₂ strays by up to O(1) along the near-null directions and an
 # O(1) fault reads only as many bounds as the best-conditioned system
@@ -288,8 +289,8 @@ def entry_error(diff, a, b, slack=None):
 EIGHT_POINT_TOL = 4.0
 # eight_point_rayleigh, the eigenvector's Rayleigh quotient above λ₁ in
 # units of ε·‖S‖₂ (the eigensolve's backward error, which near-degeneracy
-# does not inflate): the kernel 0.262, the cuSOLVER pair 6.63, the planted
-# fault 8.4e6.
+# does not inflate): the kernel 0.244 (one thread a system: 0.262), the
+# cuSOLVER pair 6.63, the planted fault 8.4e6.
 EIGHT_POINT_RAYLEIGH_TOL = 16.0
 
 

@@ -18,7 +18,7 @@
 //   ./emulate k7 f32 N W2 t norms              (norms 1: ncc_corr_norms)
 //   ./emulate ep f32 case N                    (eight_point_fit; case 0
 //       8-point systems, 1 repeated eigenvalues, 2 zero-weight rows, 3
-//       non-finite entries, 4 identity)
+//       non-finite entries, 4 identity, 5 systems scaled by 2^±40)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -31,7 +31,8 @@
 // 16-byte lines stay inside the buffer. K7's correlation is held to 1e-5 of
 // Σ|w||tm| an offset, its patch variance to 1e-5 of the pair's Σwc² and
 // its energy to 1e-5 of itself; its windows start at odd 4-byte offsets.
-// eight_point_fit is held to an f64 Jacobi (run_ep's comment).
+// eight_point_fit is held to itself (launched again, and each matrix
+// alone) and to an f64 Jacobi (run_ep's comment).
 #include "eight_point.cu"
 #include "fused_cov.cu"
 #include "ncc.cu"
@@ -666,7 +667,8 @@ void jacobi_f64(std::vector<double>& s, std::vector<double>& v, int n) {
 // above a single smallest one (kind 1, even n) or a repeated smallest one
 // (odd n); 8 rows of which one to three weigh 0 (kind 2: the null space
 // has two to four dimensions); one entry NaN, +inf or −inf on every third
-// matrix (kind 3); I on even n, 4·I on odd n (kind 4).
+// matrix (kind 3); I on even n, 4·I on odd n (kind 4); kind 0's systems
+// times 2⁺⁴⁰ on even n and 2⁻⁴⁰ on odd n (kind 5: the kernel's scaling).
 void ep_operand(int kind, int n, float* M) {
   std::uniform_real_distribution<double> u(-1.4, 1.4), w(0.5, 1.5);
   std::vector<double> S(81, 0.0);
@@ -703,7 +705,8 @@ void ep_operand(int kind, int n, float* M) {
         for (int j = 0; j < 9; ++j) S[i * 9 + j] += wk * a[i] * a[j];
     }
   }
-  for (int i = 0; i < 81; ++i) M[i] = static_cast<float>(S[i]);
+  const double scale = kind != 5 ? 1 : n % 2 == 0 ? 0x1p40 : 0x1p-40;
+  for (int i = 0; i < 81; ++i) M[i] = static_cast<float>(scale * S[i]);
   if (kind == 3 && n % 3 == 0) {
     const float bad[3] = {NAN, INFINITY, -INFINITY};
     M[(7 * n) % 81] = bad[n / 3 % 3];
@@ -711,10 +714,12 @@ void ep_operand(int kind, int n, float* M) {
 }
 
 // eight_point_fit on N matrices of case `kind` (ep_operand) through the
-// launcher (the last block ragged for N not a multiple of 32), against
-// f64: for each matrix, S = ½(M + Mᵀ) in f64 and f, F₂ from ep_fit on the
-// same M (the launch must write that F₂ and f bit for bit: the staging
-// and the indices), then
+// launcher (three matrices a block: the last block ragged for N not a
+// multiple of 3). The matrices of a warp solve together, so the launch is
+// held to itself: a second launch gives the same bits, and each matrix
+// launched alone (N = 1) gives its slot's bits in the batch (a result does
+// not depend on its neighbours or its place). Then against f64, for each
+// matrix, S = ½(M + Mᵀ) in f64 and the launch's f and F₂:
 //   |‖f‖ − 1| ≤ 1e-5;
 //   fᵀ·S·f − λ₁ ≤ TOL·ε·‖S‖₂ (f lies in the smallest eigenspace; λ₁ and
 //     ‖S‖₂ from an f64 Jacobi);
@@ -724,30 +729,37 @@ void ep_operand(int kind, int n, float* M) {
 //   where the smallest eigenvalue is single ((λ₂ − λ₁) ≥ 1e-3·‖S‖₂): f
 //     against the f64 eigenvector up to sign, each entry ≤ TOL·ε·‖S‖₂ /
 //     (λ₂ − λ₁);
-// ε = 2⁻²³ and TOL = 4 (the kernel reads ≤ ~0.7 bounds). A non-finite M must
-// give an all-NaN F₂, and the identity's F₂ is e₀·e₀ᵀ exactly.
+// ε = 2⁻²³ and TOL = 4. A non-finite M must give an all-NaN F₂ and f, and
+// the identity's F₂ is e₀·e₀ᵀ exactly. Every output starts at 1e30, so an
+// entry left unwritten fails these checks.
 bool run_ep(int kind, int N) {
   register_ep();
   constexpr double EPS = 1.1920928955078125e-07, TOL = 4;
   std::vector<float> M(N * 81), F2(N * 9, 1e30f), fv(N * 9, 1e30f);
+  std::vector<float> F2b(N * 9, 1e30f), fvb(N * 9, 1e30f);
   for (int n = 0; n < N; ++n) ep_operand(kind, n, M.data() + n * 81);
-  const int rc = ekf_eight_point_fit(M.data(), F2.data(), fv.data(), N,
-                                     nullptr);
+  int rc = ekf_eight_point_fit(M.data(), F2.data(), fv.data(), N, nullptr);
+  rc |= ekf_eight_point_fit(M.data(), F2b.data(), fvb.data(), N, nullptr);
+  const auto same = [](const float* a, const float* b) {
+    return std::memcmp(a, b, 9 * sizeof(float)) == 0;
+  };
   double w_norm = 0, w_ray = 0, w_f2 = 0, w_vec = 0;
-  int bad = 0, nonfinite = 0, unique = 0;
+  int bad = 0, repeat = 0, alone = 0, nonfinite = 0, unique = 0;
   for (int n = 0; n < N; ++n) {
     const float* m = M.data() + n * 81;
     const float* got = F2.data() + n * 9;
-    float f2[9], f[9];
-    ep_fit(m, f2, f);
-    for (int i = 0; i < 9; ++i)
-      bad += std::memcmp(&f2[i], &got[i], 4) != 0 ||
-             std::memcmp(&f[i], &fv[n * 9 + i], 4) != 0;
+    const float* f = fv.data() + n * 9;
+    repeat += !same(got, F2b.data() + n * 9) ||
+              !same(f, fvb.data() + n * 9);
+    std::vector<float> f2a(9, 1e30f), fa(9, 1e30f);
+    rc |= ekf_eight_point_fit(m, f2a.data(), fa.data(), 1, nullptr);
+    alone += !same(got, f2a.data()) || !same(f, fa.data());
     bool fin = true;
     for (int i = 0; i < 81; ++i) fin = fin && std::isfinite(m[i]);
     if (!fin) {
       ++nonfinite;
-      for (int i = 0; i < 9; ++i) bad += !std::isnan(got[i]);
+      for (int i = 0; i < 9; ++i)
+        bad += !std::isnan(got[i]) || !std::isnan(f[i]);
       continue;
     }
     std::vector<double> S(81), V;
@@ -810,11 +822,12 @@ bool run_ep(int kind, int N) {
     if (kind == 4)
       for (int i = 0; i < 9; ++i) bad += got[i] != (i == 0 ? 1.f : 0.f);
   }
-  printf("ep rc=%d blocks=%ld bad=%d nonfinite=%d unique=%d worst norm=%.3f "
-         "rayleigh=%.3f F2=%.3f eigvec=%.3f of the limit\n", rc, g_blocks,
-         bad, nonfinite, unique, w_norm, w_ray, w_f2, w_vec);
-  return rc == 0 && bad == 0 && w_norm <= 1 && w_ray <= 1 && w_f2 <= 1 &&
-         w_vec <= 1;
+  printf("ep rc=%d blocks=%ld bad=%d repeat=%d alone=%d nonfinite=%d "
+         "unique=%d worst norm=%.3f rayleigh=%.3f F2=%.3f eigvec=%.3f of the "
+         "limit\n", rc, g_blocks, bad, repeat, alone, nonfinite, unique,
+         w_norm, w_ray, w_f2, w_vec);
+  return rc == 0 && bad == 0 && repeat == 0 && alone == 0 && w_norm <= 1 &&
+         w_ray <= 1 && w_f2 <= 1 && w_vec <= 1;
 }
 
 }  // namespace

@@ -28,6 +28,7 @@ import torch
 from ekf_slam_tpu_torch.config import EngineConfig
 from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import init_state
+from ekf_slam_tpu_torch.kernel_variants import ep_systems
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.vision import frontend, ncc
@@ -932,30 +933,19 @@ def test_cuda_run_online_matches_cpu_and_counts_k4(card):
             b.abs().max())
 
 
-def _ransac_systems(seed=0):
-    """The 8-point systems of one fundamental_ransac at the loop path's
-    width, formed on the CPU in f32: B·top_k = 28 candidates of 512
-    keypoints, 30% valid, 64 hypotheses (N = 1,792); correspondences a
-    shift plus 0.5 px of noise, near-degenerate as a pan's are."""
-    from ekf_slam_tpu_torch.models import loopclosure as lc
-    g = torch.Generator().manual_seed(seed)
-    pts1 = torch.rand(28, 512, 2, generator=g) * torch.tensor([192.0, 256.0])
-    pts2 = (pts1 + torch.tensor([3.0, 1.0])
-            + 0.5 * torch.randn(28, 512, 2, generator=g))
-    valid = torch.rand(28, 512, generator=g) < 0.3
-    draws = torch.rand(28, 64, 512, generator=g)
-    with kernels.capture_operands() as ops:
-        lc.fundamental_ransac(pts1, pts2, valid, lc.LoopConfig(), draws)
-    return ops["eight_point_fit"][0][0]
-
-
 @pytest.mark.cuda
-def test_cuda_eight_point_fit_matches_plain(card):
-    """eight_point_fit on 1,792 systems against its plain version at f64:
-    within kernels.EIGHT_POINT_TOL of each F₂'s perturbation bound, its
-    eigenvectors within EIGHT_POINT_RAYLEIGH_TOL of λ₁ (and the launch
-    without them writes the same F₂); one launch a call."""
-    M = _ransac_systems()
+@pytest.mark.parametrize("N, scale", [(1, 1.0), (448, 1.0), (1792, 1.0),
+                                      (1792, 2.0 ** 40), (1792, 2.0 ** -40)])
+def test_cuda_eight_point_fit_matches_plain(card, N, scale):
+    """eight_point_fit on N systems (one; the loop gate's 448, B = 1; the
+    loop path's 1,792, also scaled by 2^±40) against its plain version at
+    f64: within kernels.EIGHT_POINT_TOL of each F₂'s perturbation bound,
+    its eigenvectors within EIGHT_POINT_RAYLEIGH_TOL of λ₁ (and the launch
+    without them writes the same F₂); one launch a call. A power-of-two
+    scale is undone exactly by the kernel's own: the same bits as the
+    unscaled systems'."""
+    M0 = ep_systems("cpu")[:N].contiguous()
+    M = M0 * scale
     ref = kernels.eight_point_fit_plain(M.double())
     before = kernels.LAUNCHES["eight_point_fit"]
     got = kernels.eight_point_fit(M.to(card)).cpu()
@@ -965,6 +955,25 @@ def test_cuda_eight_point_fit_matches_plain(card):
     assert torch.equal(F2.cpu(), got)
     assert (kernels.eight_point_rayleigh(f.cpu(), M)
             <= kernels.EIGHT_POINT_RAYLEIGH_TOL)
+    if scale != 1.0:
+        assert torch.equal(kernels.eight_point_fit(M0.to(card)).cpu(), got)
+
+
+@pytest.mark.cuda
+def test_cuda_eight_point_fit_alone_equals_batch(card):
+    """Each of 1,792 systems launched alone (N = 1) gives the bits of its
+    slot in the batched launch, F₂ and f (the three matrices of a warp
+    solve together, each frozen once it has converged), and a second
+    batched launch the same bits again."""
+    M = ep_systems("cpu").to(card)
+    F2, f = kernels.eight_point_fit(M, eigvec=True)
+    again = kernels.eight_point_fit(M, eigvec=True)
+    alone = [kernels.eight_point_fit(M[n:n + 1], eigvec=True)
+             for n in range(M.shape[0])]
+    for got, want in ((torch.cat([a[0] for a in alone]), F2),
+                      (torch.cat([a[1] for a in alone]), f),
+                      (again[0], F2), (again[1], f)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -972,7 +981,7 @@ def test_cuda_eight_point_check_fails_largest_eigenvector(card):
     """The kernel on −M (the eigenvector of M's largest eigenvalue) must
     read > 100x the Rayleigh limit, and above the eigengap one (these
     near-degenerate systems let no O(1) fault read 100 eigengap bounds)."""
-    M = _ransac_systems(1)
+    M = ep_systems("cpu", 1)
     ref = kernels.eight_point_fit_plain(M.double())
     F2, f = kernels.eight_point_fit((-M).to(card), eigvec=True)
     assert (kernels.eight_point_rayleigh(f.cpu(), M)
@@ -987,7 +996,7 @@ def test_cuda_eight_point_fit_is_nan_where_not_finite(card, N):
     """NaN, +inf and −inf entries on every third system: those F₂ all NaN,
     the others bit for bit the kernel's on the finite systems alone (the
     launch's staging and ragged last block)."""
-    M = _ransac_systems(2)[:N].clone()
+    M = ep_systems("cpu", 2)[:N].clone()
     bad = torch.arange(N) % 3 == 0
     for i in torch.nonzero(bad)[:, 0].tolist():
         M[i, i % 9, (2 * i) % 9] = (torch.nan, torch.inf, -torch.inf)[i % 3]
@@ -1001,7 +1010,7 @@ def test_cuda_eight_point_fit_is_nan_where_not_finite(card, N):
 
 @pytest.mark.cuda
 def test_cuda_eight_point_wrapper_rejects(card):
-    M = _ransac_systems()[:40].to(card)
+    M = ep_systems("cpu")[:40].to(card)
     with pytest.raises(TypeError, match="float32"):
         kernels.eight_point_fit(M.double())
     with pytest.raises(ValueError, match="shape"):

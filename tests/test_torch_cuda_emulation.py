@@ -2,9 +2,10 @@
 row-slab form) of csrc/unfused_cov.cu, K7 of csrc/ncc.cu (both forms) and
 eight_point_fit of csrc/eight_point.cu — the CUDA source itself — run on
 the CPU: compiled by g++ against the
-stand-in headers of tests/cuda_emulation (one std::thread a CUDA thread,
-__syncthreads a barrier, shared memory poisoned with NaN, the asynchronous
-copies done at once with their alignment checked), under
+stand-in headers of tests/cuda_emulation (one host thread a CUDA thread,
+__syncthreads a barrier, __syncwarp one of the warp's threads, shared
+memory poisoned with NaN, the asynchronous copies done at once with their
+alignment checked), under
 AddressSanitizer, and held against a plain f64 loop by
 tests/cuda_emulation/harness.cpp.
 
@@ -20,7 +21,8 @@ races, asynchrony, anything about speed — those are the card's
 entry's own scale Σ|a||b| (f32 chains against f64), one bf16 ulp more on a
 bf16 output; K7's variance 1e-5 of its pair's Σwc²; eight_point_fit's
 eigenvector and F₂ 4 of their first-order f32 perturbation bounds against
-an f64 Jacobi (harness.cpp run_ep).
+an f64 Jacobi, and bit for bit against itself launched again and each
+matrix alone (harness.cpp run_ep).
 
 Skips where no g++ with C++20's <barrier> is installed."""
 
@@ -83,13 +85,14 @@ K2_CASES = [(1, 19, 1, 1, 1), (1, 19, 20, 31, 1), (1, 70, 20, 1, 1),
 K7_CASES = [(11, 37, 13, 0), (11, 37, 13, 1), (13, 33, 13, 1), (7, 23, 7, 0),
             (7, 23, 7, 1), (3, 13, 13, 1), (3, 9, 1, 1), (30, 20, 6, 1)]
 
-# case, N (eight_point_fit): 8-point systems of 8 to 12 rows, N one
-# matrix, a last block of 13 and of 1, and two full blocks; a repeated
-# eigenvalue above a single smallest one and a repeated smallest one;
-# zero-weight rows (a null space of 2 to 4 dimensions); NaN and ±inf
-# entries among finite systems; the identity and 4·I
+# case, N (eight_point_fit, three matrices a block): 8-point systems of 8
+# to 12 rows, N one matrix, whole blocks (45, 33) and a last block of one
+# (64) and of two (11); a repeated eigenvalue above a single smallest one
+# and a repeated smallest one; zero-weight rows (a null space of 2 to 4
+# dimensions); NaN and ±inf entries among finite systems; the identity and
+# 4·I; systems scaled by 2^+40 and 2^-40
 EP_CASES = [(0, 1), (0, 45), (0, 33), (0, 64), (1, 45), (2, 45), (3, 45),
-            (4, 33)]
+            (4, 33), (5, 12), (0, 11)]
 
 @pytest.fixture(scope="module")
 def emulate(tmp_path_factory):
@@ -205,10 +208,12 @@ def test_emulated_ncc_corr(emulate, case):
 @pytest.mark.parametrize("case", EP_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_emulated_eight_point_fit(emulate, case):
     """eight_point_fit through its launcher: every output of a ragged last
-    block written and equal bit for bit to the per-matrix solve (the
-    staging); the eigenvector unit, in the smallest eigenspace (Rayleigh
-    quotient) and, where that eigenvalue is single, the f64 one up to sign;
-    F₂ the rank-2 projection of it; all NaN for a non-finite system, e₀e₀ᵀ
-    for the identity."""
+    block written; a second launch, and each matrix launched alone, equal
+    bit for bit to the batched launch (the warp's three matrices solve
+    together: a result depends on no neighbour, place or N); the
+    eigenvector unit, in the smallest eigenspace (Rayleigh quotient) and,
+    where that eigenvalue is single, the f64 one up to sign; F₂ the rank-2
+    projection of it; all NaN for a non-finite system, e₀e₀ᵀ for the
+    identity; the same on systems scaled by 2^±40."""
     done = emulate("ep", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]
