@@ -100,18 +100,18 @@ Phases, one line each, any failure raises (exit code != 0):
                eight_point_fit (RANSAC's 8-point solve) once a frame and
                no other kernel; eager (eager=True, `[loop]`): frames/s of
                the median of three runs, device ms a frame of the VSS, the
-               query and the fusion and the card's busy share
-               (torch.profiler, 8 frames); one eager frame under
-               torch.cuda.set_sync_debug_mode("error"); then replayed
+               query and the fusion (torch.profiler, 8 frames); one
+               eager frame under torch.cuda.set_sync_debug_mode("error");
+               then replayed
                (run_online's default on the card: one frame captured as
                a CUDA graph, the ring's store used in place; `[loop_graph]`):
                three runs from the same generator state, the last equal to
                the last eager run bit for bit (every LoopStepOut field, x,
                P and every database field), frames/s beside eager's,
                capture_s (captured for each call: the ring is the
-               caller's), busy over a profiled 128-frame call, the peak
-               device memory each route's run adds. The first 3
-               frames and one query against the warm DB on the card vs
+               caller's), device ms a frame of a profiled 128-frame
+               call, the peak device memory each route's run adds. The
+               first 3 frames and one query against the warm DB on the card vs
                the CPU: descriptor cosine >= 1 - 1e-5, keypoints, candidates
                and gate decisions equal (the kernel against LAPACK; inlier
                counts printed). eight_point_fit on that query's 1,792
@@ -167,7 +167,7 @@ Phases, one line each, any failure raises (exit code != 0):
                (every step crops): 3 warm-up steps, then three timed
                windows of 7 steps (steps/s and images/s, median and
                spread), one profiled step (device ms of augment, forward,
-               optimizer, the backward the rest; busy), the peak of
+               optimizer, the backward the rest), the peak of
                max_memory_allocated; every metric finite, the last five
                steps' mean loss below the first five's, every weight and
                running statistic moved. One step at width 8, 48x64,
@@ -1261,8 +1261,8 @@ def loop_inputs(dev):
 def range_device_ms(fn, ranges=LOOP_RANGES) -> dict:
     """fn() once unprofiled for its wall ms, once under torch.profiler:
     device ms of each range in `ranges` (the kernels of the ops inside
-    it) and of all kernels (the ranges' own device annotations left out,
-    which span their kernels)."""
+    it) and of all device operations (a span's host range leaves no event
+    on the device: utils/metrics.py)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -1277,8 +1277,7 @@ def range_device_ms(fn, ranges=LOOP_RANGES) -> dict:
     by_kernel = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            if e.name not in out:
-                by_kernel[e.name[:60]] += e.device_time
+            by_kernel[e.name[:60]] += e.device_time
         elif e.name in out:
             out[e.name] += e.device_time_total
     return {**{r: v / 1e3 for r, v in out.items()},
@@ -1411,7 +1410,6 @@ def check_loop(dev, card: str, report: dict) -> dict:
                               f"{B * T / min(seconds):.2f}",
           **split,
           device_ms_per_frame=f"{prof['device'] / LOOP_PROFILE_FRAMES:.4f}",
-          busy=f"{prof['device'] / prof['wall']:.3f}",
           declared=int(out.declared.sum()),
           launches=json.dumps({k: v for k, v in launches.items() if v},
                               separators=(",", ":")), card=repr(card))
@@ -1446,7 +1444,6 @@ def check_loop(dev, card: str, report: dict) -> dict:
           capture_s=f"{capture_s:.3f}",
           replay_frames_per_s_after_capture=(
               f"{B * T / (r_med - capture_s):.2f}"),
-          busy=f"{r_prof['device'] / r_prof['wall']:.3f}",
           device_ms_per_frame=f"{r_prof['device'] / T:.4f}",
           peak_gb_eager=f"{peak_e:.3f}", peak_gb_replay=f"{peak_r:.3f}",
           bitwise="true", sync_free_eager_frame="true",
@@ -1853,7 +1850,6 @@ def check_training(dev, card: str, report: dict) -> None:
           backward_ms=f"{backward:.2f} (the rest: autograd's thread)",
           optimizer_ms=f"{prof['train.optimizer']:.2f}",
           wall_ms=f"{prof['wall']:.2f}",
-          busy=f"{prof['device'] / prof['wall']:.3f}",
           peak_gb=f"{peak / 1e9:.3f}",
           loss_first5=f"{first:.4f}", loss_last5=f"{last:.4f}",
           moved=f"{moved_params} params, {moved_stats} statistics",
@@ -2065,7 +2061,6 @@ def check_bf16_training(dev, card: str, frames) -> None:
               spread_steps_per_s=f"{min(rates):.3f}-{max(rates):.3f}",
               median_images_per_s=f"{med * tcfg.batch_size:.2f}",
               device_ms_per_step=f"{prof['device']:.2f}",
-              busy=f"{prof['device'] / prof['wall']:.3f}",
               peak_gb=f"{peak / 1e9:.3f}",
               loss_last=f"{float(history[-1]['loss']):.4f}",
               card=repr(card))

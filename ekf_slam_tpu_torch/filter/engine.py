@@ -53,6 +53,7 @@ from ekf_slam_tpu_torch.filter.state import FIELDS, FilterState
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.sim.scene import FrameObs
+from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,75 +396,91 @@ def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
                cfg: EngineConfig):
     """The full SLAM frame with all covariance work in K1-K3; the same
     math stage by stage as the JAX engine.step_fused (engine.py:371-479).
-    Returns (new_state, StepInfo)."""
+    Each numbered section below runs in its span (utils/metrics.py SPANS:
+    sim.manage_predict, sim.linearize_ic, sim.ransac, sim.li_update,
+    sim.hi_rescue, sim.hi_update, sim.init), with device marks on a CUDA
+    state. Returns (new_state, StepInfo)."""
     f = cfg.filter
     B, cap = state.active.shape
     D = state.x.shape[1]
-    z, z_valid = gather_measurements(state, obs)
+    dev = state.x.device
 
     # -- 1+2. map management + EKF prediction (P transforms in K1) ----------
-    mp = mapman.manage_params(state, cfg)
-    state_m = mp.state
-    xv = state_m.x[:, :CAM_DIM]             # camera block: manage-invariant
-    F = motion.dfv_by_dxv(xv, f)
-    Q = motion.process_noise(xv, f)
-    x_prior = torch.cat([motion.fv(xv, f), state_m.x[:, CAM_DIM:]], dim=1)
+    with trace_annotation("sim.manage_predict", dev):
+        mp = mapman.manage_params(state, cfg)
+        state_m = mp.state
+        xv = state_m.x[:, :CAM_DIM]         # camera block: manage-invariant
+        F = motion.dfv_by_dxv(xv, f)
+        Q = motion.process_noise(xv, f)
+        x_prior = torch.cat([motion.fv(xv, f), state_m.x[:, CAM_DIM:]],
+                            dim=1)
 
     # -- 3. linearization at the prior, IC gates from K1's gain columns -----
-    h, visible, H_xv, H_y = _linearize(x_prior, state_m, cfg)
-    Ht = measurement.dense_Ht(H_xv, H_y, visible)                 # (B,D,2CAP)
-    P_prior, pht_flat = kernels.fused_manage_predict_pht(
-        state.P, mp.keep_f, mp.E6, mp.U6, mp.C66, F, Q, Ht)
-    S = measurement.innovation_covariances_from_pht(
-        pht_flat.reshape(B, D, cap, 2), H_xv, H_y, f.sigma_z)
-    ic = association.individually_compatible(z, z_valid, h, visible, S, cfg)
+    with trace_annotation("sim.linearize_ic", dev):
+        z, z_valid = gather_measurements(state, obs)
+        h, visible, H_xv, H_y = _linearize(x_prior, state_m, cfg)
+        Ht = measurement.dense_Ht(H_xv, H_y, visible)             # (B,D,2CAP)
+        P_prior, pht_flat = kernels.fused_manage_predict_pht(
+            state.P, mp.keep_f, mp.E6, mp.U6, mp.C66, F, Q, Ht)
+        S = measurement.innovation_covariances_from_pht(
+            pht_flat.reshape(B, D, cap, 2), H_xv, H_y, f.sigma_z)
+        ic = association.individually_compatible(z, z_valid, h, visible, S,
+                                                 cfg)
 
     # -- 4. 1-point RANSAC (gain columns re-used from K1) --------------------
-    li, support = ransac.run(x_prior, z, h, S, ic, state_m.cartesian, u, cfg,
-                             pht_flat)
+    with trace_annotation("sim.ransac", dev):
+        li, support = ransac.run(x_prior, z, h, S, ic, state_m.cartesian, u,
+                                 cfg, pht_flat)
 
     # -- 5. LI update: gain here, covariance tail + posterior P·Hᵀ in K2 ----
-    x_li, K_li, PHt_li = _compact_gain(x_prior, pht_flat, H_xv, H_y, z, h,
-                                       li, cfg)
-    Jq1 = quat.norm_jac(x_li[:, 3:7])
-    x_li = ekf._renormalized(x_li)
+    with trace_annotation("sim.li_update", dev):
+        x_li, K_li, PHt_li = _compact_gain(x_prior, pht_flat, H_xv, H_y, z,
+                                           h, li, cfg)
+        Jq1 = quat.norm_jac(x_li[:, 3:7])
+        x_li = ekf._renormalized(x_li)
 
     # -- 6. HI rescue from the posterior -------------------------------------
-    h2, vis2, H_xv2, H_y2 = _linearize(x_li, state_m, cfg)
-    Ht2 = measurement.dense_Ht(H_xv2, H_y2, vis2)
-    P_li, pht2_flat = kernels.fused_update_tail_pht(P_prior, K_li, PHt_li,
-                                                    Jq1, Ht2)
-    S_noR = measurement.innovation_covariances_from_pht(
-        pht2_flat.reshape(B, D, cap, 2), H_xv2, H_y2, 0.0)
-    hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
+    with trace_annotation("sim.hi_rescue", dev):
+        h2, vis2, H_xv2, H_y2 = _linearize(x_li, state_m, cfg)
+        Ht2 = measurement.dense_Ht(H_xv2, H_y2, vis2)
+        P_li, pht2_flat = kernels.fused_update_tail_pht(P_prior, K_li,
+                                                        PHt_li, Jq1, Ht2)
+        S_noR = measurement.innovation_covariances_from_pht(
+            pht2_flat.reshape(B, D, cap, 2), H_xv2, H_y2, 0.0)
+        hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li,
+                                                cfg)
 
     # -- 7. HI update: gain here, tail + feature-init growth in K3 ----------
-    x_hi, K_hi, PHt_hi = _compact_gain(x_li, pht2_flat, H_xv2, H_y2, z, h2,
-                                       hi, cfg)
-    Jq2 = quat.norm_jac(x_hi[:, 3:7])
-    x_fin = ekf._renormalized(x_hi)
+    with trace_annotation("sim.hi_update", dev):
+        x_hi, K_hi, PHt_hi = _compact_gain(x_li, pht2_flat, H_xv2, H_y2, z,
+                                           h2, hi, cfg)
+        Jq2 = quat.norm_jac(x_hi[:, 3:7])
+        x_fin = ekf._renormalized(x_hi)
 
     # -- 8. bookkeeping + feature init (P growth fused into K3) --------------
-    state2 = mapman.update_counters(state_m.replace(x=x_fin), visible, ic)
-    # The post-HI camera stripe (B, 13, D) — what K3 computes for rows
-    # 0:13 — from the stripe alone: sym-downdate, then the renorm transform.
-    stripe = P_li[:, :CAM_DIM] - 0.5 * (
-        K_hi[:, :CAM_DIM] @ PHt_hi.transpose(1, 2)
-        + PHt_hi[:, :CAM_DIM] @ K_hi.transpose(1, 2))
-    stripe = torch.cat([stripe[:, :3], Jq2 @ stripe[:, 3:7], stripe[:, 7:]],
-                       dim=1)
-    stripe = torch.cat([stripe[:, :, :3],
-                        stripe[:, :, 3:7] @ Jq2.transpose(1, 2),
-                        stripe[:, :, 7:]], dim=2)
-    n_ic = ic.sum(dim=1)
-    uvd, take, lm_ids = _init_candidates(state2, obs, n_ic, cfg)
-    ap, _ = mapman.add_params(stripe, state2, uvd, take, lm_ids, cfg)
-    P_fin = kernels.fused_update_tail_add(P_li, K_hi, PHt_hi, Jq2, ap.keep_f,
-                                          ap.E, ap.U, ap.C)
-    info = StepInfo(n_visible=visible.sum(dim=1), n_ic=n_ic,
-                    n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
-                    ransac_support=support,
-                    search_r_needed=P_fin.new_zeros(P_fin.shape[0]))
+    with trace_annotation("sim.init", dev):
+        state2 = mapman.update_counters(state_m.replace(x=x_fin), visible,
+                                        ic)
+        # The post-HI camera stripe (B, 13, D) — what K3 computes for rows
+        # 0:13 — from the stripe alone: sym-downdate, then the renorm
+        # transform.
+        stripe = P_li[:, :CAM_DIM] - 0.5 * (
+            K_hi[:, :CAM_DIM] @ PHt_hi.transpose(1, 2)
+            + PHt_hi[:, :CAM_DIM] @ K_hi.transpose(1, 2))
+        stripe = torch.cat([stripe[:, :3], Jq2 @ stripe[:, 3:7],
+                            stripe[:, 7:]], dim=1)
+        stripe = torch.cat([stripe[:, :, :3],
+                            stripe[:, :, 3:7] @ Jq2.transpose(1, 2),
+                            stripe[:, :, 7:]], dim=2)
+        n_ic = ic.sum(dim=1)
+        uvd, take, lm_ids = _init_candidates(state2, obs, n_ic, cfg)
+        ap, _ = mapman.add_params(stripe, state2, uvd, take, lm_ids, cfg)
+        P_fin = kernels.fused_update_tail_add(P_li, K_hi, PHt_hi, Jq2,
+                                              ap.keep_f, ap.E, ap.U, ap.C)
+        info = StepInfo(n_visible=visible.sum(dim=1), n_ic=n_ic,
+                        n_li=li.sum(dim=1), n_hi=hi.sum(dim=1),
+                        ransac_support=support,
+                        search_r_needed=P_fin.new_zeros(P_fin.shape[0]))
     return ap.state.replace(P=P_fin), info
 
 
@@ -502,12 +519,13 @@ def run_sequence(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
     JAX package's jitted scan); eager=True, or a CPU state, runs the eager
     loop of `step`, and eager=False without a card raises. Returns
     (final_state, camera trajectory (B, T, 13), StepInfo with (B, T)
-    fields)."""
-    if graph.replays(state.x.device, eager):
-        return frame_driver(state, obs_seq, u_seq, cfg)
-    traj, infos = [], []
-    for t in range(obs_seq.pixels.shape[0]):
-        state, info = step(state, obs_seq.frame(t), u_seq[t], cfg)
-        traj.append(state.x[:, :CAM_DIM])
-        infos.append(info)
-    return state, torch.stack(traj, dim=1), stack_infos(infos)
+    fields). Runs in the host span sim.run_sequence."""
+    with trace_annotation("sim.run_sequence"):
+        if graph.replays(state.x.device, eager):
+            return frame_driver(state, obs_seq, u_seq, cfg)
+        traj, infos = [], []
+        for t in range(obs_seq.pixels.shape[0]):
+            state, info = step(state, obs_seq.frame(t), u_seq[t], cfg)
+            traj.append(state.x[:, :CAM_DIM])
+            infos.append(info)
+        return state, torch.stack(traj, dim=1), stack_infos(infos)

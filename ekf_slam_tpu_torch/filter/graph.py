@@ -48,6 +48,10 @@ credited at each replay with the counts the captured frame made; the
 warm-up frames and the capture are set-up and leave the counts as they
 were. There is no fallback: a capture or replay that fails raises, and
 asking for capture without a CUDA device raises.
+
+Spans (utils/metrics.py): a frame runs in the span ``frame`` and its
+carry's copy in ``frame.carry``; on a CUDA device their device marks are
+captured with the frame and run at every replay.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ import torch
 
 from ekf_slam_tpu_torch.filter import ekf
 from ekf_slam_tpu_torch.ops import kernels
+from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
 WARMUP = 2
 MAX_CAPTURED = 8
@@ -106,15 +111,19 @@ class StaticFrame:
         self.carry = tuple(t if i in self.in_place else t.clone()
                            for i, t in enumerate(carry))
         self.inputs = tuple(t.clone() for t in inputs)
+        self.device = (*self.carry, *self.inputs)[0].device
         self.outputs = ()
         self.graph = None
         self.launches = {}
         self.capture_s = None
 
     def __call__(self) -> None:
-        """One frame over the static buffers (what capture records)."""
-        new, self.outputs = self.fn(self.carry, self.inputs)
-        _assign(self.carry, new)
+        """One frame over the static buffers (what capture records), in
+        the span ``frame``, the carry's copy in ``frame.carry``."""
+        with trace_annotation("frame", self.device):
+            new, self.outputs = self.fn(self.carry, self.inputs)
+            with trace_annotation("frame.carry", self.device):
+                _assign(self.carry, new)
 
     def load(self, carry) -> None:
         """`carry` into the carry buffers (as a frame's new carry is
@@ -141,7 +150,7 @@ class StaticFrame:
         into a CUDA graph. Leaves the carry buffers advanced (load resets
         them; the in-place ones are zeroed here) and the launch counts as
         they were."""
-        dev = (*self.carry, *self.inputs)[0].device
+        dev = self.device
         if dev.type != "cuda":
             raise ValueError(f"CUDA graph capture needs a CUDA device, "
                              f"got {dev}")

@@ -55,20 +55,22 @@ def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
     relative_pose=True fuses the 6-DoF pose constraint with noise scaled
     by the inlier count; False the 3-DoF position snap with the fixed
     `loop_sigma`. With a `mesh` db is this rank's block of a ring sharded
-    over its "data" axis (sharded_loopdb). The frame's phases are profiler
-    ranges ``loop.vss``, ``loop.query`` and ``loop.fusion``."""
+    over its "data" axis (sharded_loopdb). The frame's phases are the spans
+    ``loop.vss``, ``loop.query`` and ``loop.fusion`` (utils/metrics.py),
+    with device marks on x's device: captured with the frame, they mark
+    each phase of a replayed frame on the device timeline."""
     if mesh is not None:
         from ekf_slam_tpu_torch.parallel import sharded_loopdb as sdb
 
     @torch.no_grad()
     def frame(db: lc.LoopDatabase, x, P, images, draws=None,
               generator: Optional[torch.Generator] = None):
-        with trace_annotation("loop.vss"):
+        with trace_annotation("loop.vss", x.device):
             outs = model(images, descriptor_only=True)
             descr = outs["descriptor"]
             kps = kp_mod.kp_descriptor(outs["c5"])
         pose = torch.cat([x[:, 0:3], x[:, 3:7]], dim=1)
-        with trace_annotation("loop.query"):
+        with trace_annotation("loop.query", x.device):
             res = (lc.query(db, descr, kps, lcfg, draws, generator)
                    if mesh is None else
                    sdb.query(db, descr, kps, lcfg, mesh, draws=draws,
@@ -77,7 +79,7 @@ def make_frame_fn(model, lcfg: lc.LoopConfig, loop_sigma: float = 0.05,
                 is_hypothesis=res.is_hypothesis & (db.count >= lcfg.min_db))
             db, declared, match_slot, match_frame = lc.step_temporal(
                 db, res, lcfg)
-        with trace_annotation("loop.fusion"):
+        with trace_annotation("loop.fusion", x.device):
             if mesh is None:
                 slot = torch.clamp(match_slot, 0, db.pose.shape[1] - 1)
                 pose_j = torch.gather(db.pose, 1, slot[:, None, None].expand(

@@ -45,6 +45,7 @@ SIGNATURES = {
     "ekf_k8_corr_apply": [_P] * 4 + [_I] * 5 + [_P],
     "ekf_k8_corr_apply_rows": [_P] * 4 + [_I] * 6 + [_P],
     "ekf_eight_point_fit": [_P] * 3 + [_I] + [_P],
+    "ekf_span_mark": [_I, _I, _P],
 }
 
 

@@ -47,9 +47,8 @@ A/B       the path's driver over the 16 frames, legs in the order kernels,
           every run's seconds and the leg's median steps/s (B·16 / s).
 profile   the first PROFILE_FRAMES frames: their wall time
           unprofiled, then under torch.profiler the device time (sum of
-          the CUDA kernel events), the busy share (device time / unprofiled
-          wall), the device ops (kernels, copies, fills), the host time in
-          cudaLaunchKernel, the host's launches a frame (kernel launches,
+          the CUDA kernel events), the device ops (kernels, copies,
+          fills), the host time in cudaLaunchKernel, the host's launches a frame (kernel launches,
           cudaGraphLaunch, async copies and sets), the device time and calls of each of the
           port's own kernels (csrc/: k1p_kernel, K1's pass; k3_kernel,
           K2's pass (r = 0) and K3's; k3v_kernel, K1's and K3's prologue;
@@ -243,7 +242,7 @@ def device_profile(fn, frames: int) -> dict:
            for n, (t, c) in by_name.items()
            if (m := re.search(r"::(k[0-9][vp]?_kernel(?:<[^>]*>)?)\(", n))}
     return {"frames": frames, "wall_ms": wall * 1e3, "device_ms": device_ms,
-            "busy": device_ms / (wall * 1e3), "device_ops": ops,
+            "device_ops": ops,
             "device_ops_per_frame": ops / frames,
             "launch_host_ms": launch_host_us / 1e3,
             "host_launches_per_frame": sum(host_launches.values()) / frames,
@@ -313,7 +312,7 @@ def _measure(run, batch: int, result: dict) -> None:
         result["profile"][name] = p
         print(f"[profile] route={name} frames={nf} "
               f"wall_ms={p['wall_ms']:.2f} device_ms={p['device_ms']:.2f} "
-              f"busy={p['busy']:.3f} device_ops={p['device_ops']} "
+              f"device_ops={p['device_ops']} "
               f"launch_host_ms={p['launch_host_ms']:.2f} "
               f"host_launches_per_frame={p['host_launches_per_frame']:.2f} "
               f"port_kernels="

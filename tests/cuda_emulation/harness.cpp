@@ -19,6 +19,7 @@
 //   ./emulate ep f32 case N                    (eight_point_fit; case 0
 //       8-point systems, 1 repeated eigenvalues, 2 zero-weight rows, 3
 //       non-finite entries, 4 identity, 5 systems scaled by 2^±40)
+//   ./emulate span f32 id end                  (ekf_span_mark of spans.cu)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -32,10 +33,13 @@
 // Σ|w||tm| an offset, its patch variance to 1e-5 of the pair's Σwc² and
 // its energy to 1e-5 of itself; its windows start at odd 4-byte offsets.
 // eight_point_fit is held to itself (launched again, and each matrix
-// alone) and to an f64 Jacobi (run_ep's comment).
+// alone) and to an f64 Jacobi (run_ep's comment). A span mark must launch
+// the instance of its (id, end), and an (id, end) without one must launch
+// nothing and return an error.
 #include "eight_point.cu"
 #include "fused_cov.cu"
 #include "ncc.cu"
+#include "spans.cu"
 #include "unfused_cov.cu"
 
 #include <random>
@@ -830,6 +834,29 @@ bool run_ep(int kind, int N) {
          w_ray <= 1 && w_f2 <= 1 && w_vec <= 1;
 }
 
+// --- span marks (csrc/spans.cu) ---------------------------------------------
+
+int g_span = -1;  // 2·id + end of the last mark that ran
+
+template <int... I>
+void register_span(std::integer_sequence<int, I...>) {
+  ((g_kernels[reinterpret_cast<const void*>(&span_mark<I / 2, I % 2>)] =
+        [](void**) {
+          span_mark<I / 2, I % 2>();
+          g_span = I;
+        }),
+   ...);
+}
+
+bool run_span(int id, int end) {
+  register_span(std::make_integer_sequence<int, 2 * SPAN_IDS>());
+  const cudaError_t rc = ekf_span_mark(id, end, nullptr);
+  const bool valid = 0 <= id && id < SPAN_IDS && (end == 0 || end == 1);
+  const int want = valid ? 2 * id + end : -1;
+  printf("span rc=%d ran=%d want=%d\n", rc, g_span, want);
+  return valid ? rc == 0 && g_span == want : rc != 0 && g_span == -1;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -837,8 +864,8 @@ int main(int argc, char** argv) {
   const std::string kernel = argv[1], type = argv[2];
   std::vector<int> n;
   for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
-  const size_t want = kernel == "ep"   ? 2
-                      : kernel == "k4" ? 3
+  const size_t want = kernel == "ep" || kernel == "span" ? 2
+                      : kernel == "k4"                     ? 3
                       : kernel == "k7" ? 4
                                        : 5;
   if (n.size() != want) return 2;
@@ -860,6 +887,8 @@ int main(int argc, char** argv) {
     ok = !bf16 && run_k7(n[0], n[1], n[2], n[3]);
   else if (kernel == "ep")
     ok = !bf16 && run_ep(n[0], n[1]);
+  else if (kernel == "span")
+    ok = !bf16 && run_span(n[0], n[1]);
   else if (kernel == "k8s")
     ok = bf16 ? run_k8s<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k8s<float>(n[0], n[1], n[2], n[3], n[4]);

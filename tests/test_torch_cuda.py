@@ -1341,3 +1341,60 @@ def test_replayed_embed_equals_eager(card):
     again = evaluate.embed(model, imgs, 2, with_keypoints=True)
     assert graph.last_capture_s() == capture_s
     _same_bits([got[0], *got[1], again[0]], [want[0], *want[1], want[0]])
+
+
+@pytest.mark.cuda
+def test_replayed_sim_frame_marks_its_spans(card):
+    """The fused sim frame replayed under torch.profiler: each frame's 18
+    device marks (csrc/spans.cu, captured with the frame) carry the span
+    table's ids in the order the frame begins and ends them; the outputs
+    equal an unprofiled replay bit for bit; the device time of the seven
+    stage spans and frame.carry sums within 2% of the frame's; no span
+    leaves an event of its own name on the device."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from ekf_slam_tpu_torch.utils.metrics import SPANS
+    inner = ("sim.manage_predict", "sim.linearize_ic", "sim.ransac",
+             "sim.li_update", "sim.hi_rescue", "sim.hi_update", "sim.init",
+             "frame.carry")
+    ids = [SPANS.index(n) for n in inner]
+    frame_id = SPANS.index("frame")
+    one = ([(frame_id, 0)] + [m for i in ids for m in ((i, 0), (i, 1))]
+           + [(frame_id, 1)])
+    cfg, obs, st, u = _sequence("float32", fused_step="on")
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    T = obs.pixels.shape[0]
+    want = engine.run_sequence(st, obs, u, cfg)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = engine.run_sequence(st, obs, u, cfg)
+        torch.cuda.synchronize()
+    _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
+               [want[0].x, want[0].P, want[1], want[2].n_li])
+    device = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda d: d[1])
+    assert not {n for n, _, _ in device} & set(SPANS)
+    pattern = re.compile(r"\bspan_mark<(\d+), (\d+)>")
+    found = [(i, pattern.search(n)) for i, (n, _, _) in enumerate(device)]
+    marks = [(i, (int(m.group(1)), int(m.group(2))))
+             for i, m in found if m]
+    assert [m for _, m in marks] == one * T
+
+    def union_us(begin, end):
+        total, reach = 0.0, float("-inf")
+        for s, e in sorted((s, e) for n, s, e in device[begin + 1:end]
+                           if not pattern.search(n)):
+            total += max(0.0, e - max(s, reach))
+            reach = max(reach, e)
+        return total
+
+    for f in range(T):
+        at = {m: i for i, m in marks[f * 18:(f + 1) * 18]}
+        frame_us = union_us(at[frame_id, 0], at[frame_id, 1])
+        parts = sum(union_us(at[i, 0], at[i, 1]) for i in ids)
+        assert frame_us > 0 and abs(parts - frame_us) <= 0.02 * frame_us

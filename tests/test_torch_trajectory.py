@@ -163,9 +163,12 @@ def test_metrics_helpers_match_jax(tmp_path):
     assert bool(metrics.check_finite(torch.ones(3))[1])
     assert bool(jmetrics.check_finite(jnp.ones(3))[1])
     res = {}
-    with metrics.step_timer(res, "block"), metrics.trace_annotation("x"):
+    with metrics.step_timer(res, "block"), metrics.trace_annotation("frame"):
         sum(range(1000))
     assert res["block"] >= 0.0
+    with pytest.raises(ValueError, match="SPANS"):
+        with metrics.trace_annotation("x"):
+            pass
     logs = []
     for mod in (jmetrics, metrics):
         log = mod.MetricsLogger()
