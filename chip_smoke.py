@@ -39,7 +39,16 @@ Phases, one line each, any failure raises (exit code != 0):
                torch.baddbmm, on f32 operands), and the card's bound;
                x_bound and x_library are the kernel's time over each.
                eight_point_fit, whose operands exist only in phase 6, is
-               checked there (below)
+               checked there (below). The Newton gain's SPD inverse
+               (spd_inverse_newton) on the fused frame's S (n = 128, both
+               solves tiled to B = 1,024) and the fast frame's (n = 48,
+               B = 256): kernels.newton_error against the f64 plain
+               version (limit kernels.NEWTON_TOL) beside the f32 plain
+               iteration's, a second launch bit for bit, the instances
+               shifted by one as a planted fault; times of the kernel,
+               the plain version and the library call (the torch.matmul
+               iteration alone, from X0), the bound of its 40 products,
+               and its registers and spills from ptxas
   4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
@@ -64,7 +73,10 @@ Phases, one line each, any failure raises (exit code != 0):
                  image  descriptor matcher   K4 2x, K6 3x a frame
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
-               kernel launched 0 times; steps/s of the median of three
+               kernel launched 0 times, the Newton gain's kernel
+               NEWTON_PER_FRAME times a frame (its count under
+               "spd_inverse_newton"), no Newton solve on the card without
+               it (kernels.NEWTON_PLAIN); steps/s of the median of three
                timed runs (fused, (i), iekf, image NCC in its three warp
                forms, each form's beside "affine"'s: `[warp]`) or of one.
                Each path runs eager (eager=True: `[slice]`) and then
@@ -268,6 +280,7 @@ FUSED_SRC = "ekf_slam_tpu_torch/csrc/fused_cov.cu"
 UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
 NCC_SRC = "ekf_slam_tpu_torch/csrc/ncc.cu"
 EIGHT_POINT_SRC = "ekf_slam_tpu_torch/csrc/eight_point.cu"
+NEWTON_SRC = "ekf_slam_tpu_torch/csrc/newton_inverse.cu"
 PK = "ekf_slam_tpu/ops/pallas_kernels.py"
 # name -> (source, line of the TPU kernel's wrapper it replaces;
 # eight_point_fit: of XLA's eigh + svd in the JAX 8-point solve)
@@ -284,6 +297,7 @@ KERNELS = {
     "corr_apply_rows": (UNFUSED_SRC, f"{PK}:741"),
     "eight_point_fit": (EIGHT_POINT_SRC,
                         "ekf_slam_tpu/models/loopclosure.py:181"),
+    "spd_inverse_newton": (NEWTON_SRC, "ekf_slam_tpu/filter/ekf.py:599"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
 # is branchless: frame 0, with no features yet, launches as many.
@@ -304,6 +318,13 @@ PER_FRAME = {
     "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
     "fast_rows": {"corr_apply": 2},
 }
+# Newton gain solves a frame of each path (kernels.NEWTON_LAUNCHES on the
+# card): the LI and the HI update's, 2 on every path but the IEKF's, whose
+# LI update inverts by Cholesky.
+NEWTON_PER_FRAME = {"iekf": 1}
+# The Newton gain's sites in phase 3: the path its S comes from, and the
+# instances it is tiled to.
+NEWTON_SITES = {"fused": 1024, "fast": 256}
 SIM_PATHS = ("fused", "unfused", "unfused_pallas", "iekf")
 # The image path's three template-warp forms (VisionConfig.warp_distortion)
 WARP_PATHS = {"image": "affine", "image_exact": "exact",
@@ -569,6 +590,102 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
             "library_ms": library_ms, **norms}
 
 
+def ptxas_usage(symbol: str) -> dict:
+    """{template argument: "registers,spill bytes"} of each instantiation
+    of kernel `symbol` in the build's ptxas output (nvcc.log)."""
+    log = (_build.library_path().parent / "nvcc.log").read_text()
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(symbol + r"ILi(\d+)E", m.group(1))
+            cur = t.group(1) if t else None
+            if cur:
+                out[cur] = [None, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: f"{r},{sp}" for k, (r, sp) in sorted(out.items())}
+
+
+def newton_operands(inputs, batch) -> torch.Tensor:
+    """The Newton gain's S of a captured frame (capture_frame; its solves
+    stacked) tiled to `batch` instances."""
+    S = torch.cat([args[0] for args in inputs["spd_inverse_newton"]])
+    return S.repeat(-(-batch // S.shape[0]), 1, 1)[:batch].contiguous()
+
+
+def check_newton(S, site) -> dict:
+    """spd_inverse_newton on S (B,n,n) against its f64 plain version
+    (kernels.newton_error, limit kernels.NEWTON_TOL), the f32 plain
+    iteration's error beside it; a second launch bit for bit; CUDA-event
+    times of the kernel, the plain version and the library call (the 20
+    torch.matmul iterations alone, from the plain version's X₀); the bound
+    of the 40 products of 2n³ an instance; registers and spills of the
+    block it runs (n <= 64: nsi_kernel<64>, else <128>). The kernel on the
+    instances shifted by one must read > 100x the limit."""
+    name = "spd_inverse_newton"
+    B, n = S.shape[0], S.shape[-1]
+    out = kernels.spd_inverse_newton(S)
+    torch.cuda.synchronize()
+    err = kernels.newton_error(out, S)
+    plain = kernels.spd_inverse_newton_plain
+    plain_out = plain(S)
+    plain_err = kernels.newton_error(plain_out, S)
+    vs_plain = float((out - plain_out).abs().max())
+    if not torch.equal(_bits(out), _bits(kernels.spd_inverse_newton(S))):
+        raise AssertionError(f"{name} {site}: a second launch differs")
+    planted_fault(f"newton_instances_shifted_{site}",
+                  kernels.spd_inverse_newton(S.roll(1, 0).contiguous()), S,
+                  kernels.newton_error, kernels.NEWTON_TOL)
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
+    X0 = plain(S, 0)
+
+    def library():
+        X = X0
+        for _ in range(kernels.NEWTON_ITERS):
+            X = X @ (2.0 * eye - S @ X)
+        return X
+    ms = cuda_ms(lambda: kernels.spd_inverse_newton(S))
+    plain_ms = cuda_ms(lambda: plain(S))
+    library_ms = cuda_ms(library)
+    flops = B * 2 * kernels.NEWTON_ITERS * 2 * n ** 3
+    nbytes = 2 * S.numel() * S.element_size()
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = ("operations" if flops / PEAK_F32_FLOPS
+                >= nbytes / PEAK_BYTES else "bytes")
+    block = "64" if n <= 64 else "128"
+    regs = ptxas_usage("nsi_kernel").get(block, "none")
+    phase("kernel", name=name, site=site, shapes="x".join(map(str, S.shape)),
+          dtype="float32", newton_err=f"{err:.3e}",
+          plain_f32_newton_err=f"{plain_err:.3e}",
+          max_abs_diff_plain_f32=f"{vs_plain:.3e}",
+          err_limit=kernels.NEWTON_TOL, bitwise_rerun="true",
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          bound_by=bound_by, x_bound=f"{ms / bound_ms:.2f}",
+          x_plain=f"{ms / plain_ms:.2f}", x_library=f"{ms / library_ms:.2f}",
+          gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}",
+          block=f"nsi_kernel<{block}>", regs_spill_bytes=regs)
+    if not err <= kernels.NEWTON_TOL:
+        raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
+                             f"{kernels.NEWTON_TOL}")
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "site": site, "newton_err": err,
+            "plain_f32_newton_err": plain_err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "regs_spill_bytes": regs}
+
+
 def planted_fault(tag, got, ref, err_fn, limit=kernels.SCALED_TOL) -> None:
     """A kernel launched with a planted fault must read > 100x the limit."""
     fault = err_fn(got, ref)
@@ -695,9 +812,13 @@ def slice_gates(path, cfg, result, xs, track_limit) -> tuple:
 
 def timed_runs(path, run, runs) -> tuple:
     """`runs` timed runs of run(), each with the counts set to 0 just
-    before and read just after and held to PER_FRAME x FRAMES. Returns
-    (seconds of each, the counts, the last run's result)."""
+    before and read just after and held to PER_FRAME x FRAMES, the Newton
+    gain's kernel to NEWTON_PER_FRAME x FRAMES and its solves on the card
+    that launch no kernel (kernels.NEWTON_PLAIN) to 0. Returns (seconds of
+    each, the counts read after the last run with the Newton kernel's
+    under "spd_inverse_newton", the last run's result)."""
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
+    want_newton = NEWTON_PER_FRAME.get(path, 2) * FRAMES
     seconds = []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -707,10 +828,12 @@ def timed_runs(path, run, runs) -> tuple:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
-        if launches != want:
-            raise AssertionError(f"{path}: kernel launches {launches}, "
-                                 f"expected {want}")
-    return seconds, launches, result
+        newton = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
+        if launches != want or newton != (want_newton, 0):
+            raise AssertionError(f"{path}: kernel launches {launches} and "
+                                 f"Newton (launches, plain) {newton}, "
+                                 f"expected {want} and ({want_newton}, 0)")
+    return seconds, {**launches, "spd_inverse_newton": newton[0]}, result
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -767,7 +890,8 @@ def replayed_frame_profile(path) -> dict:
                                if e.device_type != DeviceType.CUDA)
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     names = {e.name for e in device}
-    want = sorted({s for k in PER_FRAME[path] for s in KERNEL_SYMBOLS[k]})
+    want = sorted({s for k in PER_FRAME[path] for s in KERNEL_SYMBOLS[k]}
+                  | {"nsi_kernel"})
     missing = [s for s in want if not any(s + "<" in n or s + "(" in n
                                           for n in names)]
     launched = sum(host[c] for c in LAUNCH_CALLS)
@@ -937,6 +1061,8 @@ def check_paths(dev, card: str) -> list:
     inputs = capture_frame(cfgs["fused"], st0, obs, u)
     for name in PER_FRAME["fused"]:
         report[name] = check_kernel(name, inputs[name][-1])
+    newton = {"fused": check_newton(newton_operands(
+        inputs, NEWTON_SITES["fused"]), "fused")}
     args = inputs["fused_manage_predict_pht"][-1]
     planted_fault(
         "K1_without_Q",
@@ -996,7 +1122,7 @@ def check_paths(dev, card: str) -> list:
     # iterates' P·Hᵀ, then for the HI update's; K4 for the iterated
     # update's tail, then the HI one's.
     inputs = capture_frame(cfgs["iekf"], st0, obs, u)
-    calls = {k: len(v) for k, v in inputs.items()}
+    calls = {k: len(v) for k, v in inputs.items() if k in kernels.LAUNCHES}
     if calls != PER_FRAME["iekf"]:
         raise AssertionError(f"iekf frame: kernel calls {calls}, expected "
                              f"{PER_FRAME['iekf']}")
@@ -1058,6 +1184,8 @@ def check_paths(dev, card: str) -> list:
         kernels.scaled_error)
     with update_form("fast"):
         inputs = capture_frame(fcfgs["fast"], fst0, fobs, fu)
+    newton["fast"] = check_newton(newton_operands(
+        inputs, NEWTON_SITES["fast"]), "fast")
     check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0],
                  "ransac_PG_bf16")
     for name, site, args in (
@@ -1091,6 +1219,7 @@ def check_paths(dev, card: str) -> list:
                                                 icfgs[path])
 
     launches, image_counts, warp_rates = {}, {}, {}
+    newton_launches = None
     for path, runs in (("fused", 3), ("unfused", 3), ("unfused_pallas", 1),
                        ("iekf", 3), ("fast", 3), ("fast_rows", 3),
                        ("image", 3), ("image_exact", 3), ("image_none", 3),
@@ -1109,6 +1238,8 @@ def check_paths(dev, card: str) -> list:
                 image_counts = counts
             if path in WARP_PATHS:
                 warp_rates[WARP_PATHS[path]] = rate
+        if path == "fused":
+            newton_launches = counts["spd_inverse_newton"]
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
             if path == "iekf":
@@ -1124,6 +1255,9 @@ def check_paths(dev, card: str) -> list:
         # ncc_corr, on no path since the matcher takes the norms form: its
         # count in the image run, which run_slice held to 0
         k["launches"] = launches.get(name, image_counts[name])
+    report["spd_inverse_newton"] = {
+        **newton["fused"], "fast": newton["fast"],
+        "launches": newton_launches}
 
     # -- 5. one frame: CUDA vs CPU on each path, fused vs unfused on the card
     st8, _, _ = engine.run_sequence(st0, obs.window(0, 8), u[:8],

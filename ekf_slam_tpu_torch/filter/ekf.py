@@ -277,21 +277,14 @@ def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
     return Linv.transpose(-1, -2) @ Linv
 
 
-def _spd_inverse_newton(S: torch.Tensor, iters: int = 20) -> torch.Tensor:
+def _spd_inverse_newton(S: torch.Tensor) -> torch.Tensor:
     """SPD inverse by Newton-Schulz iteration X ← X(2I − SX) from the
     Jacobi-preconditioned start X₀ = D⁻¹/λ̂ (λ̂ the Gershgorin bound of
     D^-½ S D^-½), whose spectrum of S·X₀ lies in (0, 1]. The JAX solver
     runs 17 of its 20 iterations at the TPU's bf16 matmul precision; here
     every iteration runs at the tensors' own precision (IEEE f32 on the
-    card)."""
-    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
-    d = torch.diagonal(S, dim1=-2, dim2=-1)
-    d = torch.where(d > 0, d, torch.ones_like(d))
-    rsd = torch.rsqrt(d)
-    S_hat_rows = torch.sum(
-        torch.abs(S) * rsd[..., :, None] * rsd[..., None, :], dim=-1)
-    lam_up = torch.amax(S_hat_rows, dim=-1)
-    X = (eye / d[..., None, :]) / lam_up[..., None, None]
-    for _ in range(iters):
-        X = X @ (2.0 * eye - S @ X)
-    return X
+    card). kernels.spd_inverse_newton chooses by device, dtype and shape
+    alone: an f32 S (B,n,n) on the card with n <= kernels.NEWTON_MAX_N
+    runs in one launch of its kernel; any other S runs the batched
+    torch.matmul iteration, on the card counted in kernels.NEWTON_PLAIN."""
+    return kernels.spd_inverse_newton(S)

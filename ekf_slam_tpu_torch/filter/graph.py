@@ -43,11 +43,12 @@ as a ``piece`` and steps it itself, ``load``-ing a carry that host code
 changed; ``EagerFrame`` is the same interface without static buffers, so
 one host loop serves the eager route too.
 
-Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES`` is
-credited at each replay with the counts the captured frame made; the
-warm-up frames and the capture are set-up and leave the counts as they
-were. There is no fallback: a capture or replay that fails raises, and
-asking for capture without a CUDA device raises.
+Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES``,
+``kernels.NEWTON_LAUNCHES`` and ``kernels.NEWTON_PLAIN`` are credited at
+each replay with the counts the captured frame made; the warm-up frames
+and the capture are set-up and leave the counts as they were. There is
+no fallback: a capture or replay that fails raises, and asking for
+capture without a CUDA device raises.
 
 Spans (utils/metrics.py): a frame runs in the span ``frame`` and its
 carry's copy in ``frame.carry``; on a CUDA device their device marks are
@@ -115,6 +116,7 @@ class StaticFrame:
         self.outputs = ()
         self.graph = None
         self.launches = {}
+        self.newton = (0, 0)            # (NEWTON_LAUNCHES, NEWTON_PLAIN)
         self.capture_s = None
 
     def __call__(self) -> None:
@@ -143,6 +145,8 @@ class StaticFrame:
             self.graph.replay()
             for name, n in self.launches.items():
                 kernels.LAUNCHES[name] += n
+            kernels.NEWTON_LAUNCHES += self.newton[0]
+            kernels.NEWTON_PLAIN += self.newton[1]
         return self.outputs
 
     def capture(self, warmup: int = WARMUP) -> None:
@@ -156,6 +160,7 @@ class StaticFrame:
                              f"got {dev}")
         t0 = time.perf_counter()
         before = dict(kernels.LAUNCHES)
+        newton_before = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -163,6 +168,7 @@ class StaticFrame:
                 for _ in range(warmup):
                     self()
             warm = dict(kernels.LAUNCHES)
+            newton_warm = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side):
                 self()
@@ -170,8 +176,11 @@ class StaticFrame:
             self.launches = {k: v - warm[k]
                              for k, v in kernels.LAUNCHES.items()
                              if v != warm[k]}
+            self.newton = (kernels.NEWTON_LAUNCHES - newton_warm[0],
+                           kernels.NEWTON_PLAIN - newton_warm[1])
         finally:
             kernels.LAUNCHES.update(before)
+            kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN = newton_before
         self.graph = graph
         for i in self.in_place:
             self.carry[i].zero_()

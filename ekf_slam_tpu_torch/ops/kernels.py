@@ -28,6 +28,11 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
   torch.linalg.eigh / svd cannot be captured into a CUDA graph for):
      eight_point_fit          — each 9x9 system's smallest eigenvector,
                                 reshaped 3x3 and projected to rank 2
+  Newton gain (newton_inverse.cu; no Pallas kernel: it stands for XLA's
+  matmuls in the JAX package's ekf.py:599 _spd_inverse_newton):
+     spd_inverse_newton       — the SPD inverse by 20 Newton–Schulz
+                                iterations, S, X and 2I − S·X of an instance
+                                in one block's shared memory throughout
 
 Each wrapper takes batched tensors (leading instance axis B; K7 the pair
 axis N, eight_point_fit the matrix axis N). A tensor on the CPU goes to
@@ -38,11 +43,14 @@ bfloat16 P (FilterConfig.p_storage):
 those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
 ``LAUNCHES[name]`` counts calls of a wrapper that launched its kernel (K1
-launches three kernels a call, K2 and K3 two: one count). The kernels'
-size limits (the rank r ≤ 128 of K1's and K3's add; K1/K2's R, K3/K5's
-M2, K4's and K8's R and K6's N have none; K7 a window that fits shared
-memory) are checked by the launchers, which return cudaErrorInvalidValue
-(1).
+launches three kernels a call, K2 and K3 two: one count);
+``NEWTON_LAUNCHES`` counts spd_inverse_newton's apart (its time is the
+glue layer's: no FLOP count of it is kept beside those of LAUNCHES), and
+``NEWTON_PLAIN`` its calls on the card that launched no kernel. The
+kernels' size limits (the rank r ≤ 128 of K1's and K3's add; K1/K2's R,
+K3/K5's M2, K4's and K8's R and K6's N have none; K7 a window that fits
+shared memory) are checked by the launchers, which return
+cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -62,11 +70,18 @@ LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
             "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0,
             "eight_point_fit": 0}
+NEWTON_LAUNCHES = 0
+NEWTON_PLAIN = 0
+# spd_inverse_newton: its iterations, and the largest n its kernel takes.
+NEWTON_ITERS = 20
+NEWTON_MAX_N = 128
 
 
 def reset_launches() -> None:
+    global NEWTON_LAUNCHES, NEWTON_PLAIN
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    NEWTON_LAUNCHES = NEWTON_PLAIN = 0
 
 
 # --- plain versions ---------------------------------------------------------
@@ -242,6 +257,24 @@ def eight_point_fit_plain(M, eigvec: bool = False):
     return (F2, torch.where(finite, f, torch.nan)) if eigvec else F2
 
 
+def spd_inverse_newton_plain(S, iters: int = NEWTON_ITERS):
+    """SPD inverse by Newton-Schulz iteration X ← X(2I − SX) from the
+    Jacobi-preconditioned start X₀ = D⁻¹/λ̂ (λ̂ the Gershgorin bound of
+    D^-½ S D^-½), whose spectrum of S·X₀ lies in (0, 1]: batched
+    torch.matmul at the tensors' own precision. S (..., n, n)."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    d = torch.diagonal(S, dim1=-2, dim2=-1)
+    d = torch.where(d > 0, d, torch.ones_like(d))
+    rsd = torch.rsqrt(d)
+    S_hat_rows = torch.sum(
+        torch.abs(S) * rsd[..., :, None] * rsd[..., None, :], dim=-1)
+    lam_up = torch.amax(S_hat_rows, dim=-1)
+    X = (eye / d[..., None, :]) / lam_up[..., None, None]
+    for _ in range(iters):
+        X = X @ (2.0 * eye - S @ X)
+    return X
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
          "fused_update_tail_add": update_tail_add_plain,
@@ -252,7 +285,8 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "ncc_corr_norms": ncc_corr_norms_plain,
          "corr_apply": corr_apply_plain,
          "corr_apply_rows": corr_apply_rows_plain,
-         "eight_point_fit": eight_point_fit_plain}
+         "eight_point_fit": eight_point_fit_plain,
+         "spd_inverse_newton": spd_inverse_newton_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -358,6 +392,48 @@ def eight_point_rayleigh(f, M) -> float:
     unit = torch.finfo(torch.float32).eps * lam.abs().amax(1)
     return _held(((rq - lam[:, 0]) / unit.clamp_min(1e-300)).clamp_min(0),
                  f, finite)
+
+
+# Limit of newton_error, spd_inverse_newton in f32 against its f64 plain
+# version: Newton–Schulz settles where each step's rounding (ε relative to
+# ‖X‖·‖S‖·‖X‖) meets the residual's contraction, about κ·ε from the f64
+# iteration relative to X's own scale. The kernel reads up to 0.29 of
+# those units in the CPU emulation (tests/cuda_emulation, n 1-128,
+# condition 1e1-1e4; 0.29 at n = 1, where κ̂ = 1 and a unit is one ulp),
+# and 0.17-0.19 on a sim frame's S on an H100, as the f32 torch.matmul
+# iteration does; a wrong index, mask or edge reads O(1/(κ̂·ε)).
+NEWTON_TOL = 4.0
+
+
+def newton_error(W, S) -> float:
+    """spd_inverse_newton's output W (B,n,n) against the plain version in
+    f64 on S, X = spd_inverse_newton_plain(S.double()): each entry's
+    |W − X| in units of κ̂·ε₃₂·√(|X_ii|·|X_jj|) (the Cauchy–Schwarz bound
+    of an entry of an SPD inverse), κ̂ = ‖Ŝ‖_∞·‖X̂‖_∞ of the
+    Jacobi-scaled Ŝ = D^-½·S·D^-½ and X̂ = D^½·X·D^½ (d not > 0 replaced
+    by 1, as the solver does): the condition the iteration sees. Where X
+    is NaN, W must be NaN, where X is ±inf not finite (else inf); an
+    instance with a non-finite X is held to that alone."""
+    Sd = S.double()
+    X = spd_inverse_newton_plain(Sd)
+    d = torch.diagonal(Sd, dim1=1, dim2=2)
+    d = torch.where(d > 0, d, torch.ones_like(d))
+    sq = torch.sqrt(d[:, :, None] * d[:, None, :])
+    kappa = ((Sd.abs() / sq).sum(2).amax(1)
+             * (X.abs() * sq).sum(2).amax(1))[:, None, None]
+    xd = torch.diagonal(X, dim1=1, dim2=2).abs()
+    unit = kappa * torch.finfo(torch.float32).eps * torch.sqrt(
+        xd[:, :, None] * xd[:, None, :])
+    Wd = W.double()
+    diff = (Wd - X).abs()
+    err = torch.where(diff == 0, torch.zeros_like(diff), diff / unit)
+    held = torch.isfinite(X).flatten(1).all(1)[:, None, None]
+    err = torch.where(held, err, torch.zeros_like(err))
+    miss = ((torch.isnan(X) & ~torch.isnan(Wd))
+            | (torch.isinf(X) & torch.isfinite(Wd))
+            | (~held & torch.isfinite(X) & ~torch.isfinite(Wd)))
+    err = torch.where(miss | torch.isnan(err), torch.inf, err)
+    return float(err.max()) if err.numel() else 0.0
 
 
 def bf16_ulp(ref):
@@ -488,11 +564,15 @@ def _check(name, shapes: dict, tensors: dict, bf16=()):
     return False
 
 
-def _run(name, fn, *args):
+def _launch(name, fn, *args):
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err} (1: a size outside the kernel's limits)")
+
+
+def _run(name, fn, *args):
+    _launch(name, fn, *args)
     LAUNCHES[name] += 1
 
 
@@ -695,6 +775,32 @@ def eight_point_fit(M, eigvec: bool = False):
     _run(name, lib.ekf_eight_point_fit, M.data_ptr(), out.data_ptr(),
          0 if f is None else f.data_ptr(), N)
     return (out, f) if eigvec else out
+
+
+def spd_inverse_newton(S):
+    """S (B,n,n). Returns spd_inverse_newton_plain(S) (B,n,n). On the card
+    an f32 S with n <= NEWTON_MAX_N takes one kernel launch (one block an
+    instance, every iteration in shared memory, ascending-k FFMA chains:
+    deterministic, and an instance's bits do not depend on its batch),
+    counted in NEWTON_LAUNCHES, not in LAUNCHES; where the plain version
+    is NaN for a non-finite S (λ̂ NaN), so is the kernel. Any other S on
+    the card (f64, or n past what shared memory holds) takes the plain
+    version's batched torch.matmul iteration, counted in NEWTON_PLAIN."""
+    global NEWTON_LAUNCHES, NEWTON_PLAIN
+    name = "spd_inverse_newton"
+    Bn, n = S.shape[0], S.shape[-1]
+    if S.is_cuda and (S.dtype != torch.float32 or n > NEWTON_MAX_N):
+        NEWTON_PLAIN += 1
+        return spd_inverse_newton_plain(S)
+    if not _check(name, {"S": (Bn, n, n)}, dict(S=S)):
+        return spd_inverse_newton_plain(S)
+    W = torch.empty_like(S)
+    if Bn == 0:
+        return W
+    _launch(name, _build.load().ekf_spd_inverse_newton, S.data_ptr(),
+            W.data_ptr(), Bn, n)
+    NEWTON_LAUNCHES += 1
+    return W
 
 
 def _ncc_operands(name, windows, tm):

@@ -1,7 +1,8 @@
 // Runs K1 (fused_manage_predict_pht), K2 (fused_update_tail_pht) or K3/K5
 // (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, K4
 // (corr_apply_cols), K6 (f32_matmul_big) or K8 (corr_apply) of
-// csrc/unfused_cov.cu (and K8's row-slab form), or K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu on
+// csrc/unfused_cov.cu (and K8's row-slab form), K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu
+// or spd_inverse_newton of csrc/newton_inverse.cu on
 // the CPU through the stand-in headers beside this file, on random
 // operands, and holds the result against a plain f64 loop.
 //
@@ -20,6 +21,9 @@
 //       8-point systems, 1 repeated eigenvalues, 2 zero-weight rows, 3
 //       non-finite entries, 4 identity, 5 systems scaled by 2^±40)
 //   ./emulate span f32 id end                  (ekf_span_mark of spans.cu)
+//   ./emulate nsi f32 B n case                 (spd_inverse_newton; case 0
+//       SPD of condition 1e1 to 1e4, 1 a NaN entry, 2 an infinite entry,
+//       3 a non-positive diagonal entry)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -33,12 +37,15 @@
 // Σ|w||tm| an offset, its patch variance to 1e-5 of the pair's Σwc² and
 // its energy to 1e-5 of itself; its windows start at odd 4-byte offsets.
 // eight_point_fit is held to itself (launched again, and each matrix
-// alone) and to an f64 Jacobi (run_ep's comment). A span mark must launch
+// alone) and to an f64 Jacobi (run_ep's comment); spd_inverse_newton to an
+// f64 loop of the same 20 iterations and to each instance launched alone
+// (run_nsi's comment). A span mark must launch
 // the instance of its (id, end), and an (id, end) without one must launch
 // nothing and return an error.
 #include "eight_point.cu"
 #include "fused_cov.cu"
 #include "ncc.cu"
+#include "newton_inverse.cu"
 #include "spans.cu"
 #include "unfused_cov.cu"
 
@@ -834,6 +841,174 @@ bool run_ep(int kind, int N) {
          w_ray <= 1 && w_f2 <= 1 && w_vec <= 1;
 }
 
+// --- spd_inverse_newton (csrc/newton_inverse.cu) ----------------------------
+
+void register_nsi() {
+  g_kernels[reinterpret_cast<const void*>(nsi_kernel<64>)] = [](void** a) {
+    nsi_kernel<64>(*(const float**)a[0], *(float**)a[1], *(int*)a[2]);
+  };
+  g_kernels[reinterpret_cast<const void*>(nsi_kernel<128>)] = [](void** a) {
+    nsi_kernel<128>(*(const float**)a[0], *(float**)a[1], *(int*)a[2]);
+  };
+}
+
+// Q·diag(λ)·Qᵀ scaled by D on both sides (n x n, f64): Q orthogonal (Gram-
+// Schmidt on a random matrix), λ log-spaced from 1 to `cond`, D = e^z,
+// z ~ N(0, 1/4) (a diagonal spread the Jacobi start takes out).
+std::vector<double> nsi_spd(int n, double cond) {
+  std::vector<double> Q(n * n), S(n * n, 0.0), D(n);
+  for (auto& q : Q) q = rnd();
+  for (int j = 0; j < n; ++j) {
+    for (int k = 0; k < j; ++k) {
+      double d = 0;
+      for (int i = 0; i < n; ++i) d += Q[i * n + j] * Q[i * n + k];
+      for (int i = 0; i < n; ++i) Q[i * n + j] -= d * Q[i * n + k];
+    }
+    double nn = 0;
+    for (int i = 0; i < n; ++i) nn += Q[i * n + j] * Q[i * n + j];
+    for (int i = 0; i < n; ++i) Q[i * n + j] /= std::sqrt(nn);
+  }
+  for (int i = 0; i < n; ++i) D[i] = std::exp(0.5 * rnd());
+  for (int k = 0; k < n; ++k) {
+    const double lam = n == 1 ? 1.0 : std::pow(cond, double(k) / (n - 1));
+    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j)
+        S[i * n + j] += Q[i * n + k] * lam * Q[j * n + k];
+  }
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) S[i * n + j] *= D[i] * D[j];
+  return S;
+}
+
+// Instance b of case `kind`, rounded to f32: SPD of condition 10^(1 + b%4)
+// (kind 0); SPD of condition 1e2 but for instance 1, which has one NaN
+// entry (kind 1), or one +inf / −inf entry (kind 2, on and off the
+// diagonal), or a diagonal entry that is not > 0 (kind 3: on even b a row
+// and column zeroed, so d = 0 there, replaced by 1, and that entry of X
+// doubles each iteration; on odd b S_kk = −1, an indefinite S).
+void nsi_operand(int kind, int b, int n, float* S) {
+  const std::vector<double> A = nsi_spd(n, kind == 0 ? std::pow(10.0, 1 + b % 4)
+                                                     : 100.0);
+  for (int i = 0; i < n * n; ++i) S[i] = static_cast<float>(A[i]);
+  const int k = (3 * b + 1) % n, m = (5 * b + 2) % n;
+  if (kind == 1 && b == 1) S[k * n + m] = NAN;
+  if (kind == 2 && b == 1) S[k * n + m] = m % 2 ? INFINITY : -INFINITY;
+  if (kind == 3 && b % 2 == 0)
+    for (int i = 0; i < n; ++i) S[k * n + i] = S[i * n + k] = 0.f;
+  if (kind == 3 && b % 2 == 1) S[k * n + k] = -1.f;
+}
+
+// The plain version's function in f64 on one f32 S: the preconditioner
+// (d not > 0 replaced by 1, rsd = 1/√d, λ̂ the largest Gershgorin row sum,
+// NaN if any is), X₀ = (I / d) / λ̂, then 20 times X ← X·(2I − S·X).
+std::vector<double> nsi_f64(const float* S, int n) {
+  std::vector<double> d(n), rsd(n), X(n * n), T(n * n), Y(n * n);
+  for (int i = 0; i < n; ++i) {
+    d[i] = S[i * n + i] > 0 ? double(S[i * n + i]) : 1.0;
+    rsd[i] = 1 / std::sqrt(d[i]);
+  }
+  double lam = 0;
+  bool nan = false;
+  for (int i = 0; i < n; ++i) {
+    double s = 0;
+    for (int j = 0; j < n; ++j) s += std::abs(double(S[i * n + j])) * rsd[i] * rsd[j];
+    nan = nan || std::isnan(s);
+    lam = i == 0 || s > lam ? s : lam;
+  }
+  if (nan) lam = NAN;
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) X[i * n + j] = ((i == j ? 1.0 : 0.0) / d[j]) / lam;
+  for (int it = 0; it < NSI_ITERS; ++it) {
+    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j) {
+        double y = 0;
+        for (int k = 0; k < n; ++k) y += double(S[i * n + k]) * X[k * n + j];
+        T[i * n + j] = (i == j ? 2.0 : 0.0) - y;
+      }
+    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j) {
+        double y = 0;
+        for (int k = 0; k < n; ++k) y += X[i * n + k] * T[k * n + j];
+        Y[i * n + j] = y;
+      }
+    X.swap(Y);
+  }
+  return X;
+}
+
+// spd_inverse_newton on B instances of case `kind` (nsi_operand) through
+// the launcher. Each instance is held, first, to itself launched alone
+// (bit for bit: a block an instance, nothing shared between them); then to
+// the f64 loop X of the same function (nsi_f64): where X is NaN the kernel
+// is NaN, where X is ±inf the kernel is not finite, and where X is finite
+// each entry is within TOL·κ̂·ε·√(|X_ii|·|X_jj|) of it. Newton–Schulz
+// settles where each step's rounding, ε relative to ‖X‖·‖S‖·‖X‖, meets the
+// contraction of the residual, so the f32 iteration ends about κ·ε from
+// the f64 one, relative to X's own scale: κ̂ = ‖Ŝ‖_∞·‖X̂‖_∞ of the
+// Jacobi-scaled Ŝ = D^-½·S·D^-½ and X̂ = D^½·X·D^½ (the condition the
+// iteration sees; an instance with a non-finite X, or with ‖X̂‖_∞ past
+// 1e30, gets no κ̂ and is held to being finite, or not, alone), and
+// √(X_ii·X_jj) the Cauchy–Schwarz bound of an entry of an SPD inverse;
+// ε = 2⁻²³, TOL = 4 (at n = 1, κ̂ = 1, the f32 fixed point may sit up to
+// an ulp, one unit, from 1/s). A wrong index, mask or edge reads
+// O(1/(κ̂·ε)) there.
+// Every output starts at 1e30, so an entry left unwritten fails.
+bool run_nsi(int B, int n, int kind) {
+  register_nsi();
+  constexpr double EPS = 1.1920928955078125e-07, TOL = 4;
+  const size_t nn = size_t(n) * n;
+  std::vector<float> S(B * nn), W(B * nn, 1e30f);
+  for (int b = 0; b < B; ++b) nsi_operand(kind, b, n, S.data() + b * nn);
+  int rc = ekf_spd_inverse_newton(S.data(), W.data(), B, n, nullptr);
+  double worst = 0;
+  int alone = 0, bad = 0, nonfinite = 0;
+  for (int b = 0; b < B; ++b) {
+    const float* s = S.data() + b * nn;
+    const float* w = W.data() + b * nn;
+    std::vector<float> Wa(nn, 1e30f);
+    rc |= ekf_spd_inverse_newton(s, Wa.data(), 1, n, nullptr);
+    alone += std::memcmp(w, Wa.data(), nn * sizeof(float)) != 0;
+    const std::vector<double> X = nsi_f64(s, n);
+    bool finite = true;
+    for (size_t i = 0; i < nn; ++i) {
+      finite = finite && std::isfinite(X[i]);
+      if (std::isnan(X[i])) bad += !std::isnan(w[i]);
+      else if (!std::isfinite(X[i])) bad += std::isfinite(w[i]);
+    }
+    nonfinite += !finite;
+    std::vector<double> d(n);
+    for (int i = 0; i < n; ++i) d[i] = s[i * n + i] > 0 ? double(s[i * n + i]) : 1.0;
+    double sh = 0, xh = 0;
+    for (int i = 0; i < n; ++i) {
+      double rs = 0, rx = 0;
+      for (int j = 0; j < n; ++j) {
+        rs += std::abs(double(s[i * n + j])) / std::sqrt(d[i] * d[j]);
+        rx += std::abs(X[i * n + j]) * std::sqrt(d[i] * d[j]);
+      }
+      sh = std::max(sh, rs);
+      xh = std::max(xh, rx);
+    }
+    const bool held = finite && xh <= 1e30;
+    for (size_t i = 0; i < nn; ++i) {
+      if (!std::isfinite(X[i])) continue;
+      const int r = i / n, c = i % n;
+      const double diff = std::abs(double(w[i]) - X[i]);
+      if (!held) {
+        bad += !std::isfinite(w[i]);
+        continue;
+      }
+      const double lim = TOL * sh * xh * EPS *
+                         std::sqrt(std::abs(X[r * n + r] * X[c * n + c]));
+      worst = std::max(worst, std::isnan(diff) ? 1e9
+                              : diff == 0     ? 0.0
+                                              : diff / lim);
+    }
+  }
+  printf("nsi rc=%d blocks=%ld alone=%d bad=%d nonfinite=%d worst=%.3f of "
+         "the limit\n", rc, g_blocks, alone, bad, nonfinite, worst);
+  return rc == 0 && alone == 0 && bad == 0 && worst <= 1;
+}
+
 // --- span marks (csrc/spans.cu) ---------------------------------------------
 
 int g_span = -1;  // 2·id + end of the last mark that ran
@@ -865,7 +1040,7 @@ int main(int argc, char** argv) {
   std::vector<int> n;
   for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
   const size_t want = kernel == "ep" || kernel == "span" ? 2
-                      : kernel == "k4"                     ? 3
+                      : kernel == "k4" || kernel == "nsi"  ? 3
                       : kernel == "k7" ? 4
                                        : 5;
   if (n.size() != want) return 2;
@@ -889,6 +1064,8 @@ int main(int argc, char** argv) {
     ok = !bf16 && run_ep(n[0], n[1]);
   else if (kernel == "span")
     ok = !bf16 && run_span(n[0], n[1]);
+  else if (kernel == "nsi")
+    ok = !bf16 && run_nsi(n[0], n[1], n[2]);
   else if (kernel == "k8s")
     ok = bf16 ? run_k8s<__nv_bfloat16>(n[0], n[1], n[2], n[3], n[4])
               : run_k8s<float>(n[0], n[1], n[2], n[3], n[4]);

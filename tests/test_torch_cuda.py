@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K8 and eight_point_fit on the card,
-against their plain versions, and one frame of each engine path and of the
+"""The hand-written CUDA kernels K1-K8, eight_point_fit and
+spd_inverse_newton on the card, against their plain versions, and one frame of each engine path and of the
 image path on the card against the same frame on the CPU; also the
 Cholesky inverse on indefinite S, one CALC2 train step, card vs CPU, and
 the replayed frames (engine, image path, run_online) against eager.
@@ -1398,3 +1398,132 @@ def test_replayed_sim_frame_marks_its_spans(card):
         frame_us = union_us(at[frame_id, 0], at[frame_id, 1])
         parts = sum(union_us(at[i, 0], at[i, 1]) for i in ids)
         assert frame_us > 0 and abs(parts - frame_us) <= 0.02 * frame_us
+
+
+# --- the Newton gain's SPD inverse (csrc/newton_inverse.cu) ----------------
+
+@pytest.fixture(scope="module")
+def newton_operands():
+    """{n: S (B, n, n) f32 on the card}: the Newton gain's S of frame 2 at
+    the sim bench's config (profile_slice: CAP 100, 128 instances), from
+    the fused step (n = 2·64 = 128, its two solves stacked and tiled to
+    B = 1,024) and from the bf16 fast mode's column form (n = 2·24 = 48,
+    tiled to B = 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from ekf_slam_tpu_torch import profile_slice as ps
+    dev = torch.device("cuda")
+    out = {}
+    for path, scene, B_ in (("fused", 0, 1024), ("fast", ps.FAST_SCENE,
+                                                 256)):
+        cfg = ps.slice_config(path)
+        st0, _, obs, u = ps.slice_inputs(cfg, dev, batch=128, frames=3,
+                                         scene=scene)
+        with ps.update_form(path):
+            st, _, _ = engine.run_sequence(st0, obs.window(0, 2), u[:2],
+                                           cfg, eager=True)
+            with kernels.capture_operands() as calls:
+                engine.step(st, obs.frame(2), u[2], cfg)
+        S = torch.cat([args[0] for args in calls["spd_inverse_newton"]])
+        out[S.shape[-1]] = S.repeat(B_ // S.shape[0] + 1, 1, 1)[:B_] \
+            .contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 48])
+def test_cuda_spd_inverse_newton_matches_plain(card, newton_operands, n):
+    """The kernel on a real frame's S (B = 1,024 at n = 128, 256 at 48)
+    against the plain version in f64, each entry within NEWTON_TOL of its
+    κ̂·ε·√(X_ii·X_jj) (kernels.newton_error); no worse than the f32 plain
+    iteration (cuBLAS) against the same reference, within the limit; one
+    launch counted in NEWTON_LAUNCHES, none in LAUNCHES or NEWTON_PLAIN."""
+    S = newton_operands[n]
+    kernels.reset_launches()
+    W = kernels.spd_inverse_newton(S)
+    torch.cuda.synchronize()
+    assert kernels.NEWTON_LAUNCHES == 1 and kernels.NEWTON_PLAIN == 0
+    assert not any(kernels.LAUNCHES.values())
+    assert W.dtype == torch.float32 and W.shape == S.shape
+    err = kernels.newton_error(W, S)
+    plain = kernels.newton_error(kernels.spd_inverse_newton_plain(S), S)
+    assert err <= kernels.NEWTON_TOL, (err, plain)
+    assert plain <= kernels.NEWTON_TOL, plain
+    assert kernels.NEWTON_LAUNCHES == 1
+
+
+@pytest.mark.cuda
+def test_cuda_spd_inverse_newton_is_deterministic(card, newton_operands):
+    """Launched twice, the same bits; an instance alone, or in a batch of
+    another size, the same bits as in the full batch; through
+    ekf._spd_inverse_newton the wrapper's bits, and each call one count."""
+    S = newton_operands[128]
+    kernels.reset_launches()
+    a = kernels.spd_inverse_newton(S)
+    b = kernels.spd_inverse_newton(S)
+    c = ekf._spd_inverse_newton(S)
+    _same_bits([a, a], [b, c])
+    assert kernels.NEWTON_LAUNCHES == 3
+    _same_bits([kernels.spd_inverse_newton(S[5:6].contiguous())[0],
+                kernels.spd_inverse_newton(S[:37].contiguous())[20]],
+               [a[5], a[20]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 33, 64, 65, 127])
+def test_cuda_spd_inverse_newton_takes_every_n(card, n):
+    """Both blocks (n <= 64, n > 64) at n below and ragged against one k
+    chunk, on SPD S of condition up to ~1e3, and NaN where the plain
+    version is NaN (a NaN and an infinite entry)."""
+    g = torch.Generator().manual_seed(n)
+    A = torch.randn(6, n, n, generator=g, dtype=torch.float64)
+    D = torch.exp(0.5 * torch.randn(6, n, generator=g, dtype=torch.float64))
+    S = A @ A.transpose(1, 2) / n + 1e-3 * torch.eye(n, dtype=torch.float64)
+    S = (D[:, :, None] * S * D[:, None, :]).float()
+    S[1, 0, n - 1] = float("nan")
+    S[4, n // 2, n // 2] = float("inf")
+    S = S.to(card)
+    W = kernels.spd_inverse_newton(S)
+    assert kernels.newton_error(W, S) <= kernels.NEWTON_TOL
+    nan = torch.isnan(W).flatten(1).all(1).cpu()
+    assert nan.tolist() == [False, True, False, False, True, False]
+
+
+@pytest.mark.cuda
+def test_cuda_spd_inverse_newton_falls_back_by_shape_and_dtype(card):
+    """The wrapper and ekf._spd_inverse_newton on the card: n = 160 (past
+    the kernel's 128) and an f64 S take the batched torch.matmul iteration
+    (the plain version, bit for bit), each call counted in NEWTON_PLAIN,
+    none in NEWTON_LAUNCHES."""
+    g = torch.Generator().manual_seed(3)
+    for n, dtype in ((160, torch.float32), (48, torch.float64)):
+        A = torch.randn(4, n, n, generator=g, dtype=torch.float64)
+        S = (A @ A.transpose(1, 2) / n
+             + torch.eye(n, dtype=torch.float64)).to(card, dtype)
+        kernels.reset_launches()
+        plain = kernels.spd_inverse_newton_plain(S)
+        _same_bits([ekf._spd_inverse_newton(S),
+                    kernels.spd_inverse_newton(S)], [plain, plain])
+        assert kernels.NEWTON_LAUNCHES == 0 and kernels.NEWTON_PLAIN == 2
+
+
+@pytest.mark.cuda
+def test_replayed_sim_frame_counts_two_newton_launches(card):
+    """The fused frame with the Newton gain, captured: two solves a frame
+    (the LI and the HI update), so the replayed sequence counts 2 a frame
+    in NEWTON_LAUNCHES and none in NEWTON_PLAIN, as the eager one does,
+    and equals it bit for bit."""
+    from ekf_slam_tpu_torch.filter import graph
+    cfg, obs, st, u = _sequence("float32", fused_step="on",
+                                gain_solver="newton")
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    T = obs.pixels.shape[0]
+    kernels.reset_launches()
+    want = engine.run_sequence(st, obs, u, cfg, eager=True)
+    assert kernels.NEWTON_LAUNCHES == 2 * T
+    kernels.reset_launches()
+    got = engine.run_sequence(st, obs, u, cfg)
+    assert graph.last_captured().newton == (2, 0)
+    assert kernels.NEWTON_LAUNCHES == 2 * T and kernels.NEWTON_PLAIN == 0
+    _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
+               [want[0].x, want[0].P, want[1], want[2].n_li])

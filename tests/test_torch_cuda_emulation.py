@@ -1,6 +1,7 @@
 """K1, K2 and K3 / K5 of csrc/fused_cov.cu, K4, K6 and K8 (and K8's
-row-slab form) of csrc/unfused_cov.cu, K7 of csrc/ncc.cu (both forms) and
-eight_point_fit of csrc/eight_point.cu — the CUDA source itself — run on
+row-slab form) of csrc/unfused_cov.cu, K7 of csrc/ncc.cu (both forms),
+eight_point_fit of csrc/eight_point.cu and spd_inverse_newton of
+csrc/newton_inverse.cu — the CUDA source itself — run on
 the CPU: compiled by g++ against the
 stand-in headers of tests/cuda_emulation (one host thread a CUDA thread,
 __syncthreads a barrier, __syncwarp one of the warp's threads, shared
@@ -22,7 +23,11 @@ entry's own scale Σ|a||b| (f32 chains against f64), one bf16 ulp more on a
 bf16 output; K7's variance 1e-5 of its pair's Σwc²; eight_point_fit's
 eigenvector and F₂ 4 of their first-order f32 perturbation bounds against
 an f64 Jacobi, and bit for bit against itself launched again and each
-matrix alone (harness.cpp run_ep).
+matrix alone (harness.cpp run_ep); spd_inverse_newton's inverse each
+entry within 4·κ̂·ε·√(X_ii·X_jj) of an f64 loop of the same 20 iterations
+(κ̂ the Jacobi-scaled condition: where f32 Newton–Schulz settles), NaN
+where that loop is NaN, and bit for bit against each instance launched
+alone (harness.cpp run_nsi).
 
 Skips where no g++ with C++20's <barrier> is installed."""
 
@@ -93,6 +98,15 @@ K7_CASES = [(11, 37, 13, 0), (11, 37, 13, 1), (13, 33, 13, 1), (7, 23, 7, 0),
 # 4·I; systems scaled by 2^+40 and 2^-40
 EP_CASES = [(0, 1), (0, 45), (0, 33), (0, 64), (1, 45), (2, 45), (3, 45),
             (4, 33), (5, 12), (0, 11)]
+
+# B n case (spd_inverse_newton): both blocks (NP = 64 for n <= 64, 128
+# above), n below one k chunk of 4 and ragged against it (1, 2, 3, 127),
+# the fast mode's 48, each block full (64, 128); case 0 four SPD instances
+# of condition 1e1 to 1e4, cases 1-3 an SPD instance and one with a NaN
+# entry, an infinite entry, or a diagonal entry not > 0 (harness.cpp
+# nsi_operand)
+NSI_CASES = [(4 if case == 0 else 2, n, case)
+             for n in (1, 2, 3, 12, 48, 64, 127, 128) for case in range(4)]
 
 @pytest.fixture(scope="module")
 def emulate(tmp_path_factory):
@@ -216,4 +230,20 @@ def test_emulated_eight_point_fit(emulate, case):
     projection of it; all NaN for a non-finite system, e₀e₀ᵀ for the
     identity; the same on systems scaled by 2^±40."""
     done = emulate("ep", "f32", *case)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", NSI_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_emulated_spd_inverse_newton(emulate, case):
+    """spd_inverse_newton through its launcher: the preconditioner (d not
+    > 0 replaced by 1, the Gershgorin bound, NaN carried through its
+    maximum) and the 20 iterations against an f64 loop of the same
+    function, each entry within 4·κ̂·ε·√(X_ii·X_jj) (κ̂ the condition of
+    the Jacobi-scaled S: f32 Newton–Schulz settles about κ·ε from the f64
+    one, relative to X's own scale; the reason in full at harness.cpp
+    run_nsi); NaN where the f64 loop is NaN and not finite where it is
+    infinite; every entry written; each instance launched alone equal bit
+    for bit to its place in the batch."""
+    done = emulate("nsi", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]
