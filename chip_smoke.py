@@ -76,7 +76,9 @@ Phases, one line each, any failure raises (exit code != 0):
                kernel launched 0 times, the Newton gain's kernel
                NEWTON_PER_FRAME times a frame (its count under
                "spd_inverse_newton"), no Newton solve on the card without
-               it (kernels.NEWTON_PLAIN); steps/s of the median of three
+               it (kernels.NEWTON_PLAIN), the Cholesky gains
+               CHOLESKY_PER_FRAME times a frame (ekf.CHOLESKY_GAINS, under
+               "cholesky_gains": iekf 4); steps/s of the median of three
                timed runs (fused, (i), iekf, image NCC in its three warp
                forms, each form's beside "affine"'s: `[warp]`) or of one.
                Each path runs eager (eager=True: `[slice]`) and then
@@ -322,6 +324,9 @@ PER_FRAME = {
 # card): the LI and the HI update's, 2 on every path but the IEKF's, whose
 # LI update inverts by Cholesky.
 NEWTON_PER_FRAME = {"iekf": 1}
+# Cholesky gains a frame on the card (ekf.CHOLESKY_GAINS): the IEKF's 3
+# iterates and its last gain; none elsewhere (every path's gain is Newton).
+CHOLESKY_PER_FRAME = {"iekf": 4}
 # The Newton gain's sites in phase 3: the path its S comes from, and the
 # instances it is tiled to.
 NEWTON_SITES = {"fused": 1024, "fast": 256}
@@ -813,27 +818,35 @@ def slice_gates(path, cfg, result, xs, track_limit) -> tuple:
 def timed_runs(path, run, runs) -> tuple:
     """`runs` timed runs of run(), each with the counts set to 0 just
     before and read just after and held to PER_FRAME x FRAMES, the Newton
-    gain's kernel to NEWTON_PER_FRAME x FRAMES and its solves on the card
-    that launch no kernel (kernels.NEWTON_PLAIN) to 0. Returns (seconds of
-    each, the counts read after the last run with the Newton kernel's
-    under "spd_inverse_newton", the last run's result)."""
+    gain's kernel to NEWTON_PER_FRAME x FRAMES, its solves on the card
+    that launch no kernel (kernels.NEWTON_PLAIN) to 0 and the Cholesky
+    gains (ekf.CHOLESKY_GAINS) to CHOLESKY_PER_FRAME x FRAMES. Returns
+    (seconds of each, the counts read after the last run with the Newton
+    kernel's under "spd_inverse_newton" and the Cholesky gains' under
+    "cholesky_gains", the last run's result)."""
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
     want_newton = NEWTON_PER_FRAME.get(path, 2) * FRAMES
+    want_cholesky = CHOLESKY_PER_FRAME.get(path, 0) * FRAMES
     seconds = []
     for _ in range(runs):
         torch.cuda.synchronize()
         kernels.reset_launches()
+        ekf.CHOLESKY_GAINS = 0
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
         newton = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
-        if launches != want or newton != (want_newton, 0):
-            raise AssertionError(f"{path}: kernel launches {launches} and "
-                                 f"Newton (launches, plain) {newton}, "
-                                 f"expected {want} and ({want_newton}, 0)")
-    return seconds, {**launches, "spd_inverse_newton": newton[0]}, result
+        if (launches != want or newton != (want_newton, 0)
+                or ekf.CHOLESKY_GAINS != want_cholesky):
+            raise AssertionError(f"{path}: kernel launches {launches}, "
+                                 f"Newton (launches, plain) {newton} and "
+                                 f"Cholesky gains {ekf.CHOLESKY_GAINS}, "
+                                 f"expected {want}, ({want_newton}, 0) and "
+                                 f"{want_cholesky}")
+    return seconds, {**launches, "spd_inverse_newton": newton[0],
+                     "cholesky_gains": ekf.CHOLESKY_GAINS}, result
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,7 @@ from ekf_slam_tpu_torch.config import CAM_DIM, FilterConfig
 from ekf_slam_tpu_torch.filter import motion
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
+from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
 # The update layout of the unfused step (engine.step_core_from_prior):
 # "cols" (the default) updates from the gain columns P·Hᵀ (K6 products,
@@ -50,6 +51,11 @@ _UPDATE = os.environ.get("EKF_UPDATE", "cols")
 # K8's mode in update_rows: "expr" (the default), "full" or "none"
 # (kernels.corr_apply; the JAX package's ekf.py:158).
 _TAIL_SYM = os.environ.get("EKF_TAIL_SYM", "expr")
+# Cholesky gains (_spd_inverse) run on the card: cuSOLVER's batched factor
+# and cuBLAS's batched triangular solve, no kernel of the port's. Counted
+# like kernels.NEWTON_PLAIN (graph.StaticFrame credits a replay with its
+# frame's count): the IEKF's LI update makes num_iters + 1 a frame.
+CHOLESKY_GAINS = 0
 
 
 def p_compute(P: torch.Tensor) -> torch.Tensor:
@@ -190,6 +196,8 @@ def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
     measurements are masked here. z, row_mask, r_diag (B,M). Each P·Hᵀ
     (num_iters + 1 of them) is a K6 product on P as stored. S is always
     inverted by Cholesky, whatever the config's gain_solver, as in JAX.
+    The iterates that move only x run in the span iekf.iterate, the last
+    gain and the covariance tail in iekf.tail (device marks on a CUDA x).
     Returns (x_new, P_new in P's dtype)."""
     mask = row_mask.to(x.dtype)
     R = torch.diag_embed(torch.where(row_mask, r_diag,
@@ -203,12 +211,14 @@ def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
         return h, H, PHt, K
 
     xi = x
-    for _ in range(num_iters):
-        h, H, _, K = gain(xi)
-        nu = (z - h) * mask - (H @ (x - xi)[..., None])[..., 0]
-        xi = x + (K @ nu[..., None])[..., 0]
-    _, _, PHt, K = gain(xi)
-    return _update_tail(xi, P, K, PHt, use_pallas)
+    with trace_annotation("iekf.iterate", x.device):
+        for _ in range(num_iters):
+            h, H, _, K = gain(xi)
+            nu = (z - h) * mask - (H @ (x - xi)[..., None])[..., 0]
+            xi = x + (K @ nu[..., None])[..., 0]
+    with trace_annotation("iekf.tail", x.device):
+        _, _, PHt, K = gain(xi)
+        return _update_tail(xi, P, K, PHt, use_pallas)
 
 
 def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
@@ -270,7 +280,10 @@ def cholesky(S: torch.Tensor) -> torch.Tensor:
 
 def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
     """SPD inverse via Cholesky: S⁻¹ = L⁻ᵀ L⁻¹, L = cholesky(S); all NaN
-    where S is not positive definite."""
+    where S is not positive definite. On the card counted in
+    CHOLESKY_GAINS."""
+    global CHOLESKY_GAINS
+    CHOLESKY_GAINS += S.is_cuda
     L = cholesky(S)
     eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     Linv = torch.linalg.solve_triangular(L, eye.expand_as(S), upper=False)

@@ -29,6 +29,11 @@ Stage order per frame: manage → predict → linearize → IC gates → 1-point
 RANSAC → LI update → HI rescue → HI update → counters + feature init.
 Every stage is masked, so instances never branch apart; the only
 randomness is RANSAC's uniform draws, an input ``u`` (B, NHYP).
+Both forms run their stages in the spans sim.manage_predict,
+sim.linearize_ic, sim.ransac, sim.li_update, sim.hi_rescue, sim.hi_update
+and sim.init (utils/metrics.py SPANS; device marks on a CUDA state), the
+IEKF's iterates and its tail nested in sim.li_update as iekf.iterate and
+iekf.tail.
 
 Measurements come by ground-truth association from a ``FrameObs`` shared
 by all instances (the synthetic scene, sim/scene.py).
@@ -169,17 +174,21 @@ def step(state: FilterState, obs: FrameObs, u: torch.Tensor,
         return step_fused(state, obs, u, cfg)
     z, z_valid = gather_measurements(state, obs)
     state, _, ic, info = step_core(state, z, z_valid, u, cfg)
-    return initialize_features(state, obs, ic.sum(dim=1), cfg), info
+    with trace_annotation("sim.init", state.x.device):
+        state = initialize_features(state, obs, ic.sum(dim=1), cfg)
+    return state, info
 
 
 def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
               u: torch.Tensor, cfg: EngineConfig):
     """Stages 1-7 of the unfused frame given per-slot measurements
     (z (B,CAP,2), z_valid (B,CAP)): manage, predict, then
-    ``step_core_from_prior``. Returns (state, visible, ic, StepInfo)."""
+    ``step_core_from_prior``, manage and predict in the span
+    sim.manage_predict. Returns (state, visible, ic, StepInfo)."""
     check_ported(cfg)
-    state = mapman.manage(state, cfg)
-    x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
+    with trace_annotation("sim.manage_predict", state.x.device):
+        state = mapman.manage(state, cfg)
+        x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
     return step_core_from_prior(state, x_prior, P_prior, z, z_valid, u, cfg)
 
 
@@ -207,27 +216,38 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
     updates by _masked_update. Row form: each phase reads P once into the
     H·P rows of every visible slot, which give S, RANSAC's moves and
     _masked_update_rows' operand. With use_iterated_update the LI update
-    is the IEKF (_masked_update_iterated, column form only).
+    is the IEKF (_masked_update_iterated, column form only). The stages
+    run in the spans of step_fused's sections 3-7 (sim.linearize_ic,
+    sim.ransac, sim.li_update, sim.hi_rescue, sim.hi_update).
     Returns (state, visible, ic, StepInfo)."""
     f = cfg.filter
-    rows = _rows_mode(cfg, x_prior.device)
-    h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
-    S, hp = _phase_gates(P_prior, H_xv, H_y, visible, f.sigma_z, rows)
-    ic = association.individually_compatible(z, z_valid, h, visible, S, cfg)
-    vm = visible.to(H_xv.dtype)[..., None, None]
-    li, support = ransac.run(x_prior, z, h, S, ic, state.cartesian, u, cfg,
-                             P=P_prior, H_xv=H_xv * vm, H_y=H_y * vm, hp=hp)
-    if f.use_iterated_update:
-        x_post, P_post = _masked_update_iterated(x_prior, P_prior, z, li,
-                                                 state, cfg)
-    else:
-        x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y, z, h,
-                                       li, cfg)
-    h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
-    S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, rows)
-    hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li, cfg)
-    x_post, P_post = _phase_update(x_post, P_post, hp2, H_xv2, H_y2, z, h2,
-                                   hi, cfg)
+    dev = x_prior.device
+    rows = _rows_mode(cfg, dev)
+    with trace_annotation("sim.linearize_ic", dev):
+        h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
+        S, hp = _phase_gates(P_prior, H_xv, H_y, visible, f.sigma_z, rows)
+        ic = association.individually_compatible(z, z_valid, h, visible, S,
+                                                 cfg)
+    with trace_annotation("sim.ransac", dev):
+        vm = visible.to(H_xv.dtype)[..., None, None]
+        li, support = ransac.run(x_prior, z, h, S, ic, state.cartesian, u,
+                                 cfg, P=P_prior, H_xv=H_xv * vm,
+                                 H_y=H_y * vm, hp=hp)
+    with trace_annotation("sim.li_update", dev):
+        if f.use_iterated_update:
+            x_post, P_post = _masked_update_iterated(x_prior, P_prior, z, li,
+                                                     state, cfg)
+        else:
+            x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y,
+                                           z, h, li, cfg)
+    with trace_annotation("sim.hi_rescue", dev):
+        h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
+        S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, rows)
+        hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li,
+                                                cfg)
+    with trace_annotation("sim.hi_update", dev):
+        x_post, P_post = _phase_update(x_post, P_post, hp2, H_xv2, H_y2, z,
+                                       h2, hi, cfg)
     return _step_core_epilogue(state, x_post, P_post, visible, ic, li, hi,
                                support)
 

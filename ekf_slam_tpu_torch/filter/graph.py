@@ -44,11 +44,11 @@ changed; ``EagerFrame`` is the same interface without static buffers, so
 one host loop serves the eager route too.
 
 Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES``,
-``kernels.NEWTON_LAUNCHES`` and ``kernels.NEWTON_PLAIN`` are credited at
-each replay with the counts the captured frame made; the warm-up frames
-and the capture are set-up and leave the counts as they were. There is
-no fallback: a capture or replay that fails raises, and asking for
-capture without a CUDA device raises.
+``kernels.NEWTON_LAUNCHES``, ``kernels.NEWTON_PLAIN`` and
+``ekf.CHOLESKY_GAINS`` are credited at each replay with the counts the
+captured frame made; the warm-up frames and the capture are set-up and
+leave the counts as they were. There is no fallback: a capture or replay
+that fails raises, and asking for capture without a CUDA device raises.
 
 Spans (utils/metrics.py): a frame runs in the span ``frame`` and its
 carry's copy in ``frame.carry``; on a CUDA device their device marks are
@@ -117,6 +117,7 @@ class StaticFrame:
         self.graph = None
         self.launches = {}
         self.newton = (0, 0)            # (NEWTON_LAUNCHES, NEWTON_PLAIN)
+        self.cholesky = 0               # ekf.CHOLESKY_GAINS
         self.capture_s = None
 
     def __call__(self) -> None:
@@ -147,6 +148,7 @@ class StaticFrame:
                 kernels.LAUNCHES[name] += n
             kernels.NEWTON_LAUNCHES += self.newton[0]
             kernels.NEWTON_PLAIN += self.newton[1]
+            ekf.CHOLESKY_GAINS += self.cholesky
         return self.outputs
 
     def capture(self, warmup: int = WARMUP) -> None:
@@ -161,6 +163,7 @@ class StaticFrame:
         t0 = time.perf_counter()
         before = dict(kernels.LAUNCHES)
         newton_before = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
+        cholesky_before = ekf.CHOLESKY_GAINS
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -169,6 +172,7 @@ class StaticFrame:
                     self()
             warm = dict(kernels.LAUNCHES)
             newton_warm = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
+            cholesky_warm = ekf.CHOLESKY_GAINS
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side):
                 self()
@@ -178,9 +182,11 @@ class StaticFrame:
                              if v != warm[k]}
             self.newton = (kernels.NEWTON_LAUNCHES - newton_warm[0],
                            kernels.NEWTON_PLAIN - newton_warm[1])
+            self.cholesky = ekf.CHOLESKY_GAINS - cholesky_warm
         finally:
             kernels.LAUNCHES.update(before)
             kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN = newton_before
+            ekf.CHOLESKY_GAINS = cholesky_before
         self.graph = graph
         for i in self.in_place:
             self.carry[i].zero_()

@@ -18,7 +18,9 @@ The PyTorch port's copy of ``ekf_slam_tpu/oracle/oracle.py``, line for
 line, reading the port's own ``config``: every field it reads
 (``CameraConfig``'s calibration and ``distort_newton_iters``,
 ``FilterConfig``'s noise and initial values) has the same name, type and
-default in both packages.
+default in both packages. Two functions are the port's own, for the
+iterated update of ``pipeline.OracleSLAM``: ``ekf_update_iterated`` and
+``h_and_jacobian``.
 """
 
 from __future__ import annotations
@@ -233,6 +235,40 @@ def ekf_update(x, P, H, R, z, h):
     return x_new, P_new
 
 
+def ekf_update_iterated(x, P, h_fn, R, z, num_iters):
+    """The iterated (Gauss-Newton) EKF update of Bell & Cathey (IEEE TAC
+    38(2), 1993), what ekf_update_iterated.m:1-4 calls (its
+    update_iterated is missing from the reference code): from the prior
+    x̂ = x, num_iters re-linearizations h_fn(x_i) -> (h_i, H_i), each with
+    K_i = P·H_iᵀ·(H_i·P·H_iᵀ + R)⁻¹ and
+    x_{i+1} = x̂ + K_i·((z − h_i) − H_i·(x̂ − x_i)); then update.m's tail
+    once, with the gain at the last iterate x_n: P − K·S·Kᵀ, symmetrized,
+    the quaternion renormalized at x_n. With num_iters = 1, x is
+    ekf_update's and P is not (its gain is re-linearized at x_1)."""
+    if len(z) == 0:
+        return x.copy(), P.copy()
+
+    def gain(xi):
+        h, H = h_fn(xi)
+        S = H @ P @ H.T + R
+        return h, H, S, P @ H.T @ np.linalg.inv(S)
+
+    xi = x
+    for _ in range(num_iters):
+        h, H, _, K = gain(xi)
+        xi = x + K @ ((z - h) - H @ (x - xi))
+    _, _, S, K = gain(xi)
+    P_new = P - K @ S @ K.T
+    P_new = 0.5 * P_new + 0.5 * P_new.T
+    J = norm_jac(xi[3:7])
+    T = np.eye(P_new.shape[0])
+    T[3:7, 3:7] = J
+    P_new = T @ P_new @ T.T
+    x_new = xi.copy()
+    x_new[3:7] = x_new[3:7] / np.linalg.norm(x_new[3:7])
+    return x_new, P_new
+
+
 # --------------------------------------------------------- measurement models
 
 def hi_inverse_depth(y, t_wc, R_wc, cam: CameraConfig, fov_deg=60.0):
@@ -300,6 +336,28 @@ def Hi_cartesian(x_cam, y, zi, cam: CameraConfig):
     H_xv = np.hstack([dh_dhrl @ dhrl_drw, dh_dhrl @ dhrl_dqwr, np.zeros((2, 6))])
     H_y = dh_dhrl @ Rrw
     return H_xv, H_y
+
+
+def h_and_jacobian(x, y, cartesian: bool, cam: CameraConfig):
+    """A feature's measurement at state x, without the view gates, and its
+    Jacobian blocks (h (2,), H_xv (2,13), H_y (2, len(y))): the point
+    R_wcᵀ·((y − t)·ρ + m) (or R_wcᵀ·(y − t)) projected and distorted, as
+    hi_inverse_depth.m computes it, and calculate_Hi_*.m's blocks with the
+    quaternion columns divided by |q|⁴. Those blocks differentiate
+    inv(q2r(q)) = q2r(q)ᵀ/|q|⁴, a scale the projection does not see, by
+    the derivative of q2r(q)ᵀ, so at |q| != 1 (the iterates of
+    ekf_update_iterated) their quaternion columns are |q|⁴ times the
+    derivative of h; at a unit q they are unchanged."""
+    R_wc = q2r(x[3:7])
+    if cartesian:
+        hrl, Hi = R_wc.T @ (y - x[0:3]), Hi_cartesian
+    else:
+        hrl = R_wc.T @ ((y[0:3] - x[0:3]) * y[5] + m_ray(y[3], y[4]))
+        Hi = Hi_inverse_depth
+    h = distort(project(hrl, cam), cam)
+    H_xv, H_y = Hi(x[0:13], y, h, cam)
+    H_xv[:, 3:7] = H_xv[:, 3:7] / np.sum(x[3:7] ** 2) ** 2
+    return h, H_xv, H_y
 
 
 # ------------------------------------------------------------ feature algebra

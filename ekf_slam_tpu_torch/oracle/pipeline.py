@@ -28,6 +28,30 @@ line, reading the port's own ``EngineConfig``: every field it reads
 (``dtype``, the ``map`` / ``matching`` / ``filter`` / ``camera`` settings)
 has the same name, type and default in both packages. The engine named
 above is the port's: the golden check is ``oracle/golden.py``.
+
+Two additions are the port's own. ``from_padded`` builds an oracle from
+one instance of the engine's padded state. With
+``cfg.filter.use_iterated_update`` the LI update (stage 5) is the
+iterated EKF update of Bell & Cathey (IEEE TAC 38(2), 1993), what the
+reference's ekf_update_iterated.m:1-4 calls and its code lacks, as the
+JAX package's ``ekf.update_iterated`` (ekf.py:691-731) computes it: the
+LI records fixed in slot order, as the plain update stacks them;
+``iekf_iterations`` re-linearizations of them at the iterate x_i, each
+gain K_i = P̂·H_iᵀ(H_i·P̂·H_iᵀ + I)⁻¹ from the prior P̂ and
+x_{i+1} = x̂ + K_i·((z − h(x_i)) − H_i·(x̂ − x_i)); the covariance once,
+with the gain at the last iterate, by update.m's tail (P̂ − K·S·Kᵀ,
+symmetrized, the quaternion renormalized through normJac)
+(``oracle.ekf_update_iterated``). The HI update stays the plain one.
+Where it departs from the JAX package: S is inverted explicitly, as
+update.m does (JAX by Cholesky); each iterate's rows are the exact
+derivative of h at the iterate, whose quaternion is off the unit sphere
+(``oracle.h_and_jacobian``: calculate_Hi_*.m's inv(q2r(q)) scales their
+quaternion columns by |q|⁴; JAX and the port differentiate with
+q2r(q)ᵀ, the same derivative); a record that an iterate takes out of
+view keeps its rows, projected without the ±60° gate (JAX projects a
+dummy point outside that gate, never reached within a frame's update).
+Float64 NumPy, like the rest of the oracle: no kernels, batching or
+padding.
 """
 
 from __future__ import annotations
@@ -76,6 +100,26 @@ class OracleSLAM:
         self.x = x
         self.P = P
         self.recs: list[Rec] = []
+
+    @classmethod
+    def from_padded(cls, cfg: EngineConfig, x, P, active, cartesian,
+                    times_predicted, times_measured, landmark_id):
+        """An oracle holding one instance of the engine's padded state
+        (x (13 + 6·CAP,), P (D, D), the per-slot fields (CAP,); numpy),
+        its records in slot order, in float64."""
+        orc = cls(cfg)
+        idx = list(range(13))
+        for slot in np.flatnonzero(active):
+            r = Rec(int(slot), int(landmark_id[slot]))
+            r.kind = "c" if cartesian[slot] else "id"
+            r.times_predicted = int(times_predicted[slot])
+            r.times_measured = int(times_measured[slot])
+            base = 13 + 6 * int(slot)
+            idx += range(base, base + (3 if r.kind == "c" else 6))
+            orc.recs.append(r)
+        orc.x = np.asarray(x, np.float64)[idx]
+        orc.P = np.asarray(P, np.float64)[np.ix_(idx, idx)]
+        return orc
 
     # ------------------------------------------------------------- layout
     def _sizes(self):
@@ -191,6 +235,28 @@ class OracleSLAM:
             idxs.append(i)
         return rows, hs, idxs
 
+    def relinearized(self, idxs):
+        """h_fn of the iterated update: a state x -> (h (2n,), H (2n, D))
+        of records idxs (the LI records, in slot order) at x, every one
+        projected and differentiated whether or not x keeps it in view
+        (oracle.h_and_jacobian)."""
+        cam = self.cfg.camera
+
+        def h_fn(x):
+            hs, rows = [], []
+            for i in idxs:
+                off = self.offset(i)
+                n = 6 if self.recs[i].kind == "id" else 3
+                h, H_xv, H_y = oracle.h_and_jacobian(
+                    x, x[off: off + n], self.recs[i].kind == "c", cam)
+                Hrow = np.zeros((2, x.shape[0]))
+                Hrow[:, 0:13] = H_xv
+                Hrow[:, off: off + n] = H_y
+                hs.append(h)
+                rows.append(Hrow)
+            return np.concatenate(hs), np.concatenate(rows, axis=0)
+        return h_fn
+
     def innovation_cov(self, lin, i, sigma_z):
         h, vis, H_xv, H_y = lin[i]
         off = self.offset(i)
@@ -277,9 +343,15 @@ class OracleSLAM:
                 best_sup, best_inliers = sup, inl
         li = best_inliers & ic.any()
 
-        # stage 5: LI update from the prior (R = I, ekf_update_li_inliers.m)
+        # stage 5: LI update from the prior (R = I, ekf_update_li_inliers.m;
+        # with use_iterated_update the iterated one, ekf_update_iterated.m)
         rows, hs, idxs = self.dense_rows(lin, li)
-        if rows:
+        if rows and f.use_iterated_update:
+            zs = np.concatenate([z[i] for i in idxs])
+            self.x, self.P = oracle.ekf_update_iterated(
+                self.x, self.P, self.relinearized(idxs), np.eye(len(zs)),
+                zs, f.iekf_iterations)
+        elif rows:
             H = np.concatenate(rows, axis=0)
             zs = np.concatenate([z[i] for i in idxs])
             hcat = np.concatenate(hs)

@@ -29,7 +29,7 @@ Port of ``ekf_slam_tpu/utils/metrics.py``:
 
 Who reads the spans: the benchmark's ``<span>_span``,
 ``driver_device_ms_per_frame`` and ``program_idle_ms_per_call`` (the sim
-frame's and ``sim.run_sequence``), chip_smoke's ``[loop]`` and
+frame's, ``iekf.*`` and ``sim.run_sequence``), chip_smoke's ``[loop]`` and
 ``[train]`` lines (the ``loop.*`` and ``train.*`` host ranges).
 """
 
@@ -47,15 +47,20 @@ from ekf_slam_tpu_torch.ops import _build
 # The program's spans. A span's id is its place in this table (below
 # csrc/spans.cu's SPAN_IDS, 32); each name is unique, also with its dots
 # written as underscores (the benchmark's metric <name>_span). Spans of
-# one frame are in the order they begin.
+# one frame are in the order they begin. The sim.* stages are
+# engine.step_fused's numbered sections and the same stages of the
+# unfused step (step_core, step_core_from_prior, and initialize_features
+# in engine.step).
 SPANS = (
     "frame",               # graph.StaticFrame: one frame over the buffers
-    "sim.manage_predict",  # engine.step_fused 1+2: map management, prior
+    "sim.manage_predict",  # 1+2: map management, prior
     "sim.linearize_ic",    # 3: linearization, K1, S, IC gates
     "sim.ransac",          # 4: 1-point RANSAC
-    "sim.li_update",       # 5: the LI gain
+    "sim.li_update",       # 5: the LI gain; unfused: the LI update
+    "iekf.iterate",        # ekf.update_iterated: the iterates that move x
+    "iekf.tail",           # its last gain and the covariance tail
     "sim.hi_rescue",       # 6: linearization at the posterior, K2, rescue
-    "sim.hi_update",       # 7: the HI gain
+    "sim.hi_update",       # 7: the HI gain; unfused: the HI update
     "sim.init",            # 8: counters, the camera stripe, feature init, K3
     "frame.carry",         # graph._assign: the new carry into its buffers
     "sim.run_sequence",    # engine.run_sequence (host only)

@@ -1527,3 +1527,107 @@ def test_replayed_sim_frame_counts_two_newton_launches(card):
     assert kernels.NEWTON_LAUNCHES == 2 * T and kernels.NEWTON_PLAIN == 0
     _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
                [want[0].x, want[0].P, want[1], want[2].n_li])
+
+
+# --- the unfused and IEKF frames' spans, the Cholesky gains ----------------
+
+# route -> filter settings of a replayed frame with its stage spans
+SPAN_ROUTES = {
+    "unfused": {"fused_step": "off"},
+    "iekf": {"fused_step": "off", "gain_solver": "newton",
+             "use_iterated_update": True},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
+def test_replayed_unfused_frame_marks_its_spans(card, route):
+    """The unfused and the IEKF frame replayed under torch.profiler: each
+    frame's marks carry the stage spans the fused frame has (18 marks),
+    and on the IEKF's iekf.iterate and iekf.tail nested in sim.li_update
+    (22); begins in id order; the stage spans and frame.carry cover
+    within 2% of the frame's device time, the two iekf spans within
+    sim.li_update's; the outputs equal an unprofiled replay bit for bit."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from ekf_slam_tpu_torch.utils.metrics import SPANS
+    stages = ("sim.manage_predict", "sim.linearize_ic", "sim.ransac",
+              "sim.li_update", "sim.hi_rescue", "sim.hi_update", "sim.init",
+              "frame.carry")
+    iekf = ("iekf.iterate", "iekf.tail") if route == "iekf" else ()
+    one = [(SPANS.index("frame"), 0)]
+    for name in stages:
+        i = SPANS.index(name)
+        inner = [m for n in iekf for m in ((SPANS.index(n), 0),
+                                            (SPANS.index(n), 1))]
+        one += [(i, 0), *(inner if name == "sim.li_update" else []), (i, 1)]
+    one.append((SPANS.index("frame"), 1))
+    assert len(one) == 18 + 2 * len(iekf)
+    cfg, obs, st, u = _sequence("float32", **SPAN_ROUTES[route])
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    T = obs.pixels.shape[0]
+    want = engine.run_sequence(st, obs, u, cfg)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = engine.run_sequence(st, obs, u, cfg)
+        torch.cuda.synchronize()
+    _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
+               [want[0].x, want[0].P, want[1], want[2].n_li])
+    device = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda d: d[1])
+    pattern = re.compile(r"\bspan_mark<(\d+), (\d+)>")
+    marks = [(i, (int(m.group(1)), int(m.group(2))))
+             for i, m in ((i, pattern.search(n))
+                          for i, (n, _, _) in enumerate(device)) if m]
+    assert [m for _, m in marks] == one * T
+
+    def union_us(begin, end):
+        total, reach = 0.0, float("-inf")
+        for s, e in sorted((s, e) for n, s, e in device[begin + 1:end]
+                           if not pattern.search(n)):
+            total += max(0.0, e - max(s, reach))
+            reach = max(reach, e)
+        return total
+
+    n = len(one)
+    for f in range(T):
+        at = {m: i for i, m in marks[f * n:(f + 1) * n]}
+        frame = SPANS.index("frame")
+        frame_us = union_us(at[frame, 0], at[frame, 1])
+        parts = sum(union_us(at[SPANS.index(s), 0], at[SPANS.index(s), 1])
+                    for s in stages)
+        assert frame_us > 0 and abs(parts - frame_us) <= 0.02 * frame_us
+        if iekf:
+            li = SPANS.index("sim.li_update")
+            li_us = union_us(at[li, 0], at[li, 1])
+            inner = sum(union_us(at[SPANS.index(s), 0],
+                                 at[SPANS.index(s), 1]) for s in iekf)
+            assert 0 < inner <= li_us
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,per_frame", [("fused", 0), ("iekf", 4)])
+def test_replayed_frame_counts_its_cholesky_gains(card, route, per_frame):
+    """ekf.CHOLESKY_GAINS, the Cholesky gains on the card: 4 a frame on
+    the IEKF's (3 iterates and the last gain; its HI gain by Newton), none
+    on the fused frame's; the replayed sequence credits its captured
+    frame's count at every replay, as the eager one counts."""
+    from ekf_slam_tpu_torch.filter import graph
+    filt = ({"fused_step": "on", "gain_solver": "newton"}
+            if route == "fused" else SPAN_ROUTES["iekf"])
+    cfg, obs, st, u = _sequence("float32", **filt)
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    T = obs.pixels.shape[0]
+    ekf.CHOLESKY_GAINS = 0
+    want = engine.run_sequence(st, obs, u, cfg, eager=True)
+    assert ekf.CHOLESKY_GAINS == per_frame * T
+    ekf.CHOLESKY_GAINS = 0
+    got = engine.run_sequence(st, obs, u, cfg)
+    assert graph.last_captured().cholesky == per_frame
+    assert ekf.CHOLESKY_GAINS == per_frame * T
+    _same_bits([got[0].x, got[0].P, got[1]], [want[0].x, want[0].P, want[1]])

@@ -14,7 +14,15 @@ frame that capture records (engine.frame_driver(..., capture=False)):
     the table's ids, nested, in order;
 (e) the table's names are unique, also with dots as underscores;
 (f) csrc/spans.cu compiled against tests/cuda_emulation's headers accepts
-    every (id, end) of the table and refuses an id past its instances.
+    every (id, end) of the table and refuses an id past its instances;
+(g) the unfused frame (step_core, step_core_from_prior, initialize_features)
+    and the IEKF's show the same stages, the IEKF's with iekf.iterate and
+    iekf.tail nested in sim.li_update and no other frame with them, both
+    under a CPU profiler and as the marks a card would get (18 a frame,
+    22 with the IEKF's);
+(h) the Cholesky gains a frame: 4 on the IEKF's (its 3 iterates and the
+    last gain), none on the fused frame's, which solves by Newton; on CPU
+    tensors ekf.CHOLESKY_GAINS stays 0 (it counts the card's).
 """
 
 import types
@@ -23,7 +31,7 @@ import pytest
 import torch
 
 from ekf_slam_tpu_torch.config import EngineConfig
-from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import FIELDS, init_state
 from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.utils import metrics
@@ -41,6 +49,12 @@ STAGES = ("sim.manage_predict", "sim.linearize_ic", "sim.ransac",
           "sim.li_update", "sim.hi_rescue", "sim.hi_update", "sim.init")
 # A frame's spans in the order they begin: frame, the stages, frame.carry
 FRAME_SPANS = ("frame", *STAGES, "frame.carry")
+IEKF_SPANS = ("iekf.iterate", "iekf.tail")
+# the other routes of the frame: their filter settings
+ROUTES = {"fused": {"fused_step": "on", "gain_solver": "newton"},
+          "unfused": {"fused_step": "off"},
+          "iekf": {"fused_step": "off", "gain_solver": "newton",
+                   "use_iterated_update": True, "iekf_iterations": 3}}
 
 
 @pytest.fixture(scope="module")
@@ -51,6 +65,18 @@ def sequence():
     u = torch.rand(FRAMES, B, cfg.ransac.num_hypotheses,
                    generator=torch.Generator().manual_seed(1))
     return cfg, obs, st, u
+
+
+@pytest.fixture(scope="module", params=["unfused", "iekf"])
+def route_sequence(request):
+    """(route, the module sequence's observations, start and draws run
+    under the route's filter settings)."""
+    cfg = EngineConfig.from_dict({**CFG, "filter": ROUTES[request.param]})
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, FRAMES, "cpu")
+    st = engine.bootstrap(init_state(cfg, B, "cpu"), obs.frame(0), cfg)
+    u = torch.rand(FRAMES, B, cfg.ransac.num_hypotheses,
+                   generator=torch.Generator().manual_seed(1))
+    return request.param, (cfg, obs, st, u)
 
 
 def _run(sequence):
@@ -134,6 +160,82 @@ def test_marks_of_the_frame(sequence, monkeypatch):
     assert {st for _, _, st in marks} == {5}
 
 
+def test_unfused_frame_spans_in_table_order_and_nested(route_sequence):
+    route, sequence = route_sequence
+    _, events = _profiled(sequence)
+    frames = [e for e in events if e.name == "frame"]
+    assert len(frames) == FRAMES
+    li_children = list(IEKF_SPANS) if route == "iekf" else []
+    for f in frames:
+        inside = sorted((e for e in events if e.cpu_parent is f),
+                        key=lambda e: e.time_range.start)
+        assert [e.name for e in inside] == list(FRAME_SPANS[1:])
+        li = inside[STAGES.index("sim.li_update")]
+        nested = sorted((e for e in events if e.cpu_parent is li),
+                        key=lambda e: e.time_range.start)
+        assert [e.name for e in nested] == li_children
+        for e in nested:
+            assert (li.time_range.start <= e.time_range.start
+                    <= e.time_range.end <= li.time_range.end)
+        begun = inside[:STAGES.index("sim.li_update") + 1] + nested + \
+            inside[STAGES.index("sim.li_update") + 1:]
+        ids = [metrics.SPANS.index(e.name) for e in begun]
+        assert ids == sorted(ids)
+    assert len(events) == FRAMES * (len(FRAME_SPANS) + len(li_children))
+
+
+def test_marks_of_the_unfused_frame(route_sequence, monkeypatch):
+    """The marks a card would get on the unfused and the IEKF frame: the
+    stages' of the fused frame, and on the IEKF's the two iekf spans'
+    inside sim.li_update's; begins in id order, each span once, nested."""
+    route, sequence = route_sequence
+    marks = []
+    monkeypatch.setattr(metrics, "_stream",
+                        lambda device: None if device is None else 5)
+    monkeypatch.setattr(metrics, "_mark",
+                        lambda span, end, stream: marks.append((span, end)))
+    _run(sequence)
+    li = metrics.SPANS.index("sim.li_update")
+    one = []
+    for name in FRAME_SPANS[1:]:
+        i = metrics.SPANS.index(name)
+        inner = ([m for n in IEKF_SPANS
+                  for m in ((metrics.SPANS.index(n), 0),
+                            (metrics.SPANS.index(n), 1))]
+                 if i == li and route == "iekf" else [])
+        one += [(i, 0), *inner, (i, 1)]
+    frame_id = metrics.SPANS.index("frame")
+    one = [(frame_id, 0), *one, (frame_id, 1)]
+    assert len(one) == (22 if route == "iekf" else 18)
+    assert marks == one * FRAMES
+    begins = [i for i, end in one if end == 0]
+    assert begins == sorted(begins)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_cholesky_gains_a_frame(route, monkeypatch):
+    """ekf._spd_inverse's calls a frame of the static-buffer frame: the
+    IEKF's 3 iterates and last gain (its HI gain by Newton, as the
+    benchmark's IEKF cell runs it), none on the fused route's Newton
+    gains, the plain update's two on the unfused route's (gain_solver
+    "cholesky"); the counter of the card's gains unmoved by CPU
+    tensors."""
+    cfg = EngineConfig.from_dict({**CFG, "filter": ROUTES[route]})
+    _, _, obs = simulate(torch.Generator().manual_seed(0), cfg, FRAMES, "cpu")
+    st = engine.bootstrap(init_state(cfg, B, "cpu"), obs.frame(0), cfg)
+    u = torch.rand(FRAMES, B, cfg.ransac.num_hypotheses,
+                   generator=torch.Generator().manual_seed(1))
+    calls = []
+    real = ekf._spd_inverse
+    monkeypatch.setattr(ekf, "_spd_inverse",
+                        lambda S: calls.append(S.shape) or real(S))
+    monkeypatch.setattr(ekf, "CHOLESKY_GAINS", 0)
+    engine.frame_driver(st, obs, u, cfg, capture=False)
+    want = {"fused": 0, "unfused": 2, "iekf": 4}[route]
+    assert len(calls) == want * FRAMES
+    assert ekf.CHOLESKY_GAINS == 0
+
+
 def test_mark_pair_around_the_block(monkeypatch):
     calls = []
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -159,6 +261,7 @@ def test_span_table_names_unique():
     assert len(set(names)) == len(names)
     assert len({n.replace(".", "_") for n in names}) == len(names)
     assert set(FRAME_SPANS) <= set(names)
+    assert set(IEKF_SPANS) <= set(names)
 
 
 @pytest.mark.parametrize("end", [0, 1])
