@@ -8,16 +8,17 @@ Phases, one line each, any failure raises (exit code != 0):
   2. build     nvcc builds csrc/*.cu into build/kernels/ (seconds printed)
   3. kernels   each kernel against its plain PyTorch version at the
                slice's shapes, on operands captured from one real frame:
-               K1-K3 from the fused path, K4 and K6 from the unfused path
-               (i), K5 and K6 from path (ii), K6 at both of its call sites
-               (RANSAC's P·G and the update's P·Hᵀ), K7 in both forms
+               K1-K3 from the fused path, K4, K6 (RANSAC's P·G) and
+               pht_blocks (the update's P·Hᵀ and S, site update_PHt) from
+               the unfused path (i), K5 from path (ii), K7 in both forms
                (ncc_corr, ncc_corr_norms) on the image path's operands
                of ncc_corr_norms (all B·CAP windows and templates of the
                frame); from
                the bf16-P fast mode, K8 from a fast_rows frame in its three
-               modes with P as stored (bf16) and upcast, and K4 and K6 on
-               a fast frame's bf16 P, and K6 and K4 from an IEKF frame
-               (sites iekf_PHt, the last iterate's P·Hᵀ, and iekf_tail,
+               modes with P as stored (bf16) and upcast, and K4, K6 and
+               pht_blocks on a fast frame's bf16 P, and pht_blocks and K4
+               from an IEKF frame (sites iekf_PHt, the last iterate's P·Hᵀ
+               and S, also tiled to the cell's B = 1,024, and iekf_tail,
                the iterated update's covariance tail). Each entry's error
                is scaled to its own bound (a bf16 output may also stray one bf16 ulp); K4's
                and K8 "full"'s outputs must be bitwise symmetric, K8
@@ -48,35 +49,44 @@ Phases, one line each, any failure raises (exit code != 0):
                shifted by one as a planted fault; times of the kernel,
                the plain version and the library call (the torch.matmul
                iteration alone, from X0), the bound of its 40 products,
-               and its registers and spills from ptxas
+               and its registers and spills from ptxas. pht_blocks
+               (`[kernel] name=pht_blocks`): its P·Hᵀ and S against the
+               f64 plain version (limit kernels.SCALED_TOL), its P·Hᵀ
+               equal to K6's on the dense compact H, a second launch bit
+               for bit; times of the kernel, the plain version and K6 on
+               the dense operand (its yardstick, `library_ms`), the bound
+               of P read once and the outputs written, registers and
+               spills
   4. slice     the sim bench workload (CAP 100, 128 landmarks, f32) at
                B = 128 instances for 16 frames through run_sequence, on
                each engine path:
                  fused  (step_fused)                 K1-K3 once a frame
-                 (i)    unfused, pallas_update off   K4 2x, K6 3x a frame
-                 (ii)   unfused, pallas_update on    K5 2x, K6 3x a frame
+                 (i)    unfused, pallas_update off   K4 2x, K6 1x a frame
+                 (ii)   unfused, pallas_update on    K5 2x, K6 1x a frame
                  iekf   unfused, the iterated LI update (3 iterations),
-                        pallas_update off            K4 2x, K6 6x a frame
+                        pallas_update off            K4 2x, K6 1x a frame
                and in bench.py's production fast mode (P stored in bf16,
                max_update_obs 24; scene FAST_SCENE, see profile_slice):
-                 fast       column-form update       K4 2x, K6 3x a frame
+                 fast       column-form update       K4 2x, K6 1x a frame
                  fast_rows  row-form update          K8 2x a frame
                finite state, update cap never hit, tracking error < 0.2,
                P still bf16 in the fast mode;
                then the pixels bench workload (the same map, 240x320
                rendered frames, R = 12) at B = 32 for 16 frames through
                frontend.run_images:
-                 image  NCC matcher          K7 norms 1x, K4 2x, K6 3x
+                 image  NCC matcher          K7 norms 1x, K4 2x, K6 1x
                  image_exact, image_none     the same, with the template
                         warp's per-pixel distortion round trip and with
                         none (VisionConfig.warp_distortion; "affine" above)
-                 image  descriptor matcher   K4 2x, K6 3x a frame
+                 image  descriptor matcher   K4 2x, K6 1x a frame
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
-               kernel launched 0 times, the Newton gain's kernel
-               NEWTON_PER_FRAME times a frame (its count under
-               "spd_inverse_newton"), no Newton solve on the card without
-               it (kernels.NEWTON_PLAIN), the Cholesky gains
+               kernel launched 0 times, the glue layer's kernels
+               (kernels.GLUE_LAUNCHES, each under its name) as often as
+               glue_per_frame says (spd_inverse_newton iekf 1, else 2;
+               pht_blocks iekf 5, fused and fast_rows 0, else 2), no
+               Newton solve on the card without its kernel
+               (kernels.NEWTON_PLAIN), the Cholesky gains
                CHOLESKY_PER_FRAME times a frame (ekf.CHOLESKY_GAINS, under
                "cholesky_gains": iekf 4); steps/s of the median of three
                timed runs (fused, (i), iekf, image NCC in its three warp
@@ -258,7 +268,8 @@ from torch.autograd import DeviceType
 from ekf_slam_tpu_torch import (close_loops, run_loop_closure, run_slam,
                                 train_calc2)
 from ekf_slam_tpu_torch.data import synthetic
-from ekf_slam_tpu_torch.filter import ekf, engine, graph, loop_fusion
+from ekf_slam_tpu_torch.filter import (ekf, engine, graph, loop_fusion,
+                                       measurement)
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.io import ImageSequence, write_pgm
 from ekf_slam_tpu_torch.io.poses import save_trajectory_kitti
@@ -283,6 +294,7 @@ UNFUSED_SRC = "ekf_slam_tpu_torch/csrc/unfused_cov.cu"
 NCC_SRC = "ekf_slam_tpu_torch/csrc/ncc.cu"
 EIGHT_POINT_SRC = "ekf_slam_tpu_torch/csrc/eight_point.cu"
 NEWTON_SRC = "ekf_slam_tpu_torch/csrc/newton_inverse.cu"
+PHT_SRC = "ekf_slam_tpu_torch/csrc/pht_blocks.cu"
 PK = "ekf_slam_tpu/ops/pallas_kernels.py"
 # name -> (source, line of the TPU kernel's wrapper it replaces;
 # eight_point_fit: of XLA's eigh + svd in the JAX 8-point solve)
@@ -300,36 +312,52 @@ KERNELS = {
     "eight_point_fit": (EIGHT_POINT_SRC,
                         "ekf_slam_tpu/models/loopclosure.py:181"),
     "spd_inverse_newton": (NEWTON_SRC, "ekf_slam_tpu/filter/ekf.py:599"),
+    # K6's, where its B operand is a measurement Jacobian
+    "pht_blocks": (PHT_SRC, f"{PK}:192"),
 }
 # Launches a frame of each path (the rest launch 0 times). The image step
 # is branchless: frame 0, with no features yet, launches as many.
 PER_FRAME = {
     "fused": {"fused_manage_predict_pht": 1, "fused_update_tail_pht": 1,
               "fused_update_tail_add": 1},
-    "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 3},
-    "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 3},
-    # RANSAC's P·G, the IEKF's 3 + 1 P·Hᵀ, the HI update's; two tails.
-    "iekf": {"corr_apply_cols": 2, "f32_matmul_big": 6},
+    # K6 for RANSAC's P·G; the updates' P·Hᵀ in pht_blocks (below)
+    "unfused": {"corr_apply_cols": 2, "f32_matmul_big": 1},
+    "unfused_pallas": {"fused_update_tail": 2, "f32_matmul_big": 1},
+    "iekf": {"corr_apply_cols": 2, "f32_matmul_big": 1},
     "image": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
-              "f32_matmul_big": 3},
+              "f32_matmul_big": 1},
     "image_exact": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
-                    "f32_matmul_big": 3},
+                    "f32_matmul_big": 1},
     "image_none": {"ncc_corr_norms": 1, "corr_apply_cols": 2,
-                   "f32_matmul_big": 3},
-    "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 3},
-    "fast": {"corr_apply_cols": 2, "f32_matmul_big": 3},
+                   "f32_matmul_big": 1},
+    "image_descriptor": {"corr_apply_cols": 2, "f32_matmul_big": 1},
+    "fast": {"corr_apply_cols": 2, "f32_matmul_big": 1},
     "fast_rows": {"corr_apply": 2},
 }
-# Newton gain solves a frame of each path (kernels.NEWTON_LAUNCHES on the
-# card): the LI and the HI update's, 2 on every path but the IEKF's, whose
-# LI update inverts by Cholesky.
-NEWTON_PER_FRAME = {"iekf": 1}
 # Cholesky gains a frame on the card (ekf.CHOLESKY_GAINS): the IEKF's 3
 # iterates and its last gain; none elsewhere (every path's gain is Newton).
 CHOLESKY_PER_FRAME = {"iekf": 4}
+# Launches a frame of the glue layer's kernels (kernels.GLUE_LAUNCHES on
+# the card), 2 of each unless a path is named: spd_inverse_newton, the LI
+# and the HI update's Newton gain, but the IEKF's LI update inverts by
+# Cholesky; pht_blocks, the LI and the HI update's gain columns on every
+# column-form unfused path, the IEKF's 3 iterates, its last gain and the
+# HI update's, none on the fused frame (its P·Hᵀ come from K1 and K2) or
+# the row form's.
+GLUE_PER_FRAME = {"fused": {"pht_blocks": 0}, "fast_rows": {"pht_blocks": 0},
+                  "iekf": {"spd_inverse_newton": 1, "pht_blocks": 5}}
+
+
+def glue_per_frame(path) -> dict:
+    """GLUE_PER_FRAME's counts of `path`, every kernel of GLUE_LAUNCHES."""
+    return {k: GLUE_PER_FRAME.get(path, {}).get(k, 2)
+            for k in kernels.GLUE_LAUNCHES}
+
 # The Newton gain's sites in phase 3: the path its S comes from, and the
 # instances it is tiled to.
 NEWTON_SITES = {"fused": 1024, "fast": 256}
+# The IEKF cell's instances, to which phase 3 tiles the iekf_PHt site.
+PHT_CELL_BATCH = 1024
 SIM_PATHS = ("fused", "unfused", "unfused_pallas", "iekf")
 # The image path's three template-warp forms (VisionConfig.warp_distortion)
 WARP_PATHS = {"image": "affine", "image_exact": "exact",
@@ -595,15 +623,17 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
             "library_ms": library_ms, **norms}
 
 
-def ptxas_usage(symbol: str) -> dict:
+def ptxas_usage(symbol: str, arg: str = r"Li(\d+)") -> dict:
     """{template argument: "registers,spill bytes"} of each instantiation
-    of kernel `symbol` in the build's ptxas output (nvcc.log)."""
+    of kernel `symbol` in the build's ptxas output (nvcc.log); `arg`
+    matches the mangled argument, its group 1 the key (an int, or for a
+    type argument r"(f|13__nv_bfloat16)")."""
     log = (_build.library_path().parent / "nvcc.log").read_text()
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(symbol + r"ILi(\d+)E", m.group(1))
+            t = re.search(symbol + "I" + arg + "E", m.group(1))
             cur = t.group(1) if t else None
             if cur:
                 out[cur] = [None, 0]
@@ -691,6 +721,76 @@ def check_newton(S, site) -> dict:
             "regs_spill_bytes": regs}
 
 
+def pht_dense_ht(P, H_xv, H_y, sel) -> torch.Tensor:
+    """The dense compact Hᵀ (B,D,2M) of pht_blocks' operands: K6's operand
+    before the blocks replaced it."""
+    return measurement.compact_dense_H(
+        H_xv, H_y, sel, torch.ones_like(sel, dtype=torch.bool),
+        (P.shape[1] - 13) // 6).transpose(1, 2).contiguous()
+
+
+def tiled(args, batch):
+    """Each tensor of `args` repeated along its instance axis to `batch`."""
+    return tuple(a.repeat(-(-batch // a.shape[0]), *([1] * (a.dim() - 1)))
+                 [:batch].contiguous() for a in args)
+
+
+def check_pht_blocks(args, site) -> dict:
+    """pht_blocks on one call's operands (P, H_xv, H_y, sel, r) against its
+    f64 plain version (kernels.pht_blocks_error, limit
+    kernels.SCALED_TOL); its
+    P·Hᵀ equal to K6's on the dense compact H (the same fmaf chain in
+    column order, the zero columns adding exact zeros), a second launch
+    bit for bit; CUDA-event times of the kernel, the plain version and K6
+    on the dense operand (the yardstick it replaces, `library_ms`); the
+    bound, P and the blocks read once and PHt and S written (19
+    multiply-adds an entry of each); registers and spills."""
+    name = "pht_blocks"
+    P, H_xv, H_y, sel, r = args
+    B, D, N = P.shape[0], P.shape[1], r.shape[1]
+    out = kernels.pht_blocks(*args)
+    torch.cuda.synchronize()
+    err = kernels.pht_blocks_error(out, *args)
+    Ht = pht_dense_ht(P, H_xv, H_y, sel)
+    if not torch.equal(out[0], kernels.f32_matmul_big(P, Ht)):
+        raise AssertionError(f"{name} {site}: P·Hᵀ differs from K6's on "
+                             f"the dense H")
+    again = kernels.pht_blocks(*args)
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out, again)):
+        raise AssertionError(f"{name} {site}: a second launch differs")
+    ms = cuda_ms(lambda: kernels.pht_blocks(*args))
+    plain_ms = cuda_ms(lambda: kernels.pht_blocks_plain(*args))
+    library_ms = cuda_ms(lambda: kernels.f32_matmul_big(P, Ht))
+    flops = 2 * 19 * B * (D * N + N * N)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *out))
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = ("operations" if flops / PEAK_F32_FLOPS
+                >= nbytes / PEAK_BYTES else "bytes")
+    inst = "13__nv_bfloat16" if P.dtype == torch.bfloat16 else "f"
+    regs = ptxas_usage("phtb_kernel", r"(f|13__nv_bfloat16)").get(
+        inst, "none")
+    phase("kernel", name=name, site=site, shapes=",".join(
+        "x".join(map(str, a.shape)) for a in (P, H_xv)),
+        dtype=str(P.dtype).removeprefix("torch."), scaled_err=f"{err:.3e}",
+        err_limit=kernels.SCALED_TOL, equals_k6_pht="true",
+        bitwise_rerun="true", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", library="K6 on the dense H",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        x_bound=f"{ms / bound_ms:.2f}", x_library=f"{ms / library_ms:.2f}",
+        gflop=f"{flops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.2f}",
+        block=f"phtb_kernel<{'bf16' if inst != 'f' else 'float'}>",
+        regs_spill_bytes=regs)
+    if not err <= kernels.SCALED_TOL:
+        raise AssertionError(f"{name} {site}: kernel vs plain {err:.3e} > "
+                             f"{kernels.SCALED_TOL}")
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "site": site, "scaled_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "regs_spill_bytes": regs}
+
+
 def planted_fault(tag, got, ref, err_fn, limit=kernels.SCALED_TOL) -> None:
     """A kernel launched with a planted fault must read > 100x the limit."""
     fault = err_fn(got, ref)
@@ -730,7 +830,7 @@ def check_slab_kernels(inputs, report) -> None:
     the whole P), beside torch.bmm; then K8's slab form without the
     renorm rows must fail the check."""
     P, A, Bf = inputs["corr_apply_cols"][0]
-    Ht = inputs["f32_matmul_big"][1][1]
+    Ht = pht_dense_ht(*inputs["pht_blocks"][0][:4])
     D = P.shape[1]
     Dp = -(-D // TP_MODEL) * TP_MODEL
     Dl, ext = Dp // TP_MODEL, Dp - D
@@ -817,15 +917,16 @@ def slice_gates(path, cfg, result, xs, track_limit) -> tuple:
 
 def timed_runs(path, run, runs) -> tuple:
     """`runs` timed runs of run(), each with the counts set to 0 just
-    before and read just after and held to PER_FRAME x FRAMES, the Newton
-    gain's kernel to NEWTON_PER_FRAME x FRAMES, its solves on the card
-    that launch no kernel (kernels.NEWTON_PLAIN) to 0 and the Cholesky
-    gains (ekf.CHOLESKY_GAINS) to CHOLESKY_PER_FRAME x FRAMES. Returns
-    (seconds of each, the counts read after the last run with the Newton
-    kernel's under "spd_inverse_newton" and the Cholesky gains' under
-    "cholesky_gains", the last run's result)."""
+    before and read just after and held to PER_FRAME x FRAMES, the glue
+    layer's kernels (kernels.GLUE_LAUNCHES) to glue_per_frame x FRAMES,
+    the Newton solves on the card that launch no kernel
+    (kernels.NEWTON_PLAIN) to 0 and the Cholesky gains
+    (ekf.CHOLESKY_GAINS) to CHOLESKY_PER_FRAME x FRAMES. Returns (seconds
+    of each, the counts read after the last run, the glue kernels' under
+    their names and the Cholesky gains' under "cholesky_gains", the last
+    run's result)."""
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
-    want_newton = NEWTON_PER_FRAME.get(path, 2) * FRAMES
+    want_glue = {k: n * FRAMES for k, n in glue_per_frame(path).items()}
     want_cholesky = CHOLESKY_PER_FRAME.get(path, 0) * FRAMES
     seconds = []
     for _ in range(runs):
@@ -837,15 +938,16 @@ def timed_runs(path, run, runs) -> tuple:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
-        newton = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
-        if (launches != want or newton != (want_newton, 0)
+        glue = dict(kernels.GLUE_LAUNCHES)
+        if (launches != want or glue != want_glue or kernels.NEWTON_PLAIN
                 or ekf.CHOLESKY_GAINS != want_cholesky):
-            raise AssertionError(f"{path}: kernel launches {launches}, "
-                                 f"Newton (launches, plain) {newton} and "
+            raise AssertionError(f"{path}: kernel launches {launches}, glue "
+                                 f"kernels {glue}, Newton solves without "
+                                 f"a launch {kernels.NEWTON_PLAIN} and "
                                  f"Cholesky gains {ekf.CHOLESKY_GAINS}, "
-                                 f"expected {want}, ({want_newton}, 0) and "
+                                 f"expected {want}, {want_glue}, 0 and "
                                  f"{want_cholesky}")
-    return seconds, {**launches, "spd_inverse_newton": newton[0],
+    return seconds, {**launches, **glue,
                      "cholesky_gains": ekf.CHOLESKY_GAINS}, result
 
 
@@ -882,6 +984,8 @@ KERNEL_SYMBOLS = {
     "ncc_corr_norms": ("k7_kernel",),
     "corr_apply": ("k8_kernel",),
 }
+GLUE_SYMBOLS = {"spd_inverse_newton": "nsi_kernel",
+                "pht_blocks": "phtb_kernel"}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
@@ -904,7 +1008,8 @@ def replayed_frame_profile(path) -> dict:
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     names = {e.name for e in device}
     want = sorted({s for k in PER_FRAME[path] for s in KERNEL_SYMBOLS[k]}
-                  | {"nsi_kernel"})
+                  | {GLUE_SYMBOLS[k] for k, n in glue_per_frame(path).items()
+                     if n})
     missing = [s for s in want if not any(s + "<" in n or s + "(" in n
                                           for n in names)]
     launched = sum(host[c] for c in LAUNCH_CALLS)
@@ -1111,15 +1216,16 @@ def check_paths(dev, card: str) -> list:
         raise AssertionError(f"fused_update_tail_add on a symmetric P: "
                              f"max|P−Pᵀ| {max_asym(out)}")
 
-    # The unfused frame calls K6 for RANSAC's P·G first, then for each
-    # update's P·Hᵀ (LI, HI).
+    # The unfused frame calls K6 for RANSAC's P·G, pht_blocks for each
+    # update's P·Hᵀ and S (LI, HI).
     inputs = capture_frame(cfgs["unfused"], st0, obs, u)
     report["corr_apply_cols"] = check_kernel("corr_apply_cols",
                                              inputs["corr_apply_cols"][0],
                                              "LI")
-    check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0], "ransac_PG")
     report["f32_matmul_big"] = check_kernel(
-        "f32_matmul_big", inputs["f32_matmul_big"][1], "update_PHt")
+        "f32_matmul_big", inputs["f32_matmul_big"][0], "ransac_PG")
+    report["pht_blocks"] = check_pht_blocks(inputs["pht_blocks"][0],
+                                            "update_PHt")
     check_slab_kernels(inputs, report)
     inputs = capture_frame(cfgs["unfused_pallas"], st0, obs, u)
     args = inputs["fused_update_tail"][0]
@@ -1131,21 +1237,27 @@ def check_paths(dev, card: str) -> list:
         kernels.update_tail_plain(*(a.double() for a in args)),
         kernels.scaled_error)
 
-    # The IEKF frame: K6 for RANSAC's P·G, then for each of the 3 + 1
-    # iterates' P·Hᵀ, then for the HI update's; K4 for the iterated
-    # update's tail, then the HI one's.
+    # The IEKF frame: K6 for RANSAC's P·G, pht_blocks for each of the
+    # 3 + 1 iterates' P·Hᵀ and S, then for the HI update's; K4 for the
+    # iterated update's tail, then the HI one's. The last iterate's
+    # pht_blocks also tiled to the cell's B = 1,024.
     inputs = capture_frame(cfgs["iekf"], st0, obs, u)
     calls = {k: len(v) for k, v in inputs.items() if k in kernels.LAUNCHES}
-    if calls != PER_FRAME["iekf"]:
-        raise AssertionError(f"iekf frame: kernel calls {calls}, expected "
-                             f"{PER_FRAME['iekf']}")
-    for name, site, args in (
-            ("f32_matmul_big", "iekf_PHt", inputs["f32_matmul_big"][4]),
-            ("corr_apply_cols", "iekf_tail", inputs["corr_apply_cols"][0])):
-        e = check_kernel(name, args, site)
-        report[name]["iekf"] = {k: e[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "scaled_err")}
+    if (calls != PER_FRAME["iekf"] or len(inputs["pht_blocks"])
+            != glue_per_frame("iekf")["pht_blocks"]):
+        raise AssertionError(f"iekf frame: kernel calls {calls} and "
+                             f"{len(inputs['pht_blocks'])} pht_blocks, "
+                             f"expected {PER_FRAME['iekf']} and "
+                             f"{glue_per_frame('iekf')['pht_blocks']}")
+    e = check_kernel("corr_apply_cols", inputs["corr_apply_cols"][0],
+                     "iekf_tail")
+    report["corr_apply_cols"]["iekf"] = {k: e[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "scaled_err")}
+    report["pht_blocks"]["iekf"] = check_pht_blocks(inputs["pht_blocks"][3],
+                                                    "iekf_PHt")
+    report["pht_blocks"]["iekf_b1024"] = check_pht_blocks(
+        tiled(inputs["pht_blocks"][3], PHT_CELL_BATCH), "iekf_PHt_b1024")
 
     # The image frame's numerator and norms: all B·CAP windows and
     # templates at once, through both forms of K7.
@@ -1199,12 +1311,12 @@ def check_paths(dev, card: str) -> list:
         inputs = capture_frame(fcfgs["fast"], fst0, fobs, fu)
     newton["fast"] = check_newton(newton_operands(
         inputs, NEWTON_SITES["fast"]), "fast")
-    check_kernel("f32_matmul_big", inputs["f32_matmul_big"][0],
-                 "ransac_PG_bf16")
+    report["pht_blocks"]["bf16_p"] = check_pht_blocks(
+        inputs["pht_blocks"][0], "update_PHt_bf16")
     for name, site, args in (
             ("corr_apply_cols", "LI_bf16", inputs["corr_apply_cols"][0]),
-            ("f32_matmul_big", "update_PHt_bf16",
-             inputs["f32_matmul_big"][1])):
+            ("f32_matmul_big", "ransac_PG_bf16",
+             inputs["f32_matmul_big"][0])):
         if args[0].dtype != torch.bfloat16:
             raise AssertionError(f"fast: {name} took {args[0].dtype}")
         e = check_kernel(name, args, site)
@@ -1253,10 +1365,14 @@ def check_paths(dev, card: str) -> list:
                 warp_rates[WARP_PATHS[path]] = rate
         if path == "fused":
             newton_launches = counts["spd_inverse_newton"]
+        if path == "unfused":
+            launches["pht_blocks"] = counts["pht_blocks"]
+        if path == "iekf":
+            report["pht_blocks"]["iekf"]["launches"] = counts["pht_blocks"]
         for name in PER_FRAME[path]:
             launches.setdefault(name, counts[name])
             if path == "iekf":
-                report[name]["iekf"]["launches"] = counts[name]
+                report[name].setdefault("iekf", {})["launches"] = counts[name]
             elif path in ("image_exact", "image_none"):
                 report[name][path] = {"launches": counts[name]}
     affine = warp_rates["affine"]
@@ -2671,6 +2787,7 @@ def check_golden(dev, card: str, report: dict) -> None:
     t_start = time.perf_counter()
     want = {k: PER_FRAME["unfused"].get(k, 0) * (GOLDEN_FRAMES - 1)
             for k in kernels.LAUNCHES}
+    want_pht = glue_per_frame("unfused")["pht_blocks"] * (GOLDEN_FRAMES - 1)
     for seed in GOLDEN_SEEDS:
         cpu = golden.run("float32", GOLDEN_FRAMES, GOLDEN_BATCH, seed, "cpu")
         part = cpu.first_parting()
@@ -2682,9 +2799,11 @@ def check_golden(dev, card: str, report: dict) -> None:
                              dev)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        if launches != want:
+        pht = kernels.GLUE_LAUNCHES["pht_blocks"]
+        if launches != want or pht != want_pht:
             raise AssertionError(f"golden seed {seed}: kernel launches "
-                                 f"{launches}, expected {want}")
+                                 f"{launches}, pht_blocks {pht}, expected "
+                                 f"{want}, {want_pht}")
         for k in golden.COUNTS:
             got, ref = run.port[k][:held - 1], run.oracle[k][:held - 1]
             if not numpy.array_equal(got, ref):
@@ -2709,16 +2828,18 @@ def check_golden(dev, card: str, report: dict) -> None:
             for name in want:
                 if want[name]:
                     report[name]["golden"] = {"launches": launches[name]}
-    # K6 (the update's P·Hᵀ) and K4 (the LI tail) at the golden shapes, on
-    # frame 2's operands (K6: RANSAC's P·G, then each update's P·Hᵀ)
-    per_frame = PER_FRAME["unfused"]
-    for name, site, i in (("f32_matmul_big", "golden_PHt", 1),
-                          ("corr_apply_cols", "golden_tail", 0)):
-        args = frame_ops[name][per_frame[name] + i]
-        e = check_kernel(name, args, site)
-        report[name]["golden"].update({k: e[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "scaled_err")})
+            report["pht_blocks"]["golden"] = {"launches": pht}
+    # pht_blocks (the LI update's P·Hᵀ and S) and K4 (the LI tail) at the
+    # golden shapes, on frame 2's operands
+    e = check_pht_blocks(frame_ops["pht_blocks"][want_pht //
+                                                 (GOLDEN_FRAMES - 1)],
+                         "golden_PHt")
+    report["pht_blocks"]["golden"].update(e)
+    e = check_kernel("corr_apply_cols", frame_ops["corr_apply_cols"][
+        PER_FRAME["unfused"]["corr_apply_cols"]], "golden_tail")
+    report["corr_apply_cols"]["golden"].update({k: e[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "scaled_err")})
     phase("golden_done", seconds=f"{time.perf_counter() - t_start:.1f}")
 
 

@@ -6,15 +6,19 @@ Port of ``ekf_slam_tpu/filter/ekf.py`` in its default forms:
   only the 13 camera rows and columns of P change
   (predict_state_and_covariance.m:26-27);
 * ``update_gain``: the gain half of the masked update (update.m:8-11),
-  with its two SPD-inverse solvers. Without the caller's gain columns it
-  forms P·Hᵀ in ``kernels.f32_matmul_big`` (K6);
+  with its two SPD-inverse solvers. H is a measurement Jacobian by its
+  blocks (``JacobianBlocks``, never dense) or a dense (B,M,D) matrix.
+  Without the caller's gain columns, P·Hᵀ and S = H·P·Hᵀ come from one
+  ``kernels.pht_blocks`` pass over P for blocks, from K6
+  ``kernels.f32_matmul_big`` and a product for a dense H;
 * ``update``: the whole masked update. Its covariance tail (downdate,
   symmetrize, quaternion renorm; update.m:13-24) runs in K5
   ``kernels.fused_update_tail`` when ``use_pallas`` is set and P is f32,
   else as the folded rank-(2M'+8) correction applied by K4
   ``kernels.corr_apply_cols``;
 * ``update_iterated``: the iterated (Gauss-Newton) update, each of its
-  P·Hᵀ in K6 and its covariance tail the one ``update`` uses;
+  gains as ``update_gain`` forms them and its covariance tail the one
+  ``update`` uses;
 * ``update_rows``: the same update in row form (the engine's
   ``EKF_UPDATE=rows`` layout): the caller's H·P rows feed S, the state
   move and the folded rank-(2M'+8) row factors, whose correction K8
@@ -32,6 +36,7 @@ and write it as stored; no product takes a bf16 operand.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -43,7 +48,7 @@ from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
 # The update layout of the unfused step (engine.step_core_from_prior):
-# "cols" (the default) updates from the gain columns P·Hᵀ (K6 products,
+# "cols" (the default) updates from the gain columns P·Hᵀ (pht_blocks,
 # K4 tail); "rows" from one shared H·P row read (measurement
 # .pht_rows_split) that feeds the S gates, RANSAC and update_rows (K8
 # tail). The same switch as the JAX engine's (ekf.py:142).
@@ -90,23 +95,71 @@ def predict(x: torch.Tensor, P: torch.Tensor, cfg: FilterConfig):
     return x_pred, P_pred
 
 
-def update_gain(x: torch.Tensor, P, H: torch.Tensor, z: torch.Tensor,
+@dataclasses.dataclass(frozen=True)
+class JacobianBlocks:
+    """The measurement Jacobian of M gathered slots by its blocks, never
+    dense: row 2m+c (c = u, v) holds H_xv[:, m, c] on the 13 camera
+    columns and H_y[:, m, c] on the columns 13+6·sel[:, m] .. +5 of the
+    slot it measures, zeros elsewhere (19 nonzeros of D a row). H_xv
+    (B,M,2,13), H_y (B,M,2,6); sel (B,M) int64, an instance's slots
+    distinct. measurement.compact_dense_H builds the same rows dense."""
+    H_xv: torch.Tensor
+    H_y: torch.Tensor
+    sel: torch.Tensor
+
+    def masked(self, mask: torch.Tensor) -> "JacobianBlocks":
+        """The rows where mask (B,2M) is 0 zeroed."""
+        m = mask.reshape(*self.sel.shape, 2, 1)
+        return JacobianBlocks(self.H_xv * m, self.H_y * m, self.sel)
+
+    def times(self, X: torch.Tensor) -> torch.Tensor:
+        """H·X (B,2M,N) for X (B,D,N), from X's rows that H reads."""
+        return kernels.blocks_times(self.H_xv, self.H_y, self.sel, X)
+
+
+def _masked_rows(H, mask: torch.Tensor):
+    """H (blocks or dense (B,M,D)) with the rows where mask is 0 zeroed."""
+    if isinstance(H, JacobianBlocks):
+        return H.masked(mask)
+    return H * mask[..., None]
+
+
+def _times(H, X: torch.Tensor) -> torch.Tensor:
+    """H·X for H blocks or dense and X (B,D,N)."""
+    return H.times(X) if isinstance(H, JacobianBlocks) else H @ X
+
+
+def _gain_columns(P, H, r_eff: torch.Tensor):
+    """(P·Hᵀ (B,D,M), S = H·P·Hᵀ + diag(r_eff) (B,M,M)) for a masked H on
+    P as stored: both from one kernels.pht_blocks pass over P for blocks;
+    K6's product and H·PHt for a dense H."""
+    if isinstance(H, JacobianBlocks):
+        return kernels.pht_blocks(P, H.H_xv.contiguous(),
+                                  H.H_y.contiguous(), H.sel.contiguous(),
+                                  r_eff.contiguous())
+    PHt = kernels.f32_matmul_big(P, H.transpose(1, 2).contiguous())
+    return PHt, H @ PHt + torch.diag_embed(r_eff)
+
+
+def update_gain(x: torch.Tensor, P, H, z: torch.Tensor,
                 h: torch.Tensor, row_mask: torch.Tensor,
                 r_diag: torch.Tensor, gain_solver: str = "cholesky",
                 PHt: torch.Tensor | None = None):
-    """x (B,D); H (B,M,D); z, h, row_mask, r_diag (B,M); PHt (B,D,M) the
-    gain columns P·Hᵀ if the caller has them (then P is not read; else
-    K6 forms them from P (B,D,D), as stored).
+    """x (B,D); H the Jacobian of the M rows, JacobianBlocks or dense
+    (B,M,D); z, h, row_mask, r_diag (B,M); PHt (B,D,M) the gain columns
+    P·Hᵀ if the caller has them (then P is not read and S = H·PHt, for
+    blocks from PHt's rows that H reads; else _gain_columns forms both
+    from P (B,D,D), as stored).
     Returns (x_new un-renormalized, K (B,D,M), PHt masked (B,D,M))."""
     mask = row_mask.to(x.dtype)
-    H = H * mask[..., None]
+    H = _masked_rows(H, mask)
     nu = (z - h) * mask
     r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
     if PHt is None:
-        PHt = kernels.f32_matmul_big(P, H.transpose(1, 2).contiguous())
+        PHt, S = _gain_columns(P, H, r_eff)             # S (B, M, M), SPD
     else:
         PHt = PHt * mask[:, None, :]
-    S = H @ PHt + torch.diag_embed(r_eff)                  # (B, M, M), SPD
+        S = _times(H, PHt) + torch.diag_embed(r_eff)
     W = (_spd_inverse_newton(S) if gain_solver == "newton"
          else _spd_inverse(S))
     K = PHt @ W
@@ -154,8 +207,9 @@ def update(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
            z: torch.Tensor, h: torch.Tensor, row_mask: torch.Tensor,
            r_diag: torch.Tensor, use_pallas: bool = False,
            gain_solver: str = "cholesky"):
-    """Masked EKF measurement update (update.m:1-32). H (B,M,D) dense
-    Jacobian; z, h, row_mask, r_diag (B,M). P enters symmetric.
+    """Masked EKF measurement update (update.m:1-32). H the Jacobian,
+    JacobianBlocks or dense (B,M,D); z, h, row_mask, r_diag (B,M). P
+    enters symmetric.
 
     The tail runs in K5 when use_pallas is set and x and P are float32 (as
     the JAX package takes its fused_update_tail kernel only for an f32 P),
@@ -192,29 +246,29 @@ def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
     and x_{i+1} = x̂ + K_i·ν_i; the covariance is formed once, at the last
     iterate, by ``_update_tail`` (K4, or K5 with use_pallas).
 
-    h_fn: x (B,D) -> (h (B,M), H (B,M,D)) at x; rows of inactive
-    measurements are masked here. z, row_mask, r_diag (B,M). Each P·Hᵀ
-    (num_iters + 1 of them) is a K6 product on P as stored. S is always
-    inverted by Cholesky, whatever the config's gain_solver, as in JAX.
+    h_fn: x (B,D) -> (h (B,M), H) at x, H JacobianBlocks or dense
+    (B,M,D); rows of inactive measurements are masked here. z, row_mask,
+    r_diag (B,M). Each gain's P·Hᵀ and S (num_iters + 1 of them) come
+    from _gain_columns on P as stored: one kernels.pht_blocks pass for
+    blocks. S is always inverted by Cholesky, whatever the config's
+    gain_solver, as in JAX.
     The iterates that move only x run in the span iekf.iterate, the last
     gain and the covariance tail in iekf.tail (device marks on a CUDA x).
     Returns (x_new, P_new in P's dtype)."""
     mask = row_mask.to(x.dtype)
-    R = torch.diag_embed(torch.where(row_mask, r_diag,
-                                     torch.ones_like(r_diag)))
+    r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
 
     def gain(xi):
         h, H = h_fn(xi)
-        H = H * mask[..., None]
-        PHt = kernels.f32_matmul_big(P, H.transpose(1, 2).contiguous())
-        K = PHt @ _spd_inverse(H @ PHt + R)
-        return h, H, PHt, K
+        H = _masked_rows(H, mask)
+        PHt, S = _gain_columns(P, H, r_eff)
+        return h, H, PHt, PHt @ _spd_inverse(S)
 
     xi = x
     with trace_annotation("iekf.iterate", x.device):
         for _ in range(num_iters):
             h, H, _, K = gain(xi)
-            nu = (z - h) * mask - (H @ (x - xi)[..., None])[..., 0]
+            nu = (z - h) * mask - _times(H, (x - xi)[..., None])[..., 0]
             xi = x + (K @ nu[..., None])[..., 0]
     with trace_annotation("iekf.tail", x.device):
         _, _, PHt, K = gain(xi)

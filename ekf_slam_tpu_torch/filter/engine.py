@@ -15,12 +15,13 @@ the JAX engine does (``_use_fused``):
 
 * ``step_core`` + ``initialize_features``: the unfused step, for every
   config outside the fused one's conditions (the library default and the
-  bf16-P fast mode included). Its dense products on P run in K6
-  (``f32_matmul_big``) and its two update tails in K4
+  bf16-P fast mode included). Each update's P·Hᵀ and S come from the
+  Jacobian's blocks in one pass over P (``kernels.pht_blocks``), RANSAC's
+  P·G from K6 (``f32_matmul_big``), and its two update tails run in K4
   (``corr_apply_cols``) or, with ``pallas_update``, K5
   (``fused_update_tail``). With ``use_iterated_update`` its LI update
-  is the IEKF (``ekf.update_iterated``: K6 for each P·Hᵀ, the same
-  tail). Under ``ekf._UPDATE == "rows"``
+  is the IEKF (``ekf.update_iterated``: each gain by pht_blocks, the
+  same tail). Under ``ekf._UPDATE == "rows"``
   (EKF_UPDATE=rows) it takes the row form instead: one H·P row read a
   phase (``measurement.pht_rows_split``) feeds the S gates, RANSAC and
   ``ekf.update_rows``, whose tails run in K8 (``corr_apply``); no K6.
@@ -213,7 +214,7 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
     (engine.py:152-312 on its default and its row-form branches): IC
     gates, RANSAC, the LI update, the HI rescue from the posterior, the HI
     update. Column form: S from P's blocks, RANSAC's moves in K6, the
-    updates by _masked_update. Row form: each phase reads P once into the
+    updates by _masked_update (their gains by pht_blocks). Row form: each phase reads P once into the
     H·P rows of every visible slot, which give S, RANSAC's moves and
     _masked_update_rows' operand. With use_iterated_update the LI update
     is the IEKF (_masked_update_iterated, column form only). The stages
@@ -283,6 +284,17 @@ def _step_core_epilogue(state: FilterState, x_post, P_post, visible, ic, li,
     return state, visible, ic, info
 
 
+def _update_slots(slot_mask: torch.Tensor, M: int):
+    """The slots a column-form update takes: the M most relevant
+    (_gather_slots) when 0 < M < CAP, else every slot in slot order.
+    Returns (M, sel (B,M), sel_mask (B,M), take)."""
+    B, cap = slot_mask.shape
+    if 0 < M < cap:
+        return (M, *_gather_slots(slot_mask, M))
+    sel = torch.arange(cap, device=slot_mask.device).expand(B, cap)
+    return cap, sel.contiguous(), slot_mask, lambda a: a
+
+
 def _gather_slots(slot_mask: torch.Tensor, M: int):
     """The M most relevant slots, the mask's slots first in stable order:
     (sel (B,M), sel_mask (B,M), take) with take(a) gathering a (B,CAP,...)
@@ -302,31 +314,21 @@ def _gather_slots(slot_mask: torch.Tensor, M: int):
 def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
                    update=None):
     """EKF update over the masked slots (engine.py:482-517). With
-    0 < max_update_obs = M < CAP the M most relevant slots are gathered
-    into a compact (2M, D) Jacobian; otherwise every slot's rows enter the
-    dense (2·CAP, D) one. `update` takes ekf.update's arguments and
-    applies them (ekf.update by default; the row-sharded step's applies
-    them to its slab). Returns (x_new, P_new)."""
+    0 < max_update_obs = M < CAP the M most relevant slots are gathered,
+    otherwise every slot enters in slot order; their Jacobian rows go to
+    the update as blocks (ekf.JacobianBlocks, 2M rows), never dense.
+    `update` takes ekf.update's arguments and applies them (ekf.update by
+    default; the row-sharded step's applies them to its slab).
+    Returns (x_new, P_new)."""
     update = ekf.update if update is None else update
-    B, cap = slot_mask.shape
-    M = cfg.map.max_update_obs
-    use_pallas = _use_pallas(cfg, x.device)
-    solver = cfg.filter.gain_solver
-    if M <= 0 or M >= cap:
-        H = measurement.dense_H(H_xv, H_y, slot_mask)
-        return update(
-            x, P, H, z.reshape(B, 2 * cap), h.reshape(B, 2 * cap),
-            slot_mask.repeat_interleave(2, dim=1),
-            torch.ones(B, 2 * cap, dtype=x.dtype, device=x.device),
-            use_pallas, solver)
-    sel, sel_mask, take = _gather_slots(slot_mask, M)
-    H = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
-                                    cap)
+    B = slot_mask.shape[0]
+    M, sel, sel_mask, take = _update_slots(slot_mask, cfg.map.max_update_obs)
     return update(
-        x, P, H, take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
+        x, P, ekf.JacobianBlocks(take(H_xv), take(H_y), sel),
+        take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
         sel_mask.repeat_interleave(2, dim=1),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
-        use_pallas, solver)
+        _use_pallas(cfg, x.device), cfg.filter.gain_solver)
 
 
 def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
@@ -354,27 +356,17 @@ def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
 
 def _masked_update_iterated(x, P, z, slot_mask, state: FilterState,
                             cfg: EngineConfig):
-    """The Gauss-Newton iterated LI update (engine.py:612-633): the M most
-    relevant slots as in _masked_update when 0 < M < CAP, every slot in
-    slot order otherwise, their rows u,v interleaved; h_fn re-linearizes
-    at each iterate through _linearize. Returns (x_new, P_new)."""
-    B, cap = slot_mask.shape
-    M = cfg.map.max_update_obs
-    if 0 < M < cap:
-        sel, sel_mask, take = _gather_slots(slot_mask, M)
-    else:
-        M = cap
-        sel = torch.arange(cap, device=slot_mask.device).expand(B, cap)
-        sel_mask = slot_mask
-
-        def take(a):
-            return a
+    """The Gauss-Newton iterated LI update (engine.py:612-633): the slots
+    of _masked_update (_update_slots), their rows u,v interleaved; h_fn
+    re-linearizes at each iterate through _linearize and gives the
+    Jacobian's blocks. Returns (x_new, P_new)."""
+    B = slot_mask.shape[0]
+    M, sel, sel_mask, take = _update_slots(slot_mask, cfg.map.max_update_obs)
 
     def h_fn(xi):
         h_i, _, H_xv_i, H_y_i = _linearize(xi, state, cfg)
-        H = measurement.compact_dense_H(take(H_xv_i), take(H_y_i), sel,
-                                        sel_mask, cap)
-        return take(h_i).reshape(B, 2 * M), H
+        return (take(h_i).reshape(B, 2 * M),
+                ekf.JacobianBlocks(take(H_xv_i), take(H_y_i), sel))
 
     return ekf.update_iterated(
         x, P, take(z).reshape(B, 2 * M), h_fn,
@@ -393,20 +385,20 @@ def _linearize(x, state: FilterState, cfg: EngineConfig):
 def _compact_gain(x, pht_flat, H_xv, H_y, z, h, slot_mask,
                   cfg: EngineConfig):
     """Gain half of the fused step's compact masked update: gather the M
-    most relevant slots, their Jacobian rows and their P·Hᵀ column pairs
-    from pht_flat (B, D, 2·CAP), and solve.
+    most relevant slots, their Jacobian blocks and their P·Hᵀ column pairs
+    from pht_flat (B, D, 2·CAP), and solve (S from the rows of those
+    columns that the blocks read).
     Returns (x_new un-renormalized, K (B,D,2M), PHt (B,D,2M))."""
-    B, cap = slot_mask.shape
+    B = slot_mask.shape[0]
     M = cfg.map.max_update_obs
     sel, sel_mask, take = _gather_slots(slot_mask, M)
-    Hc = measurement.compact_dense_H(take(H_xv), take(H_y), sel, sel_mask,
-                                     cap)
     cols = (2 * sel[..., None] + torch.arange(2, device=sel.device)
             ).reshape(B, 2 * M)
     D = pht_flat.shape[1]
     PHt_sel = torch.gather(pht_flat, 2, cols[:, None, :].expand(B, D, 2 * M))
     return ekf.update_gain(
-        x, None, Hc, take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
+        x, None, ekf.JacobianBlocks(take(H_xv), take(H_y), sel),
+        take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
         sel_mask.repeat_interleave(2, dim=1),
         torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
         cfg.filter.gain_solver, PHt_sel)

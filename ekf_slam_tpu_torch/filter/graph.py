@@ -44,7 +44,7 @@ changed; ``EagerFrame`` is the same interface without static buffers, so
 one host loop serves the eager route too.
 
 Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES``,
-``kernels.NEWTON_LAUNCHES``, ``kernels.NEWTON_PLAIN`` and
+``kernels.GLUE_LAUNCHES``, ``kernels.NEWTON_PLAIN`` and
 ``ekf.CHOLESKY_GAINS`` are credited at each replay with the counts the
 captured frame made; the warm-up frames and the capture are set-up and
 leave the counts as they were. There is no fallback: a capture or replay
@@ -99,6 +99,13 @@ def _assign(static, new) -> None:
             s.copy_(n)
 
 
+def _counts() -> tuple:
+    """The counts a replay credits: (kernels.LAUNCHES, kernels.GLUE_LAUNCHES,
+    kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS), the tables copied."""
+    return (dict(kernels.LAUNCHES), dict(kernels.GLUE_LAUNCHES),
+            kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS)
+
+
 class StaticFrame:
     """Static buffers of one frame function and the frame over them.
     `in_place`: indices of carry tensors that start all zero and are used
@@ -115,8 +122,9 @@ class StaticFrame:
         self.device = (*self.carry, *self.inputs)[0].device
         self.outputs = ()
         self.graph = None
-        self.launches = {}
-        self.newton = (0, 0)            # (NEWTON_LAUNCHES, NEWTON_PLAIN)
+        self.launches = {}              # kernels.LAUNCHES, by name
+        self.glue = {}                  # kernels.GLUE_LAUNCHES, by name
+        self.newton_plain = 0           # kernels.NEWTON_PLAIN
         self.cholesky = 0               # ekf.CHOLESKY_GAINS
         self.capture_s = None
 
@@ -144,10 +152,11 @@ class StaticFrame:
             self()
         else:
             self.graph.replay()
-            for name, n in self.launches.items():
-                kernels.LAUNCHES[name] += n
-            kernels.NEWTON_LAUNCHES += self.newton[0]
-            kernels.NEWTON_PLAIN += self.newton[1]
+            for table, made in ((kernels.LAUNCHES, self.launches),
+                                (kernels.GLUE_LAUNCHES, self.glue)):
+                for name, n in made.items():
+                    table[name] += n
+            kernels.NEWTON_PLAIN += self.newton_plain
             ekf.CHOLESKY_GAINS += self.cholesky
         return self.outputs
 
@@ -161,32 +170,28 @@ class StaticFrame:
             raise ValueError(f"CUDA graph capture needs a CUDA device, "
                              f"got {dev}")
         t0 = time.perf_counter()
-        before = dict(kernels.LAUNCHES)
-        newton_before = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
-        cholesky_before = ekf.CHOLESKY_GAINS
+        before = _counts()
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(warmup):
                     self()
-            warm = dict(kernels.LAUNCHES)
-            newton_warm = kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN
-            cholesky_warm = ekf.CHOLESKY_GAINS
+            warm = _counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side):
                 self()
             torch.cuda.current_stream(dev).wait_stream(side)
-            self.launches = {k: v - warm[k]
-                             for k, v in kernels.LAUNCHES.items()
-                             if v != warm[k]}
-            self.newton = (kernels.NEWTON_LAUNCHES - newton_warm[0],
-                           kernels.NEWTON_PLAIN - newton_warm[1])
-            self.cholesky = ekf.CHOLESKY_GAINS - cholesky_warm
+            now = _counts()
+            self.launches, self.glue = (
+                {k: v - w[k] for k, v in table.items() if v != w[k]}
+                for table, w in zip(now[:2], warm[:2]))
+            self.newton_plain = now[2] - warm[2]
+            self.cholesky = now[3] - warm[3]
         finally:
-            kernels.LAUNCHES.update(before)
-            kernels.NEWTON_LAUNCHES, kernels.NEWTON_PLAIN = newton_before
-            ekf.CHOLESKY_GAINS = cholesky_before
+            kernels.LAUNCHES.update(before[0])
+            kernels.GLUE_LAUNCHES.update(before[1])
+            kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS = before[2:]
         self.graph = graph
         for i in self.in_place:
             self.carry[i].zero_()

@@ -4,9 +4,10 @@ Port of the parts of ``ekf_slam_tpu/filter/measurement.py`` the two
 steps use: prediction with the ±60° FoV and in-image gates
 (hi_inverse_depth.m / hi_cartesian.m), the analytic per-slot Jacobian
 blocks H_xv (B,CAP,2,13) / H_y (B,CAP,2,6) in the default chain form
-(calculate_Hi_*.m), the dense Jacobian (and its transpose, which the
-fused kernels consume), the compact gathered Jacobian of the M-slot
-updates (slot-pair row order, and the row-form update's block order), the
+(calculate_Hi_*.m), the dense transposed Jacobian the fused kernels
+consume, the compact gathered Jacobian of the M-slot updates made dense
+(slot-pair row order, which the column-form updates take as blocks,
+ekf.JacobianBlocks; and the row-form update's block order), the
 row-form H·P rows of every slot (``pht_rows_split``), and the per-slot
 innovation covariances (search_IC_matches.m:8) — read off the fused
 kernels' P·Hᵀ columns, the H·P rows, or in the unfused step from P's
@@ -128,20 +129,6 @@ def dense_Ht(H_xv: torch.Tensor, H_y: torch.Tensor,
     Hy_t = torch.einsum("nj,bnck->bjknc", eye, H_y * m).reshape(
         B, 6 * cap, 2 * cap)
     return torch.cat([Hxv_t, Hy_t], dim=1)
-
-
-def dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,
-            row_mask: torch.Tensor) -> torch.Tensor:
-    """Dense Jacobian (B, 2·CAP, D) of every slot, masked slots zeroed:
-    camera columns from H_xv, block-diagonal landmark columns from H_y
-    (calculate_Hi_inverse_depth.m:20-23) — the full-width update's H."""
-    B, cap = row_mask.shape
-    m = row_mask.to(H_xv.dtype)[..., None, None]
-    Hxv = (H_xv * m).reshape(B, 2 * cap, CAM_DIM)
-    eye = torch.eye(cap, dtype=H_xv.dtype, device=H_xv.device)
-    Hy = torch.einsum("nj,bnck->bncjk", eye, H_y * m).reshape(
-        B, 2 * cap, 6 * cap)
-    return torch.cat([Hxv, Hy], dim=2)
 
 
 def compact_dense_H(H_xv: torch.Tensor, H_y: torch.Tensor,

@@ -46,6 +46,7 @@ SIGNATURES = {
     "ekf_k8_corr_apply_rows": [_P] * 4 + [_I] * 6 + [_P],
     "ekf_eight_point_fit": [_P] * 3 + [_I] + [_P],
     "ekf_spd_inverse_newton": [_P] * 2 + [_I] * 2 + [_P],
+    "ekf_pht_blocks": [_P] * 7 + [_I] * 4 + [_P],
     "ekf_span_mark": [_I, _I, _P],
 }
 

@@ -33,6 +33,10 @@ counterparts of ``ekf_slam_tpu/ops/pallas_kernels.py``'s kernels:
      spd_inverse_newton       — the SPD inverse by 20 Newton–Schulz
                                 iterations, S, X and 2I − S·X of an instance
                                 in one block's shared memory throughout
+  measurement gain (pht_blocks.cu; it replaces K6 wherever K6's B is a
+  measurement Jacobian, formed from the Jacobian's blocks, never dense):
+     pht_blocks               — P·Hᵀ and S = H·P·Hᵀ + diag(r) in one pass
+                                over P, from H's blocks (19 nonzeros a row)
 
 Each wrapper takes batched tensors (leading instance axis B; K7 the pair
 axis N, eight_point_fit the matrix axis N). A tensor on the CPU goes to
@@ -44,13 +48,14 @@ those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
 ``LAUNCHES[name]`` counts calls of a wrapper that launched its kernel (K1
 launches three kernels a call, K2 and K3 two: one count);
-``NEWTON_LAUNCHES`` counts spd_inverse_newton's apart (its time is the
-glue layer's: no FLOP count of it is kept beside those of LAUNCHES), and
-``NEWTON_PLAIN`` its calls on the card that launched no kernel. The
-kernels' size limits (the rank r ≤ 128 of K1's and K3's add; K1/K2's R,
-K3/K5's M2, K4's and K8's R and K6's N have none; K7 a window that fits
-shared memory) are checked by the launchers, which return
-cudaErrorInvalidValue (1).
+``GLUE_LAUNCHES[name]`` counts those of spd_inverse_newton and pht_blocks
+apart (their time is the glue layer's: no FLOP count of them is kept
+beside those of LAUNCHES), and ``NEWTON_PLAIN`` spd_inverse_newton's calls
+on the card that launched no kernel. The kernels' size limits (the rank
+r ≤ 128 of K1's and K3's add; K1/K2's R, K3/K5's M2, K4's and K8's R and
+K6's N have none; K7 a window that fits shared memory; pht_blocks D = 13
++ 6·CAP, CAP <= 200, M <= CAP) are checked by the launchers, which
+return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -70,7 +75,7 @@ LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
             "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0,
             "eight_point_fit": 0}
-NEWTON_LAUNCHES = 0
+GLUE_LAUNCHES = {"spd_inverse_newton": 0, "pht_blocks": 0}
 NEWTON_PLAIN = 0
 # spd_inverse_newton: its iterations, and the largest n its kernel takes.
 NEWTON_ITERS = 20
@@ -78,10 +83,11 @@ NEWTON_MAX_N = 128
 
 
 def reset_launches() -> None:
-    global NEWTON_LAUNCHES, NEWTON_PLAIN
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    NEWTON_LAUNCHES = NEWTON_PLAIN = 0
+    global NEWTON_PLAIN
+    for table in (LAUNCHES, GLUE_LAUNCHES):
+        for k in table:
+            table[k] = 0
+    NEWTON_PLAIN = 0
 
 
 # --- plain versions ---------------------------------------------------------
@@ -275,6 +281,41 @@ def spd_inverse_newton_plain(S, iters: int = NEWTON_ITERS):
     return X
 
 
+def _slot_rows(sel):
+    """(B, 6M) indices 13 + 6·sel[m] + j of the six landmark entries of
+    each gathered slot, j fastest."""
+    six = torch.arange(6, device=sel.device)
+    return (13 + 6 * sel[..., None] + six).reshape(sel.shape[0], -1)
+
+
+def blocks_times(H_xv, H_y, sel, X):
+    """H·X (B,2M,N) for the Jacobian given by its blocks (row 2m+c: H_xv
+    (B,M,2,13) on X's rows 0:13, H_y (B,M,2,6) on its rows 13+6·sel[m] ..
+    +5) and X (B,D,N): the camera rows of X and each slot's six gathered,
+    never a dense H."""
+    B, M = sel.shape
+    N = X.shape[2]
+    rows = _slot_rows(sel)[..., None].expand(B, 6 * M, N)
+    Xl = torch.gather(X, 1, rows).reshape(B, M, 6, N)
+    return (H_xv.reshape(B, 2 * M, 13) @ X[:, :13]
+            + (H_y @ Xl).reshape(B, 2 * M, N))
+
+
+def pht_blocks_plain(P, H_xv, H_y, sel, r):
+    """(PHt, S): PHt = P·Hᵀ (B,D,2M) from P's camera columns and each
+    gathered slot's six, S = H·PHt + diag(r) (B,2M,2M) by blocks_times,
+    for the Jacobian's blocks H_xv (B,M,2,13), H_y (B,M,2,6), sel (B,M)
+    and r (B,2M); P (B,D,D) upcast to H_xv's dtype."""
+    B, M = sel.shape
+    Pc = P.to(H_xv.dtype)
+    D = Pc.shape[1]
+    cols = _slot_rows(sel)[:, None, :].expand(B, D, 6 * M)
+    Pl = torch.gather(Pc, 2, cols).reshape(B, D, M, 6)
+    PHt = (Pc[:, :, :13] @ H_xv.reshape(B, 2 * M, 13).transpose(1, 2)
+           + torch.einsum("bdmj,bmcj->bdmc", Pl, H_y).reshape(B, D, 2 * M))
+    return PHt, blocks_times(H_xv, H_y, sel, PHt) + torch.diag_embed(r)
+
+
 PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "fused_update_tail_pht": update_tail_pht_plain,
          "fused_update_tail_add": update_tail_add_plain,
@@ -286,7 +327,8 @@ PLAIN = {"fused_manage_predict_pht": manage_predict_pht_plain,
          "corr_apply": corr_apply_plain,
          "corr_apply_rows": corr_apply_rows_plain,
          "eight_point_fit": eight_point_fit_plain,
-         "spd_inverse_newton": spd_inverse_newton_plain}
+         "spd_inverse_newton": spd_inverse_newton_plain,
+         "pht_blocks": pht_blocks_plain}
 
 
 # --- checking a kernel against its plain version ----------------------------
@@ -473,6 +515,20 @@ def product_error(out, ref, P_diag, Ht) -> float:
     hph = (Ht.to(ref.dtype) * ref).sum(dim=1).clamp_min(0)
     return entry_error(out.to(ref.dtype) - ref,
                         P_diag.to(ref.dtype).clamp_min(0), hph)
+
+
+def pht_blocks_error(out, P, H_xv, H_y, sel, r) -> float:
+    """pht_blocks' output (PHt, S) against its f64 plain version on the
+    same operands, each entry in units of its Cauchy–Schwarz bound:
+    |PHt_ik| ≤ sqrt(P_ii·(H·P·Hᵀ)_kk), (H·P·Hᵀ)_kk = S_kk − r_k, and
+    |S_rs| ≤ sqrt(S_rr·S_ss)."""
+    ref, ref_S = pht_blocks_plain(P.double(), H_xv.double(), H_y.double(),
+                                  sel, r.double())
+    dS = torch.diagonal(ref_S, dim1=1, dim2=2)
+    dP = torch.diagonal(P.double(), dim1=1, dim2=2).clamp_min(0)
+    return max(entry_error(out[0].double() - ref, dP,
+                           (dS - r.double()).clamp_min(0)),
+               entry_error(out[1].double() - ref_S, dS, dS))
 
 
 def ncc_error(out, ref, windows, tm) -> float:
@@ -782,11 +838,11 @@ def spd_inverse_newton(S):
     an f32 S with n <= NEWTON_MAX_N takes one kernel launch (one block an
     instance, every iteration in shared memory, ascending-k FFMA chains:
     deterministic, and an instance's bits do not depend on its batch),
-    counted in NEWTON_LAUNCHES, not in LAUNCHES; where the plain version
+    counted in GLUE_LAUNCHES, not in LAUNCHES; where the plain version
     is NaN for a non-finite S (λ̂ NaN), so is the kernel. Any other S on
     the card (f64, or n past what shared memory holds) takes the plain
     version's batched torch.matmul iteration, counted in NEWTON_PLAIN."""
-    global NEWTON_LAUNCHES, NEWTON_PLAIN
+    global NEWTON_PLAIN
     name = "spd_inverse_newton"
     Bn, n = S.shape[0], S.shape[-1]
     if S.is_cuda and (S.dtype != torch.float32 or n > NEWTON_MAX_N):
@@ -799,8 +855,42 @@ def spd_inverse_newton(S):
         return W
     _launch(name, _build.load().ekf_spd_inverse_newton, S.data_ptr(),
             W.data_ptr(), Bn, n)
-    NEWTON_LAUNCHES += 1
+    GLUE_LAUNCHES[name] += 1
     return W
+
+
+def pht_blocks(P, H_xv, H_y, sel, r):
+    """P (B,D,D), f32 or bf16, D = 13 + 6·CAP; H_xv (B,M,2,13), H_y
+    (B,M,2,6), r (B,2M); sel (B,M) int64, distinct slots in [0, CAP).
+    Returns pht_blocks_plain(P, H_xv, H_y, sel, r): (P·Hᵀ (B,D,2M), H·P·Hᵀ
+    + diag(r) (B,2M,2M)) for the Jacobian whose row 2m+c is H_xv[:, m, c]
+    on the camera columns and H_y[:, m, c] on the columns of slot sel[:,
+    m]. On the card (f32 operands, P f32 or bf16) one kernel launch, P
+    read once as stored, counted in GLUE_LAUNCHES, not in LAUNCHES; the
+    launcher refuses CAP > 200, whose stage ring overflows shared memory
+    (RuntimeError)."""
+    name = "pht_blocks"
+    B, D, _ = P.shape
+    M = sel.shape[1]
+    on_card = _check(name, {"P": (B, D, D), "H_xv": (B, M, 2, 13),
+                            "H_y": (B, M, 2, 6), "r": (B, 2 * M)},
+                     dict(P=P, H_xv=H_xv, H_y=H_y, r=r), ("P",))
+    if (tuple(sel.shape) != (B, M) or sel.dtype != torch.int64
+            or not sel.is_contiguous() or sel.device != P.device):
+        raise ValueError(f"{name}: sel must be a contiguous int64 (B, M) "
+                         f"= ({B}, {M}) tensor on {P.device}")
+    if not on_card:
+        return pht_blocks_plain(P, H_xv, H_y, sel, r)
+    PHt = torch.empty(B, D, 2 * M, dtype=H_xv.dtype, device=P.device)
+    S = torch.empty(B, 2 * M, 2 * M, dtype=H_xv.dtype, device=P.device)
+    if B == 0 or M == 0:
+        return PHt, S
+    _launch(name, _build.load().ekf_pht_blocks, P.data_ptr(),
+            H_xv.data_ptr(), H_y.data_ptr(), sel.data_ptr(), r.data_ptr(),
+            PHt.data_ptr(), S.data_ptr(), B, D, M,
+            int(P.dtype == torch.bfloat16))
+    GLUE_LAUNCHES[name] += 1
+    return PHt, S
 
 
 def _ncc_operands(name, windows, tm):

@@ -207,12 +207,16 @@ class Slab:
 
     def update(self, x, _P, H, z, h, row_mask, r_diag, use_pallas=False,
                gain_solver="cholesky"):
-        """ekf.update on the slab (its P argument unused): P·Hᵀ by K6 on
-        the slab and gathered, the gain replicated, the tail P + Ā·B̄ᵀ on
-        the slab's rows. Returns (x_new, the slab of P_new). use_pallas
-        is not taken: the K5 tail needs the whole P."""
-        mask = row_mask.to(x.dtype)
-        PHt = self.matmul((H * mask[..., None]).transpose(1, 2))
+        """ekf.update on the slab (its P argument unused; H the
+        update's ekf.JacobianBlocks): P·Hᵀ by K6 on the slab, from the
+        masked blocks made dense, and gathered, S and the gain replicated
+        from the blocks, the tail P + Ā·B̄ᵀ on the slab's rows. Returns
+        (x_new, the slab of P_new). use_pallas is not taken: the K5 tail
+        needs the whole P."""
+        Hm = H.masked(row_mask.to(x.dtype))
+        PHt = self.matmul(measurement.compact_dense_H(
+            Hm.H_xv, Hm.H_y, Hm.sel, torch.ones_like(Hm.sel, dtype=torch.bool),
+            (self.D - CAM_DIM) // 6).transpose(1, 2))
         x_new, K, PHt = ekf.update_gain(x, None, H, z, h, row_mask, r_diag,
                                         gain_solver, PHt)
         rows4 = torch.arange(3, 7, device=x.device).expand(x.shape[0], 4)

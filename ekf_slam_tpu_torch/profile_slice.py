@@ -9,28 +9,31 @@ B = 128 instances, 16 frames, through one of the engine's paths (default
 ``fused``). With the f32 parity settings (max_update_obs 64):
 
   fused           step_fused: K1, K2, K3
-  unfused         step_core: K6 for the products on P, K4 for the tails
-  unfused_pallas  step_core with pallas_update="on": K6, and K5 for the
-                  tails
+  unfused         step_core: K6 for RANSAC's P·G, pht_blocks for each
+                  update's P·Hᵀ and S, K4 for the tails
+  unfused_pallas  step_core with pallas_update="on": K6, pht_blocks, and
+                  K5 for the tails
   iekf            step_core with the iterated LI update (3 iterations):
-                  K6 for RANSAC's P·G and each P·Hᵀ (6 a frame), K4 for
-                  the tails
+                  K6 for RANSAC's P·G, pht_blocks for each gain (5 a
+                  frame), K4 for the tails
 
 and in bench.py's production fast mode (P stored in bf16,
 max_update_obs 24):
 
-  fast            step_core, column form: K6 and K4 on the bf16 P
+  fast            step_core, column form: K6, pht_blocks and K4 on the
+                  bf16 P
   fast_rows       step_core, row form (EKF_UPDATE=rows, EKF_TAIL_SYM=expr):
                   K8 for the tails, no K6
 
 The image path is the JAX pixels bench's workload with the NCC matcher
 (see ``image_config``), B = 32 instances, 16 rendered 240x320 frames,
 through vision/frontend.run_images: K7's norms form for the NCC
-numerator and patch norms, K6 and K4 as on the unfused path.
+numerator and patch norms, K6, pht_blocks and K4 as on the unfused path.
 ``image_exact`` and ``image_none`` warp the templates with the per-pixel
 distortion round trip and with none (VisionConfig.warp_distortion; the
 bench's "affine" in ``image``). ``image_descriptor`` is the same workload
-with the binary-descriptor matcher (the JAX default): K6 and K4, no K7.
+with the binary-descriptor matcher (the JAX default): K6, pht_blocks and
+K4, no K7.
 
 Two measurements, each of three routes:
 

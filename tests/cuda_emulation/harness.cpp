@@ -1,10 +1,11 @@
 // Runs K1 (fused_manage_predict_pht), K2 (fused_update_tail_pht) or K3/K5
 // (fused_update_tail_add / fused_update_tail) of csrc/fused_cov.cu, K4
 // (corr_apply_cols), K6 (f32_matmul_big) or K8 (corr_apply) of
-// csrc/unfused_cov.cu (and K8's row-slab form), K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu
-// or spd_inverse_newton of csrc/newton_inverse.cu on
-// the CPU through the stand-in headers beside this file, on random
-// operands, and holds the result against a plain f64 loop.
+// csrc/unfused_cov.cu (and K8's row-slab form), K7 (ncc_corr, ncc_corr_norms) of csrc/ncc.cu,
+// spd_inverse_newton of csrc/newton_inverse.cu or pht_blocks of
+// csrc/pht_blocks.cu on the CPU through the stand-in headers beside this
+// file, on random operands (pht_blocks: on a file's), and holds the result
+// against a plain f64 loop.
 //
 //   g++ -std=c++20 -O1 -fsanitize=address -I tests/cuda_emulation
 //       -I ekf_slam_tpu_torch/csrc -x c++ tests/cuda_emulation/harness.cpp
@@ -24,6 +25,8 @@
 //   ./emulate nsi f32 B n case                 (spd_inverse_newton; case 0
 //       SPD of condition 1e1 to 1e4, 1 a NaN entry, 2 an infinite entry,
 //       3 a non-positive diagonal entry)
+//   ./emulate pht f32|bf16 IN OUT              (pht_blocks on the operands
+//       in file IN, its outputs to file OUT: run_pht's comment)
 //
 // Prints one line and exits 0 when every entry is within tolerance (1e-5
 // of the entry's own scale — the same sums over absolute values — plus one
@@ -39,13 +42,15 @@
 // eight_point_fit is held to itself (launched again, and each matrix
 // alone) and to an f64 Jacobi (run_ep's comment); spd_inverse_newton to an
 // f64 loop of the same 20 iterations and to each instance launched alone
-// (run_nsi's comment). A span mark must launch
+// (run_nsi's comment); pht_blocks writes its outputs for the test to hold
+// against the plain version (run_pht). A span mark must launch
 // the instance of its (id, end), and an (id, end) without one must launch
 // nothing and return an error.
 #include "eight_point.cu"
 #include "fused_cov.cu"
 #include "ncc.cu"
 #include "newton_inverse.cu"
+#include "pht_blocks.cu"
 #include "spans.cu"
 #include "unfused_cov.cu"
 
@@ -1032,11 +1037,76 @@ bool run_span(int id, int end) {
   return valid ? rc == 0 && g_span == want : rc != 0 && g_span == -1;
 }
 
+// --- pht_blocks (csrc/pht_blocks.cu) --------------------------------------
+
+template <typename T>
+void register_pht() {
+  g_kernels[reinterpret_cast<const void*>(phtb_kernel<T>)] = [](void** a) {
+    phtb_kernel<T>(*(const T**)a[0], *(const float**)a[1],
+                   *(const float**)a[2], *(const long long**)a[3],
+                   *(const float**)a[4], *(float**)a[5], *(float**)a[6],
+                   *(int*)a[7], *(int*)a[8]);
+  };
+}
+
+template <typename V>
+bool read_into(FILE* f, V* dst, size_t n) {
+  return fread(dst, sizeof(V), n, f) == n;
+}
+
+// pht_blocks through its launcher on the operands in file `in`: int32 B,
+// D, M; then P as stored (B·D·D entries), H_xv (B·M·2·13 f32), H_y
+// (B·M·2·6 f32), sel (B·M int64), r (B·2M f32). P is copied to an odd
+// offset inside a larger buffer, as a matrix of a batch lies, so the bulk
+// copies of its 16-byte lines stay inside the buffer; the outputs' buffers
+// start as NaN, so an entry nobody wrote shows. Writes int32 rc, then PHt
+// (B·D·2M f32) and S (B·2M·2M f32) to `out`, which
+// tests/test_torch_cuda_emulation.py holds against the plain version.
+template <typename T>
+bool run_pht(const char* in, const char* out) {
+  register_pht<T>();
+  FILE* f = fopen(in, "rb");
+  if (!f) return false;
+  int dims[3];
+  if (!read_into(f, dims, 3)) return false;
+  const int B = dims[0], D = dims[1], M = dims[2];
+  const size_t DD = static_cast<size_t>(D) * D, N = 2 * M;
+  std::vector<T> buf(B * DD + 32);
+  T* P = buf.data() + 8 + D % 3;
+  std::vector<float> Hxv(B * N * 13), Hy(B * N * 6), r(B * N);
+  std::vector<long long> sel(static_cast<size_t>(B) * M);
+  const bool ok = read_into(f, P, B * DD) &&
+                  read_into(f, Hxv.data(), Hxv.size()) &&
+                  read_into(f, Hy.data(), Hy.size()) &&
+                  read_into(f, sel.data(), sel.size()) &&
+                  read_into(f, r.data(), r.size());
+  fclose(f);
+  if (!ok) return false;
+  std::vector<float> PHt(B * D * N, NAN), S(B * N * N, NAN);
+  const int rc = ekf_pht_blocks(P, Hxv.data(), Hy.data(), sel.data(),
+                                r.data(), PHt.data(), S.data(), B, D, M,
+                                sizeof(T) == 2, nullptr);
+  FILE* o = fopen(out, "wb");
+  if (!o) return false;
+  fwrite(&rc, sizeof(int), 1, o);
+  fwrite(PHt.data(), sizeof(float), PHt.size(), o);
+  fwrite(S.data(), sizeof(float), S.size(), o);
+  fclose(o);
+  printf("pht rc=%d blocks=%ld\n", rc, g_blocks);
+  return rc == 0;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
   if (argc < 3) return 2;
   const std::string kernel = argv[1], type = argv[2];
+  if (kernel == "pht") {
+    if (argc != 5) return 2;
+    const bool ok = type == "bf16" ? run_pht<__nv_bfloat16>(argv[3], argv[4])
+                                   : run_pht<float>(argv[3], argv[4]);
+    return ok ? 0 : 1;
+  }
   std::vector<int> n;
   for (int i = 3; i < argc; ++i) n.push_back(atoi(argv[i]));
   const size_t want = kernel == "ep" || kernel == "span" ? 2

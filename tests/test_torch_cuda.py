@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1-K8, eight_point_fit and
-spd_inverse_newton on the card, against their plain versions, and one frame of each engine path and of the
+"""The hand-written CUDA kernels K1-K8, eight_point_fit,
+spd_inverse_newton and pht_blocks on the card, against their plain
+versions, and one frame of each engine path and of the
 image path on the card against the same frame on the CPU; also the
 Cholesky inverse on indefinite S, one CALC2 train step, card vs CPU, and
 the replayed frames (engine, image path, run_online) against eager.
@@ -12,7 +13,8 @@ card has no JAX); run it there without the suite's conftest:
 
 Operands are the kernels' real operands in one frame of the port at a
 small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
-from the fused step, K4 and K6 from the unfused step, K5 from the unfused
+from the fused step, K4, K6 and pht_blocks from the unfused step, K5 from
+the unfused
 step with pallas_update="on"; K7 (both forms) on the operands of the
 image step's ncc_corr_norms at tests/test_vision.py's pixels config (CAP
 24, R = 10: N = B·24 pairs of 33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 from ekf_slam_tpu_torch.config import EngineConfig
-from ekf_slam_tpu_torch.filter import ekf, engine
+from ekf_slam_tpu_torch.filter import ekf, engine, measurement
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.kernel_variants import ep_systems
 from ekf_slam_tpu_torch.ops import kernels
@@ -96,8 +98,8 @@ def operands():
 @pytest.fixture(scope="module")
 def unfused_operands():
     """{kernel name: [its operands at each call]} in frame 2 of the port's
-    unfused step on the CPU. K6 is called for RANSAC's P·G, then for the
-    LI and the HI update's P·Hᵀ."""
+    unfused step on the CPU. K6 is called for RANSAC's P·G, pht_blocks
+    for the LI and the HI update's P·Hᵀ and S."""
     captured = {}
     for pallas, dtype_name in sorted(set(UNFUSED.values())):
         cfg, obs, st, u = _sequence(dtype_name, fused_step="off",
@@ -224,7 +226,7 @@ def test_cuda_unfused_kernel_matches_plain(card, unfused_operands, name):
     operands at every call of the frame, each entry within TOL of its own
     bound (for K6 the product bound sqrt(P_ii·(Gᵀ·P·G)_kk))."""
     calls = unfused_operands[name]
-    assert len(calls) == (3 if name == "f32_matmul_big" else 2)
+    assert len(calls) == (1 if name == "f32_matmul_big" else 2)
     for operands in calls:
         args = tuple(a.to(card, torch.float32) for a in operands)
         before = kernels.LAUNCHES[name]
@@ -240,6 +242,78 @@ def test_cuda_unfused_kernel_matches_plain(card, unfused_operands, name):
         else:
             err = kernels.scaled_error(got, ref)
         assert err <= TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_cuda_pht_blocks_matches_plain(card, unfused_operands, store):
+    """pht_blocks at both of the frame's updates, P f32 or stored bf16,
+    against the f64 plain version within TOL of each entry's bound; its
+    P·Hᵀ equal to K6's on the dense compact H (the same fmaf chain in
+    column order: the 594 zero columns add exact zeros); a second launch
+    bit for bit; each launch counted in GLUE_LAUNCHES, none in
+    LAUNCHES."""
+    calls = unfused_operands["pht_blocks"]
+    assert len(calls) == 2
+    for operands in calls:
+        P, H_xv, H_y, sel, r = (a.to(card) for a in operands)
+        P = P.to(getattr(torch, store))
+        H_xv, H_y, r = (a.float() for a in (H_xv, H_y, r))
+        kernels.reset_launches()
+        got = kernels.pht_blocks(P, H_xv, H_y, sel, r)
+        torch.cuda.synchronize()
+        assert kernels.GLUE_LAUNCHES == {"spd_inverse_newton": 0,
+                                         "pht_blocks": 1}
+        assert sum(kernels.LAUNCHES.values()) == 0
+        assert all(t.dtype == torch.float32 and t.is_cuda for t in got)
+        assert kernels.pht_blocks_error(got, P, H_xv, H_y, sel, r) <= TOL
+        Ht = measurement.compact_dense_H(
+            H_xv, H_y, sel, torch.ones_like(sel, dtype=torch.bool),
+            (P.shape[1] - 13) // 6).transpose(1, 2).contiguous()
+        assert torch.equal(got[0], kernels.f32_matmul_big(P, Ht))
+        again = kernels.pht_blocks(P, H_xv, H_y, sel, r)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_pht_blocks_takes_every_width_and_refuses_the_rest(card):
+    """pht_blocks' kernel at M from one slot to CAP (two column tiles past
+    M = 64) on random SPD P within TOL; on the card the wrapper refuses
+    f64 operands (TypeError) and the launcher M > CAP and CAP > 200
+    (RuntimeError): no call on the card runs the plain version."""
+    g = torch.Generator(card).manual_seed(0)
+    cap = 70
+    D = 13 + 6 * cap
+    X = torch.randn(2, D, D, device=card, generator=g)
+    P = X @ X.transpose(1, 2) / D + 0.1 * torch.eye(D, device=card)
+    for M in (1, 3, 64, 65, 70):
+        sel = torch.stack([torch.randperm(cap, device=card)[:M]
+                           for _ in range(2)]).contiguous()
+        H_xv = torch.randn(2, M, 2, 13, device=card, generator=g)
+        H_y = torch.randn(2, M, 2, 6, device=card, generator=g)
+        r = torch.rand(2, 2 * M, device=card, generator=g) + 0.5
+        got = kernels.pht_blocks(P, H_xv, H_y, sel, r)
+        assert kernels.pht_blocks_error(got, P, H_xv, H_y, sel, r) <= TOL, M
+    kernels.reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        kernels.pht_blocks(P.double(), H_xv.double(), H_y.double(), sel,
+                           r.double())
+    with pytest.raises(TypeError, match="H_xv"):
+        kernels.pht_blocks(P, H_xv.double(), H_y, sel, r)
+
+    def blocks(M):
+        sel = torch.arange(M, device=card).expand(2, M).contiguous()
+        return (torch.zeros(2, M, 2, 13, device=card),
+                torch.zeros(2, M, 2, 6, device=card), sel,
+                torch.ones(2, 2 * M, device=card))
+
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        kernels.pht_blocks(P, *blocks(cap + 1))
+    D_wide = 13 + 6 * 201
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        kernels.pht_blocks(torch.eye(D_wide, device=card).expand(
+            2, D_wide, D_wide).contiguous(), *blocks(1))
+    assert not any(kernels.GLUE_LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -290,10 +364,10 @@ def test_cuda_unfused_kernels_take_any_width(card, R):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pallas", ["off", "on"])
 def test_cuda_unfused_step_matches_cpu_step(card, pallas):
-    """One unfused f32 frame with CUDA tensors (K4 or K5, and K6) against
-    the same frame on the CPU (plain versions), at the tolerances of
-    test_cuda_step_matches_cpu_step; each kernel launched as often as the
-    frame calls it."""
+    """One unfused f32 frame with CUDA tensors (K4 or K5, K6 and
+    pht_blocks) against the same frame on the CPU (plain versions), at the
+    tolerances of test_cuda_step_matches_cpu_step; each kernel launched as
+    often as the frame calls it."""
     cfg, obs, st, u = _sequence("float32", fused_step="off",
                                 pallas_update=pallas)
     kernels.reset_launches()
@@ -301,8 +375,9 @@ def test_cuda_unfused_step_matches_cpu_step(card, pallas):
                                u[1].to(card), cfg)
     s_cpu, i_cpu = engine.step(st, obs.frame(1), u[1], cfg)
     tail = "fused_update_tail" if pallas == "on" else "corr_apply_cols"
-    assert kernels.LAUNCHES == {k: {tail: 2, "f32_matmul_big": 3}.get(k, 0)
+    assert kernels.LAUNCHES == {k: {tail: 2, "f32_matmul_big": 1}.get(k, 0)
                                 for k in kernels.LAUNCHES}
+    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 2
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())
@@ -446,7 +521,7 @@ def test_cuda_ncc_launcher_rejects_a_window_past_shared_memory(card, name):
 def test_cuda_image_step_matches_cpu_step(card):
     """One f32 image frame (NCC matcher) with CUDA tensors against the same
     frame on the CPU, at the tolerances of test_cuda_step_matches_cpu_step;
-    K7's norms form launched once, K4 twice, K6 three times."""
+    K7's norms form launched once, K4 twice, K6 once, pht_blocks twice."""
     cfg, st, app, imgs, u = _image_sequence("float32")
     st, app, _, _ = frontend.run_images(st, app, imgs[:2], u[:2], cfg, "cpu")
     kernels.reset_launches()
@@ -456,7 +531,8 @@ def test_cuda_image_step_matches_cpu_step(card):
     s_cpu, _, i_cpu = frontend.step_image(st, app, imgs[2], u[2], cfg)
     assert kernels.LAUNCHES == {
         k: {"ncc_corr_norms": 1, "corr_apply_cols": 2,
-            "f32_matmul_big": 3}.get(k, 0) for k in kernels.LAUNCHES}
+            "f32_matmul_big": 1}.get(k, 0) for k in kernels.LAUNCHES}
+    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 2
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())
@@ -536,11 +612,18 @@ def test_cuda_check_fails_k8_without_renorm(card, fast_operands):
 
 @pytest.mark.cuda
 def test_cuda_k4_k6_on_bf16_p_match_plain(card, fast_operands):
-    """K4 and K6 read the fast mode's bf16 P as stored: K4's bf16 output
-    and K6's f32 product against the f64 plain versions."""
+    """K4, K6 and pht_blocks read the fast mode's bf16 P as stored: K4's
+    bf16 output, K6's f32 product and pht_blocks' f32 outputs against
+    the f64 plain versions."""
     calls = fast_operands["cols"]
     assert len(calls["corr_apply_cols"]) == 2
-    assert len(calls["f32_matmul_big"]) == 3
+    assert len(calls["f32_matmul_big"]) == 1
+    assert len(calls["pht_blocks"]) == 2
+    for operands in calls["pht_blocks"]:
+        args = tuple(a.to(card) for a in operands)
+        assert args[0].dtype == torch.bfloat16
+        got = kernels.pht_blocks(*args)
+        assert kernels.pht_blocks_error(got, *args) <= TOL
     for P, A, Bf in calls["corr_apply_cols"]:
         P, A, Bf = (a.to(card) for a in (P, A, Bf))
         assert P.dtype == torch.bfloat16
@@ -581,7 +664,8 @@ def test_cuda_check_rejects_bf16_factors_and_f64_p(card, fast_operands):
 def test_cuda_fast_step_matches_cpu_step(card, form):
     """One bf16-P fast-mode frame with CUDA tensors against the same frame
     on the CPU: equal gate counts, x within 1e-4 of the state's scale and
-    P within 1e-2 of its bounds; K4 2x and K6 3x (cols) or K8 2x (rows)."""
+    P within 1e-2 of its bounds; K4 2x, K6 1x and pht_blocks 2x (cols) or
+    K8 2x (rows)."""
     cfg, obs, st, u = _sequence("float32", fused_step="off",
                                 gain_solver="newton", p_storage="bf16")
     u = u.float()
@@ -590,9 +674,11 @@ def test_cuda_fast_step_matches_cpu_step(card, form):
         s_gpu, i_gpu = engine.step(st.to(card), obs.frame(1).to(card),
                                    u[1].to(card), cfg)
         s_cpu, i_cpu = engine.step(st, obs.frame(1), u[1], cfg)
-    want = ({"corr_apply_cols": 2, "f32_matmul_big": 3} if form == "cols"
+    want = ({"corr_apply_cols": 2, "f32_matmul_big": 1} if form == "cols"
             else {"corr_apply": 2})
     assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    assert kernels.GLUE_LAUNCHES["pht_blocks"] == (2 if form == "cols"
+                                                   else 0)
     assert s_gpu.P.dtype == torch.bfloat16
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
@@ -1437,19 +1523,20 @@ def test_cuda_spd_inverse_newton_matches_plain(card, newton_operands, n):
     against the plain version in f64, each entry within NEWTON_TOL of its
     κ̂·ε·√(X_ii·X_jj) (kernels.newton_error); no worse than the f32 plain
     iteration (cuBLAS) against the same reference, within the limit; one
-    launch counted in NEWTON_LAUNCHES, none in LAUNCHES or NEWTON_PLAIN."""
+    launch counted in GLUE_LAUNCHES, none in LAUNCHES or NEWTON_PLAIN."""
     S = newton_operands[n]
     kernels.reset_launches()
     W = kernels.spd_inverse_newton(S)
     torch.cuda.synchronize()
-    assert kernels.NEWTON_LAUNCHES == 1 and kernels.NEWTON_PLAIN == 0
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 1
+    assert kernels.NEWTON_PLAIN == 0
     assert not any(kernels.LAUNCHES.values())
     assert W.dtype == torch.float32 and W.shape == S.shape
     err = kernels.newton_error(W, S)
     plain = kernels.newton_error(kernels.spd_inverse_newton_plain(S), S)
     assert err <= kernels.NEWTON_TOL, (err, plain)
     assert plain <= kernels.NEWTON_TOL, plain
-    assert kernels.NEWTON_LAUNCHES == 1
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 1
 
 
 @pytest.mark.cuda
@@ -1463,7 +1550,7 @@ def test_cuda_spd_inverse_newton_is_deterministic(card, newton_operands):
     b = kernels.spd_inverse_newton(S)
     c = ekf._spd_inverse_newton(S)
     _same_bits([a, a], [b, c])
-    assert kernels.NEWTON_LAUNCHES == 3
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 3
     _same_bits([kernels.spd_inverse_newton(S[5:6].contiguous())[0],
                 kernels.spd_inverse_newton(S[:37].contiguous())[20]],
                [a[5], a[20]])
@@ -1494,7 +1581,7 @@ def test_cuda_spd_inverse_newton_falls_back_by_shape_and_dtype(card):
     """The wrapper and ekf._spd_inverse_newton on the card: n = 160 (past
     the kernel's 128) and an f64 S take the batched torch.matmul iteration
     (the plain version, bit for bit), each call counted in NEWTON_PLAIN,
-    none in NEWTON_LAUNCHES."""
+    none in GLUE_LAUNCHES."""
     g = torch.Generator().manual_seed(3)
     for n, dtype in ((160, torch.float32), (48, torch.float64)):
         A = torch.randn(4, n, n, generator=g, dtype=torch.float64)
@@ -1504,14 +1591,15 @@ def test_cuda_spd_inverse_newton_falls_back_by_shape_and_dtype(card):
         plain = kernels.spd_inverse_newton_plain(S)
         _same_bits([ekf._spd_inverse_newton(S),
                     kernels.spd_inverse_newton(S)], [plain, plain])
-        assert kernels.NEWTON_LAUNCHES == 0 and kernels.NEWTON_PLAIN == 2
+        assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
+        assert kernels.NEWTON_PLAIN == 2
 
 
 @pytest.mark.cuda
 def test_replayed_sim_frame_counts_two_newton_launches(card):
     """The fused frame with the Newton gain, captured: two solves a frame
     (the LI and the HI update), so the replayed sequence counts 2 a frame
-    in NEWTON_LAUNCHES and none in NEWTON_PLAIN, as the eager one does,
+    in GLUE_LAUNCHES and none in NEWTON_PLAIN, as the eager one does,
     and equals it bit for bit."""
     from ekf_slam_tpu_torch.filter import graph
     cfg, obs, st, u = _sequence("float32", fused_step="on",
@@ -1520,11 +1608,14 @@ def test_replayed_sim_frame_counts_two_newton_launches(card):
     T = obs.pixels.shape[0]
     kernels.reset_launches()
     want = engine.run_sequence(st, obs, u, cfg, eager=True)
-    assert kernels.NEWTON_LAUNCHES == 2 * T
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 2 * T
     kernels.reset_launches()
     got = engine.run_sequence(st, obs, u, cfg)
-    assert graph.last_captured().newton == (2, 0)
-    assert kernels.NEWTON_LAUNCHES == 2 * T and kernels.NEWTON_PLAIN == 0
+    frame = graph.last_captured()
+    assert frame.glue == {"spd_inverse_newton": 2}
+    assert frame.newton_plain == 0
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 2 * T
+    assert kernels.NEWTON_PLAIN == 0
     _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
                [want[0].x, want[0].P, want[1], want[2].n_li])
 
@@ -1630,4 +1721,31 @@ def test_replayed_frame_counts_its_cholesky_gains(card, route, per_frame):
     got = engine.run_sequence(st, obs, u, cfg)
     assert graph.last_captured().cholesky == per_frame
     assert ekf.CHOLESKY_GAINS == per_frame * T
+    _same_bits([got[0].x, got[0].P, got[1]], [want[0].x, want[0].P, want[1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,per_frame", [
+    ("fused", 0), ("unfused", 2), ("iekf", 5)])
+def test_replayed_frame_counts_its_pht_blocks(card, route, per_frame):
+    """kernels.GLUE_LAUNCHES["pht_blocks"]: 5 a frame on the IEKF's (3
+    iterates, the last gain, the HI update's), 2 on the unfused frame's,
+    none on the fused frame's (its P·Hᵀ come from K1 and K2); the
+    replayed sequence credits its captured frame's count at every replay,
+    as the eager one counts, and K6 launches only for RANSAC's P·G on the
+    unfused frames."""
+    from ekf_slam_tpu_torch.filter import graph
+    filt = ({"fused_step": "on", "gain_solver": "newton"}
+            if route == "fused" else SPAN_ROUTES[route])
+    cfg, obs, st, u = _sequence("float32", **filt)
+    st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
+    T = obs.pixels.shape[0]
+    kernels.reset_launches()
+    want = engine.run_sequence(st, obs, u, cfg, eager=True)
+    assert kernels.GLUE_LAUNCHES["pht_blocks"] == per_frame * T
+    assert kernels.LAUNCHES["f32_matmul_big"] == (route != "fused") * T
+    kernels.reset_launches()
+    got = engine.run_sequence(st, obs, u, cfg)
+    assert graph.last_captured().glue.get("pht_blocks", 0) == per_frame
+    assert kernels.GLUE_LAUNCHES["pht_blocks"] == per_frame * T
     _same_bits([got[0].x, got[0].P, got[1]], [want[0].x, want[0].P, want[1]])

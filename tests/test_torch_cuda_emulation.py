@@ -1,7 +1,8 @@
 """K1, K2 and K3 / K5 of csrc/fused_cov.cu, K4, K6 and K8 (and K8's
 row-slab form) of csrc/unfused_cov.cu, K7 of csrc/ncc.cu (both forms),
-eight_point_fit of csrc/eight_point.cu and spd_inverse_newton of
-csrc/newton_inverse.cu — the CUDA source itself — run on
+eight_point_fit of csrc/eight_point.cu, spd_inverse_newton of
+csrc/newton_inverse.cu and pht_blocks of csrc/pht_blocks.cu — the CUDA
+source itself — run on
 the CPU: compiled by g++ against the
 stand-in headers of tests/cuda_emulation (one host thread a CUDA thread,
 __syncthreads a barrier, __syncwarp one of the warp's threads, shared
@@ -27,7 +28,10 @@ matrix alone (harness.cpp run_ep); spd_inverse_newton's inverse each
 entry within 4·κ̂·ε·√(X_ii·X_jj) of an f64 loop of the same 20 iterations
 (κ̂ the Jacobi-scaled condition: where f32 Newton–Schulz settles), NaN
 where that loop is NaN, and bit for bit against each instance launched
-alone (harness.cpp run_nsi).
+alone (harness.cpp run_nsi); pht_blocks' outputs, written to a file,
+against its plain version (kernels.pht_blocks_plain) in f64 on the same
+operands, each entry in units of its Cauchy–Schwarz bound
+(kernels.pht_blocks_error), limit kernels.SCALED_TOL.
 
 Skips where no g++ with C++20's <barrier> is installed."""
 
@@ -35,7 +39,11 @@ import pathlib
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
+import torch
+
+from ekf_slam_tpu_torch.ops import kernels
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EMU = ROOT / "tests" / "cuda_emulation"
@@ -107,6 +115,15 @@ EP_CASES = [(0, 1), (0, 45), (0, 33), (0, 64), (1, 45), (2, 45), (3, 45),
 # nsi_operand)
 NSI_CASES = [(4 if case == 0 else 2, n, case)
              for n in (1, 2, 3, 12, 48, 64, 127, 128) for case in range(4)]
+
+# P type, then B CAP M (pht_blocks): one block's column tile with M = 3
+# of an odd CAP (its last chunk one slot) and M = CAP, the IEKF cell's
+# 2M = 128 (M = 64 of CAP 70, D = 433), and two column tiles (M = 70);
+# sel unsorted, a quarter of the slots masked (zero blocks) in each
+PHT_CASES = [(t, b, cap, m) for t in ("f32", "bf16")
+             for b, cap, m in ((2, 5, 3), (2, 5, 5), (1, 70, 64),
+                               (1, 70, 70))]
+
 
 @pytest.fixture(scope="module")
 def emulate(tmp_path_factory):
@@ -247,3 +264,49 @@ def test_emulated_spd_inverse_newton(emulate, case):
     for bit to its place in the batch."""
     done = emulate("nsi", "f32", *case)
     assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+
+
+def pht_operands(ptype, B, cap, M, seed=0):
+    """pht_blocks' operands: an SPD P (B,D,D) stored in `ptype`, random
+    blocks of M distinct unsorted slots a quarter of them zeroed (masked),
+    unit-scale noise r."""
+    g = torch.Generator().manual_seed(seed)
+    D = 13 + 6 * cap
+    A = torch.randn(B, D, D, generator=g, dtype=torch.float64)
+    P = (A @ A.transpose(1, 2) / D + 0.1 * torch.eye(D, dtype=torch.float64))
+    P = P.to(torch.bfloat16 if ptype == "bf16" else torch.float32)
+    sel = torch.stack([torch.randperm(cap, generator=g)[:M]
+                       for _ in range(B)])
+    keep = (torch.rand(B, M, 1, 1, generator=g) > 0.25).float()
+    H_xv = torch.randn(B, M, 2, 13, generator=g) * keep
+    H_y = torch.randn(B, M, 2, 6, generator=g) * keep
+    r = torch.rand(B, 2 * M, generator=g) + 0.5
+    return P, H_xv, H_y, sel, r
+
+
+@pytest.mark.parametrize("case", PHT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_emulated_pht_blocks(emulate, tmp_path, case):
+    """pht_blocks through its launcher, P at an odd offset in a larger
+    buffer and every output entry NaN until written, against its plain
+    version in f64 on the same operands: P·Hᵀ each entry within
+    SCALED_TOL of its bound sqrt(P_ii·(HPHᵀ)_kk), S within SCALED_TOL of
+    sqrt(S_rr·S_ss); every entry written; the camera and landmark
+    columns of every gathered slot, its rows of S, both column tiles."""
+    ptype, B, cap, M = case
+    P, H_xv, H_y, sel, r = pht_operands(ptype, B, cap, M)
+    D = P.shape[1]
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    with open(src, "wb") as f:
+        np.array([B, D, M], np.int32).tofile(f)
+        (P.view(torch.int16) if ptype == "bf16" else P).numpy().tofile(f)
+        for t in (H_xv, H_y, sel, r):
+            t.numpy().tofile(f)
+    done = emulate("pht", ptype, src, dst)
+    assert done.returncode == 0, done.stdout + done.stderr[-3000:]
+    out = np.fromfile(dst, np.float32, offset=4)
+    PHt = torch.from_numpy(out[:B * D * 2 * M]).reshape(B, D, 2 * M)
+    S = torch.from_numpy(out[B * D * 2 * M:]).reshape(B, 2 * M, 2 * M)
+    assert torch.isfinite(PHt).all() and torch.isfinite(S).all()
+    err = kernels.pht_blocks_error((PHt, S), P, H_xv, H_y, sel, r)
+    assert err <= kernels.SCALED_TOL, err

@@ -250,8 +250,9 @@ def test_update_iterated_bf16_storage():
 @pytest.mark.parametrize("route", ["cols", "pallas_update", "rows"])
 def test_iekf_frame_kernel_calls(route):
     """One IEKF frame (3 iterations) on the CPU: the wrappers it calls and
-    how often, as the card's launch counts will read. The K5 route takes
-    an f32 x and P, as on the card."""
+    how often, as the card's launch counts will read: K6 for RANSAC's P·G
+    alone, pht_blocks for the 3 + 1 iterated gains and the HI update's,
+    the two tails. The K5 route takes an f32 x and P, as on the card."""
     d, dtype = IEKF, torch.float64
     if route == "pallas_update":
         d = {**_with(IEKF, filter={"pallas_update": "on"}),
@@ -269,4 +270,4 @@ def test_iekf_frame_kernel_calls(route):
     tail = "fused_update_tail" if route == "pallas_update" \
         else "corr_apply_cols"
     got = {k: len(v) for k, v in calls.items()}
-    assert got == {"f32_matmul_big": 3 + 3, tail: 2}, got
+    assert got == {"f32_matmul_big": 1, "pht_blocks": 4 + 1, tail: 2}, got

@@ -268,7 +268,8 @@ def test_ncc_numerator_is_one_call_a_frame_for_the_batch(small_sequence):
         (B * cap, W2, W2)] * 3
     assert "ncc_corr" not in calls
     assert len(calls["corr_apply_cols"]) == 2 * 3
-    assert len(calls["f32_matmul_big"]) == 3 * 3
+    assert len(calls["f32_matmul_big"]) == 3
+    assert len(calls["pht_blocks"]) == 2 * 3
     _, tcd = configs(_with_vision(PIXELS, matcher="descriptor"))
     with kernels.capture_operands() as calls:
         frontend.run_images(st, app, imgs, u, tcd, "cpu")

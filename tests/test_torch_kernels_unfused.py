@@ -6,8 +6,10 @@ state at test_fused_step.py's config (CAP 24, D = 157 — not a multiple of
 any tile —, 2M = 32, so the folded factors are R = 2·32 + 8 = 72 wide)
 stepped by the port, whose wrappers are recorded: K4 and K6 on the
 default route at f64, K5 on the pallas_update="on" route at f32 (the only
-dtype that route runs at). K6 is called three times a frame: RANSAC's P·G
-(N = NHYP = 64), then the LI and the HI update's P·Hᵀ (N = 2M = 32).
+dtype that route runs at). K6 is called once a frame, for RANSAC's P·G
+(N = NHYP = 64); the LI and the HI update's P·Hᵀ (N = 2M = 32) come from
+pht_blocks, and their dense form, P with the dense compact Hᵀ (the
+products K6 still takes for a dense H), joins K6's operands here.
 
 On CPU tensors the wrappers run the plain versions. The Pallas kernels
 accumulate in f32 even on f64 inputs (preferred_element_type), so they are
@@ -27,7 +29,7 @@ from torch_parity import (FUSED, configs, frame, frame_keys, interpret_mode,
                           n, port_obs, port_state, ransac_u,
                           sim_and_bootstrap, step_fn)
 
-from ekf_slam_tpu_torch.filter import engine
+from ekf_slam_tpu_torch.filter import engine, measurement
 from ekf_slam_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
@@ -57,6 +59,12 @@ def operands():
             engine.step(port_state(jst, dtype), port_obs(frame(obs, 2), dtype),
                         u.to(dtype), tc)
         captured.update({k: v for k, v in calls.items() if k in NAMES})
+        captured["pht_blocks"] = calls["pht_blocks"]
+        captured["f32_matmul_big"] += [
+            (P, measurement.compact_dense_H(
+                H_xv, H_y, sel, torch.ones_like(sel, dtype=torch.bool),
+                tc.map.capacity).transpose(1, 2).contiguous())
+            for P, H_xv, H_y, sel, _ in calls["pht_blocks"]]
     return captured
 
 
@@ -77,9 +85,12 @@ def _pallas(name, args):
 
 
 def test_operands_are_realistic(operands):
-    """Two update tails and three products a frame at the config's shapes,
-    with inliers in the factors and a non-identity renorm Jacobian."""
+    """Two update tails, RANSAC's product and the two updates' pht_blocks
+    a frame (their dense form the other two products) at the config's
+    shapes, with inliers in the factors and a non-identity renorm
+    Jacobian."""
     assert [len(operands[k]) for k in NAMES] == [2, 2, 3]
+    assert len(operands["pht_blocks"]) == 2
     P, A, Bf = operands["corr_apply_cols"][0]
     assert P.shape == (B, 157, 157) and A.shape == (B, 157, 72)
     assert P.dtype == torch.float64 and bool((A[:, :, :64] != 0).any())

@@ -51,7 +51,8 @@ def test_cpu_solver_is_the_plain_iteration_bit_for_bit(dtype, n):
     for got in (ekf._spd_inverse_newton(S), kernels.spd_inverse_newton(S),
                 kernels.spd_inverse_newton_plain(S)):
         assert got.dtype == dtype and torch.equal(got, want)
-    assert kernels.NEWTON_LAUNCHES == kernels.NEWTON_PLAIN == 0
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
+    assert kernels.NEWTON_PLAIN == 0
     assert not any(kernels.LAUNCHES.values())
     resid = (want.double() @ S.double()
              - torch.eye(n, dtype=torch.float64)).abs().max()
@@ -103,15 +104,16 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_reset_launches_resets_the_newton_counts():
-    kernels.NEWTON_LAUNCHES = 5
+    kernels.GLUE_LAUNCHES["spd_inverse_newton"] = 5
     kernels.NEWTON_PLAIN = 2
     kernels.reset_launches()
-    assert kernels.NEWTON_LAUNCHES == kernels.NEWTON_PLAIN == 0
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
+    assert kernels.NEWTON_PLAIN == 0
 
 
 def test_replay_credits_the_frames_newton_launches():
     """A replayed frame calls no wrapper: StaticFrame.step credits
-    NEWTON_LAUNCHES and NEWTON_PLAIN with the captured frame's counts, as
+    GLUE_LAUNCHES and NEWTON_PLAIN with the captured frame's counts, as
     it credits LAUNCHES."""
     calls = []
 
@@ -123,12 +125,14 @@ def test_replay_credits_the_frames_newton_launches():
     frame = graph.StaticFrame(lambda carry, inputs: (carry, ()), (x,), (x,))
     frame.graph = Replayed()
     frame.launches = {"fused_update_tail_add": 1}
-    frame.newton = (2, 1)
+    frame.glue = {"spd_inverse_newton": 2}
+    frame.newton_plain = 1
     kernels.reset_launches()
     for _ in range(3):
         frame.step((x,))
     assert calls == [1, 1, 1]
-    assert kernels.NEWTON_LAUNCHES == 6 and kernels.NEWTON_PLAIN == 3
+    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 6
+    assert kernels.NEWTON_PLAIN == 3
     assert kernels.LAUNCHES["fused_update_tail_add"] == 3
     kernels.reset_launches()
 

@@ -158,7 +158,8 @@ def test_sharded_step_calls_k6_on_the_slab_and_k8_slab_for_the_tails(
         data, model):
     """A frame calls K6 on the (B_l, Dp/k, Dp) slab three times (RANSAC's
     P·G and the two updates' P·Hᵀ) and K8's slab form twice (the two
-    tails), nothing else; the single-device step calls K6 and K4."""
+    tails), nothing else; the single-device step calls K6 (RANSAC's P·G),
+    pht_blocks (the updates' P·Hᵀ and S) and K4."""
     ranks = port_sharded(data, model)
     _, Dp = sf.padded_dim(EngineConfig.from_dict(TP), model)
     slab = (B // data, Dp // model, Dp)
@@ -169,7 +170,7 @@ def test_sharded_step_calls_k6_on_the_slab_and_k8_slab_for_the_tails(
     with kernels.capture_operands() as calls:
         engine.step(port_state(st), port_obs(frame(obs, 1)),
                     torch.tensor(u[1]), EngineConfig.from_dict(TP))
-    assert set(calls) == {"f32_matmul_big", "corr_apply_cols"}
+    assert set(calls) == {"f32_matmul_big", "pht_blocks", "corr_apply_cols"}
 
 
 @pytest.mark.parametrize("data,model", [(2, 2)])

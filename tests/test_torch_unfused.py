@@ -131,8 +131,8 @@ def test_unfused_window_exercises_every_stage(multiframe):
     {"filter": {"gain_solver": "newton"}},
 ], ids=["full_width_update", "M_eq_cap", "newton_gain"])
 def test_unfused_variants_match_jax(change):
-    """(b) 3 frames of the full-width update (dense_H; M = 0 and M = CAP)
-    and of the Newton gain, at (a)'s tolerances."""
+    """(b) 3 frames of the full-width update (every slot in slot order;
+    M = 0 and M = CAP) and of the Newton gain, at (a)'s tolerances."""
     for t, (jst, jinfo, st, info) in enumerate(
             _run_both(_with(UNFUSED, **change), 4, B), start=1):
         _assert_states(st, jst)
