@@ -81,14 +81,12 @@ Phases, one line each, any failure raises (exit code != 0):
                  image  descriptor matcher   K4 2x, K6 1x a frame
                finite state, update cap never hit, tracking error < 0.5,
                the search radius the χ² gate needed beside R. Every other
-               kernel launched 0 times, the glue layer's kernels
-               (kernels.GLUE_LAUNCHES, each under its name) as often as
-               glue_per_frame says (spd_inverse_newton iekf 1, else 2;
-               pht_blocks iekf 5, fused and fast_rows 0, else 2), no
-               Newton solve on the card without its kernel
-               (kernels.NEWTON_PLAIN), the Cholesky gains
-               CHOLESKY_PER_FRAME times a frame (ekf.CHOLESKY_GAINS, under
-               "cholesky_gains": iekf 4); steps/s of the median of three
+               kernel launched 0 times, kernels.COUNTS as counts_per_frame
+               says (the glue layer's kernels: spd_inverse_newton iekf 1,
+               else 2; pht_blocks iekf 5, fused and fast_rows 0, else 2;
+               no Newton solve on the card without its kernel,
+               newton_plain; the Cholesky gains, cholesky_gain: iekf 4,
+               else 0); steps/s of the median of three
                timed runs (fused, (i), iekf, image NCC in its three warp
                forms, each form's beside "affine"'s: `[warp]`) or of one.
                Each path runs eager (eager=True: `[slice]`) and then
@@ -334,24 +332,26 @@ PER_FRAME = {
     "fast": {"corr_apply_cols": 2, "f32_matmul_big": 1},
     "fast_rows": {"corr_apply": 2},
 }
-# Cholesky gains a frame on the card (ekf.CHOLESKY_GAINS): the IEKF's 3
-# iterates and its last gain; none elsewhere (every path's gain is Newton).
-CHOLESKY_PER_FRAME = {"iekf": 4}
-# Launches a frame of the glue layer's kernels (kernels.GLUE_LAUNCHES on
-# the card), 2 of each unless a path is named: spd_inverse_newton, the LI
-# and the HI update's Newton gain, but the IEKF's LI update inverts by
-# Cholesky; pht_blocks, the LI and the HI update's gain columns on every
-# column-form unfused path, the IEKF's 3 iterates, its last gain and the
-# HI update's, none on the fused frame (its P·Hᵀ come from K1 and K2) or
-# the row form's.
-GLUE_PER_FRAME = {"fused": {"pht_blocks": 0}, "fast_rows": {"pht_blocks": 0},
-                  "iekf": {"spd_inverse_newton": 1, "pht_blocks": 5}}
+# kernels.COUNTS a frame on the card, COUNTS_DEFAULT unless a path names
+# its own. The glue layer's kernels: spd_inverse_newton, the LI and the HI
+# update's Newton gain, but the IEKF's LI update inverts by Cholesky;
+# pht_blocks, the LI and the HI update's gain columns on every column-form
+# unfused path, the IEKF's 3 iterates, its last gain and the HI update's,
+# none on the fused frame (its P·Hᵀ come from K1 and K2) or the row
+# form's. No Newton solve without its kernel (newton_plain). The Cholesky
+# gains (cholesky_gain): the IEKF's 3 iterates and its last gain; none
+# elsewhere (every path's gain is Newton).
+COUNTS_DEFAULT = {"spd_inverse_newton": 2, "pht_blocks": 2,
+                  "newton_plain": 0, "cholesky_gain": 0}
+COUNTS_PER_FRAME = {"fused": {"pht_blocks": 0},
+                    "fast_rows": {"pht_blocks": 0},
+                    "iekf": {"spd_inverse_newton": 1, "pht_blocks": 5,
+                             "cholesky_gain": 4}}
 
 
-def glue_per_frame(path) -> dict:
-    """GLUE_PER_FRAME's counts of `path`, every kernel of GLUE_LAUNCHES."""
-    return {k: GLUE_PER_FRAME.get(path, {}).get(k, 2)
-            for k in kernels.GLUE_LAUNCHES}
+def counts_per_frame(path) -> dict:
+    """kernels.COUNTS a frame of `path`, every name of it."""
+    return {**COUNTS_DEFAULT, **COUNTS_PER_FRAME.get(path, {})}
 
 # The Newton gain's sites in phase 3: the path its S comes from, and the
 # instances it is tiled to.
@@ -917,38 +917,27 @@ def slice_gates(path, cfg, result, xs, track_limit) -> tuple:
 
 def timed_runs(path, run, runs) -> tuple:
     """`runs` timed runs of run(), each with the counts set to 0 just
-    before and read just after and held to PER_FRAME x FRAMES, the glue
-    layer's kernels (kernels.GLUE_LAUNCHES) to glue_per_frame x FRAMES,
-    the Newton solves on the card that launch no kernel
-    (kernels.NEWTON_PLAIN) to 0 and the Cholesky gains
-    (ekf.CHOLESKY_GAINS) to CHOLESKY_PER_FRAME x FRAMES. Returns (seconds
-    of each, the counts read after the last run, the glue kernels' under
-    their names and the Cholesky gains' under "cholesky_gains", the last
-    run's result)."""
+    before and read just after and held to PER_FRAME x FRAMES and
+    kernels.COUNTS to counts_per_frame x FRAMES. Returns (seconds of each,
+    the counts of both tables read after the last run, each under its
+    name, the last run's result)."""
     want = {k: PER_FRAME[path].get(k, 0) * FRAMES for k in kernels.LAUNCHES}
-    want_glue = {k: n * FRAMES for k, n in glue_per_frame(path).items()}
-    want_cholesky = CHOLESKY_PER_FRAME.get(path, 0) * FRAMES
+    want_counts = {k: n * FRAMES for k, n in counts_per_frame(path).items()}
     seconds = []
     for _ in range(runs):
         torch.cuda.synchronize()
         kernels.reset_launches()
-        ekf.CHOLESKY_GAINS = 0
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
-        glue = dict(kernels.GLUE_LAUNCHES)
-        if (launches != want or glue != want_glue or kernels.NEWTON_PLAIN
-                or ekf.CHOLESKY_GAINS != want_cholesky):
-            raise AssertionError(f"{path}: kernel launches {launches}, glue "
-                                 f"kernels {glue}, Newton solves without "
-                                 f"a launch {kernels.NEWTON_PLAIN} and "
-                                 f"Cholesky gains {ekf.CHOLESKY_GAINS}, "
-                                 f"expected {want}, {want_glue}, 0 and "
-                                 f"{want_cholesky}")
-    return seconds, {**launches, **glue,
-                     "cholesky_gains": ekf.CHOLESKY_GAINS}, result
+        counts = dict(kernels.COUNTS)
+        if launches != want or counts != want_counts:
+            raise AssertionError(f"{path}: kernel launches {launches} and "
+                                 f"counts {counts}, expected {want} and "
+                                 f"{want_counts}")
+    return seconds, {**launches, **counts}, result
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -1008,8 +997,8 @@ def replayed_frame_profile(path) -> dict:
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     names = {e.name for e in device}
     want = sorted({s for k in PER_FRAME[path] for s in KERNEL_SYMBOLS[k]}
-                  | {GLUE_SYMBOLS[k] for k, n in glue_per_frame(path).items()
-                     if n})
+                  | {GLUE_SYMBOLS[k] for k, n in counts_per_frame(path).items()
+                     if n and k in GLUE_SYMBOLS})
     missing = [s for s in want if not any(s + "<" in n or s + "(" in n
                                           for n in names)]
     launched = sum(host[c] for c in LAUNCH_CALLS)
@@ -1244,11 +1233,11 @@ def check_paths(dev, card: str) -> list:
     inputs = capture_frame(cfgs["iekf"], st0, obs, u)
     calls = {k: len(v) for k, v in inputs.items() if k in kernels.LAUNCHES}
     if (calls != PER_FRAME["iekf"] or len(inputs["pht_blocks"])
-            != glue_per_frame("iekf")["pht_blocks"]):
+            != counts_per_frame("iekf")["pht_blocks"]):
         raise AssertionError(f"iekf frame: kernel calls {calls} and "
                              f"{len(inputs['pht_blocks'])} pht_blocks, "
                              f"expected {PER_FRAME['iekf']} and "
-                             f"{glue_per_frame('iekf')['pht_blocks']}")
+                             f"{counts_per_frame('iekf')['pht_blocks']}")
     e = check_kernel("corr_apply_cols", inputs["corr_apply_cols"][0],
                      "iekf_tail")
     report["corr_apply_cols"]["iekf"] = {k: e[k] for k in (
@@ -1953,8 +1942,8 @@ def check_drivers(dev, card: str) -> None:
                 and numpy.isfinite(dat["trajectory"]).all()
                 and (d / "sim" / "metrics.jsonl").exists()):
             raise AssertionError("run_slam --mode sim: artifacts")
-        fused = engine._use_fused(run_slam.slam_config(
-            run_slam.parse_args(sim_args)), dev)
+        fused = engine.route(run_slam.slam_config(
+            run_slam.parse_args(sim_args)), dev).fused
         launches = driver_launches(out, "fused" if fused else "unfused")
         ate = re.findall(r"ATE \(SE3-aligned\) ([0-9.]+)", out)
         phase("drivers", driver="run_slam", mode="sim",
@@ -2787,7 +2776,8 @@ def check_golden(dev, card: str, report: dict) -> None:
     t_start = time.perf_counter()
     want = {k: PER_FRAME["unfused"].get(k, 0) * (GOLDEN_FRAMES - 1)
             for k in kernels.LAUNCHES}
-    want_pht = glue_per_frame("unfused")["pht_blocks"] * (GOLDEN_FRAMES - 1)
+    want_pht = (counts_per_frame("unfused")["pht_blocks"]
+                * (GOLDEN_FRAMES - 1))
     for seed in GOLDEN_SEEDS:
         cpu = golden.run("float32", GOLDEN_FRAMES, GOLDEN_BATCH, seed, "cpu")
         part = cpu.first_parting()
@@ -2799,7 +2789,7 @@ def check_golden(dev, card: str, report: dict) -> None:
                              dev)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        pht = kernels.GLUE_LAUNCHES["pht_blocks"]
+        pht = kernels.COUNTS["pht_blocks"]
         if launches != want or pht != want_pht:
             raise AssertionError(f"golden seed {seed}: kernel launches "
                                  f"{launches}, pht_blocks {pht}, expected "

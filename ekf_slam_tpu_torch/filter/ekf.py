@@ -19,10 +19,15 @@ Port of ``ekf_slam_tpu/filter/ekf.py`` in its default forms:
 * ``update_iterated``: the iterated (Gauss-Newton) update, each of its
   gains as ``update_gain`` forms them and its covariance tail the one
   ``update`` uses;
-* ``update_rows``: the same update in row form (the engine's
-  ``EKF_UPDATE=rows`` layout): the caller's H·P rows feed S, the state
-  move and the folded rank-(2M'+8) row factors, whose correction K8
-  ``kernels.corr_apply`` applies in the ``EKF_TAIL_SYM`` mode.
+* ``update_rows``: the same update in row form (the engine's row
+  route): the caller's H·P rows feed S, the state move and the folded
+  rank-(2M'+8) row factors, whose correction K8 ``kernels.corr_apply``
+  applies in its "expr" mode.
+
+This module keeps no route: ``engine.route`` picks what a frame runs and
+passes in whether a tail takes K5 (``use_pallas``). Every update shares
+one gain set-up (``_gain_inputs``; ``r_diag`` None is unit noise) and one
+choice of SPD inverse (``_inverse``).
 
 The fused step runs ``update_gain`` with the gain columns of K1/K2 and
 its tails in K2/K3. Masked rows carry zero H and residual and unit noise,
@@ -37,7 +42,6 @@ and write it as stored; no product takes a bf16 operand.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
@@ -46,22 +50,6 @@ from ekf_slam_tpu_torch.filter import motion
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
-
-# The update layout of the unfused step (engine.step_core_from_prior):
-# "cols" (the default) updates from the gain columns P·Hᵀ (pht_blocks,
-# K4 tail); "rows" from one shared H·P row read (measurement
-# .pht_rows_split) that feeds the S gates, RANSAC and update_rows (K8
-# tail). The same switch as the JAX engine's (ekf.py:142).
-_UPDATE = os.environ.get("EKF_UPDATE", "cols")
-# K8's mode in update_rows: "expr" (the default), "full" or "none"
-# (kernels.corr_apply; the JAX package's ekf.py:158).
-_TAIL_SYM = os.environ.get("EKF_TAIL_SYM", "expr")
-# Cholesky gains (_spd_inverse) run on the card: cuSOLVER's batched factor
-# and cuBLAS's batched triangular solve, no kernel of the port's. Counted
-# like kernels.NEWTON_PLAIN (graph.StaticFrame credits a replay with its
-# frame's count): the IEKF's LI update makes num_iters + 1 a frame.
-CHOLESKY_GAINS = 0
-
 
 def p_compute(P: torch.Tensor) -> torch.Tensor:
     """Storage -> compute view of (a part of) the covariance: a bfloat16
@@ -141,28 +129,42 @@ def _gain_columns(P, H, r_eff: torch.Tensor):
     return PHt, H @ PHt + torch.diag_embed(r_eff)
 
 
+def _gain_inputs(row_mask: torch.Tensor, r_diag, dtype):
+    """An update's (mask, r_eff) for its M rows (B,M): row_mask as
+    `dtype`, and the measurement noise r_diag (unit where None) on the
+    active rows, 1 on the masked ones, whose S block is then the identity
+    and gain columns exactly zero."""
+    mask = row_mask.to(dtype)
+    if r_diag is None:
+        return mask, torch.ones_like(mask)
+    return mask, torch.where(row_mask, r_diag, torch.ones_like(r_diag))
+
+
+def _inverse(S: torch.Tensor, gain_solver: str) -> torch.Tensor:
+    """S⁻¹ by the config's gain_solver: "newton" or Cholesky."""
+    return (_spd_inverse_newton(S) if gain_solver == "newton"
+            else _spd_inverse(S))
+
+
 def update_gain(x: torch.Tensor, P, H, z: torch.Tensor,
                 h: torch.Tensor, row_mask: torch.Tensor,
-                r_diag: torch.Tensor, gain_solver: str = "cholesky",
+                r_diag: torch.Tensor | None, gain_solver: str = "cholesky",
                 PHt: torch.Tensor | None = None):
     """x (B,D); H the Jacobian of the M rows, JacobianBlocks or dense
-    (B,M,D); z, h, row_mask, r_diag (B,M); PHt (B,D,M) the gain columns
-    P·Hᵀ if the caller has them (then P is not read and S = H·PHt, for
-    blocks from PHt's rows that H reads; else _gain_columns forms both
-    from P (B,D,D), as stored).
+    (B,M,D); z, h, row_mask, r_diag (B,M), r_diag None for unit noise;
+    PHt (B,D,M) the gain columns P·Hᵀ if the caller has them (then P is
+    not read and S = H·PHt, for blocks from PHt's rows that H reads; else
+    _gain_columns forms both from P (B,D,D), as stored).
     Returns (x_new un-renormalized, K (B,D,M), PHt masked (B,D,M))."""
-    mask = row_mask.to(x.dtype)
+    mask, r_eff = _gain_inputs(row_mask, r_diag, x.dtype)
     H = _masked_rows(H, mask)
     nu = (z - h) * mask
-    r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
     if PHt is None:
         PHt, S = _gain_columns(P, H, r_eff)             # S (B, M, M), SPD
     else:
         PHt = PHt * mask[:, None, :]
         S = _times(H, PHt) + torch.diag_embed(r_eff)
-    W = (_spd_inverse_newton(S) if gain_solver == "newton"
-         else _spd_inverse(S))
-    K = PHt @ W
+    K = PHt @ _inverse(S, gain_solver)
     return x + (K @ nu[..., None])[..., 0], K, PHt
 
 
@@ -205,11 +207,11 @@ def _folded_tail_factors(x_new: torch.Tensor, P4: torch.Tensor,
 
 def update(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
            z: torch.Tensor, h: torch.Tensor, row_mask: torch.Tensor,
-           r_diag: torch.Tensor, use_pallas: bool = False,
+           r_diag: torch.Tensor | None, use_pallas: bool = False,
            gain_solver: str = "cholesky"):
     """Masked EKF measurement update (update.m:1-32). H the Jacobian,
-    JacobianBlocks or dense (B,M,D); z, h, row_mask, r_diag (B,M). P
-    enters symmetric.
+    JacobianBlocks or dense (B,M,D); z, h, row_mask, r_diag (B,M), r_diag
+    None for unit noise. P enters symmetric.
 
     The tail runs in K5 when use_pallas is set and x and P are float32 (as
     the JAX package takes its fused_update_tail kernel only for an f32 P),
@@ -237,7 +239,7 @@ def _update_tail(x_new: torch.Tensor, P: torch.Tensor, K: torch.Tensor,
 
 
 def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
-                    h_fn, row_mask: torch.Tensor, r_diag: torch.Tensor,
+                    h_fn, row_mask: torch.Tensor, r_diag: torch.Tensor | None,
                     num_iters: int = 3, use_pallas: bool = False):
     """Iterated EKF (Gauss-Newton) measurement update, the intent of the
     reference's ekf_update_iterated.m (ekf.py:691-731 of the JAX package).
@@ -248,15 +250,14 @@ def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
 
     h_fn: x (B,D) -> (h (B,M), H) at x, H JacobianBlocks or dense
     (B,M,D); rows of inactive measurements are masked here. z, row_mask,
-    r_diag (B,M). Each gain's P·Hᵀ and S (num_iters + 1 of them) come
-    from _gain_columns on P as stored: one kernels.pht_blocks pass for
-    blocks. S is always inverted by Cholesky, whatever the config's
+    r_diag (B,M), r_diag None for unit noise. Each gain's P·Hᵀ and S
+    (num_iters + 1 of them) come from _gain_columns on P as stored: one
+    kernels.pht_blocks pass for blocks. S is always inverted by Cholesky, whatever the config's
     gain_solver, as in JAX.
     The iterates that move only x run in the span iekf.iterate, the last
     gain and the covariance tail in iekf.tail (device marks on a CUDA x).
     Returns (x_new, P_new in P's dtype)."""
-    mask = row_mask.to(x.dtype)
-    r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
+    mask, r_eff = _gain_inputs(row_mask, r_diag, x.dtype)
 
     def gain(xi):
         h, H = h_fn(xi)
@@ -277,13 +278,14 @@ def update_iterated(x: torch.Tensor, P: torch.Tensor, z: torch.Tensor,
 
 def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
                 HP: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
-                row_mask: torch.Tensor, r_diag: torch.Tensor,
+                row_mask: torch.Tensor, r_diag: torch.Tensor | None,
                 gain_solver: str = "cholesky"):
     """Masked EKF update in row form (ekf.py:492-583 of the JAX package;
     the same math as ``update``). H (B,2M,D) dense measurement rows in any
     order (the engine stacks u-rows then v-rows); HP (B,2M,D) their H·P
     rows, from the caller's one read of P (measurement.pht_rows_split);
-    z, h, row_mask, r_diag (B,2M). P enters symmetric.
+    z, h, row_mask, r_diag (B,2M), r_diag None for unit noise. P enters
+    symmetric.
 
     K = P·Hᵀ·W is never formed: x moves by (HP)ᵀ·W·ν, and the covariance
     by the symmetric downdate −(HP)ᵀ·N, N = ½(W + Wᵀ)·HP, folded with the
@@ -293,18 +295,15 @@ def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
       At = [−N ; E₄ᵀ ; G·M₄ + (G·M₄₄·Gᵀ)·E₄ᵀ],  Bt = [HP ; G·M₄ ; E₄ᵀ],
       M₄ = rows 3:7 of P − (HP)ᵀN,
 
-    applied by K8 in the _TAIL_SYM mode ("expr": P + ½(AtᵀBt + BtᵀAt),
-    the JAX XLA form ekf.py:579-582). Returns (x_new, P_new in P's
-    dtype)."""
+    applied by K8 in its "expr" mode (P + ½(AtᵀBt + BtᵀAt), the JAX XLA
+    form ekf.py:579-582). Returns (x_new, P_new in P's dtype)."""
     dtype = x.dtype
-    mask = row_mask.to(dtype)
+    mask, r_eff = _gain_inputs(row_mask, r_diag, dtype)
     H = H * mask[..., None]
     HP = HP * mask[..., None]
     nu = (z - h) * mask
-    r_eff = torch.where(row_mask, r_diag, torch.ones_like(r_diag))
     S = HP @ H.transpose(1, 2) + torch.diag_embed(r_eff)     # (B, 2M, 2M)
-    W = (_spd_inverse_newton(S) if gain_solver == "newton"
-         else _spd_inverse(S))
+    W = _inverse(S, gain_solver)
     x_new = x + torch.einsum("bmd,bm->bd", HP, (W @ nu[..., None])[..., 0])
     N = 0.5 * (W + W.transpose(1, 2)) @ HP                    # (B, 2M, D)
     B_, D = x.shape
@@ -318,7 +317,7 @@ def update_rows(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,
     At = torch.cat([-N, E4T, W2T + (G @ M4[:, :, 3:7] @ G.transpose(1, 2))
                     @ E4T], dim=1)                            # (B, 2M+8, D)
     Bt = torch.cat([HP, W2T, E4T], dim=1)
-    return _renormalized(x_new), kernels.corr_apply(P, At, Bt, _TAIL_SYM)
+    return _renormalized(x_new), kernels.corr_apply(P, At, Bt, "expr")
 
 
 def cholesky(S: torch.Tensor) -> torch.Tensor:
@@ -334,10 +333,11 @@ def cholesky(S: torch.Tensor) -> torch.Tensor:
 
 def _spd_inverse(S: torch.Tensor) -> torch.Tensor:
     """SPD inverse via Cholesky: S⁻¹ = L⁻ᵀ L⁻¹, L = cholesky(S); all NaN
-    where S is not positive definite. On the card counted in
-    CHOLESKY_GAINS."""
-    global CHOLESKY_GAINS
-    CHOLESKY_GAINS += S.is_cuda
+    where S is not positive definite. On the card (cuSOLVER's batched
+    factor and cuBLAS's batched triangular solve, no kernel of the port's)
+    counted in kernels.COUNTS["cholesky_gain"]."""
+    if S.is_cuda:
+        kernels.count("cholesky_gain")
     L = cholesky(S)
     eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     Linv = torch.linalg.solve_triangular(L, eye.expand_as(S), upper=False)
@@ -353,5 +353,6 @@ def _spd_inverse_newton(S: torch.Tensor) -> torch.Tensor:
     card). kernels.spd_inverse_newton chooses by device, dtype and shape
     alone: an f32 S (B,n,n) on the card with n <= kernels.NEWTON_MAX_N
     runs in one launch of its kernel; any other S runs the batched
-    torch.matmul iteration, on the card counted in kernels.NEWTON_PLAIN."""
+    torch.matmul iteration, on the card counted in
+    kernels.COUNTS["newton_plain"]."""
     return kernels.spd_inverse_newton(S)

@@ -1,8 +1,10 @@
 """The per-frame SLAM step on the sim path, batched over filter instances.
 
 Port of ``ekf_slam_tpu/filter/engine.py``: the MonoSLAM hot loop
-(mono_slam.m:50-82) in its two forms, which ``step`` picks between as
-the JAX engine does (``_use_fused``):
+(mono_slam.m:50-82) in its two forms. ``route`` alone picks a frame's
+form (and the unfused step's layout, IEKF and K5 tail) from the config,
+the device and ``UPDATE``; every step takes it from there, ekf.py keeps
+none, and the frame drivers key their captured frames by it.
 
 * ``step_fused``: all full-covariance work in three kernels
   (ops/kernels.py):
@@ -21,10 +23,10 @@ the JAX engine does (``_use_fused``):
   (``corr_apply_cols``) or, with ``pallas_update``, K5
   (``fused_update_tail``). With ``use_iterated_update`` its LI update
   is the IEKF (``ekf.update_iterated``: each gain by pht_blocks, the
-  same tail). Under ``ekf._UPDATE == "rows"``
-  (EKF_UPDATE=rows) it takes the row form instead: one H·P row read a
-  phase (``measurement.pht_rows_split``) feeds the S gates, RANSAC and
-  ``ekf.update_rows``, whose tails run in K8 (``corr_apply``); no K6.
+  same tail). On the row route (EKF_UPDATE=rows) it takes the row form
+  instead: one H·P row read a phase (``measurement.pht_rows_split``)
+  feeds the S gates, RANSAC and ``ekf.update_rows``, whose tails run in
+  K8 (``corr_apply``); no K6.
 
 Stage order per frame: manage → predict → linearize → IC gates → 1-point
 RANSAC → LI update → HI rescue → HI update → counters + feature init.
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import torch
 
@@ -60,6 +63,11 @@ from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.ops import quaternion as quat
 from ekf_slam_tpu_torch.sim.scene import FrameObs
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
+
+# The unfused step's update layout, "cols" (the default; pht_blocks, K4)
+# or "rows" (one H·P row read a phase, K8): the JAX engine's switch
+# (ekf.py:142), the only environment read on the filter path.
+UPDATE = os.environ.get("EKF_UPDATE", "cols")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,44 +142,52 @@ def bootstrap(state: FilterState, obs: FrameObs,
     return initialize_features(state, obs, zero, cfg)
 
 
-def _fused_fits(cfg: EngineConfig) -> bool:
-    m, f = cfg.map, cfg.filter
-    return (6 * m.max_new_per_step <= 128
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """A frame's form: `fused` step_fused (K1-K3; the rest then False),
+    else the unfused step in row (`rows`) or column form, its LI update
+    the IEKF (`iterated`), its tails in K5 (`use_pallas`)."""
+    fused: bool
+    rows: bool
+    iterated: bool
+    use_pallas: bool
+
+
+def route(cfg: EngineConfig, device: torch.device,
+          fused: bool = True) -> Route:
+    """The route of a frame of `cfg` on `device`; fused=False for a step
+    with no fused form (the image step, the unfused step itself).
+    fused_step (engine.py:351-368): "off" the unfused step; "on" the fused
+    one, or ValueError for a config it cannot run; "auto" the fused one on
+    a CUDA device (the port's pallas_supported()) at f32 when the config
+    fits. The unfused step raises for share_pht, takes K5 as pallas_update
+    says ("auto": on a CUDA device; engine.py:602-609) and the row form
+    under UPDATE "rows" unless the IEKF or K5 is taken (engine.py:174)."""
+    f, m = cfg.filter, cfg.map
+    cuda = torch.device(device).type == "cuda"
+    fits = (6 * m.max_new_per_step <= 128
             and 0 < m.max_update_obs < m.capacity
             and not f.use_iterated_update and f.p_storage == "f32")
-
-
-def _use_fused(cfg: EngineConfig, device: torch.device) -> bool:
-    """engine.py:351-368: "off" runs the unfused step; "on" the fused one,
-    or raises for a config it cannot run; "auto" the fused one on a CUDA
-    device at f32 when the config fits (a CUDA device is the port's
-    counterpart of pallas_supported())."""
-    mode = cfg.filter.fused_step
-    if mode == "off":
-        return False
-    if mode == "on":
-        if not _fused_fits(cfg):
-            raise ValueError("fused_step=on requires 6*max_new_per_step "
-                             "<= 128, 0 < max_update_obs < capacity, no "
-                             "iterated update and f32 covariance storage")
-        return True
-    return (device.type == "cuda" and cfg.dtype == "float32"
-            and _fused_fits(cfg))
-
-
-def _use_pallas(cfg: EngineConfig, device: torch.device) -> bool:
-    """engine.py:602-609: whether ekf.update's tail runs in K5."""
-    mode = cfg.filter.pallas_update
-    if mode in ("on", "off"):
-        return mode == "on"
-    return device.type == "cuda"
+    if fused and f.fused_step == "on" and not fits:
+        raise ValueError("fused_step=on requires 6*max_new_per_step "
+                         "<= 128, 0 < max_update_obs < capacity, no "
+                         "iterated update and f32 covariance storage")
+    if fused and fits and (f.fused_step == "on" or (
+            f.fused_step != "off" and cuda and cfg.dtype == "float32")):
+        return Route(True, False, False, False)
+    if f.share_pht:
+        raise ValueError("share_pht is not ported")
+    use_pallas = (f.pallas_update == "on" if f.pallas_update in ("on", "off")
+                  else cuda)
+    rows = UPDATE == "rows" and not f.use_iterated_update and not use_pallas
+    return Route(False, rows, f.use_iterated_update, use_pallas)
 
 
 def step(state: FilterState, obs: FrameObs, u: torch.Tensor,
          cfg: EngineConfig):
     """One full SLAM frame on the sim path. u: (B, NHYP) uniform draws in
     [0, 1) for RANSAC. Returns (new_state, StepInfo)."""
-    if _use_fused(cfg, state.x.device):
+    if route(cfg, state.x.device).fused:
         return step_fused(state, obs, u, cfg)
     z, z_valid = gather_measurements(state, obs)
     state, _, ic, info = step_core(state, z, z_valid, u, cfg)
@@ -186,26 +202,10 @@ def step_core(state: FilterState, z: torch.Tensor, z_valid: torch.Tensor,
     (z (B,CAP,2), z_valid (B,CAP)): manage, predict, then
     ``step_core_from_prior``, manage and predict in the span
     sim.manage_predict. Returns (state, visible, ic, StepInfo)."""
-    check_ported(cfg)
     with trace_annotation("sim.manage_predict", state.x.device):
         state = mapman.manage(state, cfg)
         x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
     return step_core_from_prior(state, x_prior, P_prior, z, z_valid, u, cfg)
-
-
-def check_ported(cfg: EngineConfig) -> None:
-    """Raise ValueError for the filter setting the unfused step (and the
-    image step built on it) does not port: share_pht."""
-    if cfg.filter.share_pht:
-        raise ValueError("share_pht is not ported")
-
-
-def _rows_mode(cfg: EngineConfig, device: torch.device) -> bool:
-    """engine.py:174-175: the row-form update under EKF_UPDATE=rows, unless
-    share_pht, the IEKF or the K5 tail (pallas_update) is taken."""
-    f = cfg.filter
-    return (ekf._UPDATE == "rows" and not f.share_pht
-            and not f.use_iterated_update and not _use_pallas(cfg, device))
 
 
 def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
@@ -213,20 +213,22 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
     """Stages 3-7 given the managed state and its prediction
     (engine.py:152-312 on its default and its row-form branches): IC
     gates, RANSAC, the LI update, the HI rescue from the posterior, the HI
-    update. Column form: S from P's blocks, RANSAC's moves in K6, the
-    updates by _masked_update (their gains by pht_blocks). Row form: each phase reads P once into the
-    H·P rows of every visible slot, which give S, RANSAC's moves and
-    _masked_update_rows' operand. With use_iterated_update the LI update
-    is the IEKF (_masked_update_iterated, column form only). The stages
-    run in the spans of step_fused's sections 3-7 (sim.linearize_ic,
-    sim.ransac, sim.li_update, sim.hi_rescue, sim.hi_update).
+    update, on the unfused route (``route(cfg, device, fused=False)``).
+    Column form: S from P's blocks, RANSAC's moves in K6, the updates by
+    masked_update (their gains by pht_blocks). Row form: each phase reads
+    P once into the H·P rows of every visible slot, which give S,
+    RANSAC's moves and _masked_update_rows' operand. With
+    use_iterated_update the LI update is the IEKF
+    (_masked_update_iterated, column form only). The stages run in the
+    spans of step_fused's sections 3-7 (sim.linearize_ic, sim.ransac,
+    sim.li_update, sim.hi_rescue, sim.hi_update).
     Returns (state, visible, ic, StepInfo)."""
     f = cfg.filter
     dev = x_prior.device
-    rows = _rows_mode(cfg, dev)
+    r = route(cfg, dev, fused=False)
     with trace_annotation("sim.linearize_ic", dev):
         h, visible, H_xv, H_y = _linearize(x_prior, state, cfg)
-        S, hp = _phase_gates(P_prior, H_xv, H_y, visible, f.sigma_z, rows)
+        S, hp = _phase_gates(P_prior, H_xv, H_y, visible, f.sigma_z, r.rows)
         ic = association.individually_compatible(z, z_valid, h, visible, S,
                                                  cfg)
     with trace_annotation("sim.ransac", dev):
@@ -235,20 +237,20 @@ def step_core_from_prior(state: FilterState, x_prior, P_prior, z, z_valid,
                                  cfg, P=P_prior, H_xv=H_xv * vm,
                                  H_y=H_y * vm, hp=hp)
     with trace_annotation("sim.li_update", dev):
-        if f.use_iterated_update:
+        if r.iterated:
             x_post, P_post = _masked_update_iterated(x_prior, P_prior, z, li,
-                                                     state, cfg)
+                                                     state, cfg, r.use_pallas)
         else:
             x_post, P_post = _phase_update(x_prior, P_prior, hp, H_xv, H_y,
-                                           z, h, li, cfg)
+                                           z, h, li, cfg, r.use_pallas)
     with trace_annotation("sim.hi_rescue", dev):
         h2, vis2, H_xv2, H_y2 = _linearize(x_post, state, cfg)
-        S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, rows)
+        S_noR, hp2 = _phase_gates(P_post, H_xv2, H_y2, vis2, 0.0, r.rows)
         hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li,
                                                 cfg)
     with trace_annotation("sim.hi_update", dev):
         x_post, P_post = _phase_update(x_post, P_post, hp2, H_xv2, H_y2, z,
-                                       h2, hi, cfg)
+                                       h2, hi, cfg, r.use_pallas)
     return _step_core_epilogue(state, x_post, P_post, visible, ic, li, hi,
                                support)
 
@@ -264,10 +266,12 @@ def _phase_gates(P, H_xv, H_y, visible, sigma_z: float, rows: bool):
         *hp, H_xv * vm, H_y * vm, sigma_z), hp
 
 
-def _phase_update(x, P, hp, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig):
+def _phase_update(x, P, hp, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
+                  use_pallas: bool):
     """A phase's update: row form from its H·P rows hp, else column form."""
     if hp is None:
-        return _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg)
+        return masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg,
+                             use_pallas)
     return _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask, cfg)
 
 
@@ -311,14 +315,15 @@ def _gather_slots(slot_mask: torch.Tensor, M: int):
     return sel, sel_mask, take
 
 
-def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
-                   update=None):
-    """EKF update over the masked slots (engine.py:482-517). With
-    0 < max_update_obs = M < CAP the M most relevant slots are gathered,
-    otherwise every slot enters in slot order; their Jacobian rows go to
-    the update as blocks (ekf.JacobianBlocks, 2M rows), never dense.
-    `update` takes ekf.update's arguments and applies them (ekf.update by
-    default; the row-sharded step's applies them to its slab).
+def masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
+                  use_pallas: bool = False, update=None):
+    """EKF update over the masked slots (engine.py:482-517), unit noise.
+    With 0 < max_update_obs = M < CAP the M most relevant slots are
+    gathered, otherwise every slot enters in slot order; their Jacobian
+    rows go to the update as blocks (ekf.JacobianBlocks, 2M rows), never
+    dense. `update` takes ekf.update's arguments and applies them
+    (ekf.update by default, its tail in K5 with the route's use_pallas;
+    the row-sharded step's applies them to its slab).
     Returns (x_new, P_new)."""
     update = ekf.update if update is None else update
     B = slot_mask.shape[0]
@@ -326,19 +331,18 @@ def _masked_update(x, P, H_xv, H_y, z, h, slot_mask, cfg: EngineConfig,
     return update(
         x, P, ekf.JacobianBlocks(take(H_xv), take(H_y), sel),
         take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
-        sel_mask.repeat_interleave(2, dim=1),
-        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
-        _use_pallas(cfg, x.device), cfg.filter.gain_solver)
+        sel_mask.repeat_interleave(2, dim=1), None, use_pallas,
+        cfg.filter.gain_solver)
 
 
 def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
                         cfg: EngineConfig):
-    """Row-form _masked_update (engine.py:577-599): the M most relevant
+    """Row-form masked_update (engine.py:577-599): the M most relevant
     slots (M = max_update_obs, or CAP when M <= 0 or M > CAP), their
     Jacobian rows in block order [u-rows; v-rows] and the same rows of the
     phase's split H·P (hp = (hp_u, hp_v), each (B,CAP,D)), through
     ekf.update_rows. Returns (x_new, P_new)."""
-    B, cap = slot_mask.shape
+    cap = slot_mask.shape[1]
     M = cfg.map.max_update_obs
     if M <= 0 or M > cap:
         M = cap
@@ -350,14 +354,13 @@ def _masked_update_rows(x, P, hp, H_xv, H_y, z, h, slot_mask,
     return ekf.update_rows(
         x, P, Hc, HP, torch.cat([zs[..., 0], zs[..., 1]], dim=1),
         torch.cat([hs[..., 0], hs[..., 1]], dim=1), sel_mask.repeat(1, 2),
-        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
-        cfg.filter.gain_solver)
+        None, cfg.filter.gain_solver)
 
 
 def _masked_update_iterated(x, P, z, slot_mask, state: FilterState,
-                            cfg: EngineConfig):
+                            cfg: EngineConfig, use_pallas: bool):
     """The Gauss-Newton iterated LI update (engine.py:612-633): the slots
-    of _masked_update (_update_slots), their rows u,v interleaved; h_fn
+    of masked_update (_update_slots), their rows u,v interleaved; h_fn
     re-linearizes at each iterate through _linearize and gives the
     Jacobian's blocks. Returns (x_new, P_new)."""
     B = slot_mask.shape[0]
@@ -370,9 +373,8 @@ def _masked_update_iterated(x, P, z, slot_mask, state: FilterState,
 
     return ekf.update_iterated(
         x, P, take(z).reshape(B, 2 * M), h_fn,
-        sel_mask.repeat_interleave(2, dim=1),
-        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
-        cfg.filter.iekf_iterations, _use_pallas(cfg, x.device))
+        sel_mask.repeat_interleave(2, dim=1), None,
+        cfg.filter.iekf_iterations, use_pallas)
 
 
 def _linearize(x, state: FilterState, cfg: EngineConfig):
@@ -399,9 +401,8 @@ def _compact_gain(x, pht_flat, H_xv, H_y, z, h, slot_mask,
     return ekf.update_gain(
         x, None, ekf.JacobianBlocks(take(H_xv), take(H_y), sel),
         take(z).reshape(B, 2 * M), take(h).reshape(B, 2 * M),
-        sel_mask.repeat_interleave(2, dim=1),
-        torch.ones(B, 2 * M, dtype=x.dtype, device=x.device),
-        cfg.filter.gain_solver, PHt_sel)
+        sel_mask.repeat_interleave(2, dim=1), None, cfg.filter.gain_solver,
+        PHt_sel)
 
 
 def step_fused(state: FilterState, obs: FrameObs, u: torch.Tensor,
@@ -519,7 +520,8 @@ def frame_driver(state: FilterState, obs_seq: FrameObs, u_seq: torch.Tensor,
         functools.partial(_sim_frame, cfg=cfg),
         tuple(getattr(state, f) for f in FIELDS),
         lambda t: (obs_seq.pixels[t], obs_seq.visible[t], u_seq[t]),
-        obs_seq.pixels.shape[0], ("sim", cfg), capture)
+        obs_seq.pixels.shape[0], ("sim", cfg, route(cfg, state.x.device)),
+        capture)
     return FilterState(*final), traj, StepInfo(*info)
 
 

@@ -25,14 +25,16 @@ state sets: the copy of P is 2·B·D²·4 bytes (385 MB at B = 128, D = 613,
 ~0.12 ms at 3.35 TB/s against the fused frame's ~10 device ms), and one
 graph keeps one memory pool and one set of buffers.
 
-Captured frames are kept by (kind, config, the update layout, the kernel
-wrappers in place, shapes, dtypes, device), as ``jit`` keeps its
-programs, so a second sequence of the same shapes replays without
-capturing again; MAX_CAPTURED are kept, the least recently used dropped
-first (``clear`` drops them all and frees their pools). A frame whose
-carry holds buffers used in place (``in_place``: the loop database's
-ring, 9.36 GB at LoopConfig's capacity, which a copy would double) is
-not kept: those buffers are the caller's and are returned as the final
+Captured frames are kept by (the caller's key, the kernel wrappers in
+place, shapes, dtypes, device), as ``jit`` keeps its programs, so a second
+sequence of the same shapes replays without capturing again. The key names
+whatever else the frame function reads: the filter step's frames hold
+their kind, their config and their ``engine.route``; this module knows no
+filter. MAX_CAPTURED are kept, the least recently used dropped first
+(``clear`` drops them all and frees their pools). A frame whose carry
+holds buffers used in place (``in_place``: the loop database's ring,
+9.36 GB at LoopConfig's capacity, which a copy would double) is not
+kept: those buffers are the caller's and are returned as the final
 carry, so the frame is captured for one sequence (``last_capture_s``
 reads what the capture took).
 
@@ -43,10 +45,9 @@ as a ``piece`` and steps it itself, ``load``-ing a carry that host code
 changed; ``EagerFrame`` is the same interface without static buffers, so
 one host loop serves the eager route too.
 
-Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES``,
-``kernels.GLUE_LAUNCHES``, ``kernels.NEWTON_PLAIN`` and
-``ekf.CHOLESKY_GAINS`` are credited at each replay with the counts the
-captured frame made; the warm-up frames and the capture are set-up and
+Launch counts: a replay calls no wrapper, so ``kernels.LAUNCHES`` and
+``kernels.COUNTS`` are credited at each replay with the counts the
+captured frame made, name by name; the warm-up frames and the capture are set-up and
 leave the counts as they were. There is no fallback: a capture or replay
 that fails raises, and asking for capture without a CUDA device raises.
 
@@ -62,7 +63,6 @@ import time
 
 import torch
 
-from ekf_slam_tpu_torch.filter import ekf
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.utils.metrics import trace_annotation
 
@@ -99,11 +99,9 @@ def _assign(static, new) -> None:
             s.copy_(n)
 
 
-def _counts() -> tuple:
-    """The counts a replay credits: (kernels.LAUNCHES, kernels.GLUE_LAUNCHES,
-    kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS), the tables copied."""
-    return (dict(kernels.LAUNCHES), dict(kernels.GLUE_LAUNCHES),
-            kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS)
+def _tables() -> tuple:
+    """The count tables a replay credits: kernels.LAUNCHES, kernels.COUNTS."""
+    return kernels.LAUNCHES, kernels.COUNTS
 
 
 class StaticFrame:
@@ -123,9 +121,7 @@ class StaticFrame:
         self.outputs = ()
         self.graph = None
         self.launches = {}              # kernels.LAUNCHES, by name
-        self.glue = {}                  # kernels.GLUE_LAUNCHES, by name
-        self.newton_plain = 0           # kernels.NEWTON_PLAIN
-        self.cholesky = 0               # ekf.CHOLESKY_GAINS
+        self.counts = {}                # kernels.COUNTS, by name
         self.capture_s = None
 
     def __call__(self) -> None:
@@ -152,12 +148,9 @@ class StaticFrame:
             self()
         else:
             self.graph.replay()
-            for table, made in ((kernels.LAUNCHES, self.launches),
-                                (kernels.GLUE_LAUNCHES, self.glue)):
+            for table, made in zip(_tables(), (self.launches, self.counts)):
                 for name, n in made.items():
                     table[name] += n
-            kernels.NEWTON_PLAIN += self.newton_plain
-            ekf.CHOLESKY_GAINS += self.cholesky
         return self.outputs
 
     def capture(self, warmup: int = WARMUP) -> None:
@@ -170,28 +163,24 @@ class StaticFrame:
             raise ValueError(f"CUDA graph capture needs a CUDA device, "
                              f"got {dev}")
         t0 = time.perf_counter()
-        before = _counts()
+        before = [dict(t) for t in _tables()]
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(warmup):
                     self()
-            warm = _counts()
+            warm = [dict(t) for t in _tables()]
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side):
                 self()
             torch.cuda.current_stream(dev).wait_stream(side)
-            now = _counts()
-            self.launches, self.glue = (
+            self.launches, self.counts = (
                 {k: v - w[k] for k, v in table.items() if v != w[k]}
-                for table, w in zip(now[:2], warm[:2]))
-            self.newton_plain = now[2] - warm[2]
-            self.cholesky = now[3] - warm[3]
+                for table, w in zip(_tables(), warm))
         finally:
-            kernels.LAUNCHES.update(before[0])
-            kernels.GLUE_LAUNCHES.update(before[1])
-            kernels.NEWTON_PLAIN, ekf.CHOLESKY_GAINS = before[2:]
+            for table, b in zip(_tables(), before):
+                table.update(b)
         self.graph = graph
         for i in self.in_place:
             self.carry[i].zero_()
@@ -200,18 +189,17 @@ class StaticFrame:
         self.capture_s = _last_capture_s = time.perf_counter() - t0
 
 
-def _route() -> tuple:
-    """What the frame function reads besides its arguments: the update
-    layout (ekf._UPDATE, ekf._TAIL_SYM) and the kernel wrappers in place
-    (a test or profile_slice may swap them for their plain versions)."""
-    return (ekf._UPDATE, ekf._TAIL_SYM,
-            tuple(getattr(kernels, name) for name in kernels.PLAIN))
+def _wrappers() -> tuple:
+    """What a frame function reads that its caller's key cannot name: the
+    kernel wrappers in place (a test or profile_slice may swap them for
+    their plain versions)."""
+    return tuple(getattr(kernels, name) for name in kernels.PLAIN)
 
 
 def captured(key, fn, carry, inputs) -> StaticFrame:
     """The captured frame for `key` and the tensors' shapes, dtypes and
     device: from the cache, else built and captured now."""
-    full = (key, _route(), tuple((tuple(t.shape), t.dtype, t.device)
+    full = (key, _wrappers(), tuple((tuple(t.shape), t.dtype, t.device)
                                  for t in (*carry, *inputs)))
     frame = _CAPTURED.get(full)
     if frame is None:

@@ -47,15 +47,17 @@ bfloat16 P (FilterConfig.p_storage):
 those kernels read it as stored and upcast, and K4 / K8 store their
 output in P's dtype. The plain versions upcast the same way.
 ``LAUNCHES[name]`` counts calls of a wrapper that launched its kernel (K1
-launches three kernels a call, K2 and K3 two: one count);
-``GLUE_LAUNCHES[name]`` counts those of spd_inverse_newton and pht_blocks
-apart (their time is the glue layer's: no FLOP count of them is kept
-beside those of LAUNCHES), and ``NEWTON_PLAIN`` spd_inverse_newton's calls
-on the card that launched no kernel. The kernels' size limits (the rank
-r ≤ 128 of K1's and K3's add; K1/K2's R, K3/K5's M2, K4's and K8's R and
-K6's N have none; K7 a window that fits shared memory; pht_blocks D = 13
-+ 6·CAP, CAP <= 200, M <= CAP) are checked by the launchers, which
-return cudaErrorInvalidValue (1).
+launches three kernels a call, K2 and K3 two: one count).
+``COUNTS[name]`` (raised by ``count``) counts the rest of what a frame
+runs on the card: the launches of spd_inverse_newton and pht_blocks
+(their time is the glue layer's: no FLOP count of them is kept beside
+those of LAUNCHES), the spd_inverse_newton calls on the card that
+launched no kernel (``newton_plain``) and the Cholesky gains
+(``cholesky_gain``: cuSOLVER's factor and cuBLAS's solve, filter/ekf.py).
+The kernels' size limits (the rank r ≤ 128 of K1's and K3's add;
+K1/K2's R, K3/K5's M2, K4's and K8's R and K6's N have none; K7 a window
+that fits shared memory; pht_blocks D = 13 + 6·CAP, CAP <= 200, M <= CAP)
+are checked by the launchers, which return cudaErrorInvalidValue (1).
 
 Precondition shared with the Pallas kernels: P enters K2/K3/K5 symmetric,
 so sym(P − K·PHtᵀ) = P − ½(K·PHtᵀ + PHt·Kᵀ).
@@ -75,19 +77,23 @@ LAUNCHES = {"fused_manage_predict_pht": 0, "fused_update_tail_pht": 0,
             "fused_update_tail": 0, "f32_matmul_big": 0, "ncc_corr": 0,
             "ncc_corr_norms": 0, "corr_apply": 0, "corr_apply_rows": 0,
             "eight_point_fit": 0}
-GLUE_LAUNCHES = {"spd_inverse_newton": 0, "pht_blocks": 0}
-NEWTON_PLAIN = 0
+COUNTS = {"spd_inverse_newton": 0, "pht_blocks": 0, "newton_plain": 0,
+          "cholesky_gain": 0}
 # spd_inverse_newton: its iterations, and the largest n its kernel takes.
 NEWTON_ITERS = 20
 NEWTON_MAX_N = 128
 
 
+def count(name: str) -> None:
+    """One more of `name` in COUNTS."""
+    COUNTS[name] += 1
+
+
 def reset_launches() -> None:
-    global NEWTON_PLAIN
-    for table in (LAUNCHES, GLUE_LAUNCHES):
+    """LAUNCHES and COUNTS to 0."""
+    for table in (LAUNCHES, COUNTS):
         for k in table:
             table[k] = 0
-    NEWTON_PLAIN = 0
 
 
 # --- plain versions ---------------------------------------------------------
@@ -838,15 +844,14 @@ def spd_inverse_newton(S):
     an f32 S with n <= NEWTON_MAX_N takes one kernel launch (one block an
     instance, every iteration in shared memory, ascending-k FFMA chains:
     deterministic, and an instance's bits do not depend on its batch),
-    counted in GLUE_LAUNCHES, not in LAUNCHES; where the plain version
-    is NaN for a non-finite S (λ̂ NaN), so is the kernel. Any other S on
-    the card (f64, or n past what shared memory holds) takes the plain
-    version's batched torch.matmul iteration, counted in NEWTON_PLAIN."""
-    global NEWTON_PLAIN
+    counted in COUNTS, not in LAUNCHES; where the plain version is NaN
+    for a non-finite S (λ̂ NaN), so is the kernel. Any other S on the card
+    (f64, or n past what shared memory holds) takes the plain version's
+    batched torch.matmul iteration, counted in COUNTS["newton_plain"]."""
     name = "spd_inverse_newton"
     Bn, n = S.shape[0], S.shape[-1]
     if S.is_cuda and (S.dtype != torch.float32 or n > NEWTON_MAX_N):
-        NEWTON_PLAIN += 1
+        count("newton_plain")
         return spd_inverse_newton_plain(S)
     if not _check(name, {"S": (Bn, n, n)}, dict(S=S)):
         return spd_inverse_newton_plain(S)
@@ -855,7 +860,7 @@ def spd_inverse_newton(S):
         return W
     _launch(name, _build.load().ekf_spd_inverse_newton, S.data_ptr(),
             W.data_ptr(), Bn, n)
-    GLUE_LAUNCHES[name] += 1
+    count(name)
     return W
 
 
@@ -866,7 +871,7 @@ def pht_blocks(P, H_xv, H_y, sel, r):
     + diag(r) (B,2M,2M)) for the Jacobian whose row 2m+c is H_xv[:, m, c]
     on the camera columns and H_y[:, m, c] on the columns of slot sel[:,
     m]. On the card (f32 operands, P f32 or bf16) one kernel launch, P
-    read once as stored, counted in GLUE_LAUNCHES, not in LAUNCHES; the
+    read once as stored, counted in COUNTS, not in LAUNCHES; the
     launcher refuses CAP > 200, whose stage ring overflows shared memory
     (RuntimeError)."""
     name = "pht_blocks"
@@ -889,7 +894,7 @@ def pht_blocks(P, H_xv, H_y, sel, r):
             H_xv.data_ptr(), H_y.data_ptr(), sel.data_ptr(), r.data_ptr(),
             PHt.data_ptr(), S.data_ptr(), B, D, M,
             int(P.dtype == torch.bfloat16))
-    GLUE_LAUNCHES[name] += 1
+    count(name)
     return PHt, S
 
 

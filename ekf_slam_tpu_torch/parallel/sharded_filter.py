@@ -231,11 +231,12 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh, data_axis: str = "data",
     the instances over `data_axis`: ``step(states_p, obs, u) ->
     (states_p, StepInfo)``, states_p this rank's ``shard_state_batch``
     part, obs one frame (the same on every rank), u (B_l, NHYP) its
-    instances' RANSAC draws. ``gather_state`` reads a result."""
-    if engine._use_fused(cfg, mesh.device):
+    instances' RANSAC draws. ``gather_state`` reads a result. Its route
+    (engine.route) must be the unfused step's column form."""
+    r = engine.route(cfg, mesh.device)
+    if r.fused:
         raise ValueError("the row-sharded step requires fused_step='off': "
                          "the fused K1-K3 are single-device passes")
-    engine.check_ported(cfg)
     f = cfg.filter
     if f.use_iterated_update:
         raise ValueError("the row-sharded step does not take the iterated "
@@ -243,13 +244,13 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh, data_axis: str = "data",
     if f.p_storage != "f32" and cfg.dtype == "float32":
         raise ValueError("the row-sharded step stores P in the state's "
                          "dtype (p_storage='f32')")
+    if r.rows:
+        raise ValueError("the row-sharded step takes the column-form "
+                         "update (EKF_UPDATE=cols)")
     D, _ = padded_dim(cfg, mesh.size(model_axis))
     cap = cfg.map.capacity
 
     def step(states_p: FilterState, obs, u: torch.Tensor):
-        if ekf._UPDATE == "rows":
-            raise ValueError("the row-sharded step takes the column-form "
-                             "update (EKF_UPDATE=cols)")
         state = states_p.replace(x=states_p.x[:, :D])
         sp = Slab(states_p.P, mesh, model_axis, D)
         z, z_valid = engine.gather_measurements(state, obs)
@@ -275,15 +276,15 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh, data_axis: str = "data",
                                  pg=sp.matmul)
 
         # 5-7. LI update, HI rescue from the posterior, HI update
-        x_post, sp.P = engine._masked_update(x_prior, None, H_xv, H_y, z, h,
-                                             li, cfg, sp.update)
+        x_post, sp.P = engine.masked_update(x_prior, None, H_xv, H_y, z, h,
+                                            li, cfg, update=sp.update)
         h2, vis2, H_xv2, H_y2 = engine._linearize(x_post, state, cfg)
         S_noR = measurement.innovation_covariances_from_blocks(
             sp.cam_rows(), sp.slot_blocks(cap), H_xv2, H_y2, 0.0)
         hi = association.rescue_high_innovation(z, h2, S_noR, ic & vis2, li,
                                                 cfg)
-        x_post, sp.P = engine._masked_update(x_post, None, H_xv2, H_y2, z,
-                                             h2, hi, cfg, sp.update)
+        x_post, sp.P = engine.masked_update(x_post, None, H_xv2, H_y2, z,
+                                            h2, hi, cfg, update=sp.update)
         state, _, ic, info = engine._step_core_epilogue(
             state, x_post, None, visible, ic, li, hi, support)
 

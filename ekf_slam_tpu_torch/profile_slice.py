@@ -22,7 +22,7 @@ max_update_obs 24):
 
   fast            step_core, column form: K6, pht_blocks and K4 on the
                   bf16 P
-  fast_rows       step_core, row form (EKF_UPDATE=rows, EKF_TAIL_SYM=expr):
+  fast_rows       step_core, row form (EKF_UPDATE=rows):
                   K8 for the tails, no K6
 
 The image path is the JAX pixels bench's workload with the NCC matcher
@@ -78,7 +78,7 @@ from torch.autograd import DeviceType
 
 from ekf_slam_tpu_torch.config import (EngineConfig, FilterConfig, MapConfig,
                                        RansacConfig, SimConfig, VisionConfig)
-from ekf_slam_tpu_torch.filter import ekf, engine
+from ekf_slam_tpu_torch.filter import engine
 from ekf_slam_tpu_torch.filter.state import init_state
 from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
@@ -99,7 +99,7 @@ PATHS = {"fused": ("on", "off"), "unfused": ("off", "off"),
          "unfused_pallas": ("off", "on"), "fast": ("off", "off"),
          "fast_rows": ("off", "off"),
          "iekf": ("off", "off")}         # (fused_step, pallas_update)
-# The fast mode's paths and their update form (ekf._UPDATE).
+# The fast mode's paths and their update form (engine.UPDATE).
 FAST_PATHS = {"fast": "cols", "fast_rows": "rows"}
 # The fast mode's scene seed (the f32 paths take scene 0). The bf16 P goes
 # non-finite on scene 0 in both packages alike (tests/test_torch_bf16.py,
@@ -135,18 +135,10 @@ def slice_config(path: str = "fused") -> EngineConfig:
         dtype="float32")
 
 
-@contextlib.contextmanager
 def update_form(path: str):
-    """The path's update layout for the block: ekf._UPDATE "rows" and
-    ekf._TAIL_SYM "expr" on fast_rows, "cols" elsewhere; both restored
-    after."""
-    old = ekf._UPDATE, ekf._TAIL_SYM
-    ekf._UPDATE = FAST_PATHS.get(path, "cols")
-    ekf._TAIL_SYM = "expr"
-    try:
-        yield
-    finally:
-        ekf._UPDATE, ekf._TAIL_SYM = old
+    """The path's update layout for a with-block: engine.UPDATE "rows" on
+    fast_rows, "cols" elsewhere; restored after."""
+    return mock.patch.object(engine, "UPDATE", FAST_PATHS.get(path, "cols"))
 
 
 def slice_inputs(cfg: EngineConfig, dev, batch: int = BATCH,

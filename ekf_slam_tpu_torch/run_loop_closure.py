@@ -442,7 +442,8 @@ def run(h: Harness, seed: int, with_lc: bool, capture=None):
             torch.stack([o.visible for o in frames])).to(dev)
         st = engine.bootstrap(init_state(cfg, 1, dev), obs.frame(0), cfg)
         carry = tuple(getattr(st, f) for f in FIELDS)
-        fn, key = functools.partial(engine._sim_frame, cfg=cfg), ("sim", cfg)
+        fn, key = (functools.partial(engine._sim_frame, cfg=cfg),
+                   ("sim", cfg, engine.route(cfg, dev)))
         xs_dev = h.xs.to(dev)
     else:
         g_noise = torch.Generator().manual_seed(7000 + seed)
@@ -451,7 +452,7 @@ def run(h: Harness, seed: int, with_lc: bool, capture=None):
         carry = (*(getattr(st, f) for f in FIELDS),
                  *(getattr(app, f) for f in frontend.APPEARANCE_FIELDS))
         fn, key = (functools.partial(frontend._image_frame, cfg=cfg),
-                   ("image", cfg))
+                   ("image", cfg, engine.route(cfg, dev, fused=False)))
     g_sev = torch.Generator().manual_seed(9000 + seed)
     filt, query = None, Query(lcfg, dev, capture)
     loops, traj = [], []

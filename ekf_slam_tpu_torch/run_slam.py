@@ -143,7 +143,7 @@ def run_frames(frame, T: int, cfg: EngineConfig, batch: int, dev,
          *(getattr(app, f) for f in frontend.APPEARANCE_FIELDS)),
         lambda t: (frame(t).to(dev, cfg.torch_dtype),
                    frame_draws(cfg, batch, t, dev)),
-        T, ("image", cfg), capture)
+        T, ("image", cfg, engine.route(cfg, dev, fused=False)), capture)
     return traj, engine.StepInfo(*info)
 
 

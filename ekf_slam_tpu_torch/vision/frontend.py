@@ -329,7 +329,6 @@ def step_image(state: FilterState, app: Appearance, img: torch.Tensor,
     association / RANSAC / updates, then feature initialization from the
     frame when fewer than min_features_in_image were matched.
     Returns (state, app, StepInfo)."""
-    engine.check_ported(cfg)
     frame = prepare_frame(img, cfg)
     state = mapman.manage(state, cfg)
     x_prior, P_prior = ekf.predict(state.x, state.P, cfg.filter)
@@ -379,8 +378,8 @@ def frame_driver(states: FilterState, apps: Appearance, imgs: torch.Tensor,
         functools.partial(_image_frame, cfg=cfg),
         (*(getattr(states, f) for f in FIELDS),
          *(getattr(apps, f) for f in APPEARANCE_FIELDS)),
-        lambda t: (imgs[t], u_seq[t]), imgs.shape[0], ("image", cfg),
-        capture)
+        lambda t: (imgs[t], u_seq[t]), imgs.shape[0],
+        ("image", cfg, engine.route(cfg, imgs.device, fused=False)), capture)
     return (FilterState(*final[:n]), Appearance(*final[n:]), traj,
             engine.StepInfo(*info))
 

@@ -119,7 +119,7 @@ def test_one_bf16_step_matches_jax(bf16_state, form, monkeypatch):
     keys = frame_keys(3, B)
     step = step_fn(jc) if form == "cols" else rows_step_fn(jc)[0]
     jst, jinfo = step(jst0, frame(obs, 3), keys)
-    monkeypatch.setattr(ekf, "_UPDATE", form)
+    monkeypatch.setattr(engine, "UPDATE", form)
     with kernels.capture_operands() as calls:
         st, info = engine.step(port_state(jst0, torch.float32),
                                port_obs(frame(obs, 3), torch.float32),
@@ -168,7 +168,7 @@ def _port_run(cfg, frames, batch=B):
 
 @pytest.mark.parametrize("form", ["cols", "rows"])
 def test_bf16_storage_contract(form, monkeypatch):
-    monkeypatch.setattr(ekf, "_UPDATE", form)
+    monkeypatch.setattr(engine, "UPDATE", form)
     final16, traj16, _, err16 = _port_run(_storage_cfg("bf16"), 12)
     assert final16.P.dtype == torch.bfloat16
     assert bool(torch.isfinite(traj16).all())
@@ -183,8 +183,8 @@ def test_fused_auto_gates_bf16_off():
     cfg = _storage_cfg("bf16")
     cfg = cfg.replace(filter=dataclasses.replace(cfg.filter,
                                                  fused_step="auto"))
-    assert not engine._use_fused(cfg, torch.device("cuda"))
-    assert not engine._use_fused(cfg, torch.device("cpu"))
+    assert not engine.route(cfg, torch.device("cuda")).fused
+    assert not engine.route(cfg, torch.device("cpu")).fused
 
 
 # --- (d) K4 and K6 plain on a bf16 P ----------------------------------------

@@ -251,7 +251,7 @@ def test_cuda_pht_blocks_matches_plain(card, unfused_operands, store):
     against the f64 plain version within TOL of each entry's bound; its
     P·Hᵀ equal to K6's on the dense compact H (the same fmaf chain in
     column order: the 594 zero columns add exact zeros); a second launch
-    bit for bit; each launch counted in GLUE_LAUNCHES, none in
+    bit for bit; each launch counted in kernels.COUNTS, none in
     LAUNCHES."""
     calls = unfused_operands["pht_blocks"]
     assert len(calls) == 2
@@ -262,8 +262,8 @@ def test_cuda_pht_blocks_matches_plain(card, unfused_operands, store):
         kernels.reset_launches()
         got = kernels.pht_blocks(P, H_xv, H_y, sel, r)
         torch.cuda.synchronize()
-        assert kernels.GLUE_LAUNCHES == {"spd_inverse_newton": 0,
-                                         "pht_blocks": 1}
+        assert kernels.COUNTS == {"spd_inverse_newton": 0, "pht_blocks": 1,
+                                  "newton_plain": 0, "cholesky_gain": 0}
         assert sum(kernels.LAUNCHES.values()) == 0
         assert all(t.dtype == torch.float32 and t.is_cuda for t in got)
         assert kernels.pht_blocks_error(got, P, H_xv, H_y, sel, r) <= TOL
@@ -313,7 +313,7 @@ def test_cuda_pht_blocks_takes_every_width_and_refuses_the_rest(card):
     with pytest.raises(RuntimeError, match="cudaError_t 1"):
         kernels.pht_blocks(torch.eye(D_wide, device=card).expand(
             2, D_wide, D_wide).contiguous(), *blocks(1))
-    assert not any(kernels.GLUE_LAUNCHES.values())
+    assert not any(kernels.COUNTS.values())
 
 
 @pytest.mark.cuda
@@ -377,7 +377,7 @@ def test_cuda_unfused_step_matches_cpu_step(card, pallas):
     tail = "fused_update_tail" if pallas == "on" else "corr_apply_cols"
     assert kernels.LAUNCHES == {k: {tail: 2, "f32_matmul_big": 1}.get(k, 0)
                                 for k in kernels.LAUNCHES}
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 2
+    assert kernels.COUNTS["pht_blocks"] == 2
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())
@@ -532,7 +532,7 @@ def test_cuda_image_step_matches_cpu_step(card):
     assert kernels.LAUNCHES == {
         k: {"ncc_corr_norms": 1, "corr_apply_cols": 2,
             "f32_matmul_big": 1}.get(k, 0) for k in kernels.LAUNCHES}
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 2
+    assert kernels.COUNTS["pht_blocks"] == 2
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
     scale = float(s_cpu.x.abs().max())
@@ -546,7 +546,7 @@ def _fast_operands(form):
     cfg, obs, st, u = _sequence("float32", fused_step="off",
                                 gain_solver="newton", p_storage="bf16")
     u = u.float()
-    with mock.patch.object(ekf, "_UPDATE", form):
+    with mock.patch.object(engine, "UPDATE", form):
         st, _ = engine.step(st, obs.frame(1), u[1], cfg)
         with kernels.capture_operands() as calls:
             engine.step(st, obs.frame(2), u[2], cfg)
@@ -669,7 +669,7 @@ def test_cuda_fast_step_matches_cpu_step(card, form):
     cfg, obs, st, u = _sequence("float32", fused_step="off",
                                 gain_solver="newton", p_storage="bf16")
     u = u.float()
-    with mock.patch.object(ekf, "_UPDATE", form):
+    with mock.patch.object(engine, "UPDATE", form):
         kernels.reset_launches()
         s_gpu, i_gpu = engine.step(st.to(card), obs.frame(1).to(card),
                                    u[1].to(card), cfg)
@@ -677,8 +677,7 @@ def test_cuda_fast_step_matches_cpu_step(card, form):
     want = ({"corr_apply_cols": 2, "f32_matmul_big": 1} if form == "cols"
             else {"corr_apply": 2})
     assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == (2 if form == "cols"
-                                                   else 0)
+    assert kernels.COUNTS["pht_blocks"] == (2 if form == "cols" else 0)
     assert s_gpu.P.dtype == torch.bfloat16
     for f in ("n_ic", "n_li", "n_hi"):
         assert torch.equal(getattr(i_gpu, f).cpu(), getattr(i_cpu, f)), f
@@ -1309,7 +1308,7 @@ def _same_bits(got, want):
         assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
 
 
-# route -> (filter settings, ekf._UPDATE); each at f32 on the card
+# route -> (filter settings, engine.UPDATE); each at f32 on the card
 GRAPH_ROUTES = {
     "fused": ({"fused_step": "on"}, "cols"),
     "unfused_i": ({"fused_step": "off", "pallas_update": "off"}, "cols"),
@@ -1334,7 +1333,7 @@ def test_replayed_sequence_equals_eager(card, route):
     filt, update = GRAPH_ROUTES[route]
     cfg, obs, st, u = _sequence("float32", **filt)
     st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
-    with mock.patch.object(ekf, "_UPDATE", update):
+    with mock.patch.object(engine, "UPDATE", update):
         kernels.reset_launches()
         want = engine.run_sequence(st, obs, u, cfg, eager=True)
         eager_counts = dict(kernels.LAUNCHES)
@@ -1523,20 +1522,21 @@ def test_cuda_spd_inverse_newton_matches_plain(card, newton_operands, n):
     against the plain version in f64, each entry within NEWTON_TOL of its
     κ̂·ε·√(X_ii·X_jj) (kernels.newton_error); no worse than the f32 plain
     iteration (cuBLAS) against the same reference, within the limit; one
-    launch counted in GLUE_LAUNCHES, none in LAUNCHES or NEWTON_PLAIN."""
+    launch counted in kernels.COUNTS, none in LAUNCHES or as a plain
+    solve (newton_plain)."""
     S = newton_operands[n]
     kernels.reset_launches()
     W = kernels.spd_inverse_newton(S)
     torch.cuda.synchronize()
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 1
-    assert kernels.NEWTON_PLAIN == 0
+    assert kernels.COUNTS["spd_inverse_newton"] == 1
+    assert kernels.COUNTS["newton_plain"] == 0
     assert not any(kernels.LAUNCHES.values())
     assert W.dtype == torch.float32 and W.shape == S.shape
     err = kernels.newton_error(W, S)
     plain = kernels.newton_error(kernels.spd_inverse_newton_plain(S), S)
     assert err <= kernels.NEWTON_TOL, (err, plain)
     assert plain <= kernels.NEWTON_TOL, plain
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 1
+    assert kernels.COUNTS["spd_inverse_newton"] == 1
 
 
 @pytest.mark.cuda
@@ -1550,7 +1550,7 @@ def test_cuda_spd_inverse_newton_is_deterministic(card, newton_operands):
     b = kernels.spd_inverse_newton(S)
     c = ekf._spd_inverse_newton(S)
     _same_bits([a, a], [b, c])
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 3
+    assert kernels.COUNTS["spd_inverse_newton"] == 3
     _same_bits([kernels.spd_inverse_newton(S[5:6].contiguous())[0],
                 kernels.spd_inverse_newton(S[:37].contiguous())[20]],
                [a[5], a[20]])
@@ -1580,8 +1580,8 @@ def test_cuda_spd_inverse_newton_takes_every_n(card, n):
 def test_cuda_spd_inverse_newton_falls_back_by_shape_and_dtype(card):
     """The wrapper and ekf._spd_inverse_newton on the card: n = 160 (past
     the kernel's 128) and an f64 S take the batched torch.matmul iteration
-    (the plain version, bit for bit), each call counted in NEWTON_PLAIN,
-    none in GLUE_LAUNCHES."""
+    (the plain version, bit for bit), each call counted in
+    kernels.COUNTS["newton_plain"], none as a launch."""
     g = torch.Generator().manual_seed(3)
     for n, dtype in ((160, torch.float32), (48, torch.float64)):
         A = torch.randn(4, n, n, generator=g, dtype=torch.float64)
@@ -1591,15 +1591,15 @@ def test_cuda_spd_inverse_newton_falls_back_by_shape_and_dtype(card):
         plain = kernels.spd_inverse_newton_plain(S)
         _same_bits([ekf._spd_inverse_newton(S),
                     kernels.spd_inverse_newton(S)], [plain, plain])
-        assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
-        assert kernels.NEWTON_PLAIN == 2
+        assert kernels.COUNTS["spd_inverse_newton"] == 0
+        assert kernels.COUNTS["newton_plain"] == 2
 
 
 @pytest.mark.cuda
 def test_replayed_sim_frame_counts_two_newton_launches(card):
     """The fused frame with the Newton gain, captured: two solves a frame
     (the LI and the HI update), so the replayed sequence counts 2 a frame
-    in GLUE_LAUNCHES and none in NEWTON_PLAIN, as the eager one does,
+    in kernels.COUNTS and no plain solve, as the eager one does,
     and equals it bit for bit."""
     from ekf_slam_tpu_torch.filter import graph
     cfg, obs, st, u = _sequence("float32", fused_step="on",
@@ -1608,14 +1608,14 @@ def test_replayed_sim_frame_counts_two_newton_launches(card):
     T = obs.pixels.shape[0]
     kernels.reset_launches()
     want = engine.run_sequence(st, obs, u, cfg, eager=True)
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 2 * T
+    assert kernels.COUNTS["spd_inverse_newton"] == 2 * T
     kernels.reset_launches()
     got = engine.run_sequence(st, obs, u, cfg)
     frame = graph.last_captured()
-    assert frame.glue == {"spd_inverse_newton": 2}
-    assert frame.newton_plain == 0
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 2 * T
-    assert kernels.NEWTON_PLAIN == 0
+    assert frame.counts == {"spd_inverse_newton": 2}
+    assert frame.counts.get("newton_plain", 0) == 0
+    assert kernels.COUNTS["spd_inverse_newton"] == 2 * T
+    assert kernels.COUNTS["newton_plain"] == 0
     _same_bits([got[0].x, got[0].P, got[1], got[2].n_li],
                [want[0].x, want[0].P, want[1], want[2].n_li])
 
@@ -1704,23 +1704,23 @@ def test_replayed_unfused_frame_marks_its_spans(card, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("route,per_frame", [("fused", 0), ("iekf", 4)])
 def test_replayed_frame_counts_its_cholesky_gains(card, route, per_frame):
-    """ekf.CHOLESKY_GAINS, the Cholesky gains on the card: 4 a frame on
-    the IEKF's (3 iterates and the last gain; its HI gain by Newton), none
-    on the fused frame's; the replayed sequence credits its captured
-    frame's count at every replay, as the eager one counts."""
+    """kernels.COUNTS["cholesky_gain"], the Cholesky gains on the card: 4
+    a frame on the IEKF's (3 iterates and the last gain; its HI gain by
+    Newton), none on the fused frame's; the replayed sequence credits its
+    captured frame's count at every replay, as the eager one counts."""
     from ekf_slam_tpu_torch.filter import graph
     filt = ({"fused_step": "on", "gain_solver": "newton"}
             if route == "fused" else SPAN_ROUTES["iekf"])
     cfg, obs, st, u = _sequence("float32", **filt)
     st, obs, u = st.to(card), obs.to(card), u.to(card, torch.float32)
     T = obs.pixels.shape[0]
-    ekf.CHOLESKY_GAINS = 0
+    kernels.reset_launches()
     want = engine.run_sequence(st, obs, u, cfg, eager=True)
-    assert ekf.CHOLESKY_GAINS == per_frame * T
-    ekf.CHOLESKY_GAINS = 0
+    assert kernels.COUNTS["cholesky_gain"] == per_frame * T
+    kernels.reset_launches()
     got = engine.run_sequence(st, obs, u, cfg)
-    assert graph.last_captured().cholesky == per_frame
-    assert ekf.CHOLESKY_GAINS == per_frame * T
+    assert graph.last_captured().counts.get("cholesky_gain", 0) == per_frame
+    assert kernels.COUNTS["cholesky_gain"] == per_frame * T
     _same_bits([got[0].x, got[0].P, got[1]], [want[0].x, want[0].P, want[1]])
 
 
@@ -1728,7 +1728,7 @@ def test_replayed_frame_counts_its_cholesky_gains(card, route, per_frame):
 @pytest.mark.parametrize("route,per_frame", [
     ("fused", 0), ("unfused", 2), ("iekf", 5)])
 def test_replayed_frame_counts_its_pht_blocks(card, route, per_frame):
-    """kernels.GLUE_LAUNCHES["pht_blocks"]: 5 a frame on the IEKF's (3
+    """kernels.COUNTS["pht_blocks"]: 5 a frame on the IEKF's (3
     iterates, the last gain, the HI update's), 2 on the unfused frame's,
     none on the fused frame's (its P·Hᵀ come from K1 and K2); the
     replayed sequence credits its captured frame's count at every replay,
@@ -1742,10 +1742,10 @@ def test_replayed_frame_counts_its_pht_blocks(card, route, per_frame):
     T = obs.pixels.shape[0]
     kernels.reset_launches()
     want = engine.run_sequence(st, obs, u, cfg, eager=True)
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == per_frame * T
+    assert kernels.COUNTS["pht_blocks"] == per_frame * T
     assert kernels.LAUNCHES["f32_matmul_big"] == (route != "fused") * T
     kernels.reset_launches()
     got = engine.run_sequence(st, obs, u, cfg)
-    assert graph.last_captured().glue.get("pht_blocks", 0) == per_frame
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == per_frame * T
+    assert graph.last_captured().counts.get("pht_blocks", 0) == per_frame
+    assert kernels.COUNTS["pht_blocks"] == per_frame * T
     _same_bits([got[0].x, got[0].P, got[1]], [want[0].x, want[0].P, want[1]])

@@ -220,7 +220,7 @@ def test_default_map_config_is_outside_the_fused_step():
     config fits the fused step."""
     _, tc = configs({"dtype": "float64"})
     for dev in ("cpu", "cuda"):
-        assert not engine._use_fused(tc, torch.device(dev))
+        assert not engine.route(tc, torch.device(dev)).fused
     st = init_state(tc, 1, "cpu")
     L = tc.sim.num_landmarks
     obs = FrameObs(torch.rand(L, 2, dtype=torch.float64,
@@ -231,5 +231,5 @@ def test_default_map_config_is_outside_the_fused_step():
     st, _ = engine.step(st, obs, torch.zeros(1, 64, dtype=torch.float64), tc)
     assert st.P.shape == (1, 613, 613) and bool(torch.isfinite(st.P).all())
     _, tc = configs(SLICE)
-    assert engine._use_fused(tc, torch.device("cuda"))
+    assert engine.route(tc, torch.device("cuda")).fused
     assert dataclasses.asdict(tc)["map"]["capacity"] == 100

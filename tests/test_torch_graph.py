@@ -33,7 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ekf_slam_tpu.filter import engine as jengine
 from ekf_slam_tpu_torch.config import EngineConfig
-from ekf_slam_tpu_torch.filter import ekf, engine, graph
+from ekf_slam_tpu_torch.filter import engine, graph
 from ekf_slam_tpu_torch.filter.state import FIELDS, init_state
 from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.vision import frontend
@@ -48,7 +48,7 @@ IMAGE_FRAMES = 3
 SIM = {"map": {"capacity": 24, "min_features_in_image": 12,
                "max_new_per_step": 8, "max_update_obs": 16},
        "sim": {"num_landmarks": 40}}
-# route -> (filter settings, ekf._UPDATE)
+# route -> (filter settings, engine.UPDATE)
 SIM_ROUTES = {
     "fused": ({"fused_step": "on"}, "cols"),
     "unfused_i": ({"fused_step": "off", "pallas_update": "off"}, "cols"),
@@ -149,7 +149,7 @@ def _image_cfg(route, dtype):
 
 
 def _update_form(route):
-    return mock.patch.object(ekf, "_UPDATE", SIM_ROUTES[route][1])
+    return mock.patch.object(engine, "UPDATE", SIM_ROUTES[route][1])
 
 
 def _sim_inputs(cfg):

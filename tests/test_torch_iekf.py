@@ -263,7 +263,7 @@ def test_iekf_frame_kernel_calls(route):
     st = port_state(jst, dtype)
     u = torch.tensor(ransac_u(frame_keys(1, B), jc.ransac.num_hypotheses),
                      dtype=dtype)
-    with mock.patch.object(ekf, "_UPDATE", route if route == "rows"
+    with mock.patch.object(engine, "UPDATE", route if route == "rows"
                            else "cols"), kernels.capture_operands() as calls:
         _, info = engine.step(st, port_obs(frame(obs, 1), dtype), u, tc)
     assert int(info.n_li.sum()) > 0

@@ -51,8 +51,8 @@ def test_cpu_solver_is_the_plain_iteration_bit_for_bit(dtype, n):
     for got in (ekf._spd_inverse_newton(S), kernels.spd_inverse_newton(S),
                 kernels.spd_inverse_newton_plain(S)):
         assert got.dtype == dtype and torch.equal(got, want)
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
-    assert kernels.NEWTON_PLAIN == 0
+    assert kernels.COUNTS["spd_inverse_newton"] == 0
+    assert kernels.COUNTS["newton_plain"] == 0
     assert not any(kernels.LAUNCHES.values())
     resid = (want.double() @ S.double()
              - torch.eye(n, dtype=torch.float64)).abs().max()
@@ -104,17 +104,21 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_reset_launches_resets_the_newton_counts():
-    kernels.GLUE_LAUNCHES["spd_inverse_newton"] = 5
-    kernels.NEWTON_PLAIN = 2
+    """reset_launches clears every count of both tables, the Newton
+    solves' and the Cholesky gains' among them."""
+    kernels.COUNTS["spd_inverse_newton"] = 5
+    kernels.COUNTS["newton_plain"] = 2
+    kernels.COUNTS["cholesky_gain"] = 3
+    kernels.LAUNCHES["corr_apply_cols"] = 4
     kernels.reset_launches()
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 0
-    assert kernels.NEWTON_PLAIN == 0
+    assert not any(kernels.COUNTS.values())
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_replay_credits_the_frames_newton_launches():
     """A replayed frame calls no wrapper: StaticFrame.step credits
-    GLUE_LAUNCHES and NEWTON_PLAIN with the captured frame's counts, as
-    it credits LAUNCHES."""
+    kernels.COUNTS with the captured frame's counts, name by name, as it
+    credits LAUNCHES."""
     calls = []
 
     class Replayed:
@@ -125,14 +129,13 @@ def test_replay_credits_the_frames_newton_launches():
     frame = graph.StaticFrame(lambda carry, inputs: (carry, ()), (x,), (x,))
     frame.graph = Replayed()
     frame.launches = {"fused_update_tail_add": 1}
-    frame.glue = {"spd_inverse_newton": 2}
-    frame.newton_plain = 1
+    frame.counts = {"spd_inverse_newton": 2, "newton_plain": 1}
     kernels.reset_launches()
     for _ in range(3):
         frame.step((x,))
     assert calls == [1, 1, 1]
-    assert kernels.GLUE_LAUNCHES["spd_inverse_newton"] == 6
-    assert kernels.NEWTON_PLAIN == 3
+    assert kernels.COUNTS["spd_inverse_newton"] == 6
+    assert kernels.COUNTS["newton_plain"] == 3
     assert kernels.LAUNCHES["fused_update_tail_add"] == 3
     kernels.reset_launches()
 
@@ -140,17 +143,17 @@ def test_replay_credits_the_frames_newton_launches():
 def test_plain_route_swaps_the_newton_wrapper():
     """The Newton gain's wrapper is one of PLAIN's: profile_slice's "plain"
     route takes its plain version too, and a captured frame is kept apart
-    by it (graph._route)."""
+    by it (graph._wrappers)."""
     assert kernels.PLAIN["spd_inverse_newton"] is \
         kernels.spd_inverse_newton_plain
     with profile_slice.route("kernels"):
         assert kernels.spd_inverse_newton is not \
             kernels.spd_inverse_newton_plain
-        kept = graph._route()
+        kept = graph._wrappers()
     with profile_slice.route("plain"):
         assert kernels.spd_inverse_newton is kernels.spd_inverse_newton_plain
-        assert graph._route() != kept
-    assert graph._route() == kept
+        assert graph._wrappers() != kept
+    assert graph._wrappers() == kept
 
 
 def test_newton_error_reads_rounding_small_and_faults_large():

@@ -152,21 +152,21 @@ def test_wrapper_routes_and_counts():
     got = kernels.pht_blocks(P, H_xv, H_y, sel, r)
     want = kernels.pht_blocks_plain(P, H_xv, H_y, sel, r)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 0
+    assert kernels.COUNTS["pht_blocks"] == 0
     assert not any(kernels.LAUNCHES.values())
     with pytest.raises(ValueError, match="sel"):
         kernels.pht_blocks(P, H_xv, H_y, sel.int(), r)
     with pytest.raises(ValueError, match="H_y"):
         kernels.pht_blocks(P, H_xv, H_y[:, :3], sel, r)
-    kernels.GLUE_LAUNCHES["pht_blocks"] = 4
+    kernels.COUNTS["pht_blocks"] = 4
     kernels.reset_launches()
-    assert kernels.GLUE_LAUNCHES["pht_blocks"] == 0
+    assert kernels.COUNTS["pht_blocks"] == 0
 
 
 def test_replay_credits_the_frames_pht_blocks_counts():
     """A replayed frame calls no wrapper: StaticFrame.step credits
-    GLUE_LAUNCHES with the captured frame's pht_blocks count, as it
-    credits LAUNCHES, and leaves the other glue kernel's as it was."""
+    kernels.COUNTS with the captured frame's pht_blocks count, as it
+    credits LAUNCHES, and leaves the table's other counts as they were."""
     class Replayed:
         def replay(self):
             pass
@@ -174,12 +174,12 @@ def test_replay_credits_the_frames_pht_blocks_counts():
     x = torch.zeros(3)
     frame = graph.StaticFrame(lambda carry, inputs: (carry, ()), (x,), (x,))
     frame.graph = Replayed()
-    frame.glue = {"pht_blocks": 5}
+    frame.counts = {"pht_blocks": 5}
     kernels.reset_launches()
     for _ in range(3):
         frame.step((x,))
-    assert kernels.GLUE_LAUNCHES == {"spd_inverse_newton": 0,
-                                     "pht_blocks": 15}
+    assert kernels.COUNTS == {"spd_inverse_newton": 0, "pht_blocks": 15,
+                              "newton_plain": 0, "cholesky_gain": 0}
     kernels.reset_launches()
 
 

@@ -193,20 +193,24 @@ def _update_operands(seed=50, cap=4, M=6, batch=2):
 
 @pytest.mark.parametrize("solver", ["cholesky", "newton"])
 @pytest.mark.parametrize("mode", kernels.CORR_MODES)
-def test_update_rows_matches_jax(monkeypatch, mode, solver):
-    """Each K8 mode: with P symmetric all three are the JAX update's math
-    (its XLA tail, which is "expr")."""
+def test_update_rows_matches_jax(mode, solver):
+    """update_rows applies K8 in "expr"; each K8 mode on the At, Bt it
+    built gives, with P symmetric, the JAX update's covariance (its XLA
+    tail, which is "expr")."""
     ops = _update_operands()
     want = jax.vmap(lambda *a: jekf.update_rows(*a, gain_solver=solver))(
         *ops)
-    monkeypatch.setattr(ekf, "_TAIL_SYM", mode)
     with kernels.capture_operands() as calls:
         got = ekf.update_rows(*map(torch.tensor, ops), gain_solver=solver)
-    assert [c[3] for c in calls["corr_apply"]] == [mode]
-    assert calls["corr_apply"][0][1].shape == (2, 2 * 3 + 8, CAM + 24)
+    (P, At, Bt, used), = calls["corr_apply"]
+    assert used == "expr"
+    assert At.shape == Bt.shape == (2, 2 * 3 + 8, CAM + 24)
+    P_mode = kernels.corr_apply(P, At, Bt, mode)
+    if mode == "expr":
+        assert torch.equal(P_mode, got[1])
     np.testing.assert_allclose(n(got[0]), np.asarray(want[0]), rtol=1e-10,
                                atol=1e-10)
-    np.testing.assert_allclose(n(got[1]), np.asarray(want[1]), rtol=1e-10,
+    np.testing.assert_allclose(n(P_mode), np.asarray(want[1]), rtol=1e-10,
                                atol=1e-10)
 
 
@@ -233,7 +237,7 @@ def _run_rows(d, frames, batch, seed=0):
     step, traced = rows_step_fn(jc)
     st = port_state(jst)
     out = []
-    with mock.patch.object(ekf, "_UPDATE", "rows"):
+    with mock.patch.object(engine, "UPDATE", "rows"):
         for t in range(1, frames):
             keys = frame_keys(t, batch)
             jst, jinfo = step(jst, frame(obs, t), keys)

@@ -22,7 +22,8 @@ frame that capture records (engine.frame_driver(..., capture=False)):
     22 with the IEKF's);
 (h) the Cholesky gains a frame: 4 on the IEKF's (its 3 iterates and the
     last gain), none on the fused frame's, which solves by Newton; on CPU
-    tensors ekf.CHOLESKY_GAINS stays 0 (it counts the card's).
+    tensors kernels.COUNTS["cholesky_gain"] stays 0 (it counts the
+    card's).
 """
 
 import types
@@ -33,6 +34,7 @@ import torch
 from ekf_slam_tpu_torch.config import EngineConfig
 from ekf_slam_tpu_torch.filter import ekf, engine
 from ekf_slam_tpu_torch.filter.state import FIELDS, init_state
+from ekf_slam_tpu_torch.ops import kernels
 from ekf_slam_tpu_torch.sim import simulate
 from ekf_slam_tpu_torch.utils import metrics
 from test_torch_cuda_emulation import emulate  # noqa: F401 (fixture)
@@ -229,11 +231,11 @@ def test_cholesky_gains_a_frame(route, monkeypatch):
     real = ekf._spd_inverse
     monkeypatch.setattr(ekf, "_spd_inverse",
                         lambda S: calls.append(S.shape) or real(S))
-    monkeypatch.setattr(ekf, "CHOLESKY_GAINS", 0)
+    monkeypatch.setitem(kernels.COUNTS, "cholesky_gain", 0)
     engine.frame_driver(st, obs, u, cfg, capture=False)
     want = {"fused": 0, "unfused": 2, "iekf": 4}[route]
     assert len(calls) == want * FRAMES
-    assert ekf.CHOLESKY_GAINS == 0
+    assert kernels.COUNTS["cholesky_gain"] == 0
 
 
 def test_mark_pair_around_the_block(monkeypatch):

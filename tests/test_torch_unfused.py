@@ -246,12 +246,12 @@ def test_auto_picks_the_unfused_step_on_the_cpu():
     f32 = _with(FUSED, filter={"fused_step": "auto"})
     f32["dtype"] = "float32"
     _, tc = configs(f32)
-    assert not engine._use_fused(tc, CPU)
-    assert engine._use_fused(tc, torch.device("cuda"))
+    assert not engine.route(tc, CPU).fused
+    assert engine.route(tc, torch.device("cuda")).fused
     _, tc64 = configs(_with(FUSED, filter={"fused_step": "auto"}))
-    assert not engine._use_fused(tc64, torch.device("cuda"))
+    assert not engine.route(tc64, torch.device("cuda")).fused
     _, tc_big = configs({})
-    assert not engine._use_fused(tc_big, torch.device("cuda"))
+    assert not engine.route(tc_big, torch.device("cuda")).fused
     with mock.patch.object(engine, "step_fused",
                            side_effect=AssertionError("fused step taken")):
         st, info = engine.step(*_tiny(tc64), tc64)
@@ -264,8 +264,8 @@ def test_pallas_update_dispatch():
     for mode, cpu, cuda in (("on", True, True), ("off", False, False),
                             ("auto", False, True)):
         _, tc = configs(_with(UNFUSED, filter={"pallas_update": mode}))
-        assert engine._use_pallas(tc, CPU) == cpu
-        assert engine._use_pallas(tc, torch.device("cuda")) == cuda
+        assert engine.route(tc, CPU).use_pallas == cpu
+        assert engine.route(tc, torch.device("cuda")).use_pallas == cuda
 
 
 @pytest.mark.parametrize("change", [
@@ -310,4 +310,4 @@ def test_fused_on_raises_where_jax_raises(change):
     with pytest.raises(ValueError):
         jengine._use_fused(jc)
     with pytest.raises(ValueError):
-        engine._use_fused(tc, CPU)
+        engine.route(tc, CPU)
