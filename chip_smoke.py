@@ -576,6 +576,8 @@ def check_kernel(name, args, site="", err_fn=None) -> dict:
                     "corr_apply_rows", "eight_point_fit"):
         fields["asym"] = f"{max_asym(outs[0]):.3e}"
     norms = {}
+    if name == "corr_apply_cols":       # the folded tail's rank, M'+8
+        norms["R"] = fields["R"] = args[1].shape[2]
     if name == "ncc_corr_norms":
         norms = {"var_stray": kernels.var_stray(outs[1], refs[1], refs[2]),
                  "energy_rel_err": kernels.energy_error(outs[2], refs[2])}
@@ -822,14 +824,17 @@ TP_MODEL = 2
 def check_slab_kernels(inputs, report) -> None:
     """Phase 3, the row-sharded step's kernels on the unfused (i) frame's
     operands split as the step holds them at model = TP_MODEL (P padded to
-    Dp, slabs of Dp / TP_MODEL rows): K8's row-slab form on the LI tail's
-    folded factors (At = Āᵀ, Bt = B̄ᵀ, R = 264) for each slab — bit for bit
+    Dp, slabs of Dp / TP_MODEL rows): K8's row-slab form on the slab's
+    own pair, derived from the LI tail's K4 factors (R = M'+8 = 136) by
+    ekf._one_sided_factors (At = Ā₂ᵀ, Bt = B̄₂ᵀ, R = 2M'+8 = 264, whose
+    single product is the symmetric correction), for each slab — bit for bit
     the slab's rows of K8 "none" on the whole P, each entry in units of
     sqrt(P⁺_ii·P⁺_jj) of the whole updated P — and K6 on the first slab
     with the update's Hᵀ (its entries in units of sqrt(P_ii·(HᵀPH)_kk) of
     the whole P), beside torch.bmm; then K8's slab form without the
     renorm rows must fail the check."""
     P, A, Bf = inputs["corr_apply_cols"][0]
+    A, Bf = ekf._one_sided_factors(A, Bf)
     Ht = pht_dense_ht(*inputs["pht_blocks"][0][:4])
     D = P.shape[1]
     Dp = -(-D // TP_MODEL) * TP_MODEL
@@ -1241,7 +1246,7 @@ def check_paths(dev, card: str) -> list:
     e = check_kernel("corr_apply_cols", inputs["corr_apply_cols"][0],
                      "iekf_tail")
     report["corr_apply_cols"]["iekf"] = {k: e[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "R", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "max_abs_err", "scaled_err")}
     report["pht_blocks"]["iekf"] = check_pht_blocks(inputs["pht_blocks"][3],
                                                     "iekf_PHt")

@@ -14,15 +14,15 @@ Port of ``ekf_slam_tpu/filter/ekf.py`` in its default forms:
 * ``update``: the whole masked update. Its covariance tail (downdate,
   symmetrize, quaternion renorm; update.m:13-24) runs in K5
   ``kernels.fused_update_tail`` when ``use_pallas`` is set and P is f32,
-  else as the folded rank-(2M'+8) correction applied by K4
-  ``kernels.corr_apply_cols``;
+  else as the folded rank-(M'+8) correction applied by K4
+  ``kernels.corr_apply_cols``, the symmetric downdate carried once;
 * ``update_iterated``: the iterated (Gauss-Newton) update, each of its
   gains as ``update_gain`` forms them and its covariance tail the one
   ``update`` uses;
 * ``update_rows``: the same update in row form (the engine's row
   route): the caller's H·P rows feed S, the state move and the folded
-  rank-(2M'+8) row factors, whose correction K8 ``kernels.corr_apply``
-  applies in its "expr" mode.
+  rank-(2M+8) row factors (2M rows, the downdate carried once), whose
+  correction K8 ``kernels.corr_apply`` applies in its "expr" mode.
 
 This module keeps no route: ``engine.route`` picks what a frame runs and
 passes in whether a tail takes K5 (``use_pallas``). Every update shares
@@ -177,32 +177,49 @@ def _renormalized(x: torch.Tensor) -> torch.Tensor:
 
 def _folded_tail_factors(x_new: torch.Tensor, P4: torch.Tensor,
                          K: torch.Tensor, PHt: torch.Tensor):
-    """Factors (Ā, B̄) of the folded covariance tail P⁺ = P + Ā·B̄ᵀ: the
-    symmetric downdate and the quaternion-renorm transform T = I + E₄GE₄ᵀ
-    (G = normJac(q) − I₄ on dims 3:7) as one rank-(2M'+8) correction,
+    """Factors (Ā, B̄) of the folded covariance tail P⁺ = P + ½(Ā·B̄ᵀ +
+    B̄·Āᵀ), the correction K4 applies: the symmetric downdate, carried
+    once, and the quaternion-renorm transform T = I + E₄GE₄ᵀ
+    (G = normJac(q) − I₄ on dims 3:7) as one rank-(M'+8) correction,
     valid for a symmetric P:
 
-      Ā = [−½A | E₄ | W + E₄·(G·M₄₄·Gᵀ)],  B̄ = [B | W | E₄],
-      A = [K | PHt],  B = [PHt | K],  M₄ = P₄ − ½A₄Bᵀ,  W = M₄ᵀGᵀ.
+      Ā = [−K | E₄ | W + E₄·(G·M₄₄·Gᵀ)],  B̄ = [PHt | W | E₄],
+      M₄ = P₄ − ½(K₄·PHtᵀ + PHt₄·Kᵀ),  W = M₄ᵀGᵀ.
 
+    ½(Ā·B̄ᵀ + B̄·Āᵀ) = −½(K·PHtᵀ + PHt·Kᵀ) + E₄Wᵀ + WE₄ᵀ + E₄G·M₄₄·GᵀE₄ᵀ
+    for any K; Ā·B̄ᵀ alone is not symmetric (``_one_sided_factors`` gives
+    the pair whose single product is).
     x_new (B,D); P4 rows 3:7 of P (B,4,D); K, PHt (B,D,M').
-    Returns (x renormalized, Ā (B,D,2M'+8), B̄ (B,D,2M'+8))."""
+    Returns (x renormalized, Ā (B,D,M'+8), B̄ (B,D,M'+8))."""
     B_, D, _ = K.shape
     dtype, device = K.dtype, K.device
-    A = torch.cat([K, PHt], dim=2)                         # (B, D, 2M')
-    Bm = torch.cat([PHt, K], dim=2)
     eye4 = torch.eye(4, dtype=dtype, device=device)
     G = quat.norm_jac(x_new[:, 3:7]) - eye4
-    M4 = P4 - 0.5 * (A[:, 3:7, :] @ Bm.transpose(1, 2))   # (B, 4, D)
+    M4 = P4 - 0.5 * (K[:, 3:7, :] @ PHt.transpose(1, 2)
+                     + PHt[:, 3:7, :] @ K.transpose(1, 2))   # (B, 4, D)
     M44 = M4[:, :, 3:7]
     W = M4.transpose(1, 2) @ G.transpose(1, 2)             # (B, D, 4)
     E4 = torch.zeros(D, 4, dtype=dtype, device=device)
     E4[3:7] = eye4
     E4 = E4.expand(B_, D, 4)
-    A_f = torch.cat([-0.5 * A, E4, W + E4 @ (G @ M44 @ G.transpose(1, 2))],
-                    dim=2)
-    B_f = torch.cat([Bm, W, E4], dim=2)
+    A_f = torch.cat([-K, E4, W + E4 @ (G @ M44 @ G.transpose(1, 2))], dim=2)
+    B_f = torch.cat([PHt, W, E4], dim=2)
     return _renormalized(x_new), A_f, B_f
+
+
+def _one_sided_factors(A_f: torch.Tensor, B_f: torch.Tensor):
+    """The folded tail's correction as one product: from the pair
+    (Ā, B̄) of ``_folded_tail_factors`` (B,D,M'+8), the pair (Ā₂, B̄₂)
+    (B,D,2M'+8) with Ā₂·B̄₂ᵀ = ½(Ā·B̄ᵀ + B̄·Āᵀ),
+
+      Ā₂ = [−½K | −½PHt | Ā's last 8],  B̄₂ = [PHt | K | B̄'s last 8],
+
+    for an apply that adds Ā₂·B̄₂ᵀ as it is (the row-sharded slab's K8
+    "none")."""
+    m = A_f.shape[2] - 8
+    K_neg, PHt = A_f[:, :, :m], B_f[:, :, :m]
+    return (torch.cat([0.5 * K_neg, -0.5 * PHt, A_f[:, :, m:]], dim=2),
+            torch.cat([PHt, -K_neg, B_f[:, :, m:]], dim=2))
 
 
 def update(x: torch.Tensor, P: torch.Tensor, H: torch.Tensor,

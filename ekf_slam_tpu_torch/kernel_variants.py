@@ -12,16 +12,17 @@ parallel, a few seconds), bound by ctypes and timed at the bench shapes
 (B = 128, D = 613) on random operands: K6 at its four call sites (A in f32
 with N = 128 and 64, A in bf16 with N = 48 and 64) beside ``torch.bmm``;
 K8 in its three modes on a bf16 and an f32 P (R = 56) and K4 on an f32 P
-(R = 264) and a bf16 P (R = 104) beside ``torch.baddbmm``; K3 (M2 = 128,
-r = 60) and K5 (M2 = 128); K1 (r = 6) and K2 (M2 = 128) at R = 2·CAP =
-200, and their product alone, K6 on an f32 P at N = 200, beside
-``torch.bmm``; K7 at the pixels bench (N = 3,200 pairs, W2 = 37, t = 13),
-the correlation beside a grouped ``F.conv2d`` (TF32 off) and the norms
-form; eight_point_fit (csrc/eight_point.cu) on the 8-point systems of one
-fundamental_ransac at the loop path's width (N = 1,792) and on the first
-448 (the loop gate's B = 1), over 20 launches replayed from one CUDA graph
-(the launcher's host cost would hide the kernel's). CUDA events, the
-mean of 20 launches after 3 warm ones.
+(R = 136) and a bf16 P (R = 56), the folded tail's M'+8, beside
+``torch.baddbmm``; K3 (M2 = 128, r = 60) and K5 (M2 = 128); K1 (r = 6)
+and K2 (M2 = 128) at R = 2·CAP = 200, and their product alone, K6 on an
+f32 P at N = 200, beside ``torch.bmm``; K7 at the pixels bench
+(N = 3,200 pairs, W2 = 37, t = 13), the correlation beside a grouped
+``F.conv2d`` (TF32 off) and the norms form; eight_point_fit
+(csrc/eight_point.cu) on the 8-point systems of one fundamental_ransac at
+the loop path's width (N = 1,792) and on the first 448 (the loop gate's
+B = 1), over 20 launches replayed from one CUDA graph (the launcher's host
+cost would hide the kernel's). CUDA events, the mean of 20 launches after
+3 warm ones.
 Variants whose name says ``timing_only`` skip part of the work and give
 wrong outputs: they split a kernel's time into its phases. ``--sass`` also
 prints, for every K1 / K3 / K4 / K6 / K7 / K8 kernel of the first
@@ -30,10 +31,10 @@ variant, the instruction mix of its multiply loop from ``cuobjdump -sass``
 FFMAs; K3's two products and K1's pass run the same loop; K7's loop over
 window rows at t = 13, compiled unrolled), and of eight_point_fit's sweep
 (its longest loop: nine rounds). ``--widths`` also times K5 and K4
-(f32 P, as built) at contraction widths around the bench's 128 and 264:
-time against width splits a kernel's cost per 8-deep contraction tile
-from its fixed cost a call, and shows whether a power-of-two row stride of
-the column-form factors costs.
+(f32 P, as built) at contraction widths around 128 and 264 (K4's 136 and
+its former 264): time against width splits a kernel's cost per 8-deep
+contraction tile from its fixed cost a call, and shows whether a
+power-of-two row stride of the column-form factors costs.
 
 Prints the card's name and power limit, ptxas' registers and spills of
 those kernels in each variant, one line of times (ms) a variant, and as
@@ -55,7 +56,7 @@ from ekf_slam_tpu_torch.ops import _build, kernels
 
 OUT = _build.BUILD_DIR.parent / "variants"
 B, D = 128, 613
-K8_R, K4_R = 56, {"f32": 264, "bf16": 104}
+K8_R, K4_R = 56, {"f32": 136, "bf16": 56}
 K3_M2, K3_R = 128, 60
 K1_R, K1_r = 200, 6                   # 2·CAP gain columns, the rank-6 add
 WIDTHS = (120, 124, 128, 132, 136, 256, 264)

@@ -28,11 +28,13 @@ pad block is zero and stays zero. The step, stage by stage:
   of its other rows from the gathered camera rows (JAX's "predsel");
   map management and the feature add form their slab's rows of
   keep∘P + EᵀU + UᵀE + EᵀCE from the replicated factors (its "rowsel");
-* each update's tail is the folded correction P + Ā·B̄ᵀ (Ā, B̄ (D, 2M'+8)
-  replicated after the P·Hᵀ gather) on the slab's rows: K8's row-slab
-  form ``kernels.corr_apply_rows``, not K4, whose ½(P + Pᵀ) would need
-  the other ranks' columns of the slab's rows. With an exactly symmetric
-  P the two agree to rounding (JAX's sharded step takes the same folded
+* each update's tail is the folded correction P + Ā₂·B̄₂ᵀ on the slab's
+  rows (Ā₂, B̄₂ (D, 2M'+8), replicated after the P·Hᵀ gather: the pair
+  ``ekf._one_sided_factors`` derives from K4's rank-(M'+8) pair, whose
+  single product is the symmetric correction): K8's row-slab form
+  ``kernels.corr_apply_rows``, not K4, whose ½(P + Pᵀ) would need the
+  other ranks' columns of the slab's rows. With an exactly symmetric P
+  the two agree to rounding (JAX's sharded step takes the same folded
   tail).
 
 Every collective's payload is factor-sized, at most
@@ -210,7 +212,7 @@ class Slab:
         """ekf.update on the slab (its P argument unused; H the
         update's ekf.JacobianBlocks): P·Hᵀ by K6 on the slab, from the
         masked blocks made dense, and gathered, S and the gain replicated
-        from the blocks, the tail P + Ā·B̄ᵀ on the slab's rows. Returns
+        from the blocks, the tail P + Ā₂·B̄₂ᵀ on the slab's rows. Returns
         (x_new, the slab of P_new). use_pallas is not taken: the K5 tail
         needs the whole P."""
         Hm = H.masked(row_mask.to(x.dtype))
@@ -222,7 +224,7 @@ class Slab:
         rows4 = torch.arange(3, 7, device=x.device).expand(x.shape[0], 4)
         x_new, A_f, B_f = ekf._folded_tail_factors(x_new, self.rows(rows4),
                                                    K, PHt)
-        return x_new, self.corr_apply(A_f, B_f)
+        return x_new, self.corr_apply(*ekf._one_sided_factors(A_f, B_f))
 
 
 def make_sharded_step(cfg: EngineConfig, mesh: Mesh, data_axis: str = "data",

@@ -13,9 +13,8 @@ card has no JAX); run it there without the suite's conftest:
 
 Operands are the kernels' real operands in one frame of the port at a
 small config (CAP 24: D = 157, 2·CAP = 48, 2M = 32, rank 6K = 48): K1-K3
-from the fused step, K4, K6 and pht_blocks from the unfused step, K5 from
-the unfused
-step with pallas_update="on"; K7 (both forms) on the operands of the
+from the fused step, K4 (R = 2M + 8 = 40), K6 and pht_blocks from the
+unfused step, K5 from the unfused step with pallas_update="on"; K7 (both forms) on the operands of the
 image step's ncc_corr_norms at tests/test_vision.py's pixels config (CAP
 24, R = 10: N = B·24 pairs of 33x33 windows and 13x13 templates); K8, and K4 / K6 on a bf16 P, from the
 bf16-P fast mode's unfused step at f32 (row form for K8, 2M + 8 = 40
@@ -847,11 +846,39 @@ def test_cuda_check_fails_k3_with_keep_all_ones(card, add_operands):
 
 
 @pytest.mark.cuda
+def test_cuda_k4_on_the_rank_m_plus_8_pair(card):
+    """K4 on the folded tail's rank-(M'+8) pair against K4 on the
+    rank-(2M'+8) pair that carries the downdate twice, at the bench's
+    D = 613 and M' = 128, B = 8 (tests/test_torch_folded_tail.py's
+    operands): R 136 and 264, both outputs bitwise symmetric, each within
+    TOL of the other and of the f64 plain version on its own f32 operands,
+    in units of sqrt(P⁺ᵢᵢ·P⁺ⱼⱼ)."""
+    from test_torch_folded_tail import tail_operands, wide_pair
+    P, x_new, K, PHt = tail_operands(128, torch.float64, seed=3, batch=8,
+                                     dim=613)
+    _, A, Bf = ekf._folded_tail_factors(x_new, P[:, 3:7], K, PHt)
+    pairs = [(A, Bf), wide_pair(x_new, P[:, 3:7], K, PHt)]
+    assert [a.shape[2] for a, _ in pairs] == [136, 264]
+    P = P.to(card, torch.float32)
+    outs = []
+    for a, b in pairs:
+        a, b = a.to(card, torch.float32), b.to(card, torch.float32)
+        got = kernels.corr_apply_cols(P, a, b)
+        assert torch.equal(got, got.transpose(1, 2))
+        ref = kernels.corr_apply_cols_plain(P.double(), a.double(),
+                                            b.double())
+        assert kernels.scaled_error(got, ref) <= TOL
+        outs.append(got)
+    assert kernels.scaled_error(outs[0], outs[1].double()) <= TOL
+
+
+@pytest.mark.cuda
 @F32_BF16
-@pytest.mark.parametrize("R", [1, 31, 264, 408])
+@pytest.mark.parametrize("R", [1, 31, 136, 264, 408])
 def test_cuda_corr_apply_cols_takes_any_rank(card, R, store):
     """K4 at the bench's D = 613 from an asymmetric P: R below one
-    contraction tile, odd, the bench's 264 and the full width's 408. Each
+    contraction tile, odd, the bench's 136 (264 before the downdate was
+    carried once) and the full width's 408. Each
     entry within CHAIN_TOL of its scale |P| + |Pᵀ| + |A||B|ᵀ + |B||A|ᵀ
     (one bf16 ulp more on a bf16 output), bitwise symmetric, two launches
     bit for bit."""

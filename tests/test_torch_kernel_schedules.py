@@ -623,8 +623,8 @@ def _meta(*shape):
      2 * 128 * 613 * 613 * 48),                          # 4.617 GFLOP
     # 4·R an entry of the triangle D(D+1)/2
     ("corr_apply_cols", ((2, 5, 5), (2, 5, 3), (2, 5, 3)), 2 * 4 * 15 * 3),
-    ("corr_apply_cols", ((128, 613, 613), (128, 613, 264), (128, 613, 264)),
-     128 * 4 * (613 * 614 // 2) * 264),                  # 25.44 GFLOP
+    ("corr_apply_cols", ((128, 613, 613), (128, 613, 136), (128, 613, 136)),
+     128 * 4 * (613 * 614 // 2) * 136),                  # 13.10 GFLOP
     # the downdate's 4·M2 and the add [EN; V]ᵀ[V; EN]'s 4·r an entry of the
     # triangle, V = UN + ½·CN·EN dense, the stripe's 4·4·4 an entry of the
     # 8-row stripe

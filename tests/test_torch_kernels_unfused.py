@@ -3,7 +3,7 @@ port against the JAX Pallas kernels, and against their f64 formulas.
 
 Inputs are the kernels' real operands in one unfused frame: a JAX engine
 state at test_fused_step.py's config (CAP 24, D = 157 — not a multiple of
-any tile —, 2M = 32, so the folded factors are R = 2·32 + 8 = 72 wide)
+any tile —, 2M = 32, so the folded factors are R = 32 + 8 = 40 wide)
 stepped by the port, whose wrappers are recorded: K4 and K6 on the
 default route at f64, K5 on the pallas_update="on" route at f32 (the only
 dtype that route runs at). K6 is called once a frame, for RANSAC's P·G
@@ -92,8 +92,8 @@ def test_operands_are_realistic(operands):
     assert [len(operands[k]) for k in NAMES] == [2, 2, 3]
     assert len(operands["pht_blocks"]) == 2
     P, A, Bf = operands["corr_apply_cols"][0]
-    assert P.shape == (B, 157, 157) and A.shape == (B, 157, 72)
-    assert P.dtype == torch.float64 and bool((A[:, :, :64] != 0).any())
+    assert P.shape == (B, 157, 157) and A.shape == (B, 157, 40)
+    assert P.dtype == torch.float64 and bool((A[:, :, :32] != 0).any())
     P, K, PHt, Jq4 = operands["fused_update_tail"][0]
     assert K.shape == (B, 157, 32) and P.dtype == torch.float32
     assert bool((K != 0).any())
