@@ -15,6 +15,14 @@ pixel is rounded half to even, a patch's anchor is clamped inside the
 image, and an offset whose patch variance is within FLAT_EPS roundoff
 units of the frames' own precision (float32) of its window's centred
 energy scores 0: such a patch is flat in the data, and its NCC is 0/0.
+A template is flat by the same measure of itself: with t the template as
+handed in and tm = t − mean(t), where Σtm² ≤ FLAT_EPS · eps_f32 · Σt²
+(an RMS contrast of at most ~1.4e-3 of its RMS level: under a tenth of
+one 8-bit grey level on the frames' 0.2 grey, where a FAST corner has
+0.08). A flat template scores 0 at every offset and is never found: a
+float32 program's score of it rests on rounding (the residue Σtm ≠ 0 of
+its mean, times each patch's mean), not on the data. Where its argmax
+falls then decides nothing, and its tie is not noted.
 """
 
 from __future__ import annotations
@@ -168,21 +176,23 @@ def predict_template(patch, init_pose, x_cam, p_w, h_init, h_now, cam,
 
 # ---------------------------------------------------------------- NCC search
 
-def ncc_match(img, template, h, S, chi2: float, radius: int,
-              min_ncc: float, turn: str | None = None):
-    """The best zero-mean NCC position of template in the (2R+1)² search
-    around h, inside the χ² ellipse of S: (z (2,), found, the margins of
-    its decisions). `turn` "ncc_tie" takes the runner-up where it lies
-    within turn_limit of the best, "ncc_min" turns found where the score
-    lies within turn_limit of min_ncc."""
-    from benchmark.reference.slam import turn_limit
+def template_flat(template: np.ndarray):
+    """Whether template is flat (module docstring), and the relative
+    distance of Σtm² / Σt² from the threshold FLAT_EPS · eps_f32."""
+    tm = template - template.mean()
+    sum_t2, sum_tm2 = (template * template).sum(), (tm * tm).sum()
+    floor = FLAT_EPS * np.finfo(np.float32).eps
+    ratio = sum_tm2 / sum_t2 if sum_t2 > 0 else 0.0
+    return bool(sum_tm2 <= floor * sum_t2), float(abs(ratio - floor) / floor)
+
+
+def ncc_scores(win: np.ndarray, template: np.ndarray, flat: bool):
+    """Zero-mean NCC of template (t, t) at every offset of win (W2, W2) ->
+    (R2, R2), R2 = W2 − t + 1: 0 at an offset whose patch is flat, and
+    at every offset where the template is `flat`."""
     t = template.shape[0]
-    H, W = img.shape
-    half = radius + t // 2
-    u0, v0 = patch_anchor(h, half, H, W)
-    size = 2 * half + 1
-    win = img[v0:v0 + size, u0:u0 + size]
-    R2 = size - t + 1
+    if flat:
+        return np.zeros((win.shape[0] - t + 1, win.shape[1] - t + 1))
     tm = template - template.mean()
     tnorm = np.sqrt((tm * tm).sum() + 1e-12)
     patches = np.lib.stride_tricks.sliding_window_view(win, (t, t))
@@ -191,8 +201,30 @@ def ncc_match(img, template, h, S, chi2: float, radius: int,
                       ** 2).sum(axis=(2, 3)), 0.0)
     energy = ((win - win.mean()) ** 2).sum()
     scores = corr / (np.sqrt(var + 1e-12) * tnorm)
-    scores = np.where(var > FLAT_EPS * np.finfo(np.float32).eps * energy,
-                      scores, 0.0)
+    return np.where(var > FLAT_EPS * np.finfo(np.float32).eps * energy,
+                    scores, 0.0)
+
+
+def ncc_match(img, template, h, S, chi2: float, radius: int,
+              min_ncc: float, turn: str | None = None):
+    """The best zero-mean NCC position of template in the (2R+1)² search
+    around h, inside the χ² ellipse of S: (z (2,), found, the margins of
+    its decisions). `turn` "ncc_tie" takes the runner-up where it lies
+    within turn_limit of the best, "ncc_min" turns found where the score
+    lies within turn_limit of min_ncc, "ncc_flat" turns the flat-template
+    decision where Σtm² / Σt² lies within turn_limit (relative) of its
+    threshold."""
+    from benchmark.reference.slam import turn_limit
+    t = template.shape[0]
+    H, W = img.shape
+    half = radius + t // 2
+    u0, v0 = patch_anchor(h, half, H, W)
+    size = 2 * half + 1
+    R2 = size - t + 1
+    flat, flat_margin = template_flat(template)
+    if turn == "ncc_flat" and flat_margin < turn_limit(turn):
+        flat = not flat
+    scores = ncc_scores(img[v0:v0 + size, u0:u0 + size], template, flat)
     k = np.arange(R2, dtype=np.float64)
     cu, cv = u0 + t // 2 + k, v0 + t // 2 + k
     du = (cu - h[0])[None, :]                       # [by, bx]
@@ -204,8 +236,8 @@ def ncc_match(img, template, h, S, chi2: float, radius: int,
     masked = np.where(m2 < chi2, scores, -np.inf)
     best = int(np.argmax(masked))                   # the first maximum
     rest = np.delete(masked.ravel(), best)
-    if turn == "ncc_tie" and (masked.ravel()[best] - rest.max()
-                              < turn_limit(turn)):
+    if turn == "ncc_tie" and not flat and (masked.ravel()[best] - rest.max()
+                                           < turn_limit(turn)):
         second = int(np.argmax(rest))
         best, rest = second + (second >= best), np.delete(
             masked.ravel(), second + (second >= best))
@@ -213,10 +245,11 @@ def ncc_match(img, template, h, S, chi2: float, radius: int,
     score = masked[by, bx]
     frac = np.abs(np.asarray(h) % 1.0 - 0.5)
     margins = {"ncc_tie": float(score - rest.max()) if np.isfinite(
-                   rest.max()) else np.inf,
+                   rest.max()) and not flat else np.inf,
                "ncc_min": abs(float(score) - min_ncc),
                "ncc_gate": abs(float(m2[by, bx]) - chi2) / chi2,
-               "anchor": float(frac.min())}
+               "anchor": float(frac.min()),
+               "ncc_flat": flat_margin}
     found = bool(np.isfinite(score) and score > min_ncc)
     if turn == "ncc_min" and margins["ncc_min"] < turn_limit(turn):
         found = not found
